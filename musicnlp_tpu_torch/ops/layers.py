@@ -1,0 +1,69 @@
+"""Core layers as plain functions over parameter dicts of tensors.
+
+Counterpart of `musicnlp_tpu/ops/layers.py`.  Parameters live in float32 in
+the JAX package's layouts (dense `w` [d_in, d_out], `b` [d_out]; layer norm
+`scale`/`bias`); compute runs at the dtype of the activations, with float32
+layer norms and float32 bias adds.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+__all__ = ['Params', 'dense', 'layer_norm', 'ffn', 'sinusoid_pos_emb', 'dropout']
+
+Params = Dict[str, Any]
+
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p['w'].to(x.dtype)
+    if 'b' in p:
+        y = y.float() + p['b'].float()
+    return y.to(x.dtype)
+
+
+def layer_norm(p: Params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (population variance), cast back to x.dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p['scale'].float() + p['bias'].float()).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout; draws come only from the explicit `generator`."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def ffn(p: Params, x: torch.Tensor, *, pre_lnorm: bool = False,
+        dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
+        deterministic: bool = True) -> torch.Tensor:
+    """Position-wise relu FFN with residual + layer norm (post-norm by default)."""
+    inp = x
+    if pre_lnorm:
+        x = layer_norm(p['ln'], x)
+    h = dense(p['w1'], x)
+    h = torch.relu(h)
+    h = dropout(h, dropout_rate, generator, deterministic)
+    h = dense(p['w2'], h)
+    h = dropout(h, dropout_rate, generator, deterministic)
+    out = inp + h
+    if not pre_lnorm:
+        out = layer_norm(p['ln'], out)
+    return out
+
+
+def sinusoid_pos_emb(pos_seq: torch.Tensor, d_model: int,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[K] distances -> [K, d_model] = [sin(d * inv_freq) ; cos(d * inv_freq)]."""
+    dev = pos_seq.device
+    inv_freq = 1.0 / (10000.0 ** (torch.arange(0, d_model, 2, dtype=torch.float32,
+                                               device=dev) / d_model))
+    sinusoid = pos_seq.float()[:, None] * inv_freq[None, :]
+    return torch.cat([torch.sin(sinusoid), torch.cos(sinusoid)], dim=-1).to(dtype)

@@ -1,0 +1,69 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and its
+entry points never fall back to the CPU on their own."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import musicnlp_tpu_torch
+from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
+from musicnlp_tpu_torch.ops.flash_attention import flash_rel_attn_fwd
+from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained
+from musicnlp_tpu_torch.utils.checkpoint import params_from_jax, save_meta
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_no_jax_in_sys_modules():
+    code = textwrap.dedent('''
+        import importlib, pkgutil, sys
+        import musicnlp_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0] in ('jax', 'jaxlib', 'musicnlp_tpu'))
+        print(len(names), bad)
+        assert not bad, bad
+        assert len(names) >= 15, names
+    ''')
+    # a PATH without nvcc: importing the kernel modules builds nothing
+    env = dict(os.environ, PATH='/usr/bin:/bin', PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    cfg = TransfoXLConfig.from_size('debug', vocab_size=422)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        musicnlp_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        TransfoXL(cfg)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        MusicGenerator(TransfoXL(cfg), None, None)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        params_from_jax({'w': np.zeros(2, np.float32)})
+    save_meta(str(tmp_path / 'meta.json'), dict(model_name='transf-xl', config=dict(
+        vocab_size=422, d_model=32, n_head=2, d_head=16, d_inner=64, n_layer=1)))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        load_trained(str(tmp_path))
+    assert TransfoXL(cfg, device='cpu').device.type == 'cpu'
+
+
+def test_k1_wrapper_refuses_other_devices():
+    """Only CPU tensors take the plain version: any other device launches the
+    kernel (CUDA) or raises."""
+    t = torch.empty(4, 8, 16, device='meta')
+    g = torch.empty(2, 16, 16, device='meta')
+    with pytest.raises(ValueError, match='CUDA'):
+        flash_rel_attn_fwd(t, t, t, t, g, 0, M=0, scale=0.25)
