@@ -2,15 +2,20 @@
 
 Counterpart of `musicnlp_tpu/models/transformer_xl.py`: the same size presets,
 tied embedding / dense softmax head, relative-position attention with a
-fixed-shape right-aligned memory, a dense-head loss with NTP accuracy, and an
-exact KV ring-cache decode step (bf16 or int8 caches).
+fixed-shape right-aligned memory, a dense-head loss with NTP accuracy (over
+one segment, or segment by segment with carried memory), and an exact KV
+ring-cache decode step (bf16 or int8 caches).
 
 Parameters are a nested dict of float32 tensors in the JAX package's layouts
 (`utils/checkpoint.params_from_jax` carries JAX parameters in).  Every
-attention layer of `forward` runs through kernel K1 (`ops/flash_attention.py`;
-on CPU tensors its plain version).  K1 has no key-padding mask and no
-attention-probability dropout yet: `forward` takes no `attn_mask` and raises
-when `dropatt` would apply; the training slice adds both to K1.
+attention layer of `forward` runs through kernels K1 (forward) and K2
+(backward) of `ops/flash_attention.py` (on CPU tensors, their plain
+versions).  Like the TPU kernels, they have no key-padding mask and no
+attention-probability dropout: the JAX model sends a forward with
+`attn_mask` or with `dropatt > 0` to its plain `rel_attn`.  That dispatch
+is not ported yet, so `forward` takes no `attn_mask` and raises when
+`dropatt` would apply (every preset has dropatt = 0).  Dropout draws come
+from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from musicnlp_tpu_torch.ops.attention import (
 )
 from musicnlp_tpu_torch.ops.flash_attention import fused_rel_attn
 from musicnlp_tpu_torch.ops.layers import Params, dropout, ffn
-from musicnlp_tpu_torch.ops.losses import ntp_accuracy, shifted_ce_loss
+from musicnlp_tpu_torch.ops.losses import PT_LOSS_PAD, ntp_accuracy, shifted_ce_loss
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax
 
 __all__ = ['TransfoXLConfig', 'TransfoXL', 'DecodeState']
@@ -187,8 +192,9 @@ class TransfoXL:
         mems [L, B, M, d] right-aligned memory or None."""
         cfg = self.cfg
         if cfg.dropatt > 0 and not deterministic:
-            raise NotImplementedError('K1 has no attention-probability dropout yet (the '
-                                      'training slice adds it); set dropatt=0')
+            raise NotImplementedError('attention-probability dropout (dropatt > 0) runs on the '
+                                      'plain rel_attn path, whose dispatch is not ported yet; '
+                                      'K1/K2, like the TPU kernels, have none: set dropatt=0')
         dtype = cfg.compute_dtype
         B, Q = input_ids.shape
         h = params['embed']['weight'].to(dtype)[input_ids.long()]
@@ -224,14 +230,75 @@ class TransfoXL:
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Params, input_ids: torch.Tensor, labels: torch.Tensor,
-             generator: Optional[torch.Generator] = None, deterministic: bool = True
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """CLM loss + aux metrics over one segment (dense head)."""
+             generator: Optional[torch.Generator] = None, deterministic: bool = True,
+             n_seg: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """CLM loss + aux metrics (dense head).  n_seg > 1 trains segment by
+        segment with the memory carried across segments (`_loss_segments`)."""
+        if n_seg > 1:
+            return self._loss_segments(params, input_ids, labels, n_seg=n_seg,
+                                       generator=generator, deterministic=deterministic)
         logits, _, _ = self.forward(params, input_ids, generator=generator,
                                     deterministic=deterministic)
         loss, n_tok = shifted_ce_loss(logits, labels)
         preds = logits.argmax(dim=-1)
         return loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok, preds=preds)
+
+    def _segments(self, x: torch.Tensor, n_seg: int) -> Tuple[torch.Tensor, ...]:
+        B, T = x.shape
+        if T % n_seg:
+            raise ValueError(f'seq len {T} not divisible by n_seg {n_seg}')
+        return x.split(T // n_seg, dim=1)
+
+    def _loss_segments(self, params: Params, input_ids: torch.Tensor, labels: torch.Tensor,
+                       *, n_seg: int, generator: Optional[torch.Generator] = None,
+                       deterministic: bool = True
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Segment-loop training loss: equal to `shifted_ce_loss` over the
+        full-sequence logits.  The memory is detached between segments (TF-XL
+        stop-gradient), the cross-boundary prediction (last logits of segment
+        s for the first label of segment s+1) is carried, and the sums
+        accumulate inside the loop, so no [B, T, V] logits are stacked."""
+        B = input_ids.shape[0]
+        mems, valid = self.init_mems(B)
+        nll = torch.zeros((), device=self.device)
+        n = torch.zeros((), device=self.device)
+        correct = torch.zeros((), device=self.device)
+        prev_last, preds = None, []
+        for ids_s, lb_s in zip(self._segments(input_ids, n_seg), self._segments(labels, n_seg)):
+            logits, mems, valid = self.forward(params, ids_s, mems=mems, mem_valid=valid,
+                                               generator=generator,
+                                               deterministic=deterministic)
+            lg = logits[:, :-1].float()
+            nxt = lb_s[:, 1:]
+            if prev_last is not None:        # the boundary prediction
+                lg = torch.cat([prev_last[:, None], lg], dim=1)
+                nxt = lb_s
+            ok = nxt != PT_LOSS_PAD
+            safe = torch.where(ok, nxt, torch.zeros_like(nxt)).long()
+            tok = torch.gather(lg, -1, safe[..., None])[..., 0]
+            nll = nll + torch.where(ok, torch.logsumexp(lg, dim=-1) - tok,
+                                    torch.zeros_like(tok)).sum()
+            n = n + ok.sum()
+            correct = correct + ((lg.argmax(dim=-1) == nxt) & ok).sum()
+            prev_last = logits[:, -1].float()
+            preds.append(logits.argmax(dim=-1))
+        n = torch.clamp(n, min=1.0)
+        return nll / n, dict(ntp_acc=correct / n, n_tok=n, preds=torch.cat(preds, dim=1))
+
+    def forward_segments(self, params: Params, input_ids: torch.Tensor, *, n_seg: int,
+                         generator: Optional[torch.Generator] = None,
+                         deterministic: bool = True) -> torch.Tensor:
+        """Segment-level recurrence: run the segments in order with the
+        detached memory carried across them; input_ids [B, T], T % n_seg == 0
+        -> logits [B, T, V]."""
+        mems, valid = self.init_mems(input_ids.shape[0])
+        out = []
+        for ids_s in self._segments(input_ids, n_seg):
+            logits, mems, valid = self.forward(params, ids_s, mems=mems, mem_valid=valid,
+                                               generator=generator,
+                                               deterministic=deterministic)
+            out.append(logits)
+        return torch.cat(out, dim=1)
 
     # ---------------------------------------------------------------- decode
     def init_decode_state(self, batch_size: int) -> DecodeState:

@@ -34,9 +34,6 @@ def load_trained(out_dir: str, device: Optional[Union[str, torch.device]] = None
     meta = load_meta(os.path.join(out_dir, 'meta.json'))
     if meta.get('model_name', 'transf-xl') != 'transf-xl':
         raise NotImplementedError(f"model {meta['model_name']!r} comes with a later slice")
-    tk = meta.get('tokenizer') or dict(scheme='vanilla', pitch_kind='degree')
-    if tk['scheme'] != 'vanilla':
-        raise NotImplementedError(f"tokenizer scheme {tk['scheme']!r} comes with a later slice")
     if meta['config'].get('adaptive_cutoffs'):
         raise NotImplementedError('the adaptive head comes with a later slice')
     fields = TransfoXLConfig.__dataclass_fields__
@@ -44,8 +41,8 @@ def load_trained(out_dir: str, device: Optional[Union[str, torch.device]] = None
     cfg = TransfoXLConfig(**kw)
     model = TransfoXL(cfg, device=device)
     params = restore_pytree(os.path.join(out_dir, 'trained'), model.device)
-    tokenizer = MusicTokenizer(pitch_kind=tk['pitch_kind'], precision=tk.get('precision', 5),
-                               model_max_length=tk.get('model_max_length', cfg.max_length))
+    from musicnlp_tpu_torch.trainer.train import rebuild_tokenizer   # train imports this module
+    tokenizer = rebuild_tokenizer(meta, out_dir)
     tokenizer.model_max_length = cfg.max_length
     return model, params, tokenizer
 
@@ -53,10 +50,12 @@ def load_trained(out_dir: str, device: Optional[Union[str, torch.device]] = None
 @torch.no_grad()
 def score_batch(model: TransfoXL, params: Dict[str, Any], input_ids: torch.Tensor,
                 labels: torch.Tensor, ikr: IkrMetric,
-                key_scores: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                key_scores: Optional[torch.Tensor] = None, n_seg: int = 1
+                ) -> Dict[str, torch.Tensor]:
     """Forward-only CLM loss with NTP accuracy and IKR, as the JAX Trainer's
-    eval step computes them; every value stays a device tensor."""
-    loss, mets = model.loss(params, input_ids, labels, deterministic=True)
+    eval step computes them (the Trainer's eval step); every value stays a
+    device tensor."""
+    loss, mets = model.loss(params, input_ids, labels, deterministic=True, n_seg=n_seg)
     preds = mets.pop('preds')
     mets['ikr'] = ikr.on_device(preds, labels, key_scores)
     mets['loss'] = loss

@@ -1,5 +1,6 @@
-"""Parameter checkpoints: flat .npz files with '/'-joined keys, and the bridge
-between the JAX package's parameters and the port's.
+"""Parameter checkpoints: flat .npz files with '/'-joined keys, the bridge
+between the JAX package's parameters and the port's, and the Trainer's epoch
+checkpoints (params + optimizer state + counters, appearing atomically).
 
 Counterpart of `musicnlp_tpu/utils/checkpoint.py` (npz backend).  A file holds
 one array per leaf under its tree path, e.g. `layers/0/attn/qkv`, so the two
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -20,7 +22,7 @@ import torch
 from musicnlp_tpu_torch import resolve_device
 
 __all__ = ['flatten', 'params_from_jax', 'params_to_jax', 'save_pytree', 'load_flat',
-           'restore_pytree', 'save_meta', 'load_meta']
+           'restore_pytree', 'save_meta', 'load_meta', 'save_checkpoint', 'load_checkpoint']
 
 
 def flatten(tree, prefix: str = '') -> Dict[str, Any]:
@@ -106,3 +108,27 @@ def save_meta(path: str, meta: Dict):
 def load_meta(path: str) -> Dict:
     with open(path) as f:
         return json.load(f)
+
+
+def save_checkpoint(ckpt_dir: str, epoch: int, params, opt_state) -> str:
+    """An epoch checkpoint directory: `params.npz` (the layout both packages
+    read), `opt_state.npz` (the port's own optimizer layout) and `state.json`
+    ({'epoch': e}).  It is written as `<ckpt_dir>.tmp` and renamed when
+    complete, so a kill mid-save never leaves a half-written checkpoint where
+    resume, rotation or `load_trained` look."""
+    tmp = ckpt_dir + '.tmp'
+    shutil.rmtree(tmp, ignore_errors=True)
+    save_pytree(os.path.join(tmp, 'params'), params)
+    save_pytree(os.path.join(tmp, 'opt_state'), opt_state)
+    save_meta(os.path.join(tmp, 'state.json'), dict(epoch=epoch))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.rename(tmp, ckpt_dir)
+    return ckpt_dir
+
+
+def load_checkpoint(ckpt_dir: str, device: Optional[Union[str, torch.device]] = None):
+    """(params, opt_state, epoch) of a `save_checkpoint` directory, tensors
+    on `device`."""
+    params = restore_pytree(os.path.join(ckpt_dir, 'params'), device)
+    opt_state = restore_pytree(os.path.join(ckpt_dir, 'opt_state'), device)
+    return params, opt_state, int(load_meta(os.path.join(ckpt_dir, 'state.json'))['epoch'])

@@ -1,14 +1,16 @@
-"""K1 on the card against its plain version (needs an NVIDIA GPU and nvcc).
+"""K1 and K2 on the card against their plain versions (needs an NVIDIA GPU and
+nvcc).
 
 Run on a GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`;
-elsewhere these tests skip.  `chip_smoke.py` holds K1 against the plain
-version at the model's real shapes."""
+elsewhere these tests skip.  `chip_smoke.py` holds both kernels against the
+plain versions at the model's real shapes."""
 import pytest
 import torch
 
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops.flash_attention import (
-    LAUNCHES, distance_table, flash_rel_attn_fwd, flash_rel_attn_fwd_plain,
+    LAUNCHES, FlashRelAttn, distance_table, flash_rel_attn_bwd, flash_rel_attn_bwd_plain,
+    flash_rel_attn_fwd, flash_rel_attn_fwd_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -48,11 +50,51 @@ def test_k1_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
 
 
-def test_k1_refuses_gradients(dev):
-    rw, rr, k, v, g = _inputs(dev, torch.float32, 2, 2, 16, 0, 16, 64)
-    rw.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        flash_rel_attn_fwd(rw, rr, k, v, g, 0, M=0, scale=0.25)
+CASES = [(64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17)]
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('H,T,M,mv,window,clamp', CASES)
+def test_k2_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
+    """Every K2 output against the plain backward on the same inputs, error
+    relative to the output's largest entry: f32 sums in other orders (dG by
+    atomics, in an order that changes from run to run) -> 1e-5; bf16 also
+    rounds p and ds, and a rounding that flips moves one ulp -> 2e-2."""
+    rw, rr, k, v, g = _inputs(dev, dtype, 6, 3, T, M, H, clamp)
+    mvt = torch.tensor(mv, dtype=torch.int32, device=dev)
+    scale = H ** -0.5
+    out, lse = flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=M, scale=scale, window=window)
+    d_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    before = LAUNCHES['flash_rel_attn_bwd']
+    got = flash_rel_attn_bwd(rw, rr, k, v, g, out, d_out, lse, mvt, M=M, scale=scale,
+                             window=window)
+    want = flash_rel_attn_bwd_plain(rw, rr, k, v, g, out, d_out, lse, mv, M=M, scale=scale,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES['flash_rel_attn_bwd'] == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(('drw', 'drr', 'dk', 'dv', 'dG'), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+def test_flash_rel_attn_gradients_match_autograd_of_plain(dev):
+    """FlashRelAttn (K1 forward, K2 backward) against autograd through the
+    plain forward, f32, every input's gradient; a strided upstream gradient
+    as the model hands it."""
+    H, T, M, mv, window, clamp = 32, 96, 64, 17, 40, 33
+    ins = [t.requires_grad_(True) for t in _inputs(dev, torch.float32, 6, 3, T, M, H, clamp)]
+    d_out = torch.randn(2, T, 3, H, device=dev).transpose(1, 2).reshape(6, T, H)
+    mvt = torch.tensor(mv, dtype=torch.int32, device=dev)
+    got = torch.autograd.grad(FlashRelAttn.apply(*ins, mvt, M, H ** -0.5, window), ins, d_out)
+    ref, _ = flash_rel_attn_fwd_plain(*ins, mv, M=M, scale=H ** -0.5, window=window)
+    want = torch.autograd.grad(ref, ins, d_out)
+    for name, a, b in zip(('rw', 'rr', 'k', 'v', 'g_tab'), got, want):
+        assert _rel_err(a, b) <= 1e-5, (name, _rel_err(a, b))
 
 
 def test_forward_launches_k1_once_per_layer(dev):
@@ -64,3 +106,16 @@ def test_forward_launches_k1_once_per_layer(dev):
     with torch.no_grad():
         model.forward(params, ids)
     assert LAUNCHES['flash_rel_attn_fwd'] == cfg.n_layer
+
+
+def test_loss_backward_launches_k2_once_per_layer(dev):
+    cfg = TransfoXLConfig.from_size('debug', vocab_size=422, dtype='float32')
+    model = TransfoXL(cfg)
+    params = model.init(seed=0)
+    leaves = [params['layers'][0]['attn']['r'].requires_grad_(True)]
+    ids = torch.randint(0, 422, (2, 64), device=dev)
+    LAUNCHES['flash_rel_attn_bwd'] = 0
+    loss, _ = model.loss(params, ids, ids)
+    (grad,) = torch.autograd.grad(loss, leaves)
+    assert LAUNCHES['flash_rel_attn_bwd'] == cfg.n_layer
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0

@@ -352,8 +352,10 @@ def test_seeded_init_is_the_jax_layout(pair):
 
 
 def test_attention_dropout_raises_until_k1_has_it(pair):
-    """K1 has no attention-probability dropout: a training forward with
-    dropatt > 0 raises instead of leaving K1; scoring (deterministic) runs."""
+    """K1/K2, like the TPU kernels, have no attention-probability dropout, and
+    the plain rel_attn dispatch the JAX model uses for it is not ported: a
+    training forward with dropatt > 0 raises instead of leaving the kernels;
+    scoring (deterministic) runs."""
     jm, jp, _, tp = pair
     tm = TransfoXL(dataclasses.replace(
         TransfoXLConfig(vocab_size=jm.cfg.vocab_size, **CFG), dropatt=0.1), device='cpu')
