@@ -3,9 +3,12 @@
 Drives the port's main paths -- TF-XL base training, scoring and generation
 (the 22-11 recipe: d_model 768, 12 heads x 64, 12 layers, degree vocab 1190,
 max_length 1024, mem_len 512, clamp_len 1024, bf16, batch 21, AdamW with
-weight decay 0.1), on weights made from a seed with numpy in the JAX layout
-and carried in through `params_from_jax` -- and holds every kernel of those
-paths against its plain PyTorch version on the card.
+weight decay 0.1) and the Reformer's (the 22-04 recipe: base, d_model 768,
+12 heads x 64, 12 layers alternating local and LSH attention, 2 hashes,
+chunk 64, 64 buckets, midi vocab 422, max_length 2048, bf16, dropout 0.05,
+batch 32, sampling with top_p 0.9), on weights made from a seed with numpy
+in the JAX layout and carried in through `params_from_jax` -- and holds
+every kernel of those paths against its plain PyTorch version on the card.
 
 Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device and build: the card's name and power limit, `nvcc` of every
@@ -31,7 +34,19 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   5. the card against the port's own CPU run in f32: the loss at batch 1
      (12 layers) and one training step's gradients (depth 2, dropout 0);
      scoring throughput and a torch.profiler breakdown of one scoring batch
-     and of 8 decode steps (device time by kernel, busy share).
+     and of 8 decode steps (device time by kernel, busy share);
+  6. the Reformer, counts set to 0 before each path and read after: K3
+     (forward) and K4 (backward, with an lse cotangent) against their plain
+     versions were held in phase 2b (the 22-04 local and LSH shapes in bf16
+     and f32, a padded case, a D 32 / chunk 32 single-block case; times of
+     each kernel, its plain version and an SDPA yardstick over the unfolded
+     windows); `Trainer.train` for 4 steps of 32 x 2048 synthetic songs
+     (12 K3 + 12 K4 launches per step), `load_trained` + `score_batch` on the
+     run, step time, memory and a profile, a 15-step overfit; one f32 step
+     at depth 2 on the card against the CPU (on shared branches); then
+     `score_batch` at 8 x 2048 (12 K3 launches, no K4) and
+     `MusicGenerator.generate` for 4 sampled songs (top_p 0.9) with a bf16
+     and an int8 LSH cache (no kernel launch).
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json;
 training runs write under build/chip_smoke_runs/, removed at the end.
@@ -52,7 +67,10 @@ import numpy as np
 import torch
 
 from musicnlp_tpu_torch.kernels.build import build_all
+from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
+from musicnlp_tpu_torch.ops import chunked_attention as ca
+from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
 from musicnlp_tpu_torch.ops import flash_attention as fa
 from musicnlp_tpu_torch.trainer import train as tr
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained, score_batch
@@ -75,8 +93,21 @@ TOL = {torch.float32: dict(ctx=1e-4, lse=1e-3), torch.bfloat16: dict(ctx=2e-2, l
 # bf16 also rounds p and ds to bf16, and a rounding that flips moves an ulp
 TOL_K2 = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # card vs CPU f32 gradients, over each tensor's largest entry: the same f32
-# arithmetic summed in other orders over 1024 positions and two layers
+# arithmetic summed in other orders over 1024-2048 positions and two layers
+# (the Reformer's on the same LSH buckets and relu branches, SharedBranches)
 TOL_GRAD = 1e-4
+K3_REPLACES = ('musicnlp_tpu/ops/pallas/chunked_attention_kernel.py:308 (_make_fwd, via '
+               '_fwd_call :417)')
+K4_REPLACES = ('musicnlp_tpu/ops/pallas/chunked_attention_kernel.py:336 (_make_bwd, via '
+               '_core_bwd :449)')
+# K3 vs plain: ctx (bf16 output rounding ~ 2^-8 of |ctx| <= ~3) and lse
+# (the same f32 scores summed in another order)
+TOL_K3 = TOL
+# K4 vs plain, each output's largest error over its largest entry: f32 sums
+# in other orders; bf16 also rounds p and ds, and a rounding that flips moves
+# an ulp
+TOL_K4 = TOL_K2
+GEN_LEN = 1024                                   # Reformer generation length (tokens)
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
 
 
@@ -287,10 +318,12 @@ def score_inputs(V, B, T, seed, dev):
 
 class SyntheticSongs:
     """Seeded synthetic songs in the Trainer's dataset contract: each row is
-    TimeSig, Tempo, Key_*, then bars of a repeated (pitch, duration) motif,
-    </s>, and a pad tail (labels -100) -- so 'ins-key' IKR reads its key."""
+    TimeSig, Tempo, Key_* (with `insert_key`, so 'ins-key' IKR reads its key),
+    then bars of a repeated (pitch, duration) motif, </s>, and a pad tail
+    (labels -100); `key_scores` one-hot on the song's key."""
 
-    def __init__(self, tok: MusicTokenizer, n: int, seed: int, length: int = 1024):
+    def __init__(self, tok: MusicTokenizer, n: int, seed: int, length: int = 1024,
+                 insert_key: bool = True):
         rng = np.random.default_rng(seed)
         t2i = tok.vocab.tok2id
         pitches = [i for t, i in t2i.items() if t.startswith('p_')]
@@ -303,7 +336,9 @@ class SyntheticSongs:
             body = []
             while len(body) < int(rng.integers(length // 2, length - 8)):
                 body += [t2i['<bar>']] + motif
-            row = [t2i['TimeSig_4/4'], t2i['Tempo_120'], t2i[f'Key_{key_ordinal2str[key]}']]
+            row = [t2i['TimeSig_4/4'], t2i['Tempo_120']]
+            if insert_key:
+                row.append(t2i[f'Key_{key_ordinal2str[key]}'])
             row = (row + body)[:length - 1] + [tok.eos_token_id]
             self.ids[r, :len(row)] = row
             self.key_scores[r, key] = 1.0
@@ -547,6 +582,413 @@ def run_generation(model, params, tok, n_req, strategy, seed, **kw):
     return texts, lens, new_tok, dt
 
 
+# -------------------------------------------------------------- K3 / K4 cases
+def chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed):
+    """q, k, v [G, T, D] and int32 positions as the Reformer's layers hand them
+    to K3: local layers in order; LSH layers shared-QK (k = q rms-normalised,
+    carrying 1/sqrt(D)) with a random permutation of positions per row (the
+    bucket sort's); the last `pads` positions as pad keys (kpos = T)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(G, T, D, generator=g, device=dev) for _ in range(3))
+    if lsh:
+        k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) / D ** 0.5
+        qpos = torch.argsort(torch.rand(G, T, generator=g, device=dev), dim=-1)
+    else:
+        qpos = torch.arange(T, device=dev).expand(G, T)
+    kpos = torch.where(qpos >= T - pads, torch.full_like(qpos, T), qpos) if pads else qpos
+    return ([x.to(dtype) for x in (q, k, v)]
+            + [p.to(torch.int32).contiguous() for p in (qpos, kpos)])
+
+
+def chunked_flops(qpos, kpos, chunk, D, products):
+    """Operations of a call: `products` D-long products per (query, key)
+    pair that these positions make visible."""
+    return products * 2 * D * ck.visible_pairs(qpos, kpos, chunk)
+
+
+def sdpa_window_yardstick(q, k, v, qpos, kpos, chunk, scale, self_bias):
+    """One PyTorch call for K3's function: SDPA over the unfolded windows,
+    q [G*n, c, D] against k / v [G*n, 2c, D], the position mask and the self
+    bias as one float mask built outside the timed call."""
+    G, T, D = q.shape
+    n = T // chunk
+    qw = q.reshape(G * n, chunk, D)
+    kw = ck._windows(k, chunk).reshape(G * n, 2 * chunk, D)
+    vw = ck._windows(v, chunk).reshape(G * n, 2 * chunk, D)
+    qp = qpos.reshape(G * n, chunk, 1)
+    kp = ck._pos_windows(kpos, chunk).reshape(G * n, 1, 2 * chunk)
+    zero = torch.zeros((), device=q.device)
+    bias = torch.where(kp <= qp, torch.where(kp == qp, zero + self_bias, zero),
+                       zero + ck.NEG_INF).to(q.dtype)
+    fn = lambda: torch.nn.functional.scaled_dot_product_attention(qw, kw, vw, attn_mask=bias,
+                                                                  scale=scale)
+    fn.args = (qw, kw, vw, bias)
+    return fn
+
+
+def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
+    q, k, v, qpos, kpos = chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed)
+    scale, self_bias = (1.0, ca.SELF_BIAS) if lsh else (D ** -0.5, 0.0)
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    saved = dict(ck.LAUNCHES)
+    ctx, lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    ref, ref_lse = ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    torch.cuda.synchronize()
+    err = float((ctx.float() - ref.float()).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    del ref, ref_lse
+    tol = TOL_K3[dtype]
+    rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
+               lsh=lsh, pads=pads, max_abs_err=err, lse_max_abs_err=lse_err,
+               tol_ctx=tol['ctx'], tol_lse=tol['lse'])
+    rec['ms'] = time_ms(lambda: ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw))
+    rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos,
+                                                                       **kw), iters=3)
+    rec['library_ms'] = time_ms(sdpa_window_yardstick(q, k, v, qpos, kpos, **kw))
+    e = q.element_size()
+    # q, k, v and both positions read once; ctx and lse written once
+    flops, nbytes = chunked_flops(qpos, kpos, chunk, D, 2), (4 * e * D + 3 * 4) * G * T
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by='operations' if t_ops >= t_bytes else 'bytes')
+    ck.LAUNCHES.update(saved)                    # comparison launches do not count
+    log(f'[k3] {json.dumps(rec)}')
+    torch.cuda.empty_cache()
+    if not (math.isfinite(err) and err <= tol['ctx'] and lse_err <= tol['lse']):
+        raise AssertionError(f'K3 disagrees with its plain version in case {name}: '
+                             f'ctx {err} (tol {tol["ctx"]}), lse {lse_err} (tol {tol["lse"]})')
+    return rec
+
+
+def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
+    q, k, v, qpos, kpos = chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed)
+    scale, self_bias = (1.0, ca.SELF_BIAS) if lsh else (D ** -0.5, 0.0)
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    saved = dict(ck.LAUNCHES)
+    out, lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    d_out = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    d_lse = torch.randn(lse.shape, generator=g, device=dev)       # a nonzero lse cotangent
+    args = (q, k, v, qpos, kpos, out, d_out, lse, d_lse)
+    got = ck.chunked_window_attn_bwd(*args, **kw)
+    ref = ck.chunked_window_attn_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    names = ('dq', 'dk', 'dv')
+    errs = {n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(names, got, ref)}
+    rel = {n: errs[n] / max(float(b.float().abs().max()), 1e-30) for n, b in zip(names, ref)}
+    del got, ref
+    rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
+               lsh=lsh, pads=pads, max_abs_err=max(errs.values()), abs_err=errs, rel_err=rel,
+               tol_rel=TOL_K4[dtype])
+    rec['ms'] = time_ms(lambda: ck.chunked_window_attn_bwd(*args, **kw))
+    rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_bwd_plain(*args, **kw), iters=3)
+    ys = sdpa_window_yardstick(q, k, v, qpos, kpos, **kw)
+    ins = [t.detach().requires_grad_(True) for t in ys.args[:3]]
+    y = torch.nn.functional.scaled_dot_product_attention(*ins, attn_mask=ys.args[3], scale=scale)
+    d_y = d_out.reshape(y.shape)
+    rec['library_ms'] = time_ms(lambda: torch.autograd.grad(y, ins, d_y, retain_graph=True))
+    del ys, ins, y
+    e = q.element_size()
+    # q, k, v, out, dO (input dtype), positions, lse, dlse read once; dq in
+    # the input dtype, dk and dv in f32 written once
+    flops = chunked_flops(qpos, kpos, chunk, D, 5)
+    nbytes = (6 * e * D + 4 * 4 + 2 * 4 * D) * G * T
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by='operations' if t_ops >= t_bytes else 'bytes')
+    ck.LAUNCHES.update(saved)                    # comparison launches do not count
+    log(f'[k4] {json.dumps(rec)}')
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) and x <= TOL_K4[dtype] for x in rel.values()):
+        raise AssertionError(f'K4 disagrees with its plain version in case {name}: {rel} '
+                             f'(tol {TOL_K4[dtype]})')
+    return rec
+
+
+# ------------------------------------------------------------ Reformer paths
+def reformer_config(**kw) -> ReformerConfig:
+    """The 22-04 recipe's model: Reformer base (d_model 768, 12 heads x 64,
+    12 layers alternating local and LSH, 2 hashes, chunk 64, 64 buckets at
+    2048), midi vocab 422, max_length 2048, bf16, dropout 0.05."""
+    r = tr.RECIPES['22-04']
+    return ReformerConfig.from_size(r['model_size'], vocab_size=422,
+                                    max_length=r['max_length'], **kw)
+
+
+def reformer_train_args(**kw) -> tr.TrainArgs:
+    """The 22-04 recipe's optimizer: the Reformer base preset (lr 3e-4
+    warmup-cosine, weight decay 1e-2, clip 1.0) at batch 32."""
+    return tr.TrainArgs.from_preset('reformer', 'base',
+                                    **dict(tr.RECIPES['22-04']['train_args'], **kw))
+
+
+def reformer_training_path(dev, tok, report):
+    """The Reformer's training path at full width, counted."""
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    cfg = reformer_config()
+    n_layer = len(cfg.attn_layers)
+    steps, B, T = 4, 32, cfg.max_length
+    train = SyntheticSongs(tok, steps * B, SEED + 20, length=T, insert_key=False)
+    evald = SyntheticSongs(tok, B + 4, SEED + 21, length=T, insert_key=False)
+    n_eval_batches = 2
+    run = os.path.join(RUN_DIR, 'reformer')
+    trainer = tr.Trainer(Reformer(cfg), tok, train, evald, out_dir=run,
+                         args=reformer_train_args(num_train_epochs=1, seed=SEED))
+    params = params_from_jax(trainer.model.init_flat(SEED), dev)
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.train(params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    log_ = step_log(run)
+    recs = [r for r in log_ if 'loss' in r]
+    ep = [r for r in log_ if 'train_tokens_per_sec' in r][0]
+    log(f'[reformer-train] 22-04 base, {B}x{T}, bf16, dropout 0.05: {len(recs)} steps in '
+        f'{wall:.1f} s (eval + checkpoint included); losses '
+        f'{[round(r["loss"], 4) for r in recs]}; grad_norm '
+        f'{[round(r["grad_norm"], 3) for r in recs]}; lr {[r["lr"] for r in recs]}; eval '
+        f'{json.dumps({k: v for k, v in ep.items() if k.startswith("eval_")})}; '
+        f'launches {launches}')
+    if len(recs) != steps or not all(math.isfinite(r['loss']) and math.isfinite(r['grad_norm'])
+                                     for r in recs):
+        raise AssertionError(f'Reformer training steps missing or not finite: {recs}')
+    if launches != dict(chunked_window_attn_fwd=(steps + n_eval_batches) * n_layer,
+                        chunked_window_attn_bwd=steps * n_layer):
+        raise AssertionError(f'expected {n_layer} K3 and K4 launches per step: {launches}')
+    if not all(math.isfinite(ep[f'eval_{k}']) for k in ('loss', 'ntp_acc', 'ikr')) or \
+            not 0 <= ep['eval_ikr'] <= 1:
+        raise AssertionError(f'Reformer eval metrics out of range: {ep}')
+    with open(os.path.join(run, 'meta.json')) as f:
+        if json.load(f)['model_name'] != 'reformer':
+            raise AssertionError('meta.json does not name the Reformer')
+
+    model, tparams, ttok = load_trained(run, device=dev)
+    ids = torch.from_numpy(evald.ids[:8]).to(dev)
+    sc = score_batch(model, tparams, ids, torch.from_numpy(evald.labels[:8]).to(dev),
+                     IkrMetric(ttok, mode='vanilla'),
+                     torch.from_numpy(evald.key_scores[:8]).to(dev))
+    sc = {k: float(v) for k, v in sc.items()}
+    log(f'[reformer-train] load_trained + score_batch on the run: {json.dumps(sc)}')
+    if not isinstance(model, Reformer) or not all(math.isfinite(v) for v in sc.values()) or \
+            sc['loss'] > math.log(cfg.vocab_size) + 1:
+        raise AssertionError(f'scoring the trained Reformer run failed: {sc}')
+    report['reformer_train'] = dict(steps=recs, epoch=ep, wall_s=wall, launches=launches,
+                                    score=sc)
+    del model, tparams
+
+    # step time, throughput, peak memory and a profile of one step
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(train.batches(B, seed=1)).items()}
+    state = trainer.opt.init(res['params'])
+    step = lambda: trainer.train_step(res['params'], state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(step, iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tok = int((batch['labels'] != -100).sum())
+    prof = profile(step)
+    top = ', '.join(f'{r["name"][:40]} {r["device_ms"]:.2f}' for r in prof['top'][:8])
+    log(f'[reformer-train] step {ms:.1f} ms: {B * T / ms * 1e3:.0f} tok/s ({n_tok / ms * 1e3:.0f} '
+        f'non-pad tok/s); peak memory {peak:.1f} GiB; profile: wall {prof["wall_ms"]:.1f} ms, '
+        f'device busy {prof["device_ms"]:.1f} ms ({prof["busy_share"]:.1%}); top: {top}')
+    report['reformer_train'].update(step_ms=ms, tok_per_s=B * T / ms * 1e3,
+                                    nonpad_tok_per_s=n_tok / ms * 1e3, peak_mem_gb=peak,
+                                    profile=prof)
+    del trainer, res, state, batch
+    torch.cuda.empty_cache()
+
+    # a short overfit on one batch at a constant lr
+    one = SyntheticSongs(tok, B, SEED + 22, length=T, insert_key=False)
+    run = os.path.join(RUN_DIR, 'reformer-overfit')
+    n_over = 15
+    trainer = tr.Trainer(Reformer(cfg), tok, one, None, out_dir=run, args=reformer_train_args(
+        num_train_epochs=n_over, lr_scheduler_type='constant', learning_rate=1e-3,
+        save_per_epoch=False, seed=SEED))
+    trainer.train(params=params_from_jax(trainer.model.init_flat(SEED), dev))
+    losses = [r['loss'] for r in step_log(run) if 'loss' in r]
+    log(f'[reformer-train] overfit one batch, {n_over} steps, lr 1e-3 constant: '
+        f'{[round(l, 3) for l in losses]}')
+    if not (len(losses) == n_over and losses[-1] < 0.8 * losses[0]):
+        raise AssertionError(f'the Reformer loss did not fall on the overfit batch: {losses}')
+    report['reformer_overfit_losses'] = losses
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    return launches
+
+
+class SharedBranches:
+    """Within the block, the two places where the Reformer branches on a
+    computed value -- the LSH bucket argmax (`lsh_buckets`) and the FFN relu
+    (`torch.relu`) -- keep what they compute in `seen`; with `replaying` set
+    they use `recorded` instead (in order, moved to the run's device) and
+    count the entries their own arithmetic would have changed.  The card and
+    the CPU sum in other orders, so a hash on a near-tie may land in another
+    bucket, and a relu input within rounding of 0 may take the other side of
+    the kink, which moves that token's share of an FFN weight gradient by a
+    whole entry; sharing both holds the runs to the same branches, so the
+    gradients can be held at f32 summation-order tolerance."""
+
+    def __init__(self):
+        self.seen = dict(buckets=[], relu=[])
+        self.recorded = dict(buckets=[], relu=[])
+        self.replaying = False
+        self.differ, self.total = dict(buckets=0, relu=0), dict(buckets=0, relu=0)
+        self.real = (ca.lsh_buckets, torch.relu)
+
+    def _share(self, kind, value):
+        if not self.replaying:
+            self.seen[kind].append(value)
+            return value
+        want = self.recorded[kind].pop(0).to(value.device)
+        self.differ[kind] += int((want != value).sum())
+        self.total[kind] += value.numel()
+        return want
+
+    def buckets(self, x, rots):
+        return self._share('buckets', self.real[0](x, rots))
+
+    def relu(self, x):
+        return torch.where(self._share('relu', x > 0), x, torch.zeros_like(x))
+
+    def __enter__(self):
+        ca.lsh_buckets, torch.relu = self.buckets, self.relu
+        return self
+
+    def __exit__(self, *exc):
+        ca.lsh_buckets, torch.relu = self.real
+
+
+def reformer_card_vs_cpu(dev, report):
+    """One f32 training step's loss and gradients, base width, depth 2 (one
+    local and one LSH layer), B 1, T 2048, dropout 0: the card (K3 + K4)
+    against the port's CPU run (plain versions), on the same branches
+    (`SharedBranches`)."""
+    cfg = reformer_config(dtype='float32', attn_layers=('local', 'lsh'))
+    rows = SyntheticSongs(MusicTokenizer(pitch_kind='midi'), 1, SEED + 23,
+                          length=cfg.max_length, insert_key=False)
+    ids, labels = torch.from_numpy(rows.ids), torch.from_numpy(rows.labels)
+    flat = Reformer(cfg, device='cpu').init_flat(SEED)
+    out = []
+    with SharedBranches() as shared:
+        for device in (dev, torch.device('cpu')):
+            model = Reformer(cfg, device=device)
+            params = params_from_jax(flat, device)
+            leaves = flatten(params)
+            for t in leaves.values():
+                t.requires_grad_(True)
+            saved = dict(ck.LAUNCHES)
+            loss, _ = model.loss(params, ids.to(device), labels.to(device))
+            g = torch.autograd.grad(loss, list(leaves.values()))
+            if not out and (
+                    ck.LAUNCHES['chunked_window_attn_fwd'] - saved['chunked_window_attn_fwd'],
+                    ck.LAUNCHES['chunked_window_attn_bwd'] - saved['chunked_window_attn_bwd']
+            ) != (2, 2):
+                raise AssertionError('the card step did not run through K3 and K4')
+            ck.LAUNCHES.update(saved)
+            out.append((float(loss.detach()), {k: t.detach().cpu() for k, t in zip(leaves, g)}))
+            shared.recorded, shared.replaying = shared.seen, True    # the CPU takes the card's
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    rel = {k: float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max().clamp(min=1e-30))
+           for k in g_cpu}
+    worst = max(rel, key=rel.get)
+    flips = {k: f'{shared.differ[k]} of {shared.total[k]}' for k in shared.total}
+    log(f'[reformer-train] f32 step, depth 2, B 1: loss card {l_card:.7f} cpu {l_cpu:.7f}; '
+        f'gradients worst {worst} {rel[worst]:.2e} of its largest entry (tol {TOL_GRAD}); '
+        f'CPU branches that differ from the card\'s (the card\'s are used): {flips}')
+    report['reformer_grads_card_vs_cpu'] = dict(loss_card=l_card, loss_cpu=l_cpu, rel=rel,
+                                                branches_differing=shared.differ,
+                                                branches=shared.total)
+    if rel[worst] > TOL_GRAD or abs(l_card - l_cpu) > 1e-5 * abs(l_cpu):
+        raise AssertionError(f'card and CPU f32 Reformer gradients disagree: {worst} '
+                             f'{rel[worst]}')
+
+
+def reformer_score_and_generate(dev, tok, report):
+    """The Reformer's scoring and generation paths, counted, and their times."""
+    cfg = reformer_config(dropout=0.0)
+    model = Reformer(cfg)
+    params = params_from_jax(model.init_flat(SEED), dev)
+    ikr = IkrMetric(tok, mode='vanilla')
+    ids, labels = score_inputs(cfg.vocab_size, 8, cfg.max_length, SEED + 2, dev)
+    key_scores = torch.from_numpy(
+        np.random.default_rng(SEED + 3).random((8, N_KEY)).astype(np.float32)).to(dev)
+    n_layer = len(cfg.attn_layers)
+
+    def score():
+        return score_batch(model, params, ids, labels, ikr, key_scores)
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    mets = score()
+    torch.cuda.synchronize()
+    per_forward = dict(ck.LAUNCHES)
+    mets = {k: float(v) for k, v in mets.items()}
+    log(f'[reformer-score] base bf16 8x{cfg.max_length}: {json.dumps(mets)} launches '
+        f'{per_forward}')
+    if per_forward != dict(chunked_window_attn_fwd=n_layer, chunked_window_attn_bwd=0):
+        raise AssertionError(f'expected {n_layer} K3 launches and no K4 in one forward: '
+                             f'{per_forward}')
+    if not all(math.isfinite(v) for v in mets.values()) or \
+            abs(mets['loss'] - math.log(cfg.vocab_size)) > 0.5 or not 0 <= mets['ikr'] <= 1:
+        raise AssertionError(f'Reformer scoring metrics out of range: {mets}')
+    n_iter = 5
+    ms = time_ms(score, iters=n_iter, warmup=1)
+    if ck.LAUNCHES['chunked_window_attn_fwd'] != n_layer * (n_iter + 2):
+        raise AssertionError('K3 launches per forward changed during the timing loop')
+    score_prof = profile(score)
+    top = ', '.join(f'{r["name"][:40]} {r["device_ms"]:.3f}' for r in score_prof['top'][:6])
+    log(f'[reformer-score] throughput: {ms:.2f} ms/batch, {ids.numel() / ms * 1e3:.0f} tok/s; '
+        f'profile: wall {score_prof["wall_ms"]:.2f} ms, device busy '
+        f'{score_prof["device_ms"]:.2f} ms ({score_prof["busy_share"]:.1%}); top: {top}')
+
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    gen_rec = {}
+    for quant in (None, 'int8'):
+        qmodel = Reformer(dataclasses.replace(cfg, decode_cache_quant=quant))
+        gen = MusicGenerator(qmodel, tok, params)
+        prompts = [gen.unconditional_prompt(time_sig=ts, tempo=tp) for ts, tp in
+                   (((4, 4), 120), ((3, 4), 90), ((6, 8), 100), ((2, 4), 140))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts = gen.generate(prompts, strategy='sample', seed=SEED, max_length=GEN_LEN,
+                             **{k: v for k, v in tr.RECIPES['22-04']['generation'].items()
+                                if k != 'strategy'})
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for p, t in zip(prompts, texts):
+            toks = t.split()
+            if not t.startswith(p) or len(toks) > GEN_LEN or \
+                    any(x not in tok.vocab.tok2id for x in toks):
+                raise AssertionError(f'invalid generated token string: {t[:200]}')
+        lens = [len(t.split()) for t in texts]
+        new_tok = sum(n - len(p.split()) for n, p in zip(lens, prompts))
+        label = quant or 'bf16'
+        gen_rec[label] = dict(lengths=lens, new_tokens=new_tok, seconds=dt,
+                              decode_tok_per_s=new_tok / dt, sample=texts[0][:160])
+        log(f'[reformer-generate] sample top_p=0.9, {label} LSH cache, 4 requests: lengths '
+            f'{lens}, {new_tok / dt:.1f} decode tok/s ({dt:.1f} s)')
+    gen_launches = dict(ck.LAUNCHES)
+    if any(gen_launches.values()):
+        raise AssertionError(f'Reformer decode runs no kernel: {gen_launches}')
+    dparams = model.compute_params(params)
+    state = model.init_decode_state(4)
+    tok_in = ids[:4, 0]
+    for _ in range(4):                            # warm the decode path
+        _, state = model.decode_step(dparams, tok_in, state)
+
+    def decode8():
+        nonlocal state
+        for _ in range(8):
+            _, state = model.decode_step(dparams, tok_in, state)
+    decode_prof = profile(decode8)
+    log(f'[profile] Reformer, 8 decode steps: wall {decode_prof["wall_ms"]:.2f} ms, device busy '
+        f'{decode_prof["device_ms"]:.2f} ms ({decode_prof["busy_share"]:.1%})')
+    report['reformer_score'] = dict(metrics=mets, launches=per_forward, ms=ms,
+                                    tok_per_s=ids.numel() / ms * 1e3, profile=score_prof)
+    report['reformer_generate'] = dict(runs=gen_rec, launches=gen_launches,
+                                       profile_decode=decode_prof)
+    return per_forward
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -596,6 +1038,26 @@ def main() -> int:
                 False),
     ]
     report.update(k1_cases=k1, k2_cases=k2)
+
+    # 2b. K3 and K4 against their plain versions on the card: the 22-04
+    # shapes (training batch 32: local G = 32 x 12, LSH G = 32 x 12 x 2)
+    k3 = [
+        k3_case(dev, 'lsh-bf16', torch.bfloat16, 768, 2048, 64, 64, True, 0, 31),
+        k3_case(dev, 'lsh-f32', torch.float32, 768, 2048, 64, 64, True, 0, 32),
+        k3_case(dev, 'local-bf16', torch.bfloat16, 384, 2048, 64, 64, False, 0, 33),
+        k3_case(dev, 'local-f32', torch.float32, 384, 2048, 64, 64, False, 0, 34),
+        k3_case(dev, 'local-padded-bf16', torch.bfloat16, 384, 2048, 64, 64, False, 300, 35),
+        k3_case(dev, 'lsh-padded-f32', torch.float32, 96, 2048, 64, 64, True, 300, 36),
+        k3_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 37),
+    ]
+    k4 = [
+        k4_case(dev, 'lsh-bf16', torch.bfloat16, 768, 2048, 64, 64, True, 0, 41),
+        k4_case(dev, 'lsh-f32', torch.float32, 768, 2048, 64, 64, True, 0, 42),
+        k4_case(dev, 'local-bf16', torch.bfloat16, 384, 2048, 64, 64, False, 0, 43),
+        k4_case(dev, 'local-padded-f32', torch.float32, 96, 2048, 64, 64, False, 300, 44),
+        k4_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 45),
+    ]
+    report.update(k3_cases=k3, k4_cases=k4)
 
     # 3. the training path, counted
     tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
@@ -696,8 +1158,17 @@ def main() -> int:
             f'{prof["device_ms"]:.2f} ms ({prof["busy_share"]:.1%}); top: {top}')
     report.update(profile_score=score_prof, profile_decode=decode_prof)
     report.update(f32_loss_card=float(l_card), f32_loss_cpu=float(l_cpu), f32_rel=rel,
-                  score_ms=ms, score_tok_per_s=score_tps,
-                  peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  score_ms=ms, score_tok_per_s=score_tps)
+    del model, params, dparams, state
+    torch.cuda.empty_cache()
+
+    # 6. the Reformer (22-04): training, scoring and generation, each counted,
+    # and the card against the port's CPU run in f32
+    rtok = MusicTokenizer(pitch_kind='midi', model_max_length=2048)
+    reformer_train_launches = reformer_training_path(dev, rtok, report)
+    reformer_card_vs_cpu(dev, report)
+    reformer_score_and_generate(dev, rtok, report)
+    report.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                   seconds=time.perf_counter() - t_start)
     shutil.rmtree(RUN_DIR, ignore_errors=True)
 
@@ -706,11 +1177,16 @@ def main() -> int:
                     replaces=replaces, launches=launches, max_abs_err=case['max_abs_err'],
                     ms=case['ms'], plain_ms=case['plain_ms'], bound_ms=case['bound_ms'],
                     bound_by=case['bound_by'], library_ms=case['library_ms'])
-    # times at the training shape (21 x 1024, bf16); launches of the training path
+    # times at the training shapes (TF-XL 21 x 1024, Reformer LSH 32 x 2048,
+    # bf16); launches of each model's training path
     kernels = [row('flash_rel_attn_fwd', k1[2], K1_REPLACES,
                    train_launches['flash_rel_attn_fwd']),
                row('flash_rel_attn_bwd', k2[0], K2_REPLACES,
-                   train_launches['flash_rel_attn_bwd'])]
+                   train_launches['flash_rel_attn_bwd']),
+               row('chunked_window_attn_fwd', k3[0], K3_REPLACES,
+                   reformer_train_launches['chunked_window_attn_fwd']),
+               row('chunked_window_attn_bwd', k4[0], K4_REPLACES,
+                   reformer_train_launches['chunked_window_attn_bwd'])]
     report['kernels'] = kernels
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:

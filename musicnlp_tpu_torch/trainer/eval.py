@@ -3,10 +3,13 @@
 Counterpart of `musicnlp_tpu/trainer/eval.py` (and of the scoring half of
 `Trainer.eval_step` in `musicnlp_tpu/trainer/train.py`):
   * `load_trained` reads a Trainer output directory (`trained.npz` +
-    `meta.json`) of either package, for the vanilla tokenizer scheme;
+    `meta.json`) of either package, TF-XL or Reformer (`meta['model_name']`),
+    for the vanilla tokenizer scheme;
   * `score_batch` is the forward-only loss with NTP accuracy and IKR;
   * `MusicGenerator.generate` turns prompt token strings into generated token
-    strings, greedy or sampled, over the KV ring cache.
+    strings, greedy or sampled, over the model's incremental decode state.
+Both take either model family: they need only its `loss`, or its
+`compute_params`, `init_decode_state` and `decode_step`.
 Rendering to MXL/MIDI, conditional prompts, beam and contrastive search come
 with later slices.
 """
@@ -19,27 +22,38 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops.sampling import SampleConfig, generate_scan
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
 from musicnlp_tpu_torch.utils.checkpoint import load_meta, restore_pytree
 from musicnlp_tpu_torch.vocab import MusicTokenizer, VocabType
 
-__all__ = ['MusicGenerator', 'load_trained', 'score_batch']
+__all__ = ['MusicGenerator', 'MODEL_FAMILIES', 'load_trained', 'score_batch']
+
+
+Model = Union[TransfoXL, Reformer]
+# model_name (as meta.json records it) -> (model class, config class)
+MODEL_FAMILIES = {'transf-xl': (TransfoXL, TransfoXLConfig),
+                  'reformer': (Reformer, ReformerConfig)}
 
 
 def load_trained(out_dir: str, device: Optional[Union[str, torch.device]] = None
-                 ) -> Tuple[TransfoXL, Dict[str, Any], MusicTokenizer]:
+                 ) -> Tuple[Model, Dict[str, Any], MusicTokenizer]:
     """(model, params, tokenizer) from a Trainer output directory."""
     meta = load_meta(os.path.join(out_dir, 'meta.json'))
-    if meta.get('model_name', 'transf-xl') != 'transf-xl':
-        raise NotImplementedError(f"model {meta['model_name']!r} comes with a later slice")
+    name = meta.get('model_name', 'transf-xl')
+    if name not in MODEL_FAMILIES:
+        raise ValueError(f'Unknown model {name!r}')
     if meta['config'].get('adaptive_cutoffs'):
         raise NotImplementedError('the adaptive head comes with a later slice')
-    fields = TransfoXLConfig.__dataclass_fields__
-    kw = {k: v for k, v in meta['config'].items() if k in fields}
-    cfg = TransfoXLConfig(**kw)
-    model = TransfoXL(cfg, device=device)
+    model_cls, cfg_cls = MODEL_FAMILIES[name]
+    fields = cfg_cls.__dataclass_fields__
+    # tuple fields come back from JSON as lists
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in meta['config'].items() if k in fields}
+    cfg = cfg_cls(**kw)
+    model = model_cls(cfg, device=device)
     params = restore_pytree(os.path.join(out_dir, 'trained'), model.device)
     from musicnlp_tpu_torch.trainer.train import rebuild_tokenizer   # train imports this module
     tokenizer = rebuild_tokenizer(meta, out_dir)
@@ -48,7 +62,7 @@ def load_trained(out_dir: str, device: Optional[Union[str, torch.device]] = None
 
 
 @torch.no_grad()
-def score_batch(model: TransfoXL, params: Dict[str, Any], input_ids: torch.Tensor,
+def score_batch(model: Model, params: Dict[str, Any], input_ids: torch.Tensor,
                 labels: torch.Tensor, ikr: IkrMetric,
                 key_scores: Optional[torch.Tensor] = None, n_seg: int = 1
                 ) -> Dict[str, torch.Tensor]:
@@ -65,7 +79,7 @@ def score_batch(model: TransfoXL, params: Dict[str, Any], input_ids: torch.Tenso
 class MusicGenerator:
     """Batched autoregressive song generation (token strings)."""
 
-    def __init__(self, model: TransfoXL, tokenizer: MusicTokenizer, params,
+    def __init__(self, model: Model, tokenizer: MusicTokenizer, params,
                  augment_key: bool = False):
         self.model = model
         self.tokenizer = tokenizer

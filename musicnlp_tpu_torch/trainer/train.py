@@ -2,9 +2,9 @@
 
 Counterpart of `musicnlp_tpu/trainer/train.py` without the device mesh (no
 `n_model`, no multi-host sharding).  One train step is the loss forward
-(TF-XL through K1), its backward (through K2), the global-norm clip and the
-AdamW update, with next-token accuracy and the in-key ratio computed in the
-step, as the JAX Trainer does.  The dataset contract is the JAX Trainer's:
+(TF-XL through K1, the Reformer through K3), its backward (through K2 or
+K4), the global-norm clip and the AdamW update, with next-token accuracy
+and the in-key ratio computed in the step, as the JAX Trainer does.  The dataset contract is the JAX Trainer's:
 an object with `__len__` and `batches(batch_size, shuffle, seed, drop_last)`
 yielding numpy `input_ids`, `labels` (pads -100) and `key_scores` [B, 24].
 
@@ -29,9 +29,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
+from musicnlp_tpu_torch.models.reformer import Reformer
 from musicnlp_tpu_torch.ops.losses import PT_LOSS_PAD
-from musicnlp_tpu_torch.trainer.eval import score_batch
+from musicnlp_tpu_torch.trainer.eval import MODEL_FAMILIES, Model, score_batch
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
 from musicnlp_tpu_torch.utils import checkpoint as ckpt
 from musicnlp_tpu_torch.utils.prefetch import prefetch
@@ -231,7 +231,7 @@ class Trainer:
     """Epoch loop with per-step metrics, per-epoch eval + checkpoint,
     best-model-at-end on eval_loss, on the model's device."""
 
-    def __init__(self, model: TransfoXL, tokenizer: MusicTokenizer, train_dataset,
+    def __init__(self, model: Model, tokenizer: MusicTokenizer, train_dataset,
                  eval_dataset=None, args: TrainArgs = None, out_dir: str = None,
                  ikr_mode: str = 'vanilla'):
         self.model = model
@@ -358,7 +358,8 @@ class Trainer:
                     t.copy_(best[key])
         final = ckpt.save_pytree(os.path.join(self.out_dir, 'trained'), params)
         ckpt.save_meta(os.path.join(self.out_dir, 'meta.json'), dict(
-            model_name='transf-xl', config=asdict(self.model.cfg), train_args=asdict(args),
+            model_name=_model_name(self.model), config=asdict(self.model.cfg),
+            train_args=asdict(args),
             tokenizer=describe_tokenizer(self.tokenizer, self.out_dir),
             best_eval_loss=best_loss, final_checkpoint=final))
         return dict(params=params, opt_state=opt_state, history=history,
@@ -408,6 +409,10 @@ class Trainer:
 
 
 # ----------------------------------------------------------------- wiring
+def _model_name(model: Model) -> str:
+    return 'reformer' if isinstance(model, Reformer) else 'transf-xl'
+
+
 def describe_tokenizer(tokenizer: MusicTokenizer, out_dir: str) -> Dict:
     """The tokenizer's identity as `meta.json` records it (vanilla scheme)."""
     if type(tokenizer).__name__ != 'MusicTokenizer':
@@ -434,21 +439,20 @@ def get_model_n_tokenizer(model_name: str, model_size: str, vocab_size: int = No
                           pitch_kind: str = 'degree', max_length: int = None,
                           model_config: Dict = None, tokenizer_scheme: str = 'vanilla',
                           device: Optional[Union[str, torch.device]] = None
-                          ) -> Tuple[TransfoXL, MusicTokenizer]:
-    """Model + tokenizer wiring of the reference (train.py:31-59): TF-XL with
-    the vanilla tokenizer; the Reformer and the learned tokenizers raise."""
+                          ) -> Tuple[Model, MusicTokenizer]:
+    """Model + tokenizer wiring of the reference (train.py:31-59): TF-XL or
+    the Reformer with the vanilla tokenizer; the learned tokenizers raise."""
     if tokenizer_scheme != 'vanilla':
         raise NotImplementedError(f'tokenizer scheme {tokenizer_scheme!r} comes with the '
                                   f'learned-tokenizer slice')
-    if model_name == 'reformer':
-        raise NotImplementedError('the Reformer comes with the Reformer slice')
-    if model_name != 'transf-xl':
+    if model_name not in MODEL_FAMILIES:
         raise ValueError(f'Unknown model {model_name!r}')
+    model_cls, cfg_cls = MODEL_FAMILIES[model_name]
     tokenizer = MusicTokenizer(pitch_kind=pitch_kind)
-    cfg = TransfoXLConfig.from_size(model_size, vocab_size or tokenizer.vocab_size,
-                                    max_length=max_length, **(model_config or {}))
+    cfg = cfg_cls.from_size(model_size, vocab_size or tokenizer.vocab_size,
+                            max_length=max_length, **(model_config or {}))
     tokenizer.model_max_length = cfg.max_length
-    return TransfoXL(cfg, device=device), tokenizer
+    return model_cls(cfg, device=device), tokenizer
 
 
 def get_all_setup(model_name: str, model_size: str, train_dataset=None, eval_dataset=None,

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain versions (needs an NVIDIA GPU and
+"""K1-K4 on the card against their plain versions (needs an NVIDIA GPU and
 nvcc).
 
 Run on a GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`;
@@ -7,7 +7,9 @@ plain versions at the model's real shapes."""
 import pytest
 import torch
 
+from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
+from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
 from musicnlp_tpu_torch.ops.flash_attention import (
     LAUNCHES, FlashRelAttn, distance_table, flash_rel_attn_bwd, flash_rel_attn_bwd_plain,
     flash_rel_attn_fwd, flash_rel_attn_fwd_plain,
@@ -19,7 +21,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device (K1 is a CUDA kernel with no CPU mode)')
+        pytest.skip('needs a CUDA device (K1-K4 are CUDA kernels with no CPU mode)')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device('cuda')
@@ -119,3 +121,64 @@ def test_loss_backward_launches_k2_once_per_layer(dev):
     (grad,) = torch.autograd.grad(loss, leaves)
     assert LAUNCHES['flash_rel_attn_bwd'] == cfg.n_layer
     assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+
+
+def _chunked_inputs(dev, dtype, G, T, D, perm, pads, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(G, T, D, generator=g).to(dev, dtype) for _ in range(3))
+    if perm:
+        qpos = torch.stack([torch.randperm(T, generator=g) for _ in range(G)])
+    else:
+        qpos = torch.arange(T).expand(G, T)
+    kpos = torch.where(qpos >= T - pads, torch.full_like(qpos, T), qpos) if pads else qpos
+    return q, k, v, qpos.to(dev, torch.int32).contiguous(), kpos.to(dev, torch.int32).contiguous()
+
+
+CHUNKED = [   # G, T, D, chunk, perm, pads, scale, self_bias
+    (4, 256, 64, 64, False, 0, 0.125, 0.0), (4, 256, 64, 64, True, 0, 1.0, -1e5),
+    (3, 192, 32, 32, False, 40, 0.25, 0.0), (2, 32, 16, 32, True, 5, 1.0, -1e5),
+]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('G,T,D,chunk,perm,pads,scale,self_bias', CHUNKED)
+def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_bias):
+    """K3 (ctx, lse) and K4 (dq, dk, dv with a nonzero lse cotangent) against
+    their plain versions: f32 sums in other orders -> 1e-5; bf16 rounds p and
+    ds, and a rounding that flips moves one ulp -> 2e-2 of each output's max."""
+    q, k, v, qpos, kpos = _chunked_inputs(dev, dtype, G, T, D, perm, pads)
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    before = dict(ck.LAUNCHES)
+    out, lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    ref, ref_lse = ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    d_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    d_lse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    args = (q, k, v, qpos, kpos, out, d_out, lse, d_lse)
+    got = ck.chunked_window_attn_bwd(*args, **kw)
+    want = ck.chunked_window_attn_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {n: before[n] + 1 for n in before}
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _rel_err(out, ref) <= tol and float((lse - ref_lse).abs().max()) <= 1e-3
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+def test_reformer_forward_and_backward_launch_once_per_layer(dev):
+    """One K3 launch per attention layer in a forward, one K4 per layer in the
+    backward, and the card's f32 loss equals the CPU's."""
+    cfg = ReformerConfig.from_size('debug-large', vocab_size=422, dtype='float32', n_hashes=2)
+    model = Reformer(cfg)
+    params = model.init(seed=0)
+    ids = torch.randint(0, 422, (2, 512), device=dev)
+    leaf = params['embed']['weight'].requires_grad_(True)        # below every layer
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    loss, _ = model.loss(params, ids, ids)
+    assert ck.LAUNCHES == dict(chunked_window_attn_fwd=6, chunked_window_attn_bwd=0)
+    (grad,) = torch.autograd.grad(loss, [leaf])
+    assert ck.LAUNCHES == dict(chunked_window_attn_fwd=6, chunked_window_attn_bwd=6)
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+    cpu = Reformer(cfg, device='cpu')
+    cpu_loss, _ = cpu.loss(cpu.init(seed=0), ids.cpu(), ids.cpu())
+    assert abs(float(loss.detach()) - float(cpu_loss)) <= 1e-4 * abs(float(cpu_loss))

@@ -23,7 +23,7 @@ from musicnlp_tpu_torch.trainer import metrics as tmetrics
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained, score_batch
 from musicnlp_tpu_torch.utils import checkpoint as tckpt
 from musicnlp_tpu_torch.vocab import MusicTokenizer
-from tests.torch_parity import np_of, randn, to_torch
+from tests.torch_parity import np_of, perturb, randn, to_torch
 
 # f32 logits of a 4-layer model; the two packages sum in other orders
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -32,26 +32,12 @@ CFG = dict(model_size='test', d_model=128, n_head=4, d_head=32, d_inner=256, n_l
            mem_len=32, clamp_len=48, max_length=96, dropout=0.1, dtype='float32')
 
 
-def _perturb(params, seed):
-    """Non-zero biases and layer-norm params so every term is exercised."""
-    flat = jckpt._flatten(params)
-    rng = np.random.default_rng(seed)
-    for k, v in flat.items():
-        if k.endswith(('bias', 'r_w_bias', 'r_r_bias', '/b')):
-            flat[k] = rng.standard_normal(v.shape).astype(np.float32) * 0.05
-        elif k.endswith('scale'):
-            flat[k] = 1.0 + rng.standard_normal(v.shape).astype(np.float32) * 0.05
-    leaves, treedef = jax.tree_util.tree_flatten_with_path(params)
-    keys = ['/'.join(jckpt._path_key(p) for p in path) for path, _ in leaves]
-    return jax.tree_util.tree_unflatten(treedef, [jnp.asarray(flat[k]) for k in keys])
-
-
 @pytest.fixture(scope='module')
 def pair():
     """(JAX model, JAX params, port model, port params) on the degree vocab."""
     vocab = JTok(pitch_kind='degree').vocab_size
     jm = JModel(JConfig(vocab_size=vocab, **CFG))
-    jp = _perturb(jm.init(jax.random.PRNGKey(0)), 1)
+    jp = perturb(jm.init(jax.random.PRNGKey(0)), 1)
     tm = TransfoXL(TransfoXLConfig(vocab_size=vocab, **CFG), device='cpu')
     return jm, jp, tm, to_torch(jp)
 
@@ -283,7 +269,7 @@ def gens():
     cfg = dict(CFG, d_model=64, n_head=2, d_head=32, d_inner=128, n_layer=2, mem_len=32,
                dropout=0.0, max_length=64)
     jm = JModel(JConfig(vocab_size=jt.vocab_size, **cfg))
-    jp = _perturb(jm.init(jax.random.PRNGKey(5)), 6)
+    jp = perturb(jm.init(jax.random.PRNGKey(5)), 6)
     tm = TransfoXL(TransfoXLConfig(vocab_size=tt.vocab_size, **cfg), device='cpu')
     return JGen(jm, jt, jp), MusicGenerator(tm, tt, to_torch(jp))
 

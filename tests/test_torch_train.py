@@ -25,7 +25,7 @@ from musicnlp_tpu_torch.trainer import train as ttrain
 from musicnlp_tpu_torch.trainer.eval import load_trained
 from musicnlp_tpu_torch.utils import checkpoint as tckpt
 from musicnlp_tpu_torch.vocab import MusicTokenizer
-from tests.torch_parity import np_of, randn, to_torch
+from tests.torch_parity import np_of, perturb, randn, to_torch
 
 # f32 loss of a small model; the two packages sum in other orders
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -40,20 +40,6 @@ CFG = dict(model_size='test', d_model=128, n_head=4, d_head=32, d_inner=256, n_l
            mem_len=32, clamp_len=48, max_length=64, dropout=0.0, dtype='float32')
 
 
-def _perturb(params, seed):
-    """Non-zero biases and layer-norm params so every term is exercised."""
-    flat = jckpt._flatten(params)
-    rng = np.random.default_rng(seed)
-    for k, v in flat.items():
-        if k.endswith(('bias', 'r_w_bias', 'r_r_bias', '/b')):
-            flat[k] = rng.standard_normal(v.shape).astype(np.float32) * 0.05
-        elif k.endswith('scale'):
-            flat[k] = 1.0 + rng.standard_normal(v.shape).astype(np.float32) * 0.05
-    leaves, treedef = jax.tree_util.tree_flatten_with_path(params)
-    keys = ['/'.join(jckpt._path_key(p) for p in path) for path, _ in leaves]
-    return jax.tree_util.tree_unflatten(treedef, [jnp.asarray(flat[k]) for k in keys])
-
-
 def _assert_rel(got, want, rel, msg=''):
     got, want = np_of(got), np_of(want)
     scale = max(float(np.abs(want).max()), 1e-12)
@@ -65,7 +51,7 @@ def _assert_rel(got, want, rel, msg=''):
 def pair():
     vocab = JTok(pitch_kind='degree').vocab_size
     jm = JModel(JConfig(vocab_size=vocab, **dict(CFG, n_layer=3)))
-    jp = _perturb(jm.init(jax.random.PRNGKey(0)), 1)
+    jp = perturb(jm.init(jax.random.PRNGKey(0)), 1)
     tm = TransfoXL(TransfoXLConfig(vocab_size=vocab, **dict(CFG, n_layer=3)), device='cpu')
     return jm, jp, tm
 
@@ -206,7 +192,7 @@ def test_trainer_matches_jax_trainer(mode, tmp_path):
     args = dict(batch_size=8, eval_batch_size=6, learning_rate=3e-3, weight_decay=0.1,
                 lr_scheduler_type='cosine', warmup_ratio=0.5, num_train_epochs=1, seed=5)
     jm = JModel(JConfig(vocab_size=vocab, **CFG))
-    jp = _perturb(jm.init(jax.random.PRNGKey(2)), 3)
+    jp = perturb(jm.init(jax.random.PRNGKey(2)), 3)
     init = jckpt._flatten(jp)
     mesh = mesh_lib.make_mesh(n_data=1, n_model=1, devices=jax.devices()[:1])
     jtr = jtrain.Trainer(jm, JTok(pitch_kind=pk, model_max_length=64), tr_ds, ev_ds,
@@ -376,8 +362,10 @@ def test_wiring_raises_for_later_slices():
     assert tok.pitch_kind == 'degree' and model.cfg.vocab_size == tok.vocab_size
     assert ttrain.rebuild_tokenizer(dict(tokenizer=ttrain.describe_tokenizer(tok, '')), '') \
         .vocab_size == tok.vocab_size
-    with pytest.raises(NotImplementedError, match='Reformer'):
-        ttrain.get_model_n_tokenizer('reformer', 'debug', device='cpu')
+    assert type(ttrain.get_model_n_tokenizer('reformer', 'debug', device='cpu')[0]).__name__ \
+        == 'Reformer'
+    with pytest.raises(ValueError, match='Unknown model'):
+        ttrain.get_model_n_tokenizer('gpt2', 'debug', device='cpu')
     with pytest.raises(NotImplementedError, match='tokenizer'):
         ttrain.get_model_n_tokenizer('transf-xl', 'debug', tokenizer_scheme='wordpiece')
     tr = ttrain.get_all_setup('transf-xl', 'debug', train_dataset=_Rows(np.zeros((4, 8))),
