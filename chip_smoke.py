@@ -46,7 +46,26 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      at depth 2 on the card against the CPU (on shared branches); then
      `score_batch` at 8 x 2048 (12 K3 launches, no K4) and
      `MusicGenerator.generate` for 4 sampled songs (top_p 0.9) with a bf16
-     and an int8 LSH cache (no kernel launch).
+     and an int8 LSH cache (no kernel launch);
+  7. K5 (the mask / softmax chain) and K6 (the multiply-add chain) against
+     their plain versions at the roofline tool's shape (G 64 x [8, 64, 128]
+     f32, K 4 and 32), their times at K 1024 beside the plain versions' and
+     the bound from the card's own FP32 / SFU lanes and clock, the SASS of
+     each loop (instructions per pass); then the roofline tool
+     (`tools/vpu_roofline.roofline`, counts set to 0 before and read after)
+     with phase 2b's K3 LSH time as its in-situ comparator;
+  8. the user's path through the command line, in process (`cli.main`),
+     counted: a step-kind combined JSON of 64 seeded synthetic songs ->
+     `dataset` -> `train --recipe 22-11 --epochs 1` (2 steps of 21 x 1024
+     with key insertion, pitch shift, channel mixup and random crop; 12 K1
+     per forward, 12 K2 per step) -> `generate` (4 songs, top_k 8, and one
+     conditioned on a rendered song with its key from `KeyFinder`) -> every
+     written .mid / .mxl re-read by the port's io; then `train --recipe 22-04
+     --epochs 1` (1 step of 32 x 2048; 12 K3 + 12 K4 per step) -> `generate`
+     (4 songs, top_p 0.9); wall time per command, the epochs' tokens/s,
+     decode tok/s (with phase 4's request repeated after the CLI's, in the
+     same process state), and the device-busy share of the recipes' own
+     input pipeline feeding training steps.
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json;
 training runs write under build/chip_smoke_runs/, removed at the end.
@@ -66,17 +85,25 @@ import time
 import numpy as np
 import torch
 
+from musicnlp_tpu_torch import cli
+from musicnlp_tpu_torch.io import parse_file, read_midi
 from musicnlp_tpu_torch.kernels.build import build_all
 from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops import chunked_attention as ca
 from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
 from musicnlp_tpu_torch.ops import flash_attention as fa
+from musicnlp_tpu_torch.ops import roofline_kernels as rk
+from musicnlp_tpu_torch.preprocess.dataset import SongDataset
+from musicnlp_tpu_torch.preprocess.key_finder import KeyFinder
+from musicnlp_tpu_torch.preprocess.music_converter import MusicConverter
+from musicnlp_tpu_torch.tools import vpu_roofline as vr
 from musicnlp_tpu_torch.trainer import train as tr
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained, score_batch
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
 from musicnlp_tpu_torch.utils.checkpoint import flatten, params_from_jax
-from musicnlp_tpu_torch.vocab import MusicTokenizer, N_KEY, key_ordinal2str
+from musicnlp_tpu_torch.utils.prefetch import prefetch
+from musicnlp_tpu_torch.vocab import MusicTokenizer, MusicVocabulary, N_KEY, key_ordinal2str
 
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 tensor / f32
@@ -108,7 +135,14 @@ TOL_K3 = TOL
 # an ulp
 TOL_K4 = TOL_K2
 GEN_LEN = 1024                                   # Reformer generation length (tokens)
+K5_REPLACES = 'scripts/vpu_roofline.py:39 (_mask_chain_kernel, via run_chain :90)'
+K6_REPLACES = 'scripts/vpu_roofline.py:63 (_muladd_kernel, via run_muladd :111)'
+ROOFLINE_K = 1024                                # passes of the timed K5 / K6 calls
+# K5 vs plain: each entry within one bf16 ulp (f32 sums in other orders may
+# flip a bf16 rounding); K6 vs plain: bit-equal (the plain version's f64
+# product and sum are exact, so it rounds once per pass, as the FMA does)
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out')
 
 
 def log(msg: str):
@@ -989,6 +1023,329 @@ def reformer_score_and_generate(dev, tok, report):
     return per_forward
 
 
+# ------------------------------------------------------------ K5 / K6 (phase 7)
+def roofline_phase(dev, k3_ms, report):
+    """Phase 7: K5 and K6 against their plain versions, their times and
+    bounds at K = ROOFLINE_K, the SASS of their loops, then the roofline tool
+    (the kernels' main path), counted."""
+    s, kp, qp = vr.chain_inputs(dev, seed=SEED)
+    # a second set of positions where masked, valid and self keys all shape a
+    # row (the tool's positions make every row's softmax its self key)
+    kp_mixed = (torch.arange(rk.W, dtype=torch.int32, device=dev) - 40).expand_as(kp).clone()
+    kp_mixed[:, :, ::5] = 10 ** 6
+    saved = dict(rk.LAUNCHES)
+    checks, err5, err6 = [], 0.0, 0.0
+    for K, kpos in ((4, kp), (32, kp), (4, kp_mixed)):
+        got5, want5 = rk.mask_chain(s, kpos, qp, K), rk.mask_chain_plain(s, kpos, qp, K)
+        got6, want6 = rk.muladd_chain(s, K), rk.muladd_chain_plain(s, K)
+        torch.cuda.synchronize()
+        d5, d6 = (got5 - want5).abs(), (got6 - want6).abs()
+        rec = dict(K=K, positions='tool' if kpos is kp else 'mixed',
+                   k5_max_abs_err=float(d5.max()),
+                   k5_within_one_bf16_ulp=bool((d5 <= 2.0 ** -7 * want5.abs()).all()),
+                   k5_bit_equal_share=float((got5 == want5).float().mean()),
+                   k6_max_abs_err=float(d6.max()),
+                   k6_rel_err=float(d6.max()) / max(float(want6.abs().max()), 1e-30))
+        log(f'[k5/k6] {json.dumps(rec)}')
+        checks.append(rec)
+        if not (rec['k5_within_one_bf16_ulp'] and rec['k6_max_abs_err'] == 0.0):
+            raise AssertionError(f'K5 or K6 disagrees with its plain version: {rec}')
+        err5, err6 = max(err5, rec['k5_max_abs_err']), max(err6, rec['k6_max_abs_err'])
+    rates = vr.card_rates(dev)
+    log(f'[k5/k6] card rates: {json.dumps(rates)}')
+    os.makedirs(OUT_DIR, exist_ok=True)
+    rows = {}
+    for name, fn, plain, err in (
+            ('mask_chain', lambda: rk.mask_chain(s, kp, qp, ROOFLINE_K),
+             lambda: rk.mask_chain_plain(s, kp, qp, ROOFLINE_K), err5),
+            ('muladd_chain', lambda: rk.muladd_chain(s, ROOFLINE_K),
+             lambda: rk.muladd_chain_plain(s, ROOFLINE_K), err6)):
+        sass = vr.sass_loop(name)
+        with open(os.path.join(OUT_DIR, f'{name}.sass'), 'w') as f:
+            f.write(sass.pop('sass'))
+        rows[name] = dict(K=ROOFLINE_K, elems=s.numel(), max_abs_err=err,
+                          ms=time_ms(fn, iters=5, warmup=1),
+                          plain_ms=time_ms(plain, iters=3, warmup=1), library_ms=None,
+                          **vr.bound(name, ROOFLINE_K, s.numel(), rates), sass=sass)
+        log(f'[{name}] {json.dumps(rows[name])}')
+    rk.LAUNCHES.update(saved)                    # comparison launches do not count
+
+    rk.LAUNCHES.update(mask_chain=0, muladd_chain=0)
+    res = vr.roofline(k3_ms=k3_ms, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(rk.LAUNCHES)
+    log(f'[roofline] {json.dumps(res)}')
+    with open(os.path.join(OUT_DIR, 'vpu_roofline.json'), 'w') as f:
+        json.dump(res, f, indent=2)
+    per_kernel = len(vr.K_PAIR) * (1 + vr.REPEATS)     # warm-up + repeats per K
+    if launches != dict(mask_chain=per_kernel, muladd_chain=per_kernel):
+        raise AssertionError(f'the roofline tool did not run through K5 and K6: {launches}')
+    if not (res['mask_chain_ns_per_pass'] > 0 and res['muladd_ns_per_pass'] > 0
+            and math.isfinite(res['mask_chain_share_of_k3'])):
+        raise AssertionError(f'the roofline figures are not positive: {res}')
+    report.update(roofline_checks=checks, roofline_kernels=rows, roofline=res,
+                  roofline_launches=launches)
+    return rows, launches
+
+
+# ------------------------------------------------------- the CLI path (phase 8)
+def synthetic_songs(n, n_bar, seed):
+    """n seeded step-kind songs, the extractor's records ({'score', 'keys',
+    'title'}): 4/4 bars of a melody in quarter notes (a triplet or a rest now
+    and then) over a bass in half notes, key scores for three keys.  n_bar
+    150 gives ~2,600 tokens: enough to fill 2048."""
+    rng = np.random.default_rng(seed)
+    toks = list(MusicVocabulary(pitch_kind='step').tok2id)
+    octave = lambda t: t.split('/')[-1].split('_')[0]
+    high = [t for t in toks if t.startswith('p_') and octave(t) in ('4', '5')]
+    low = [t for t in toks if t.startswith('p_') and octave(t) in ('2', '3')]
+    keys = [key_ordinal2str[i] for i in range(N_KEY)]
+    songs = []
+    for i in range(n):
+        out = ['TimeSig_4/4', 'Tempo_120']
+        for _ in range(n_bar):
+            out += ['<bar>', '<melody>']
+            for _ in range(4):
+                u = rng.random()
+                if u < 0.1:
+                    out += ['<tup>', *rng.choice(high, 3), 'd_1', '</tup>']
+                else:
+                    out += ['p_r' if u < 0.2 else str(rng.choice(high)), 'd_1']
+            out += ['<bass>', str(rng.choice(low)), 'd_2', str(rng.choice(low)), 'd_2']
+        out.append('</s>')
+        songs.append(dict(score=' '.join(out), title=f'synthetic-{i}',
+                          keys={str(k): float(rng.random())
+                                for k in rng.choice(keys, 3, replace=False)}))
+    return songs
+
+
+def run_cli(argv):
+    """`cli.main(argv)` on the card -> wall seconds; a non-zero exit raises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f'[cli] {" ".join(argv[:2])} ... exit {rc} in {dt:.1f} s')
+    if rc != 0:
+        raise AssertionError(f'`{" ".join(argv)}` exited {rc}')
+    return dt
+
+
+class DecodeTimer:
+    """Records each `MusicGenerator.generate` call the CLI makes: its prompts,
+    raw outputs and card time, so decode tok/s counts the sampled tokens
+    before repair."""
+
+    def __init__(self):
+        self.calls = []
+        self.real = MusicGenerator.generate
+
+    def __enter__(self):
+        timer = self
+
+        def generate(gen, prompts, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            texts = timer.real(gen, prompts, **kw)
+            torch.cuda.synchronize()
+            timer.calls.append((prompts, texts, time.perf_counter() - t0))
+            return texts
+        MusicGenerator.generate = generate
+        return self
+
+    def __exit__(self, *exc):
+        MusicGenerator.generate = self.real
+
+    def summary(self, vocab):
+        prompts, texts, dt = self.calls[-1]
+        for t in texts:
+            if any(x not in vocab.tok2id for x in t.split()):
+                raise AssertionError(f'a generated token is not in the vocabulary: {t[:200]}')
+        new = sum(len(t.split()) - len(p.split()) for p, t in zip(prompts, texts))
+        return dict(lengths=[len(t.split()) for t in texts], new_tokens=new, seconds=dt,
+                    decode_tok_per_s=new / dt)
+
+
+def check_rendered(out_dir, n):
+    """Every .mxl the generate command wrote parses with the port's io to
+    its song's bars (at least one); every .mid parses too, to at least one bar
+    when the song sounds a note (a MIDI file of rests holds no track); ->
+    (bar counts, share of bar_durations_valid)."""
+    sides = sorted(f for f in os.listdir(out_dir) if f.endswith('.json'))
+    if len(sides) != n:
+        raise AssertionError(f'{out_dir}: {len(sides)} songs written, expected {n}')
+    bars, valid = [], []
+    for side in sides:
+        stem = os.path.join(out_dir, side[:-len('.json')])
+        with open(stem + '.json') as f:
+            rec = json.load(f)
+        n_bar = rec['text'].split().count('<bar>')
+        n_mxl = len(parse_file(stem + '.mxl').parts[0].measures)
+        n_mid = max((len(part.measures) for part in read_midi(stem + '.mid').parts), default=0)
+        sounds = any(x.startswith('p_') and x != 'p_r' for x in rec['text'].split())
+        if n_mxl != n_bar or n_bar < 1 or (sounds and n_mid < 1) or n_mid > n_bar:
+            raise AssertionError(f'{stem}: {n_bar} bars written, {n_mxl} read from the MXL, '
+                                 f'{n_mid} from the MIDI')
+        bars.append(dict(mxl=n_mxl, midi=n_mid, tokens=len(rec['text'].split())))
+        valid.append(bool(rec['bar_durations_valid']))
+    return bars, sum(valid) / len(valid)
+
+
+def pipeline_profile(recipe, ds_dir, dev):
+    """Device-busy share of the recipe's own input pipeline (AugmentedDataset
+    batches through `prefetch`, to the card) feeding training steps: one
+    epoch of `setup_recipe`'s Trainer on the dataset, eval and checkpoints
+    left out."""
+    trainer = tr.setup_recipe(recipe, SongDataset.load(os.path.join(ds_dir, 'train.npz')),
+                              out_dir=os.path.join(RUN_DIR, 'profile'), device=dev)
+    params = params_from_jax(trainer.model.init_flat(SEED), dev)
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    state = trainer.opt.init(params)
+    B = trainer.args.batch_size
+
+    def epoch():
+        for batch in prefetch(trainer.train_dataset.batches(B, shuffle=True, seed=SEED)):
+            trainer.train_step(params, state, tr._to_device(batch, dev))
+    prof = profile(epoch)
+    steps = len(trainer.train_dataset) // B
+    del trainer, params, state
+    torch.cuda.empty_cache()
+    return dict(steps=steps, **{k: prof[k] for k in ('wall_ms', 'device_ms', 'busy_share',
+                                                     'n_kernels')}, top=prof['top'][:6])
+
+
+def cli_path(dev, report):
+    """Phase 8: dataset -> train --recipe 22-11 -> generate (unconditional and
+    conditional) -> re-read; train --recipe 22-04 -> generate; counted."""
+    root = os.path.join(RUN_DIR, 'cli')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    combined, ds = os.path.join(root, 'combined.json'), os.path.join(root, 'dataset')
+    songs = synthetic_songs(64, 150, SEED + 30)
+    with open(combined, 'w') as f:
+        json.dump(dict(music=songs, n_song=len(songs), extractor_meta={}), f)
+    rec = dict(walls={})
+    rec['walls']['dataset'] = run_cli(['dataset', combined, '--out', ds, '--pitch-kind', 'step',
+                                       '--test-frac', '0.1'])
+    with open(os.path.join(ds, 'meta.json')) as f:
+        meta = json.load(f)
+    if (meta['n_train'], meta['n_test']) != (58, 6):
+        raise AssertionError(f'dataset split: {meta}')
+
+    # 22-11: TF-XL base, degree vocab 1190, 1024 / mem 512, batch 21
+    run = os.path.join(root, '22-11')
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    rec['walls']['train 22-11'] = run_cli(['train', '--dataset', ds, '--out', run, '--recipe',
+                                           '22-11', '--epochs', '1'])
+    launches_1122 = dict(fa.LAUNCHES)
+    log_ = step_log(run)
+    steps = [r for r in log_ if 'loss' in r]
+    ep = [r for r in log_ if 'train_tokens_per_sec' in r][0]
+    n_layer = base_config().n_layer
+    n_steps, n_eval = 58 // 21, 1
+    log(f'[cli] train 22-11: losses {[round(r["loss"], 4) for r in steps]}, epoch '
+        f'{ep["train_tokens_per_sec"]:.0f} non-pad tok/s, eval loss {ep["eval_loss"]:.4f} '
+        f'ikr {ep["eval_ikr"]:.4f}; launches {launches_1122}')
+    if len(steps) != n_steps or not all(math.isfinite(r['loss']) for r in steps) or \
+            launches_1122 != dict(flash_rel_attn_fwd=n_layer * (n_steps + n_eval),
+                                  flash_rel_attn_bwd=n_layer * n_steps):
+        raise AssertionError(f'the 22-11 CLI run: {steps} {launches_1122}')
+    if not os.path.exists(os.path.join(run, 'trained.npz')):
+        raise AssertionError('the 22-11 CLI run wrote no trained.npz')
+    rec['train_22_11'] = dict(steps=steps, epoch=ep, launches=launches_1122)
+
+    gen_dir = os.path.join(root, 'gen-22-11')
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    dtok = MusicTokenizer(pitch_kind='degree')
+    with DecodeTimer() as timer:
+        rec['walls']['generate 22-11'] = run_cli([
+            'generate', '--model-dir', run, '--out', gen_dir, '--n', '4', '--key', 'CMajor',
+            '--top-k', '8', '--max-length', '1024', '--seed', str(SEED)])
+        rec['generate_22_11'] = timer.summary(dtok.vocab)
+        # a prompt from a rendered song: 8 bars of a training song as an
+        # extracted MXL, its key from KeyFinder, the first 4 bars via mxl2str
+        toks = songs[0]['score'].split()
+        ninth_bar = [i for i, x in enumerate(toks) if x == '<bar>'][8]
+        text = ' '.join(toks[:ninth_bar] + ['</s>'])
+        prompt_mxl = os.path.join(root, 'prompt.mxl')
+        MusicConverter(mode='full').str2score(text, pitch_kind='step',
+                                              title='prompt').write_mxl(prompt_mxl)
+        keys = KeyFinder(parse_file(prompt_mxl))(return_type='dict')
+        key = max(keys, key=keys.get)
+        cond_dir = os.path.join(root, 'gen-22-11-cond')
+        rec['walls']['generate 22-11 conditional'] = run_cli([
+            'generate', '--model-dir', run, '--out', cond_dir, '--n', '1', '--key', key,
+            '--condition-on', prompt_mxl, '--n-bar', '4', '--top-k', '8', '--max-length',
+            '1024', '--seed', str(SEED)])
+        rec['generate_22_11_conditional'] = dict(key=key, **timer.summary(dtok.vocab))
+    # phase 4's request (seeded weights, 4 keys, top_k 8) in this process
+    # state: the CLI's decode is held against it as well as against phase 4
+    model = TransfoXL(base_config())
+    _, lens, new_tok, dt = run_generation(model, params_from_jax(model.init_flat(SEED), dev),
+                                          dtok, 4, 'sample', SEED, top_k=8)
+    rec['generate_22_11_seeded_after_cli'] = dict(lengths=lens, new_tokens=new_tok, seconds=dt,
+                                                  decode_tok_per_s=new_tok / dt)
+    del model
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f'generation runs the plain decode step, no kernel: {fa.LAUNCHES}')
+    (prompt,), _, _ = timer.calls[-1]
+    if prompt.split()[2] != f'Key_{key}' or prompt.split().count('<bar>') != 4:
+        raise AssertionError(f'the conditional prompt is not 4 bars in {key}: {prompt}')
+    bars, valid = check_rendered(gen_dir, 4)
+    cbars, cvalid = check_rendered(cond_dir, 1)
+    rec['rendered_22_11'] = dict(bars=bars, bar_durations_valid_share=valid,
+                                 conditional_bars=cbars, conditional_valid=cvalid)
+    log(f'[cli] generate 22-11: {json.dumps(rec["generate_22_11"])}; conditional on {key}: '
+        f'{json.dumps(rec["generate_22_11_conditional"])}; phase 4\'s request after them: '
+        f'{json.dumps(rec["generate_22_11_seeded_after_cli"])}; re-read bars {bars} + {cbars}, '
+        f'bar_durations_valid {valid:.2f} / {cvalid:.2f}')
+    rec['profile_22_11'] = pipeline_profile('22-11', ds, dev)
+    log(f'[cli] 22-11 input pipeline + steps: {json.dumps(rec["profile_22_11"])}')
+    shutil.rmtree(run)
+
+    # 22-04: Reformer base, midi vocab 422, 2048, batch 32
+    run = os.path.join(root, '22-04')
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    rec['walls']['train 22-04'] = run_cli(['train', '--dataset', ds, '--out', run, '--recipe',
+                                           '22-04', '--epochs', '1'])
+    launches_2204 = dict(ck.LAUNCHES)
+    log_ = step_log(run)
+    steps = [r for r in log_ if 'loss' in r]
+    ep = [r for r in log_ if 'train_tokens_per_sec' in r][0]
+    n_layer = len(reformer_config().attn_layers)
+    n_steps = 58 // 32
+    log(f'[cli] train 22-04: losses {[round(r["loss"], 4) for r in steps]}, epoch '
+        f'{ep["train_tokens_per_sec"]:.0f} non-pad tok/s, eval loss {ep["eval_loss"]:.4f}; '
+        f'launches {launches_2204}')
+    if len(steps) != n_steps or not all(math.isfinite(r['loss']) for r in steps) or \
+            launches_2204 != dict(chunked_window_attn_fwd=n_layer * (n_steps + n_eval),
+                                  chunked_window_attn_bwd=n_layer * n_steps):
+        raise AssertionError(f'the 22-04 CLI run: {steps} {launches_2204}')
+    rec['train_22_04'] = dict(steps=steps, epoch=ep, launches=launches_2204)
+    gen_dir = os.path.join(root, 'gen-22-04')
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    with DecodeTimer() as timer:
+        rec['walls']['generate 22-04'] = run_cli([
+            'generate', '--model-dir', run, '--out', gen_dir, '--n', '4', '--top-p', '0.9',
+            '--max-length', str(GEN_LEN), '--seed', str(SEED)])
+        rec['generate_22_04'] = timer.summary(MusicTokenizer(pitch_kind='midi').vocab)
+    if any(ck.LAUNCHES.values()):
+        raise AssertionError(f'Reformer decode runs no kernel: {ck.LAUNCHES}')
+    bars, valid = check_rendered(gen_dir, 4)
+    rec['rendered_22_04'] = dict(bars=bars, bar_durations_valid_share=valid)
+    log(f'[cli] generate 22-04: {json.dumps(rec["generate_22_04"])}; re-read bars {bars}, '
+        f'bar_durations_valid {valid:.2f}')
+    rec['profile_22_04'] = pipeline_profile('22-04', ds, dev)
+    log(f'[cli] 22-04 input pipeline + steps: {json.dumps(rec["profile_22_04"])}')
+    log(f'[cli] wall seconds per command: {json.dumps(rec["walls"])}')
+    report['cli'] = rec
+    shutil.rmtree(root, ignore_errors=True)
+    return launches_1122, launches_2204
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -997,7 +1354,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda')
     t_start = time.perf_counter()
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out')
     report = dict(started=time.strftime('%Y-%m-%d %H:%M:%S'))
 
     # 1. device and build
@@ -1168,6 +1524,13 @@ def main() -> int:
     reformer_train_launches = reformer_training_path(dev, rtok, report)
     reformer_card_vs_cpu(dev, report)
     reformer_score_and_generate(dev, rtok, report)
+    torch.cuda.empty_cache()
+
+    # 7. K5 and K6, and the roofline tool with phase 2b's K3 LSH time (bf16)
+    roofline_rows, roofline_launches = roofline_phase(dev, k3[0]['ms'], report)
+
+    # 8. the user's path through the command line
+    cli_path(dev, report)
     report.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                   seconds=time.perf_counter() - t_start)
     shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -1186,10 +1549,15 @@ def main() -> int:
                row('chunked_window_attn_fwd', k3[0], K3_REPLACES,
                    reformer_train_launches['chunked_window_attn_fwd']),
                row('chunked_window_attn_bwd', k4[0], K4_REPLACES,
-                   reformer_train_launches['chunked_window_attn_bwd'])]
+                   reformer_train_launches['chunked_window_attn_bwd']),
+               # K5 / K6: one call of K = 1024 passes; launches of the roofline tool
+               row('mask_chain', roofline_rows['mask_chain'], K5_REPLACES,
+                   roofline_launches['mask_chain']),
+               row('muladd_chain', roofline_rows['muladd_chain'], K6_REPLACES,
+                   roofline_launches['muladd_chain'])]
     report['kernels'] = kernels
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(report, f, indent=1)
     log(f'[done] {report["seconds"]:.1f} s')
     print(card)

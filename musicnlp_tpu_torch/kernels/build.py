@@ -19,19 +19,20 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ['SOURCES', 'build', 'build_all', 'load']
+__all__ = ['SOURCES', 'build', 'build_all', 'lib_path', 'load']
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 SOURCES = ('flash_rel_attn_fwd', 'flash_rel_attn_bwd', 'chunked_window_attn_fwd',
-           'chunked_window_attn_bwd')
+           'chunked_window_attn_bwd', 'mask_chain', 'muladd_chain')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where `csrc/<name>.cu` is (or will be) built."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     h.update((CSRC / f'{name}.cu').read_bytes())
     return BUILD_DIR / f'lib{name}-{h.hexdigest()[:12]}.so'
@@ -51,7 +52,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, dict]:
     procs, info = {}, {}
     t0 = time.perf_counter()
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if out.exists():
             info[name] = dict(seconds=0.0, ptxas='', cached=True)
             continue
@@ -82,7 +83,7 @@ def load(name: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build(name)
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = restype

@@ -38,7 +38,8 @@ from musicnlp_tpu_torch.utils.prefetch import prefetch
 from musicnlp_tpu_torch.vocab import MusicTokenizer
 
 __all__ = ['TrainArgs', 'AdamW', 'make_optimizer', 'Trainer', 'describe_tokenizer',
-           'rebuild_tokenizer', 'get_model_n_tokenizer', 'get_all_setup', 'RECIPES']
+           'rebuild_tokenizer', 'get_model_n_tokenizer', 'get_all_setup', 'RECIPES',
+           'setup_recipe']
 
 logger = logging.getLogger(__name__)
 
@@ -467,8 +468,7 @@ def get_all_setup(model_name: str, model_size: str, train_dataset=None, eval_dat
 
 
 # The reference's published training recipes (reference generated-samples/
-# README.md; trainer/train.py:474-591), as data.  Wiring a recipe to its
-# datasets (`setup_recipe`) comes with the data-pipeline slice.
+# README.md; trainer/train.py:474-591), as data; `setup_recipe` wires one.
 RECIPES: Dict[str, Dict] = {
     # Reformer base, midi pitch, 8 epochs (POP909 + LMD subset)
     '22-04': dict(
@@ -500,3 +500,41 @@ RECIPES: Dict[str, Dict] = {
         generation=dict(strategy='sample', top_k=8),
     ),
 }
+
+
+def setup_recipe(name: str, song_datasets, eval_datasets=None, out_dir: str = None,
+                 train_args: Dict = None, overrides: Dict = None,
+                 device: Optional[Union[str, torch.device]] = None) -> Trainer:
+    """Wire a named recipe end to end: model + tokenizer + augmented datasets
+    (+ proportional mixing when the recipe uses it) + Trainer (reference
+    train.py:590-626).
+
+    overrides: shallow recipe-field overrides (e.g. model_size='small' to run
+    the 22-11 recipe at a different size tier)."""
+    from musicnlp_tpu_torch.preprocess.dataset import (
+        AugmentedDataset, ProportionMixingDataset, SongDataset,
+    )
+    r = dict(RECIPES[name], **(overrides or {}))
+    model, tokenizer = get_model_n_tokenizer(
+        r['model_name'], r['model_size'], pitch_kind=r['pitch_kind'],
+        max_length=r['max_length'], model_config=r.get('model_config'), device=device)
+    aug = dict(r['augment'])
+    if isinstance(song_datasets, SongDataset):
+        song_datasets = [song_datasets]
+    trains = [AugmentedDataset(sd, tokenizer, dataset_split='train', **aug)
+              for sd in song_datasets]
+    k = r.get('proportional_mixing_k')
+    train = (ProportionMixingDataset(trains, k=k) if (k and len(trains) > 1)
+             else trains[0] if len(trains) == 1 else
+             ProportionMixingDataset(trains, k=k or 10 ** 9))
+    evald = None
+    if eval_datasets is not None:
+        if isinstance(eval_datasets, SongDataset):
+            eval_datasets = [eval_datasets]
+        aug_eval = {k_: v for k_, v in aug.items() if k_ != 'random_crop'}
+        evald = AugmentedDataset(eval_datasets[0], tokenizer, random_crop=False,
+                                 dataset_split='test', **aug_eval)
+    args = TrainArgs.from_preset(r['model_name'], r['model_size'],
+                                 **dict(r.get('train_args', {}), **(train_args or {})))
+    return Trainer(model, tokenizer, train, evald, args=args, out_dir=out_dir,
+                   ikr_mode=r.get('ikr_mode', 'vanilla'))

@@ -1,4 +1,4 @@
-"""K1-K4 on the card against their plain versions (needs an NVIDIA GPU and
+"""K1-K6 on the card against their plain versions (needs an NVIDIA GPU and
 nvcc).
 
 Run on a GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`;
@@ -10,6 +10,7 @@ import torch
 from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
+from musicnlp_tpu_torch.ops import roofline_kernels as rk
 from musicnlp_tpu_torch.ops.flash_attention import (
     LAUNCHES, FlashRelAttn, distance_table, flash_rel_attn_bwd, flash_rel_attn_bwd_plain,
     flash_rel_attn_fwd, flash_rel_attn_fwd_plain,
@@ -21,7 +22,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device (K1-K4 are CUDA kernels with no CPU mode)')
+        pytest.skip('needs a CUDA device (K1-K6 are CUDA kernels with no CPU mode)')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device('cuda')
@@ -182,3 +183,23 @@ def test_reformer_forward_and_backward_launch_once_per_layer(dev):
     cpu = Reformer(cfg, device='cpu')
     cpu_loss, _ = cpu.loss(cpu.init(seed=0), ids.cpu(), ids.cpu())
     assert abs(float(loss.detach()) - float(cpu_loss)) <= 1e-4 * abs(float(cpu_loss))
+
+
+@pytest.mark.parametrize('K', [1, 4, 32])
+def test_k5_k6_match_plain(dev, K):
+    """K5 (the mask / softmax chain) within one bf16 ulp of its plain version
+    (f32 sums in other orders may flip a bf16 rounding); K6 (the FMA chain)
+    bit-equal to it (the plain version's f64 product and sum are exact, so
+    it rounds once per pass, as the FMA does).  One launch each."""
+    g = torch.Generator(device=dev).manual_seed(K)
+    s = torch.randn(3, 8, 64, rk.W, generator=g, device=dev)
+    kp = (torch.arange(rk.W, dtype=torch.int32, device=dev) - 40).expand(3, 8, rk.W).contiguous()
+    qp = torch.arange(64, dtype=torch.int32, device=dev).expand(3, 8, 64).contiguous()
+    kp[:, :, ::5] = 10 ** 6                    # masked keys beside the valid and self ones
+    before = dict(rk.LAUNCHES)
+    got5, got6 = rk.mask_chain(s, kp, qp, K), rk.muladd_chain(s, K)
+    want5, want6 = rk.mask_chain_plain(s, kp, qp, K), rk.muladd_chain_plain(s, K)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == {n: before[n] + 1 for n in before}
+    assert bool(((got5 - want5).abs() <= 2.0 ** -7 * want5.abs()).all())
+    assert got6.equal(want6)

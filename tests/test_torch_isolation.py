@@ -16,6 +16,7 @@ from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
     chunked_window_attn, chunked_window_attn_bwd)
 from musicnlp_tpu_torch.ops.flash_attention import flash_rel_attn_fwd
+from musicnlp_tpu_torch.ops.roofline_kernels import mask_chain, muladd_chain
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax, save_meta
 
@@ -33,7 +34,10 @@ def test_no_jax_in_sys_modules():
                      if m.split('.')[0] in ('jax', 'jaxlib', 'musicnlp_tpu'))
         print(len(names), bad)
         assert not bad, bad
-        assert len(names) >= 15, names
+        assert len(names) >= 30, names
+        for sub in ('io.musicxml', 'preprocess.dataset', 'preprocess.music_export',
+                    'tools.vpu_roofline', 'ops.roofline_kernels', 'cli', '__main__'):
+            assert pkg.__name__ + '.' + sub in names, sub
     ''')
     # a PATH without nvcc: importing the kernel modules builds nothing
     env = dict(os.environ, PATH='/usr/bin:/bin', PYTHONPATH=REPO)
@@ -94,6 +98,18 @@ def test_k3_k4_wrappers_refuse_other_devices():
         chunked_window_attn(t, t, t, pos, pos, chunk=32, scale=0.25)
     with pytest.raises(ValueError, match='CUDA'):
         chunked_window_attn_bwd(t, t, t, pos, pos, t, t, lse, lse, chunk=32, scale=0.25)
+
+
+def test_k5_k6_wrappers_refuse_other_devices():
+    """As K1: CPU tensors take the plain versions, CUDA tensors launch K5 / K6,
+    and any other device raises."""
+    s = torch.empty(2, 8, 64, 128, device='meta')
+    kp = torch.empty(2, 8, 128, dtype=torch.int32, device='meta')
+    qp = torch.empty(2, 8, 64, dtype=torch.int32, device='meta')
+    with pytest.raises(ValueError, match='CUDA'):
+        mask_chain(s, kp, qp, 4)
+    with pytest.raises(ValueError, match='CUDA'):
+        muladd_chain(s, 4)
 
 
 @pytest.mark.parametrize('field,value', [('hf_compat', True), ('remat', True),
