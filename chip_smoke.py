@@ -12,13 +12,16 @@ every kernel of those paths against its plain PyTorch version on the card.
 
 Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device and build: the card's name and power limit, `nvcc` of every
-     kernel source in `musicnlp_tpu_torch/csrc/`, all started together;
+     kernel source in `musicnlp_tpu_torch/csrc/`, all started together; the
+     tensor-core instructions (HMMA / HGMMA) in the SASS of each K2 / K4
+     kernel -- the bf16 kernels must have some, the f32 ones keep FMAs;
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
      a memory + window case and a head-dim-16 ragged case; times of each
      kernel, its plain version and a one-call PyTorch yardstick the port
      never calls (`scaled_dot_product_attention` with the positional term as
-     a float mask; for K2 its backward, with the mask requiring grad);
+     a float mask; for K2 its backward, with the mask requiring grad); K2's
+     achieved TFLOP/s (`k2_work`'s operations over its time);
   3. the training path, counts set to 0 before and read after:
      `Trainer.train` for one epoch of 6 steps of 21 x 1024 seeded synthetic
      songs (dropout 0.1, warmup-cosine AdamW, eval with a padded final batch,
@@ -38,10 +41,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   6. the Reformer, counts set to 0 before each path and read after: K3
      (forward) and K4 (backward, with an lse cotangent) against their plain
      versions were held in phase 2b (the 22-04 local and LSH shapes in bf16
-     and f32, a padded case, a D 32 / chunk 32 single-block case; times of
-     each kernel, its plain version and an SDPA yardstick over the unfolded
-     windows); `Trainer.train` for 4 steps of 32 x 2048 synthetic songs
-     (12 K3 + 12 K4 launches per step), `load_trained` + `score_batch` on the
+     and f32, a padded case, a D 32 / chunk 32 single-block case, a bf16
+     D 16 / chunk 32 case; times of each kernel, its plain version and an
+     SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s);
+     `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
+     K4 launches per step), `load_trained` + `score_batch` on the
      run, step time, memory and a profile, a 15-step overfit; one f32 step
      at depth 2 on the card against the CPU (on shared branches); then
      `score_batch` at 8 x 2048 (12 K3 launches, no K4) and
@@ -141,6 +145,13 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # K5 vs plain: each entry within one bf16 ulp (f32 sums in other orders may
 # flip a bf16 rounding); K6 vs plain: bit-equal (the plain version's f64
 # product and sum are exact, so it rounds once per pass, as the FMA does)
+
+# the tensor-core kernels of K2 / K4 (bf16), by name in each library's SASS
+TC_KERNELS = {'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc'),
+              'chunked_window_attn_bwd': ('k4_tc',)}
+FMA_KERNELS = {'flash_rel_attn_bwd': ('k2_dkdv_kernel', 'k2_dq_kernel'),
+               'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel',)}
+SASS_MMA = {}                                    # library -> {function: HMMA + HGMMA}, phase 1
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out')
 
@@ -191,6 +202,29 @@ def profile(fn) -> dict:
     device_ms = sum(r['device_ms'] for r in rows)
     return dict(wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
                 n_kernels=sum(r['count'] for r in rows), top=rows[:15])
+
+
+def tensor_core_check(report):
+    """HMMA / HGMMA instructions in the SASS of every K2 / K4 kernel: each bf16
+    kernel must have some (an FMA-only build is not the tensor-core design),
+    the f32 kernels none (their parity rests on f32 FMAs)."""
+    for lib, tc_names in TC_KERNELS.items():
+        SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
+        for name in tc_names + FMA_KERNELS[lib]:
+            fns = [c for f, c in counts.items() if name in f]
+            if not fns or (name in tc_names and min(fns) == 0) or \
+                    (name not in tc_names and any(fns)):
+                raise AssertionError(f'{lib}: tensor-core instructions of {name}: {counts}')
+    log(f'[sass] HMMA/HGMMA per kernel function: {json.dumps(SASS_MMA)}')
+    report['sass_tensor_core_instructions'] = dict(SASS_MMA)
+
+
+def mma_instructions(lib, dtype, template_args):
+    """Tensor-core instructions of the kernels a call of `lib` runs in this
+    dtype, at these template arguments (a mangled-name fragment)."""
+    names = TC_KERNELS[lib] if dtype == torch.bfloat16 else FMA_KERNELS[lib]
+    return sum(c for f, c in SASS_MMA[lib].items()
+               if template_args in f and any(n in f for n in names))
 
 
 # ------------------------------------------------------------------ K1 cases
@@ -271,14 +305,14 @@ def k1_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
 # ------------------------------------------------------------------ K2 cases
 def k2_work(rw, k, g, T, S, M, mem_valid, window):
     """(flops, bytes) this call needs: 8 H-long products per visible (q, k)
-    pair (scores AC and BD, dP, dV, dK, dRW, dRR, dG); inputs rw, rr, k, v,
-    dO, G, lse, delta read once, outputs drw, drr (input dtype), dk, dv and
-    dG (f32) written once."""
+    pair (scores AC and BD, dP, dV, dK, dRW, dRR, dG); inputs rw, rr, out,
+    dO, k, v, G and lse read once (delta = dO . O is the call's own), outputs
+    drw, drr (input dtype), dk, dv and dG (f32) written once."""
     BN, _, H = rw.shape
     visible = int(fa._key_mask(T, S, M, mem_valid, window, rw.device).sum())
     flops = 8 * 2 * H * visible * BN
     e = rw.element_size()
-    nbytes = (e * (3 * BN * T * H + 2 * BN * S * H + g.numel()) + 4 * 2 * BN * T
+    nbytes = (e * (4 * BN * T * H + 2 * BN * S * H + g.numel()) + 4 * BN * T
               + e * 2 * BN * T * H + 4 * (2 * BN * S * H + g.numel()))
     return flops, nbytes
 
@@ -317,7 +351,9 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
     del got, ref
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], BN=B * N, T=T, S=S, M=M, H=H,
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=max(errs.values()),
-               abs_err=errs, rel_err=rel, tol_rel=TOL_K2[dtype])
+               abs_err=errs, rel_err=rel, tol_rel=TOL_K2[dtype],
+               tensor_core_instructions=mma_instructions('flash_rel_attn_bwd', dtype,
+                                                         f'Li{H}E'))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_bwd(*args, **kw))
         rec['plain_ms'] = time_ms(lambda: fa.flash_rel_attn_bwd_plain(*args, **kw), iters=3)
@@ -327,7 +363,8 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                   bound_by='operations' if t_ops >= t_bytes else 'bytes')
+                   bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                   tflops=flops / rec['ms'] / 1e9)
     fa.LAUNCHES.update(saved)                    # comparison launches do not count
     log(f'[k2] {json.dumps(rec)}')
     torch.cuda.empty_cache()
@@ -713,7 +750,9 @@ def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     del got, ref
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
                lsh=lsh, pads=pads, max_abs_err=max(errs.values()), abs_err=errs, rel_err=rel,
-               tol_rel=TOL_K4[dtype])
+               tol_rel=TOL_K4[dtype],
+               tensor_core_instructions=mma_instructions('chunked_window_attn_bwd', dtype,
+                                                         f'Li{chunk}ELi{D}E'))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_bwd(*args, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_bwd_plain(*args, **kw), iters=3)
     ys = sdpa_window_yardstick(q, k, v, qpos, kpos, **kw)
@@ -729,7 +768,8 @@ def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     nbytes = (6 * e * D + 4 * 4 + 2 * 4 * D) * G * T
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-               bound_by='operations' if t_ops >= t_bytes else 'bytes')
+               bound_by='operations' if t_ops >= t_bytes else 'bytes',
+               tflops=flops / rec['ms'] / 1e9)
     ck.LAUNCHES.update(saved)                    # comparison launches do not count
     log(f'[k4] {json.dumps(rec)}')
     torch.cuda.empty_cache()
@@ -1368,6 +1408,7 @@ def main() -> int:
         log(f'[build] {name}: {info["seconds"]:.1f} s cached={info["cached"]} {ptx}')
     log(f'[build] all kernels, in parallel: {build_s:.1f} s')
     report.update(card=card, build_seconds=build_s)
+    tensor_core_check(report)
 
     # 2. K1 and K2 against their plain versions on the card
     k1 = [
@@ -1412,6 +1453,7 @@ def main() -> int:
         k4_case(dev, 'local-bf16', torch.bfloat16, 384, 2048, 64, 64, False, 0, 43),
         k4_case(dev, 'local-padded-f32', torch.float32, 96, 2048, 64, 64, False, 300, 44),
         k4_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 45),
+        k4_case(dev, 'd16-chunk32-padded-bf16', torch.bfloat16, 48, 512, 16, 32, True, 40, 46),
     ]
     report.update(k3_cases=k3, k4_cases=k4)
 

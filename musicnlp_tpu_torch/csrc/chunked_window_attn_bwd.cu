@@ -13,30 +13,46 @@
 // Rounding points of the TPU kernel: p and ds are rounded to the input dtype
 // before the products; sums are f32, dk / dv are returned in f32.
 //
-// Design (right and simple first; no atomics).  The TPU grid runs in order
-// and lands each program's overlapping window gradients on resident [T, D]
-// accumulators; Hopper blocks run in no order, so one block of 256 threads
-// per (g, chunk j) owns both the dq rows of query chunk j and the dk / dv
-// rows of key chunk j, and walks the three C x C tiles that feed them:
-//   (queries j,   keys j-1) -> dq          (skipped for j = 0: zero keys)
-//   (queries j,   keys j)   -> dq, dk, dv
-//   (queries j+1, keys j)   -> dk, dv      (skipped for the last chunk)
-// Each tile stages Q, dO, K and V as f32 rows padded to D+1 floats, computes
-// s and dp with f32 FMAs, writes rounded p and ds to shared memory, and adds
-// its products into register accumulators; every output row is written once.
-// Shared memory: ~101 KB at C = D = 64, two blocks per SM.
+// Design (no atomics).  The TPU grid runs in order and lands each program's
+// overlapping window gradients on resident [T, D] accumulators; Hopper
+// blocks run in no order, so a block owns the dq rows of its query chunks
+// and the dk / dv rows of its key chunks, and every output row is written
+// once.  The tiles that feed chunk j:
+//   (queries j,   keys j-1) -> dq_j        (none for j = 0: zero keys)
+//   (queries j,   keys j)   -> dq_j, dk_j, dv_j
+//   (queries j+1, keys j)   -> dk_j, dv_j  (none for the last chunk)
 //
-// Bound on the H100: at the 22-04 LSH training shape (G 768, T 2048, D 64,
-// C 64, bf16) the call moves ~1.8 GB (q, k, v, dO, positions, lse, delta,
-// dlse read once; dq in bf16, dk and dv in f32 written once): 0.55 ms at
-// 3.35 TB/s, against ~129 GFLOP (five D-long products per visible pair),
-// 0.13 ms at 989 TFLOP/s -- bytes bound it.  This version recomputes the
-// (j, j) tile's scores once per block but reloads Q / dO per tile and runs
-// its products on the FP32 pipes; mma/wgmma tiles are the next step.
+// f32 (chunked_window_attn_bwd_kernel): one 256-thread block per (g, chunk
+// j) walks those three tiles; it stages Q, dO, K and V as f32 rows padded to
+// D+1 floats, computes s and dp with f32 FMAs, writes rounded p and ds to
+// shared memory and adds their products into register accumulators (~101 KB
+// of shared memory at C = D = 64, two blocks per SM).  Kept as it is: the
+// f32 parity of the tests rests on it.
+//
+// bf16 (k4_tc), the training path: one block of C / 16 warps per (g, run of
+// RUN = 16 consecutive chunks).  It walks the run's chunks in order: the
+// tile (j+1, j) gives dk_j / dv_j and also dq_{j+1}, carried to the next
+// chunk, so a chunk costs two tiles, not three (plus one look-back tile per
+// run for the run's first dq).  Warp w owns query rows 16w.. for S, dP and
+// dq and key rows 16w.. for dk and dv.  S = Q K^T, dP = dO V^T, dq += dS K,
+// dv += P^T dO and dk += dS^T Q are mma.sync m16n8k16 products (bf16 in, f32
+// accumulate; mma_bf16.cuh); the masks, self_bias, the finite NEG_INF, the
+// lse cotangent and the exp stay f32 on the accumulator fragments, and p and
+// ds are rounded to bf16 where they enter a product, as on the TPU.  Q / dO
+// (3 slots) and K / V (2 slots) sit in shared memory as bf16 rows of stride
+// D+8; each chunk is loaded once per run by cp.async, the next chunk's while
+// the current one's tiles compute.  Shared memory ~111 KB at C = D = 64: two
+// blocks (eight warps) per SM.
+//
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
+#include "row_dot.cuh"
 
 namespace {
 
@@ -230,6 +246,240 @@ chunked_window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// ------------------------------------------------- bf16 on the tensor cores
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace mma_bf16;
+
+constexpr int RUN = 16;                 // consecutive chunks per block
+
+template <int C, int D>
+constexpr size_t smem_bytes() {
+    // Q, dO [3 slots][C][D+8]; K, V [2 slots][C][D+8]; P, dS [C][C+8] bf16;
+    // lse, delta, dlse, qpos [3][C]; kpos [2][C]
+    return 2 * (10 * (size_t)C * (D + 8) + 2 * (size_t)C * (C + 8)) + 4 * (4 * 3 * C + 2 * C);
+}
+
+template <int C, int D>
+__global__ void __launch_bounds__(2 * C, 2)
+k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+      const bf16* __restrict__ dout, const int* __restrict__ qpos, const int* __restrict__ kpos,
+      const float* __restrict__ lse, const float* __restrict__ delta,
+      const float* __restrict__ dlse, bf16* __restrict__ dq, float* __restrict__ dk,
+      float* __restrict__ dv, int T_, float scale, float self_bias) {
+    constexpr int NT = 2 * C;           // C / 16 warps
+    constexpr int DS = D + 8, PS = C + 8;
+    constexpr int NB = C / 8;           // key columns: C tiles of 8
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [3][C][DS]: query chunk c in slot c % 3
+    bf16* sO = sQ + 3 * C * DS;                     // dO, the same slots
+    bf16* sK = sO + 3 * C * DS;                     // [2][C][DS]: key chunk c in slot c % 2
+    bf16* sV = sK + 2 * C * DS;
+    bf16* sP = sV + 2 * C * DS;                     // [C][PS]
+    bf16* sDS = sP + C * PS;
+    float* sL = reinterpret_cast<float*>(sDS + C * PS);  // [3][C] each, per query slot
+    float* sDe = sL + 3 * C;
+    float* sDl = sDe + 3 * C;
+    int* sQp = reinterpret_cast<int*>(sDl + 3 * C);
+    int* sKp = sQp + 3 * C;                         // [2][C], per key slot
+
+    const int gr = blockIdx.y, n = T_ / C;
+    const int j0 = blockIdx.x * RUN, j1 = min(j0 + RUN, n);
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const size_t base = (size_t)gr * T_;
+
+    auto load_q = [&](int c) {                      // query chunk c -> slot c % 3
+        const int slot = c % 3;
+        stage_rows<D>(sQ + slot * C * DS, q + base * D, c * C, C, T_, tid, NT);
+        stage_rows<D>(sO + slot * C * DS, dout + base * D, c * C, C, T_, tid, NT);
+        for (int e = tid; e < C; e += NT) {
+            const size_t r = base + (size_t)c * C + e;
+            cp_async4(sL + slot * C + e, lse + r, true);
+            cp_async4(sDe + slot * C + e, delta + r, true);
+            cp_async4(sDl + slot * C + e, dlse + r, true);
+            cp_async4(sQp + slot * C + e, qpos + r, true);
+        }
+    };
+    auto load_k = [&](int c) {                      // key chunk c -> slot c % 2
+        const int slot = c % 2;
+        stage_rows<D>(sK + slot * C * DS, k + base * D, c * C, C, T_, tid, NT);
+        stage_rows<D>(sV + slot * C * DS, v + base * D, c * C, C, T_, tid, NT);
+        for (int e = tid; e < C; e += NT)
+            cp_async4(sKp + slot * C + e, kpos + base + (size_t)c * C + e, true);
+    };
+
+    float dqa[D / 8][4] = {}, dka[D / 8][4] = {}, dva[D / 8][4] = {};
+
+    // the tile (query chunk qc, key chunk kc): S, dP and p / ds on the
+    // accumulator fragments; dq += dS K (rows 16w.. of qc) if want_dq; dv +=
+    // P^T dO and dk += dS^T Q (rows 16w.. of kc) if want_kv
+    auto tile = [&](int qc, int kc, bool want_dq, bool want_kv) {
+        const int qs = qc % 3, ks = kc % 2;
+        const bf16* tQ = sQ + qs * C * DS;
+        const bf16* tO = sO + qs * C * DS;
+        const bf16* tK = sK + ks * C * DS;
+        const bf16* tV = sV + ks * C * DS;
+        // s = Q K^T, dp = dO V^T: query rows 16w + g (+8), key columns 8b + 2t (+1)
+        float s[NB][4], dp[NB][4];
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[b][e] = dp[b][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t aq[4], ao[4];
+            load_a(aq, tQ, DS, 16 * w, 16 * kk, lane);
+            load_a(ao, tO, DS, 16 * w, 16 * kk, lane);
+#pragma unroll
+            for (int np = 0; np < C / 16; ++np) {
+                uint32_t bk[4], bv[4];
+                load_b(bk, tK, DS, 16 * np, 16 * kk, lane);
+                load_b(bv, tV, DS, 16 * np, 16 * kk, lane);
+                mma(s[2 * np], aq, bk[0], bk[1]);
+                mma(s[2 * np + 1], aq, bk[2], bk[3]);
+                mma(dp[2 * np], ao, bv[0], bv[1]);
+                mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int qr = 16 * w + gq + 8 * h;
+            const int qp = sQp[qs * C + qr];
+            const float l = sL[qs * C + qr], de = sDe[qs * C + qr], dl = sDl[qs * C + qr];
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int kp = sKp[ks * C + 8 * b + 2 * t + e];
+                    float x = s[b][2 * h + e] * scale;
+                    if (kp <= qp) {
+                        if (kp == qp) x += self_bias;
+                    } else {
+                        x = kNegInf;
+                    }
+                    const float p = expf(x - l);
+                    const float ds = p * ((dp[b][2 * h + e] - de) + dl) * scale;
+                    s[b][2 * h + e] = p;          // rounded to bf16 by `pack`
+                    dp[b][2 * h + e] = ds;
+                }
+        }
+        if (want_dq) {
+#pragma unroll
+            for (int kk = 0; kk < C / 16; ++kk) {
+                uint32_t a[4];
+                c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+                for (int np = 0; np < D / 16; ++np) {
+                    uint32_t bk[4];
+                    load_bt(bk, tK, DS, 16 * np, 16 * kk, lane);
+                    mma(dqa[2 * np], a, bk[0], bk[1]);
+                    mma(dqa[2 * np + 1], a, bk[2], bk[3]);
+                }
+            }
+        }
+        if (want_kv) {
+            __syncthreads();            // the previous tile's P / dS are read
+#pragma unroll
+            for (int b = 0; b < NB; ++b)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int o = (16 * w + gq + 8 * h) * PS + 8 * b + 2 * t;
+                    *reinterpret_cast<uint32_t*>(sP + o) = pack(s[b][2 * h], s[b][2 * h + 1]);
+                    *reinterpret_cast<uint32_t*>(sDS + o) = pack(dp[b][2 * h], dp[b][2 * h + 1]);
+                }
+            __syncthreads();
+#pragma unroll
+            for (int kq = 0; kq < C / 16; ++kq) {
+                uint32_t ap[4], ad[4];
+                load_at(ap, sP, PS, 16 * w, 16 * kq, lane);
+                load_at(ad, sDS, PS, 16 * w, 16 * kq, lane);
+#pragma unroll
+                for (int np = 0; np < D / 16; ++np) {
+                    uint32_t bo[4], bq[4];
+                    load_bt(bo, tO, DS, 16 * np, 16 * kq, lane);
+                    load_bt(bq, tQ, DS, 16 * np, 16 * kq, lane);
+                    mma(dva[2 * np], ap, bo[0], bo[1]);
+                    mma(dva[2 * np + 1], ap, bo[2], bo[3]);
+                    mma(dka[2 * np], ad, bq[0], bq[1]);
+                    mma(dka[2 * np + 1], ad, bq[2], bq[3]);
+                }
+            }
+        }
+    };
+
+    // rows 16w + g (+8) of chunk c: acc (zeroed after) into out, as bf16 or f32
+    auto store = [&](float (&acc)[D / 8][4], int c, auto* out) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const size_t row = base + (size_t)c * C + 16 * w + gq + 8 * h;
+#pragma unroll
+            for (int nb = 0; nb < D / 8; ++nb) {
+                const size_t o = row * D + 8 * nb + 2 * t;
+                if constexpr (sizeof(*out) == 2)
+                    *reinterpret_cast<uint32_t*>(out + o) = pack(acc[nb][2 * h], acc[nb][2 * h + 1]);
+                else
+                    *reinterpret_cast<float2*>(out + o) = make_float2(acc[nb][2 * h],
+                                                                      acc[nb][2 * h + 1]);
+                acc[nb][2 * h] = acc[nb][2 * h + 1] = 0.f;
+            }
+        }
+    };
+
+    // The run's tiles in order, one tile per trip (a single copy of the tile
+    // code): the look-back tile (j0, j0 - 1), for dq_{j0} alone, if j0 > 0;
+    // then for each chunk j the tile (j, j) -> dq_j (then written), dk_j, dv_j
+    // and the tile (j+1, j) -> dk_j, dv_j (then written) and dq_{j+1},
+    // carried to chunk j+1 (not past the run, whose next block takes its own
+    // look-back tile).  Chunk j's data (K_j, Q_j, Q_{j+1}) has landed before
+    // its first tile; chunk j+1's is loaded while chunk j's tiles run.
+    if (j0 > 0) load_k(j0 - 1);
+    load_q(j0);
+    load_k(j0);
+    if (j0 + 1 < n) load_q(j0 + 1);
+    cp_commit();
+    for (int tau = j0 > 0 ? -1 : 0; tau < 2 * (j1 - j0); ++tau) {
+        const bool look = tau < 0, own = !look && (tau & 1) == 0;
+        const int j = look ? j0 : j0 + (tau >> 1);
+        if (!look && !own && j + 1 >= n) continue;        // the last chunk has no (j+1, j)
+        if (look || own) {
+            cp_wait<0>();
+            __syncthreads();            // chunk j's data landed; the previous slots are free
+            if (own && j + 1 < j1) {
+                load_k(j + 1);
+                if (j + 2 < n) load_q(j + 2);
+            }
+            cp_commit();
+        }
+        tile(look || own ? j : j + 1, look ? j0 - 1 : j, look || own || j + 1 < j1, !look);
+        if (own) store(dqa, j, dq);
+        if (!look && (!own || j + 1 >= n)) {
+            store(dka, j, dk);
+            store(dva, j, dv);
+        }
+    }
+    cp_wait<0>();                       // no copy left in flight
+}
+
+template <int C, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const int* qpos, const int* kpos, const float* lse, const float* delta,
+                   const float* dlse, void* dq, float* dk, float* dv, int G, int T_,
+                   float scale, float self_bias, cudaStream_t stream) {
+    const size_t smem = smem_bytes<C, D>();
+    auto kern = k4_tc<C, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3((T_ / C + RUN - 1) / RUN, G), 2 * C, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, qpos, kpos, lse,
+        delta, dlse, (bf16*)dq, dk, dv, T_, scale, self_bias);
+    return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const int* qpos, const int* kpos, const float* lse, const float* delta,
@@ -260,8 +510,12 @@ struct Args {
 
 template <typename T, int C, int D>
 cudaError_t run(const Args& a) {
-    return launch<T, C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
-                           a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias, a.st);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)      // the tensor-core kernel
+        return tc::launch<C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
+                                a.dlse, a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias, a.st);
+    else
+        return launch<T, C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
+                               a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias, a.st);
 }
 
 template <typename T, int C>
@@ -287,8 +541,9 @@ cudaError_t run_c(int C, int D, const Args& a) {
 
 // q/k/v/dout [G, T, D] (dtype 0 = f32, 1 = bf16), qpos/kpos int32 [G, T],
 // lse/delta/dlse f32 [G, T]; dq [G, T, D] in the input dtype, dk/dv [G, T, D]
-// f32.  T % chunk == 0; chunk 32 or 64; D 16, 32 or 64.  Launches on
-// `stream`; returns cudaGetLastError() of the launch.
+// f32.  T % chunk == 0; chunk 32 or 64; D 16, 32 or 64.  f32 runs the FMA
+// kernel, bf16 the tensor-core one.  Launches on `stream`; returns
+// cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* qpos, const void* kpos,
                                        const void* lse, const void* delta, const void* dlse,
@@ -302,4 +557,13 @@ extern "C" int chunked_window_attn_bwd(const void* q, const void* k, const void*
     if (dtype == 0) return (int)run_c<float>(chunk, D, a);
     if (dtype == 1) return (int)run_c<__nv_bfloat16>(chunk, D, a);
     return (int)cudaErrorInvalidValue;
+}
+
+// delta[r] = dout[r] . out[r] in f32 over rows [rows, D] of one dtype (0 =
+// f32, 1 = bf16): the input `delta` of chunked_window_attn_bwd, for its
+// wrapper.  Launches on `stream`; returns cudaGetLastError().
+extern "C" int chunked_window_attn_bwd_delta(const void* dout, const void* out, void* delta,
+                                             long long rows, int D, int dtype, void* stream) {
+    return (int)row_dot::launch(dout, out, (float*)delta, rows, D, dtype,
+                                (cudaStream_t)stream);
 }

@@ -4,9 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface.  It is compiled with `nvcc` for
 Hopper (`sm_90a`) into `build/kernels/lib<name>-<digest>.so` at the root of
 the checkout, at first use (or all at once by `build_all`, one `nvcc` per
 source started together), and opened with `ctypes`.  The digest covers the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing here runs at import: the CPU tests import every module
-on machines without `nvcc`.
+source, every shared header `csrc/*.cuh` and the flags, so an edited source
+or header is rebuilt and a stale library is never loaded.  Nothing here runs
+at import: the CPU tests import every module on machines without `nvcc`.
 """
 from __future__ import annotations
 
@@ -34,7 +34,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 def lib_path(name: str) -> Path:
     """Where `csrc/<name>.cu` is (or will be) built."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    h.update((CSRC / f'{name}.cu').read_bytes())
+    for src in [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f'lib{name}-{h.hexdigest()[:12]}.so'
 
 

@@ -29,8 +29,9 @@ query; pad queries keep their positions.
 Bound on the H100 (SXM, 700 W): at the 22-04 LSH shape (G = 32*12*2 = 768,
 T 2048, D 64, c 64, bf16) K3 moves ~0.82 GB (q, k, v, positions in; ctx and
 lse out: 0.25 ms at 3.35 TB/s) for ~52 GFLOP (0.05 ms at 989 TFLOP/s), and
-K4 ~1.8 GB (0.55 ms): both are bound by bytes.  Both kernels compute with
-f32 FMAs from shared memory; `chip_smoke.py` measures them against that bound.
+K4 ~1.8 GB (0.55 ms): both are bound by bytes.  K3 computes with f32 FMAs
+from shared memory; K4 runs bf16 inputs on the tensor cores (mma.sync) and
+f32 inputs on f32 FMAs; `chip_smoke.py` measures both against that bound.
 """
 from __future__ import annotations
 
@@ -53,6 +54,8 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
+_DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
 
 
 # ------------------------------------------------------------- plain versions
@@ -217,18 +220,22 @@ def chunked_window_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            for t in (lse, d_lse)):
         raise ValueError('K4 takes lse and d_lse as contiguous f32 on the inputs\' device')
     G, T, D = q.shape
-    delta = (d_out.float() * out.float()).sum(-1)                         # [G, T] f32
+    delta = torch.empty(G, T, dtype=torch.float32, device=dev)            # dO . O, f32
     dq = torch.empty_like(q)
     dk = torch.empty(G, T, D, dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     from musicnlp_tpu_torch.kernels.build import load
     lib = load('chunked_window_attn_bwd', _BWD_ARGTYPES)
+    lib.chunked_window_attn_bwd_delta.argtypes = _DELTA_ARGTYPES
     with torch.cuda.device(dev):
-        err = lib.chunked_window_attn_bwd(
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.chunked_window_attn_bwd_delta(d_out.data_ptr(), out.data_ptr(),
+                                                delta.data_ptr(), G * T, D, code, stream)
+        err = err or lib.chunked_window_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), qpos.data_ptr(),
             kpos.data_ptr(), lse.data_ptr(), delta.data_ptr(), d_lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), G, T, D, chunk, code,
-            float(scale), float(self_bias), torch.cuda.current_stream(dev).cuda_stream)
+            float(scale), float(self_bias), stream)
     if err != 0:
         raise RuntimeError(f'chunked_window_attn_bwd launch failed: CUDA error {err}')
     LAUNCHES['chunked_window_attn_bwd'] += 1

@@ -22,9 +22,9 @@ ctx and lse written once: 0.0198 ms at 3.35 TB/s) and do ~19.3 GFLOP (three
 H-long products per visible (q, k) pair: AC, BD and PV; 0.0196 ms at 989
 TFLOP/s), so bytes and tensor-core operations bound it about equally.  K2
 does 8 H-long products per visible pair, so operations bound it (see its
-source).  Both compute with f32 FMAs from shared memory and are limited by
-shared-memory reads; moving the contractions onto mma/wgmma tiles is the
-step toward the bound.
+source).  K1 computes with f32 FMAs from shared memory; K2 runs its bf16
+inputs on the tensor cores (mma.sync, bf16 shared tiles, cp.async) and its
+f32 inputs on f32 FMAs, which the f32 parity checks rest on.
 
 The distance table g_tab [N, T+S, H] stays a plain matmul outside the kernels
 (as on the TPU): row u holds W_r^T R(clip((M+T-1) - u, 0, clamp_len)), so the
@@ -53,6 +53,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctype
                                                            ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
 
 MemValid = Union[int, torch.Tensor]
 
@@ -225,20 +227,23 @@ def flash_rel_attn_bwd(rw3: torch.Tensor, rr3: torch.Tensor, k3: torch.Tensor,
     BN, T, H = rw3.shape
     N = g_tab.shape[0]
     S = k3.shape[1]
-    delta = (d_out.float() * out.float()).sum(-1)                     # [BN, T] f32
+    delta = torch.empty(BN, T, dtype=torch.float32, device=dev)        # dO . O, f32
     drw, drr = torch.empty_like(rw3), torch.empty_like(rw3)
     dk = torch.empty(BN, S, H, dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
     dg = torch.zeros(N, T + S, H, dtype=torch.float32, device=dev)
     from musicnlp_tpu_torch.kernels.build import load
     lib = load('flash_rel_attn_bwd', _BWD_ARGTYPES)
+    lib.flash_rel_attn_bwd_delta.argtypes = _DELTA_ARGTYPES
     with torch.cuda.device(dev):
-        err = lib.flash_rel_attn_bwd(
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_rel_attn_bwd_delta(d_out.data_ptr(), out.data_ptr(), delta.data_ptr(),
+                                           BN * T, H, code, stream)
+        err = err or lib.flash_rel_attn_bwd(
             rw3.data_ptr(), rr3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g_tab.data_ptr(),
             d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(), drw.data_ptr(),
             drr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dg.data_ptr(), mv_ptr, mv_const,
-            BN, N, T, S, M, H, code, float(scale), int(window or 0),
-            torch.cuda.current_stream(dev).cuda_stream)
+            BN, N, T, S, M, H, code, float(scale), int(window or 0), stream)
     if err != 0:
         raise RuntimeError(f'flash_rel_attn_bwd launch failed: CUDA error {err}')
     LAUNCHES['flash_rel_attn_bwd'] += 1

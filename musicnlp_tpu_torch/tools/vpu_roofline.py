@@ -48,7 +48,8 @@ from musicnlp_tpu_torch import resolve_device
 from musicnlp_tpu_torch.ops import roofline_kernels as rk
 
 __all__ = ['M', 'C', 'W', 'G', 'K_PAIR', 'REPEATS', 'chain_inputs', 'run_chain', 'run_muladd',
-           'k3_lsh_ms', 'card_rates', 'bound', 'sass_loop', 'roofline', 'main']
+           'k3_lsh_ms', 'card_rates', 'bound', 'sass_loop', 'count_mma', 'tensor_core_counts',
+           'roofline', 'main']
 
 M, C, W = 8, 64, 128            # [m, c, 2c] of the base/2048 LSH kernel
 G = 64                          # programs per call
@@ -159,14 +160,24 @@ _TARGET = re.compile(r'BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))')
 _LABEL = re.compile(r'^\s*(\.L_x_\d+):')
 
 
+def _opcode(instr: str) -> str:
+    """The opcode of a SASS instruction with its modifiers, predicate dropped."""
+    return re.sub(r'^@!?U?P\w+\s+', '', instr).split()[0]
+
+
+def _sass(name: str) -> str:
+    """`cuobjdump -sass` of the built library of `csrc/<name>.cu` (built if needed)."""
+    from musicnlp_tpu_torch.kernels.build import build, lib_path
+    build(name)
+    return subprocess.run([_cuobjdump(), '-sass', str(lib_path(name))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
 def sass_loop(name: str) -> Dict[str, object]:
     """The SASS of `csrc/<name>.cu`'s kernel (`cuobjdump -sass` of the built
     library): its longest backward branch is the K loop; returns the
     instructions in one trip (one pass) by opcode, and the SASS text."""
-    from musicnlp_tpu_torch.kernels.build import build, lib_path
-    build(name)
-    sass = subprocess.run([_cuobjdump(), '-sass', str(lib_path(name))], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
+    sass = _sass(name)
     body = sass[sass.index(f'{name}_kernel'):]
     instrs, labels, pending = [], {}, []
     for line in body.splitlines():
@@ -195,10 +206,36 @@ def sass_loop(name: str) -> Dict[str, object]:
     trip = [text for addr, text in instrs if lo <= addr <= hi]
     opcodes: Dict[str, int] = {}
     for text in trip:
-        op = re.sub(r'^@!?U?P\w+\s+', '', text).split()[0].split('.')[0]
+        op = _opcode(text).split('.')[0]
         opcodes[op] = opcodes.get(op, 0) + 1
     return dict(instructions_per_pass=len(trip), opcodes=dict(sorted(opcodes.items())),
                 loop=[hex(lo), hex(hi)], sass=sass)
+
+
+_FUNCTION = re.compile(r'^\s*Function\s*:\s*(\S+)')
+
+
+def count_mma(sass: str) -> Dict[str, int]:
+    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in each kernel
+    function of a `cuobjdump -sass` listing, by mangled function name."""
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+            continue
+        ins = _INSTR.search(line)
+        if fn is not None and ins:
+            if _opcode(ins.group(2).strip()).startswith(('HMMA', 'HGMMA')):
+                counts[fn] += 1
+    return counts
+
+
+def tensor_core_counts(name: str) -> Dict[str, int]:
+    """`count_mma` of the built library of `csrc/<name>.cu` (built if needed)."""
+    return count_mma(_sass(name))
 
 
 def roofline(k3_ms: Optional[float] = None, device=None) -> Dict[str, object]:

@@ -15,6 +15,7 @@ from musicnlp_tpu_torch.ops.flash_attention import (
     LAUNCHES, FlashRelAttn, distance_table, flash_rel_attn_bwd, flash_rel_attn_bwd_plain,
     flash_rel_attn_fwd, flash_rel_attn_fwd_plain,
 )
+from musicnlp_tpu_torch.tools import vpu_roofline as vr
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +54,10 @@ def test_k1_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
 
 
-CASES = [(64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17)]
+# H, T, M, mem_valid, window, clamp; the last: a ragged T with memory, a
+# window and mem_valid < M (every edge of the bf16 kernels' skew windows)
+CASES = [(64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17),
+         (64, 200, 100, 37, 150, 64)]
 
 
 def _rel_err(got, want):
@@ -138,6 +142,10 @@ def _chunked_inputs(dev, dtype, G, T, D, perm, pads, seed=0):
 CHUNKED = [   # G, T, D, chunk, perm, pads, scale, self_bias
     (4, 256, 64, 64, False, 0, 0.125, 0.0), (4, 256, 64, 64, True, 0, 1.0, -1e5),
     (3, 192, 32, 32, False, 40, 0.25, 0.0), (2, 32, 16, 32, True, 5, 1.0, -1e5),
+    (3, 160, 16, 32, True, 9, 1.0, -1e5),
+    # several runs of consecutive chunks per row (the bf16 kernel's blocks),
+    # the last a run of one chunk
+    (2, 1088, 64, 64, False, 0, 0.125, 0.0), (2, 2176, 16, 32, True, 11, 1.0, -1e5),
 ]
 
 
@@ -164,6 +172,21 @@ def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_b
     for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize('name,kernels', [
+    ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc')), ('chunked_window_attn_bwd', ('k4_tc',)),
+])
+def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
+    """The bf16 kernels of K2 and K4 hold tensor-core instructions (HMMA for
+    mma.sync, HGMMA for wgmma) in `cuobjdump -sass` of the built library; the
+    f32 kernels keep their FMA code (TF32 would break the f32 parity)."""
+    counts = vr.tensor_core_counts(name)
+    for kern in kernels:
+        fns = [c for f, c in counts.items() if kern in f]
+        assert fns and all(c > 0 for c in fns), (kern, counts)
+    fma = [c for f, c in counts.items() if '_tc' not in f]
+    assert fma and not any(fma), counts
 
 
 def test_reformer_forward_and_backward_launch_once_per_layer(dev):
