@@ -13,11 +13,12 @@ every kernel of those paths against its plain PyTorch version on the card.
 Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device and build: the card's name and power limit, `nvcc` of every
      kernel source in `musicnlp_tpu_torch/csrc/`, all started together; the
-     tensor-core instructions (HMMA / HGMMA) in the SASS of each K2 / K4
+     tensor-core instructions (HMMA / HGMMA) in the SASS of each K1-K4
      kernel -- the bf16 kernels must have some, the f32 ones keep FMAs;
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
-     a memory + window case and a head-dim-16 ragged case; times of each
+     a memory + window case, a head-dim-16 ragged case and the 22-12 shape
+     (TF-XL small: T 2048, full memory M 1024, clamp 1024, B 4, bf16); times of each
      kernel, its plain version and a one-call PyTorch yardstick the port
      never calls (`scaled_dot_product_attention` with the positional term as
      a float mask; for K2 its backward, with the mask requiring grad); K2's
@@ -41,8 +42,8 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   6. the Reformer, counts set to 0 before each path and read after: K3
      (forward) and K4 (backward, with an lse cotangent) against their plain
      versions were held in phase 2b (the 22-04 local and LSH shapes in bf16
-     and f32, a padded case, a D 32 / chunk 32 single-block case, a bf16
-     D 16 / chunk 32 case; times of each kernel, its plain version and an
+     and f32, padded cases, a D 32 / chunk 32 single-block case, bf16
+     D 16 and D 32 / chunk 32 padded cases; times of each kernel, its plain version and an
      SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s);
      `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
      K4 launches per step), `load_trained` + `score_batch` on the
@@ -146,10 +147,14 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # flip a bf16 rounding); K6 vs plain: bit-equal (the plain version's f64
 # product and sum are exact, so it rounds once per pass, as the FMA does)
 
-# the tensor-core kernels of K2 / K4 (bf16), by name in each library's SASS
-TC_KERNELS = {'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc'),
+# the tensor-core kernels of K1-K4 (bf16), by name in each library's SASS
+TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',),
+              'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc'),
+              'chunked_window_attn_fwd': ('k3_tc',),
               'chunked_window_attn_bwd': ('k4_tc',)}
-FMA_KERNELS = {'flash_rel_attn_bwd': ('k2_dkdv_kernel', 'k2_dq_kernel'),
+FMA_KERNELS = {'flash_rel_attn_fwd': ('flash_rel_attn_fwd_kernel',),
+               'flash_rel_attn_bwd': ('k2_dkdv_kernel', 'k2_dq_kernel'),
+               'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel',),
                'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel',)}
 SASS_MMA = {}                                    # library -> {function: HMMA + HGMMA}, phase 1
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
@@ -205,7 +210,7 @@ def profile(fn) -> dict:
 
 
 def tensor_core_check(report):
-    """HMMA / HGMMA instructions in the SASS of every K2 / K4 kernel: each bf16
+    """HMMA / HGMMA instructions in the SASS of every K1-K4 kernel: each bf16
     kernel must have some (an FMA-only build is not the tensor-core design),
     the f32 kernels none (their parity rests on f32 FMAs)."""
     for lib, tc_names in TC_KERNELS.items():
@@ -281,7 +286,9 @@ def k1_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
     tol = TOL[dtype]
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], BN=B * N, T=T, S=S, M=M, H=H,
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=err,
-               lse_max_abs_err=lse_err, tol_ctx=tol['ctx'], tol_lse=tol['lse'])
+               lse_max_abs_err=lse_err, tol_ctx=tol['ctx'], tol_lse=tol['lse'],
+               tensor_core_instructions=mma_instructions('flash_rel_attn_fwd', dtype,
+                                                         f'Li{H}E'))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=M, scale=scale,
                                                           window=window))
@@ -711,7 +718,9 @@ def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     tol = TOL_K3[dtype]
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
                lsh=lsh, pads=pads, max_abs_err=err, lse_max_abs_err=lse_err,
-               tol_ctx=tol['ctx'], tol_lse=tol['lse'])
+               tol_ctx=tol['ctx'], tol_lse=tol['lse'],
+               tensor_core_instructions=mma_instructions('chunked_window_attn_fwd', dtype,
+                                                         f'Li{chunk}ELi{D}E'))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos,
                                                                        **kw), iters=3)
@@ -1422,6 +1431,10 @@ def main() -> int:
         k1_case(dev, 'debug-h16-ragged', torch.float32, 4, 8, 333, 64, 16, 64, 40, 0, 5, False),
         k1_case(dev, 'debug-h16-ragged-bf16', torch.bfloat16, 4, 8, 333, 64, 16, 64, 64, 0, 6,
                 False),
+        # recipe 22-12 (TF-XL small, max_length 2048, mem_len 1024, full memory) at
+        # B 4: the plain version's [BN, T, T+S] f32 scores stay near 1.3 GB
+        k1_case(dev, '22-12-bf16', torch.bfloat16, 4, 8, 2048, 1024, 64, 1024, 1024, 0, 8,
+                True),
     ]
     k2 = [
         k2_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 21, True),
@@ -1432,6 +1445,8 @@ def main() -> int:
                 24, False),
         k2_case(dev, 'debug-h16-ragged', torch.float32, 4, 8, 333, 64, 16, 64, 40, 0, 25, False),
         k2_case(dev, 'debug-h16-ragged-bf16', torch.bfloat16, 4, 8, 333, 64, 16, 64, 64, 0, 26,
+                False),
+        k2_case(dev, '22-12-bf16', torch.bfloat16, 4, 8, 2048, 1024, 64, 1024, 1024, 0, 27,
                 False),
     ]
     report.update(k1_cases=k1, k2_cases=k2)
@@ -1446,6 +1461,8 @@ def main() -> int:
         k3_case(dev, 'local-padded-bf16', torch.bfloat16, 384, 2048, 64, 64, False, 300, 35),
         k3_case(dev, 'lsh-padded-f32', torch.float32, 96, 2048, 64, 64, True, 300, 36),
         k3_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 37),
+        k3_case(dev, 'd16-chunk32-padded-bf16', torch.bfloat16, 48, 512, 16, 32, True, 40, 38),
+        k3_case(dev, 'd32-chunk32-padded-bf16', torch.bfloat16, 48, 512, 32, 32, True, 40, 39),
     ]
     k4 = [
         k4_case(dev, 'lsh-bf16', torch.bfloat16, 768, 2048, 64, 64, True, 0, 41),

@@ -11,27 +11,54 @@
 // G [N, T+S, H] is the distance-ordered positional table built outside the
 // kernel (row u holds W_r^T R(min(max(d, 0), clamp_len))), so the clamp is
 // exact and costs nothing here.  rw = q + r_w_bias, rr = q + r_r_bias.
+// Both kernels are flash attention: one block per (bn, 64-row q tile), a
+// loop over the 64-key tiles the rows can see (the longest rows' blocks
+// first) with the running max / sum / context on chip; tiles fully in the
+// future, fully behind the window or fully inside the empty memory slots are
+// skipped.  p is rounded to v's dtype before the PV product and l is held at
+// >= 1e-30, where the TPU kernel does both.
 //
-// Design (right and simple first): one block of 256 threads per (bn, 64-row
-// q tile); a loop over 64-key tiles with the running max / sum / context in
-// registers (flash attention).  Per key tile the block stages K, V and the
-// 127 rows of G that the tile pair touches in shared memory (f32, rows padded
-// to H+1 floats against bank conflicts); BD reads G at row (63 - qi + ki), the
-// TPU kernel's strided-roll skew done as an index.  Tiles fully in the
-// future, fully behind the window, or fully inside the empty memory slots are
-// skipped.  p is rounded to v's dtype before the PV product, and l is held
-// at >= 1e-30, as on the TPU.  Products are plain f32 FMAs from shared memory.
+// Bound on the H100 (SXM, 700 W): three H-long products (AC, BD, PV) per
+// visible pair and each input read once.  At the training shape (BN 252,
+// T = S = 1024, H 64, bf16, causal) that is ~50.7 GFLOP, 0.0513 ms at 989
+// TFLOP/s (bytes: 0.052 GB, 0.016 ms): operations bound it.  At the scoring
+// shape (BN 96) 19.3 GFLOP and 66 MB bound it about equally (0.0196 / 0.0198
+// ms).
 //
-// Bound on the H100: at the base shape (BN 96, T = S = 1024, H 64, bf16,
-// causal) the work is ~19.3 GFLOP (three H-long products per visible pair)
-// and ~66 MB of inputs and outputs: 0.0196 ms at 989 TFLOP/s, 0.0198 ms at
-// 3.35 TB/s -- operations and bytes bound it about equally.  This version runs
-// on the FP32 pipes and is limited by shared-memory reads (per h step a warp
-// issues ~19 shared-memory wavefronts for 32 FMAs); mma/wgmma tiles are the
-// next step.
+// f32 (flash_rel_attn_fwd_kernel): 256 threads, a 16 x 16 grid of 4 x 4
+// scores; K, V and the 127 table rows of a tile pair staged as f32 rows of
+// stride H+1; every product an f32 FMA from shared memory (shared-memory
+// wavefronts limit it).  Kept as it is: the f32 parity checks and the
+// card-vs-CPU f32 gradients rest on it.
+//
+// bf16 (k1_tc), the training and scoring path: four warps, warp w owns q
+// rows 16w..16w+15.  AC = Qw . K^T, BD and PV are mma.sync m16n8k16 (bf16 in,
+// f32 accumulate) on ldmatrix fragments (mma_bf16.cuh); the warp's Qw / Qr
+// fragments stay in registers for the whole key loop.  BD is K2's skew
+// (flash_rel_attn_bwd.cu): X = Qr . Gwin^T over the warp's 80 columns
+// [48 - 16w, 128 - 16w) of the 128-row table window from u_lo = T - q0 - 64 +
+// k0, staged as f32 in the warp's scratch and read back at column 15 - qr +
+// ki.  Consecutive key tiles' windows overlap by 64 rows, so the window is a
+// ring of three 64-row slabs and each key tile loads only its new slab.
+// K / V / the new slab of the next key tile are loaded by cp.async into a
+// second buffer while the current tile computes (one barrier per tile).  The
+// online softmax runs on the accumulator fragments: row max across the four
+// lanes of a quad by shuffles, each lane's partial row sum rescaled by alpha
+// and reduced once at the end, p = exp2f((x - m) * log2(e)) with x and m in
+// natural units (so max, masks and lse are exactly the f32 values of the
+// reference), p packed to bf16 A fragments by RNE (c_to_a) for PV against V
+// read by ldmatrix.trans.  Tile pairs that the TPU kernel calls `interior`
+// (every pair visible; here also every key inside [0, S)) skip the per-pair
+// mask.  The context is scaled by one reciprocal per row.  Shared memory at
+// H = 64: Qw, Qr 18 KB, K / V x 2 stages 36 KB, the table ring 27 KB, the
+// warps' BD staging 21 KB -- 102 KB, two blocks (eight warps) per SM.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -220,21 +247,267 @@ flash_rel_attn_fwd_kernel(const T* __restrict__ rw, const T* __restrict__ rr,
     }
 }
 
+// ------------------------------------------------- bf16 on the tensor cores
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace mma_bf16;
+
+constexpr int NW = 4;            // warps; warp w owns q rows 16w..16w+15 of the tile
+constexpr int NTC = 32 * NW;
+constexpr int XW = 80;           // BD columns warp w needs: window rows [48 - 16w, 128 - 16w)
+constexpr int XS = XW + 4;       // f32 row stride of a warp's BD staging
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int H>
+constexpr size_t smem_bytes() {
+    // Qw, Qr; 2 stages of K, V; the table ring (3 slabs of 64 rows), all
+    // [.][H+8] bf16; each warp's BD staging [16][XS] f32
+    return 2 * (size_t)(2 * BQ + 2 * 2 * BK + 3 * 64) * (H + 8) + (size_t)NW * 16 * XS * 4;
+}
+
+// every pair of the tile pair (q0, k0) is visible: the TPU kernel's
+// `interior` (flash_attention.py:166-169), and every key inside [0, S)
+__device__ __forceinline__ bool interior(int q0, int k0, int S, int M, int mv, int window) {
+    return k0 + BK <= S && M + q0 - (k0 + BK - 1) >= 0 && k0 >= M - mv &&
+           (window <= 0 || M + q0 + BQ - 1 - k0 < window);
+}
+
+// One key tile of the online softmax on the warp's fragments.  s holds AC
+// (rows gq, gq + 8 of the warp: e >> 1; key columns 8j + 2t + (e & 1)) and
+// becomes p; BD comes from the warp's staging sXw.  m: the rows' running
+// max, l: this lane's partial row sums, o: the context accumulators, all
+// rescaled by alpha.  MASK: the per-pair mask (a tile pair that is not
+// interior); q is the query of row gq.
+template <bool MASK, int H>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&o)[H / 8][4],
+                                             float (&m)[2], float (&l)[2], const float* sXw,
+                                             int q, int k0, int gq, int t, int S, int M, int mv,
+                                             float scale, int window) {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, qr = gq + 8 * h, ki = 8 * j + 2 * t + (e & 1);
+            float x = (s[j][e] + sXw[qr * XS + 15 - qr + ki]) * scale;
+            if (MASK) {
+                const int k = k0 + ki, d = M + q + 8 * h - k;
+                if (!(d >= 0 && k < S && k >= M - mv && (window <= 0 || d < window)))
+                    x = kNegInf;
+            }
+            s[j][e] = x;
+            mx[h] = fmaxf(mx[h], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
+        m[h] = mx[h];
+        l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const float p = exp2f((s[j][e] - mx[e >> 1]) * kLog2e);
+            l[e >> 1] += p;
+            s[j][e] = p;                 // rounded to bf16 by c_to_a
+        }
+#pragma unroll
+    for (int n = 0; n < H / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+}
+
+template <int H>
+__global__ void __launch_bounds__(NTC, 2)
+k1_tc(const bf16* __restrict__ rw, const bf16* __restrict__ rr, const bf16* __restrict__ kk,
+      const bf16* __restrict__ vv, const bf16* __restrict__ g, bf16* __restrict__ out,
+      float* __restrict__ lse, const int* __restrict__ mv_ptr, int mv_const, int N, int T_,
+      int S, int M, float scale, int window) {
+    constexpr int HS = H + 8;
+    constexpr int KH = H / 16;                      // k-blocks of the score products
+    constexpr int STAGE = 2 * BK * HS;              // K, V
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sQw = reinterpret_cast<bf16*>(smem_raw);
+    bf16* sQr = sQw + BQ * HS;
+    bf16* sKV = sQr + BQ * HS;                      // stage b: K, V
+    bf16* sGr = sKV + 2 * STAGE;                    // ring of 3 slabs [64][HS]
+
+    const int bn = blockIdx.y;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+    const int head = bn % N;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const int mv = mv_ptr ? *mv_ptr : mv_const;
+    float* sXw = reinterpret_cast<float*>(sGr + 3 * 64 * HS) + w * 16 * XS;
+
+    const bf16* k_b = kk + (size_t)bn * S * H;
+    const bf16* v_b = vv + (size_t)bn * S * H;
+    const bf16* g_h = g + (size_t)head * (T_ + S) * H;
+
+    // keys any row of this tile can see
+    const int q_last = min(q0 + BQ, T_) - 1;
+    const int k_hi = min(S, M + q_last + 1);            // exclusive
+    int k_lo = max(0, M - mv);
+    if (window > 0) k_lo = max(k_lo, M + q0 - window + 1);
+    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+
+    // the table window slides up 64 rows per key tile: at step `it`, window
+    // rows [64s, 64s + 64) are slab (it + s) mod 3, the upper one new each step
+    auto slab = [&](int s, int it) { return sGr + ((it + s) % 3) * 64 * HS; };
+    auto load_k = [&](int kt, bool first) {          // K, V, the new table slab(s) of tile kt
+        const int k0 = kt * BK, it = kt - kt_begin, u_lo = T_ - q0 - BQ + k0;
+        bf16* st = sKV + (it & 1) * STAGE;
+        stage_rows<H>(st, k_b, k0, BK, S, tid, NTC);
+        stage_rows<H>(st + BK * HS, v_b, k0, BK, S, tid, NTC);
+        if (first) stage_rows<H>(slab(0, it), g_h, u_lo, 64, T_ + S, tid, NTC);
+        stage_rows<H>(slab(1, it), g_h, u_lo + 64, 64, T_ + S, tid, NTC);
+        cp_commit();
+    };
+
+    float o[H / 8][4] = {};                         // ctx rows 16w + gq (+8), cols 8n + 2t
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    uint32_t aw[KH][4], ar[KH][4];                  // the warp's Qw / Qr A fragments
+    if (kt_begin < kt_end) {
+        stage_rows<H>(sQw, rw + (size_t)bn * T_ * H, q0, BQ, T_, tid, NTC);
+        stage_rows<H>(sQr, rr + (size_t)bn * T_ * H, q0, BQ, T_, tid, NTC);
+        load_k(kt_begin, true);
+        cp_wait<0>();
+        __syncthreads();
+#pragma unroll
+        for (int kb = 0; kb < KH; ++kb) {
+            load_a(aw[kb], sQw, HS, 16 * w, 16 * kb, lane);
+            load_a(ar[kb], sQr, HS, 16 * w, 16 * kb, lane);
+        }
+    }
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int it = kt - kt_begin, k0 = kt * BK;
+        cp_wait<0>();
+        __syncthreads();                 // tile kt landed; every warp is done with tile kt - 1
+        if (kt + 1 < kt_end) load_k(kt + 1, false);
+        const bf16* sK = sKV + (it & 1) * STAGE;
+        const bf16* sV = sK + BK * HS;
+
+        // X = Qr . Gwin[48 - 16w, 128 - 16w)^T into the warp's staging: BD[qr][ki]
+        // is X[qr][15 - qr + ki]
+#pragma unroll
+        for (int np = 0; np < XW / 16; ++np) {
+            const int r0 = 48 - 16 * w + 16 * np;   // window row; never crosses a slab
+            const bf16* gr = slab(r0 >> 6, it) + (r0 & 63) * HS;
+            float x[2][4] = {};
+#pragma unroll
+            for (int kb = 0; kb < KH; ++kb) {
+                uint32_t b[4];
+                load_b(b, gr, HS, 0, 16 * kb, lane);
+                mma(x[0], ar[kb], b[0], b[1]);
+                mma(x[1], ar[kb], b[2], b[3]);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int c = 16 * np + 8 * h + 2 * t;
+                *reinterpret_cast<float2*>(sXw + gq * XS + c) = make_float2(x[h][0], x[h][1]);
+                *reinterpret_cast<float2*>(sXw + (gq + 8) * XS + c) =
+                    make_float2(x[h][2], x[h][3]);
+            }
+        }
+        // AC = Qw . K^T: key columns 8j .. 8j+7
+        float s[8][4] = {};
+#pragma unroll
+        for (int kb = 0; kb < KH; ++kb)
+#pragma unroll
+            for (int np = 0; np < 4; ++np) {
+                uint32_t b[4];
+                load_b(b, sK, HS, 16 * np, 16 * kb, lane);
+                mma(s[2 * np], aw[kb], b[0], b[1]);
+                mma(s[2 * np + 1], aw[kb], b[2], b[3]);
+            }
+        __syncwarp();                    // the warp's BD staging is written
+        const int q = q0 + 16 * w + gq;
+        if (interior(q0, k0, S, M, mv, window))
+            softmax_tile<false, H>(s, o, m_r, l_r, sXw, q, k0, gq, t, S, M, mv, scale, window);
+        else
+            softmax_tile<true, H>(s, o, m_r, l_r, sXw, q, k0, gq, t, S, M, mv, scale, window);
+
+        // o += P . V over the tile's 64 keys
+#pragma unroll
+        for (int kb = 0; kb < BK / 16; ++kb) {
+            uint32_t a[4];
+            c_to_a(a, s[2 * kb], s[2 * kb + 1]);
+#pragma unroll
+            for (int np = 0; np < H / 16; ++np) {
+                uint32_t b[4];
+                load_bt(b, sV, HS, 16 * np, 16 * kb, lane);
+                mma(o[2 * np], a, b[0], b[1]);
+                mma(o[2 * np + 1], a, b[2], b[3]);
+            }
+        }
+    }
+
+    float l_row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float l = l_r[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        l_row[h] = fmaxf(l, 1e-30f);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 16 * w + gq + 8 * h;
+        if (q >= T_) continue;
+        const float inv = 1.f / l_row[h];
+        bf16* o_r = out + ((size_t)bn * T_ + q) * H;
+#pragma unroll
+        for (int n = 0; n < H / 8; ++n)
+            *reinterpret_cast<uint32_t*>(o_r + 8 * n + 2 * t) =
+                pack(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+        if (t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(l_row[h]);
+    }
+}
+
+template <int H>
+cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
+                   const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
+                   int BN, int N, int T_, int S, int M, float scale, int window,
+                   cudaStream_t stream) {
+    const size_t smem = smem_bytes<H>();
+    auto kern = k1_tc<H>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T_ + BQ - 1) / BQ, BN);
+    kern<<<grid, NTC, smem, stream>>>(
+        (const bf16*)rw, (const bf16*)rr, (const bf16*)k, (const bf16*)v, (const bf16*)g,
+        (bf16*)out, lse, mv_ptr, mv_const, N, T_, S, M, scale, window);
+    return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, int H>
 cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
                    const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
                    int BN, int N, int T_, int S, int M, float scale, int window,
                    cudaStream_t stream) {
-    const size_t smem = smem_floats<H>() * sizeof(float);
-    auto kern = flash_rel_attn_fwd_kernel<T, H>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((T_ + BQ - 1) / BQ, BN);
-    kern<<<grid, NT, smem, stream>>>(
-        (const T*)rw, (const T*)rr, (const T*)k, (const T*)v, (const T*)g, (T*)out, lse,
-        mv_ptr, mv_const, N, T_, S, M, scale, window);
-    return cudaGetLastError();
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {    // the tensor-core kernel
+        return tc::launch<H>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN, N, T_, S, M,
+                             scale, window, stream);
+    } else {
+        const size_t smem = smem_floats<H>() * sizeof(float);
+        auto kern = flash_rel_attn_fwd_kernel<T, H>;
+        cudaError_t err = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        dim3 grid((T_ + BQ - 1) / BQ, BN);
+        kern<<<grid, NT, smem, stream>>>(
+            (const T*)rw, (const T*)rr, (const T*)k, (const T*)v, (const T*)g, (T*)out, lse,
+            mv_ptr, mv_const, N, T_, S, M, scale, window);
+        return cudaGetLastError();
+    }
 }
 
 template <typename T>
@@ -258,7 +531,8 @@ cudaError_t launch_h(int H, const void* rw, const void* rr, const void* k, const
 // rw/rr [BN, T, H], k/v [BN, S, H], g [N, T+S, H] (dtype 0 = f32, 1 = bf16);
 // out [BN, T, H] in that dtype, lse [BN, T] f32.  mem_valid is read from the
 // device int32 at mv_ptr, or is mv_const when mv_ptr is null.  window <= 0 is
-// no window.  Launches on `stream`; returns cudaGetLastError() of the launch.
+// no window.  f32 runs the FMA kernel, bf16 the tensor-core one.  Launches on
+// `stream`; returns cudaGetLastError() of the launch.
 extern "C" int flash_rel_attn_fwd(const void* rw, const void* rr, const void* k,
                                   const void* v, const void* g, void* out, void* lse,
                                   const void* mv_ptr, int mv_const, int BN, int N,

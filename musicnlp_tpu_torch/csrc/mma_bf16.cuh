@@ -1,7 +1,8 @@
 // Tensor-core helpers for the bf16 kernels of the port (sm_80+ PTX, built
 // for sm_90a): ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulate) and
-// cp.async with zero fill.  Included by flash_rel_attn_bwd.cu (K2) and
-// chunked_window_attn_bwd.cu (K4).
+// cp.async with zero fill.  Included by the bf16 kernels of K1-K4
+// (flash_rel_attn_fwd.cu, flash_rel_attn_bwd.cu, chunked_window_attn_fwd.cu,
+// chunked_window_attn_bwd.cu).
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A [16 x 16]: a0 = A[g][2t, 2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],

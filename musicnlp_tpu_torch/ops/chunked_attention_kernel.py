@@ -29,9 +29,10 @@ query; pad queries keep their positions.
 Bound on the H100 (SXM, 700 W): at the 22-04 LSH shape (G = 32*12*2 = 768,
 T 2048, D 64, c 64, bf16) K3 moves ~0.82 GB (q, k, v, positions in; ctx and
 lse out: 0.25 ms at 3.35 TB/s) for ~52 GFLOP (0.05 ms at 989 TFLOP/s), and
-K4 ~1.8 GB (0.55 ms): both are bound by bytes.  K3 computes with f32 FMAs
-from shared memory; K4 runs bf16 inputs on the tensor cores (mma.sync) and
-f32 inputs on f32 FMAs; `chip_smoke.py` measures both against that bound.
+K4 ~1.8 GB (0.55 ms): both are bound by bytes.  Both run bf16 inputs on the
+tensor cores (mma.sync over runs of consecutive chunks, each chunk loaded
+once per run; `k3_tc`, `k4_tc`) and f32 inputs on f32 FMAs; `chip_smoke.py`
+measures both against that bound.
 """
 from __future__ import annotations
 

@@ -22,9 +22,10 @@ ctx and lse written once: 0.0198 ms at 3.35 TB/s) and do ~19.3 GFLOP (three
 H-long products per visible (q, k) pair: AC, BD and PV; 0.0196 ms at 989
 TFLOP/s), so bytes and tensor-core operations bound it about equally.  K2
 does 8 H-long products per visible pair, so operations bound it (see its
-source).  K1 computes with f32 FMAs from shared memory; K2 runs its bf16
-inputs on the tensor cores (mma.sync, bf16 shared tiles, cp.async) and its
-f32 inputs on f32 FMAs, which the f32 parity checks rest on.
+source).  Both kernels run bf16 inputs on the tensor cores (mma.sync, bf16
+shared tiles, cp.async; `k1_tc`, `k2_dkdv_tc` / `k2_dq_tc`) and f32 inputs
+on f32 FMAs, which the f32 parity checks rest on; the dtype picks the
+kernel inside each C entry point.
 
 The distance table g_tab [N, T+S, H] stays a plain matmul outside the kernels
 (as on the TPU): row u holds W_r^T R(clip((M+T-1) - u, 0, clamp_len)), so the

@@ -121,7 +121,7 @@ def test_run_directories_load_across_packages(port_run, corpus):
     _same_config(jm.cfg, tm.cfg)
 
 
-@pytest.mark.parametrize('recipe', ['22-11', '22-04'])
+@pytest.mark.parametrize('recipe', ['22-11', '22-04', '22-12'])
 def test_train_recipe_builds_what_jax_builds(recipe, corpus, monkeypatch):
     """`train --recipe` through the CLI (training skipped) wires the same
     configuration, optimizer arguments, augmentation and IKR mode as the JAX

@@ -176,11 +176,13 @@ def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_b
 
 @pytest.mark.parametrize('name,kernels', [
     ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc')), ('chunked_window_attn_bwd', ('k4_tc',)),
+    ('flash_rel_attn_fwd', ('k1_tc',)), ('chunked_window_attn_fwd', ('k3_tc',)),
 ])
 def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
-    """The bf16 kernels of K2 and K4 hold tensor-core instructions (HMMA for
-    mma.sync, HGMMA for wgmma) in `cuobjdump -sass` of the built library; the
-    f32 kernels keep their FMA code (TF32 would break the f32 parity)."""
+    """The bf16 kernels of K2 and K4, and of the forward kernels K1 and K3,
+    hold tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
+    `cuobjdump -sass` of the built library; the f32 kernels keep their FMA
+    code (TF32 would break the f32 parity)."""
     counts = vr.tensor_core_counts(name)
     for kern in kernels:
         fns = [c for f, c in counts.items() if kern in f]

@@ -1,0 +1,401 @@
+"""The bf16 forward kernels' tile schedules emulated in plain torch and held
+against the plain versions: K1's `k1_tc` (`csrc/flash_rel_attn_fwd.cu`)
+against `flash_rel_attn_fwd_plain`, K3's `k3_tc`
+(`csrc/chunked_window_attn_fwd.cu`) against `chunked_window_attn_fwd_plain`.
+
+The card kernels cannot run here; this pins their index arithmetic on the
+CPU.  K1: each warp's 80 columns [48 - 16w, 128 - 16w) of X = Qr . Gwin^T
+over the 128-row distance-table window from u_lo = T - q0 - 64 + k0, read at
+column 15 - qr + ki; the window held in a ring of three 64-row slabs that
+the next key tile's load refills while the current one computes; the online
+softmax across key tiles (p = exp2((x - m) log2 e), p rounded to the input
+dtype per tile); the interior test that skips the per-pair mask, against the
+TPU kernel's `interior` and the full mask; the tile ranges with memory,
+mem_valid < M and a window; ragged T and H 16.  K3: blocks over runs of
+consecutive chunks (a last run shorter than the others, a run of one
+chunk), the previous chunk's keys carried from chunk to chunk in three
+slots and loaded once per run, each run's look-back, chunk 0's zero
+look-back with position INT32_MAX, pad keys at position T, a fully masked
+pad row (the window's uniform average), and the rows whose max is their own
+biased key, whose score the kernel recomputes.  In f32 the emulations must
+equal the plain versions to 1e-5."""
+import math
+
+import pytest
+import torch
+
+from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
+    NEG_INF as NEG_INF_K3, chunked_window_attn_fwd_plain,
+)
+from musicnlp_tpu_torch.ops.flash_attention import (
+    _key_mask, distance_table, flash_rel_attn_fwd_plain,
+)
+
+BQ = BK = 64        # K1: q rows / keys per tile
+NW = 4              # K1: warps; warp w owns q rows 16w..16w+15
+XW = 80             # K1: BD columns per warp
+NEG_INF_K1 = -1e30
+RUN = 16            # K3: consecutive chunks per block
+INT32_MAX = torch.iinfo(torch.int32).max
+LOG2E = math.log2(math.e)
+
+
+def _rows(x, r0, n, fill=0):
+    """Rows [r0, r0 + n) of x [..., L(, H)], `fill` outside [0, L)."""
+    idx = torch.arange(r0, r0 + n)
+    ok = (idx >= 0) & (idx < x.shape[1])
+    out = torch.full((x.shape[0], n, *x.shape[2:]), fill, dtype=x.dtype)
+    out[:, ok] = x[:, idx[ok]]
+    return out
+
+
+# ----------------------------------------------------------------------- K1
+def tpu_interior(q0, k0, M, mv, window):
+    """`interior` of the TPU kernel (musicnlp_tpu/ops/pallas/flash_attention.py:
+    166-169) for 64 x 64 blocks."""
+    ok = M + q0 - (k0 + BK - 1) >= 0 and k0 >= M - mv
+    if window:
+        ok = ok and M + q0 + BQ - 1 - k0 < window
+    return ok
+
+
+def k1_interior(q0, k0, S, M, mv, window):
+    """The kernel's test (`interior` in flash_rel_attn_fwd.cu): the TPU's, and
+    every key of the tile inside [0, S)."""
+    return k0 + BK <= S and tpu_interior(q0, k0, M, mv, window)
+
+
+def k1_key_tiles(q0, T, S, M, mv, window):
+    """The key tiles block q0 visits (k_lo / k_hi of the kernel)."""
+    q_last = min(q0 + BQ, T) - 1
+    k_hi = min(S, M + q_last + 1)
+    k_lo = max(0, M - mv)
+    if window > 0:
+        k_lo = max(k_lo, M + q0 - window + 1)
+    return list(range(k_lo // BK, -(-k_hi // BK)))
+
+
+def k1_slab(s, it):
+    """Ring slot of window rows [64s, 64s + 64) at key step `it`."""
+    return (it + s) % 3
+
+
+def k1_tiles(rw, rr, k, v, g, mem_valid, *, M, scale, window):
+    """The schedule of `k1_tc` in torch -> (ctx, lse) as
+    `flash_rel_attn_fwd_plain` returns them (p rounded to the inputs' dtype
+    per key tile, where the kernel rounds it)."""
+    BN, T, H = rw.shape
+    S, N = k.shape[1], g.shape[0]
+    dtype = rw.dtype
+    n_qt = -(-T // BQ)
+    qw, qr = _rows(rw.float(), 0, n_qt * BQ), _rows(rr.float(), 0, n_qt * BQ)
+    kf, vf = k.float(), v.float()
+    gb = g.float()[torch.arange(BN) % N]                               # [BN, T+S, H]
+    vis = torch.zeros(n_qt * BQ, -(-S // BK) * BK, dtype=torch.bool)  # padded: invisible
+    vis[:T, :S] = _key_mask(T, S, M, mem_valid, window, 'cpu')
+    ctx = torch.zeros(BN, n_qt * BQ, H)
+    lse = torch.zeros(BN, n_qt * BQ)
+    qr_ = torch.arange(16)[:, None]
+    ki = torch.arange(BK)[None, :]
+    for b in range(n_qt):
+        q0 = (n_qt - 1 - b) * BQ                                       # longest rows first
+        rows = slice(q0, q0 + BQ)
+        m = torch.full((BN, BQ), NEG_INF_K1)
+        l = torch.zeros(BN, BQ)
+        o = torch.zeros(BN, BQ, H)
+        tiles = k1_key_tiles(q0, T, S, M, mem_valid, window)
+        ring = [None] * 3
+
+        def load(kt, first):                       # the new slab(s) of key tile kt
+            it, u_lo = kt - tiles[0], T - q0 - BQ + kt * BK
+            if first:
+                ring[k1_slab(0, it)] = _rows(gb, u_lo, 64)
+            ring[k1_slab(1, it)] = _rows(gb, u_lo + 64, 64)
+
+        if tiles:
+            load(tiles[0], True)
+        for it, kt in enumerate(tiles):
+            k0, u_lo = kt * BK, T - q0 - BQ + kt * BK
+            if kt + 1 <= tiles[-1]:
+                load(kt + 1, False)                # in flight while this tile computes
+            gwin = torch.cat([ring[k1_slab(0, it)], ring[k1_slab(1, it)]], dim=1)
+            assert torch.equal(gwin, _rows(gb, u_lo, 128))
+            ac = qw[:, rows] @ _rows(kf, k0, BK).transpose(1, 2)
+            bd = torch.empty_like(ac)
+            for w in range(NW):
+                x = qr[:, q0 + 16 * w:q0 + 16 * w + 16] @ \
+                    gwin[:, 48 - 16 * w:128 - 16 * w].transpose(1, 2)
+                assert x.shape[-1] == XW
+                bd[:, 16 * w:16 * w + 16] = x[:, qr_, 15 - qr_ + ki]
+            x = (ac + bd) * scale
+            if not k1_interior(q0, k0, S, M, mem_valid, window):
+                x = torch.where(vis[rows, k0:k0 + BK], x, torch.full_like(x, NEG_INF_K1))
+            mx = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2((m - mx) * LOG2E)
+            p = torch.exp2((x - mx[..., None]) * LOG2E)
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + p.to(dtype).float() @ _rows(vf, k0, BK)
+            m = mx
+        lc = l.clamp(min=1e-30)
+        ctx[:, rows] = o * (1 / lc)[..., None]
+        lse[:, rows] = m + torch.log(lc)
+    return ctx[:, :T].to(dtype), lse[:, :T]
+
+
+def _k1_inputs(H, T, M, clamp, seed, dtype=torch.float32, B=2, N=3):
+    g = torch.Generator().manual_seed(seed)
+    S = M + T
+    mk = lambda *s: torch.randn(*s, generator=g)
+    Wr = mk(8 * H, N, H) * 0.05
+    return [x.to(dtype) for x in (mk(B * N, T, H), mk(B * N, T, H), mk(B * N, S, H),
+                                  mk(B * N, S, H), distance_table(Wr, T, S, M, clamp,
+                                                                  torch.float32))]
+
+
+K1_CASES = [   # H, T, M, mem_valid, window, clamp
+    (16, 77, 0, 0, 0, 1024), (32, 333, 0, 0, 0, 17), (64, 77, 30, 30, 0, 17),
+    (16, 333, 64, 17, 40, 1024), (32, 200, 100, 37, 150, 17), (64, 333, 128, 50, 200, 1024),
+    (64, 256, 128, 128, 0, 1024),
+]
+
+
+@pytest.mark.parametrize('H,T,M,mv,window,clamp', K1_CASES)
+def test_k1_tile_schedule_matches_plain(H, T, M, mv, window, clamp):
+    """ctx to 1e-5 of its largest entry and lse to 1e-5, f32: the same
+    function with sums in another order and the softmax taken tile by tile."""
+    rw, rr, k, v, g = _k1_inputs(H, T, M, clamp, seed=H + T + M)
+    kw = dict(M=M, scale=H ** -0.5, window=window)
+    ctx, lse = k1_tiles(rw, rr, k, v, g, mv, **kw)
+    ref, ref_lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, **kw)
+    assert ctx.shape == ref.shape and lse.shape == ref_lse.shape
+    assert float((ctx - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert float((lse - ref_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('H,T,M,mv,window,clamp', [(16, 333, 64, 17, 40, 1024),
+                                                   (64, 256, 128, 128, 0, 1024)])
+def test_k1_tile_schedule_rounds_p_per_tile(H, T, M, mv, window, clamp):
+    """bf16 inputs: p rounded to bf16 per key tile against the running max
+    (the kernel) stays within the card's K1 tolerances of the plain version,
+    which rounds p once against the row's global max: ctx 2e-2, lse 1e-3."""
+    rw, rr, k, v, g = _k1_inputs(H, T, M, clamp, seed=7, dtype=torch.bfloat16)
+    kw = dict(M=M, scale=H ** -0.5, window=window)
+    ctx, lse = k1_tiles(rw, rr, k, v, g, mv, **kw)
+    ref, ref_lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, **kw)
+    assert ctx.dtype == ref.dtype == torch.bfloat16
+    assert float((ctx.float() - ref.float()).abs().max()) <= 2e-2
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+def test_k1_bd_window_covers_every_pair():
+    """Warp w's q rows read table window rows 63 - qi + ki, all inside its 80
+    columns [48 - 16w, 128 - 16w), at column 15 - qr + ki of its staging."""
+    ki = torch.arange(BK)[None, :]
+    for w in range(NW):
+        qr = torch.arange(16)[:, None]
+        r = 63 - (16 * w + qr) + ki
+        assert int(r.min()) >= 48 - 16 * w and int(r.max()) < 128 - 16 * w
+        assert torch.equal(r - (48 - 16 * w), 15 - qr + ki)
+        # 16-row groups of the window never straddle two slabs
+        assert all((48 - 16 * w + 16 * np) // 64 == (63 - 16 * w + 16 * np) // 64
+                   for np in range(XW // 16))
+
+
+@pytest.mark.parametrize('steps', [1, 2, 3, 7])
+def test_k1_g_ring_refills_a_free_slab(steps):
+    """The next key tile's slab goes into the one slot the current window
+    does not use, and after the load the next window is whole."""
+    ring = [None] * 3
+    ring[k1_slab(0, 0)], ring[k1_slab(1, 0)] = 0, 64          # first window row of each slab
+    for it in range(steps):
+        u_lo = 64 * it
+        assert ring[k1_slab(0, it)] == u_lo and ring[k1_slab(1, it)] == u_lo + 64
+        new = k1_slab(1, it + 1)
+        assert new not in (k1_slab(0, it), k1_slab(1, it))
+        ring[new] = u_lo + 128
+
+
+@pytest.mark.parametrize('T,M,mv,window,any_interior', [
+    (1024, 0, 0, 0, True), (333, 64, 17, 40, False), (1024, 512, 300, 512, True),
+    (2048, 1024, 1024, 0, True), (200, 100, 37, 150, False), (256, 128, 128, 0, True),
+])
+def test_k1_interior_tiles(T, M, mv, window, any_interior):
+    """Over every tile pair a block visits: the kernel's interior test is the
+    TPU kernel's (S = M + T keeps every interior key inside [0, S)); an
+    interior pair has every (q < T, k) pair visible under the full mask; and
+    every visible pair lies in a visited tile.  A window shorter than a tile
+    pair's 127 distances leaves no pair interior."""
+    S = M + T
+    vis = _key_mask(T, S, M, mv, window, 'cpu')
+    covered = torch.zeros_like(vis)
+    n_interior = 0
+    for q0 in range(0, T, BQ):
+        for kt in k1_key_tiles(q0, T, S, M, mv, window):
+            k0 = kt * BK
+            inside = k1_interior(q0, k0, S, M, mv, window)
+            assert inside == tpu_interior(q0, k0, M, mv, window)
+            if inside:
+                n_interior += 1
+                assert bool(vis[q0:q0 + BQ, k0:k0 + BK].all())
+            covered[q0:q0 + BQ, k0:k0 + BK] = True
+    assert not bool((vis & ~covered).any())
+    assert (n_interior > 0) == any_interior
+
+
+# ----------------------------------------------------------------------- K3
+def k3_runs(n, run=RUN):
+    """The blocks' runs of consecutive chunks [j0, j1)."""
+    return [(j0, min(j0 + run, n)) for j0 in range(0, n, run)]
+
+
+def k3_tiles(q, k, v, qpos, kpos, *, chunk, scale, self_bias):
+    """The schedule of `k3_tc` in torch -> (ctx, lse, loads, fixed): loads
+    counts the key-chunk loads per (g, chunk) (chunk -1: the zeros before
+    chunk 0), fixed the rows whose max is their own biased key (the kernel
+    recomputes that score)."""
+    G, T, D = q.shape
+    C, n = chunk, T // chunk
+    dtype = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ctx = torch.zeros(G, T, D)
+    lse = torch.zeros(G, T)
+    loads, fixed = {}, []
+    for g in range(G):
+        for j0, j1 in k3_runs(n):
+            kslots, qslots = [None] * 3, [None] * 2
+
+            def load_kv(c):                       # key chunk c -> slot (c + 3) % 3
+                loads[g, c] = loads.get((g, c), 0) + 1
+                kslots[(c + 3) % 3] = (
+                    c, _rows(kf[g:g + 1], c * C, C)[0], _rows(vf[g:g + 1], c * C, C)[0],
+                    _rows(kpos[g:g + 1], c * C, C, fill=INT32_MAX)[0])
+
+            def load_q(c):                        # query chunk c -> slot c % 2
+                qslots[c % 2] = (c, qf[g, c * C:(c + 1) * C], qpos[g, c * C:(c + 1) * C])
+
+            load_kv(j0 - 1)
+            load_kv(j0)
+            load_q(j0)
+            for i in range(j0, j1):
+                if i + 1 < j1:                    # in flight while chunk i computes
+                    load_kv(i + 1)
+                    load_q(i + 1)
+                (cp, kp_, vp_, pp), (cc, kc, vc, pc) = kslots[(i + 2) % 3], kslots[i % 3]
+                cq, qc, qp = qslots[i % 2]
+                assert (cp, cc, cq) == (i - 1, i, i)
+                kw, vw = torch.cat([kp_, kc]), torch.cat([vp_, vc])
+                kp = torch.cat([pp, pc])[None, :]
+                x = (qc @ kw.T) * scale
+                own = kp == qp[:, None]
+                if self_bias:
+                    x = torch.where(own, x + self_bias, x)
+                x = torch.where(kp > qp[:, None], torch.full_like(x, NEG_INF_K3), x)
+                mx = x.amax(-1)
+                if self_bias:            # rows at the window's least key position
+                    fix = (qp == kp.min()) & (own & (x == mx[:, None])).any(-1)
+                    fixed += [(g, i * C + int(r)) for r in torch.nonzero(fix)[:, 0]]
+                p = torch.exp2((x - mx[:, None]) * LOG2E)
+                l = p.sum(-1).clamp(min=1e-30)
+                ctx[g, i * C:(i + 1) * C] = (p.to(dtype).float() @ vw) * (1 / l)[:, None]
+                lse[g, i * C:(i + 1) * C] = mx + torch.log(l)
+    return ctx.to(dtype), lse, loads, fixed
+
+
+def _k3_inputs(G, T, D, perm, pads, seed):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(G, T, D, generator=g) for _ in range(3))
+    if perm:        # shared-QK as the LSH layers: k = q rms-normalised, carrying 1/sqrt(D)
+        k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) / D ** 0.5
+        qpos = torch.stack([torch.randperm(T, generator=g) for _ in range(G)])
+    else:
+        qpos = torch.arange(T).expand(G, T)
+    kpos = torch.where(qpos >= T - pads, torch.full_like(qpos, T), qpos) if pads else qpos
+    return q, k, v, qpos.to(torch.int32).contiguous(), kpos.to(torch.int32).contiguous()
+
+
+K3_CASES = [   # G, T, D, chunk, perm, pads, scale, self_bias
+    (2, 17 * 64, 64, 64, True, 0, 1.0, -1e5),         # runs 16, 1
+    (3, 33 * 32, 16, 32, True, 40, 1.0, -1e5),        # chunk 32 / D 16, padded; 16, 16, 1
+    (2, 12 * 64, 32, 64, False, 200, 0.125, 0.0),     # local; fully masked pad rows
+    (2, 3 * 32, 16, 32, False, 0, 0.25, 0.0),         # a single run of 3 chunks
+]
+
+
+def _lse_close(a, b):
+    """f32 agreement of lse: 1e-5 of each value (rows with only their own key
+    visible sit at ~self_bias = -1e5, where f32 steps are 2^-7)."""
+    return bool(((a - b).abs() <= 1e-5 * b.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize('G,T,D,chunk,perm,pads,scale,self_bias', K3_CASES)
+def test_k3_run_schedule_matches_plain(G, T, D, chunk, perm, pads, scale, self_bias):
+    """ctx to 1e-5 of its largest entry and lse to 1e-5, f32; every key chunk
+    loaded once by its own run plus once as the look-back of the next run's
+    first chunk, and chunk 0's look-back (zeros) once per row."""
+    q, k, v, qpos, kpos = _k3_inputs(G, T, D, perm, pads, seed=G + T + D)
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    ctx, lse, loads, _ = k3_tiles(q, k, v, qpos, kpos, **kw)
+    ref, ref_lse = chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    assert float((ctx - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert _lse_close(lse, ref_lse)
+    n = T // chunk
+    firsts = {j0 for j0, _ in k3_runs(n)}
+    for g in range(G):
+        assert loads[g, -1] == 1
+        for c in range(n):
+            assert loads[g, c] == 1 + (c + 1 in firsts), (g, c)
+
+
+def test_k3_runs():
+    """17 chunks make runs of 16 and 1, 33 chunks 16, 16 and 1; 3 chunks one
+    run; the runs tile every chunk once."""
+    assert k3_runs(17) == [(0, 16), (16, 17)]
+    assert k3_runs(33) == [(0, 16), (16, 32), (32, 33)]
+    assert k3_runs(3) == [(0, 3)]
+    for n in (1, 7, 8, 9, 32, 33):
+        chunks = [c for j0, j1 in k3_runs(n) for c in range(j0, j1)]
+        assert chunks == list(range(n))
+
+
+def test_k3_fully_masked_pad_row_is_the_uniform_window_average():
+    """A pad query whose whole window is pad keys (kpos = T) gets the mean of
+    the window's 2C values, as the TPU kernel (-1e9 is finite, not -inf)."""
+    G, T, D, C = 1, 6 * 32, 16, 32
+    q, k, v, qpos, kpos = _k3_inputs(G, T, D, False, 2 * C + 5, seed=3)
+    ctx, lse, _, _ = k3_tiles(q, k, v, qpos, kpos, chunk=C, scale=0.25, self_bias=0.0)
+    ref, _ = chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, chunk=C, scale=0.25)
+    last = slice(T - C, T)                          # every key of chunks 4 and 5 is a pad
+    want = v[0, T - 2 * C:].mean(0)
+    assert torch.allclose(ctx[0, last], want.expand(C, D), atol=1e-6)
+    assert torch.allclose(ref[0, last], want.expand(C, D), atol=1e-6)
+    assert torch.allclose(lse[0, last], torch.full((C,), NEG_INF_K3 + math.log(2 * C)))
+
+
+def test_k3_chunk0_lookback_is_invisible():
+    """Chunk 0's look-back (zero keys, position INT32_MAX) takes no weight:
+    with every own-chunk key visible, ctx of chunk 0 is attention over its
+    own keys alone."""
+    G, T, D, C = 2, 4 * 32, 16, 32
+    q, k, v, qpos, kpos = _k3_inputs(G, T, D, False, 0, seed=5)
+    ctx, _, _, _ = k3_tiles(q, k, v, qpos, kpos, chunk=C, scale=0.25, self_bias=0.0)
+    s = (q[:, :C] @ k[:, :C].transpose(1, 2)) * 0.25
+    s = s.masked_fill(torch.ones(C, C, dtype=torch.bool).triu(1), NEG_INF_K3)
+    want = torch.softmax(s, -1) @ v[:, :C]
+    assert torch.allclose(ctx[:, :C], want, atol=1e-5)
+
+
+def test_k3_recomputed_rows_see_only_their_own_key():
+    """With the LSH self bias, the rows whose max is their own biased key --
+    the rows whose lse the kernel recomputes -- are exactly the rows with no
+    other key visible, and every window has at most one such row."""
+    G, T, D, C = 2, 17 * 64, 64, 64
+    q, k, v, qpos, kpos = _k3_inputs(G, T, D, True, 0, seed=11)
+    _, lse, _, fixed = k3_tiles(q, k, v, qpos, kpos, chunk=C, scale=1.0, self_bias=-1e5)
+    qp = qpos.reshape(G, T // C, C)
+    kw = torch.cat([torch.full_like(qp[:, :1], INT32_MAX), qp[:, :-1]], 1)
+    window = torch.cat([kw, qp], -1)                                    # [G, n, 2C]
+    only_self = ((window[..., None, :] <= qp[..., :, None]).sum(-1) == 1).reshape(G, T)
+    assert sorted(fixed) == sorted(map(tuple, torch.nonzero(only_self).tolist()))
+    assert fixed and bool((lse[only_self] < -5e4).all())
+    per_window = only_self.reshape(G, T // C, C).sum(-1)
+    assert int(per_window.max()) <= 1
