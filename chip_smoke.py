@@ -54,11 +54,16 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      and an int8 LSH cache (no kernel launch);
   7. K5 (the mask / softmax chain) and K6 (the multiply-add chain) against
      their plain versions at the roofline tool's shape (G 64 x [8, 64, 128]
-     f32, K 4 and 32), their times at K 1024 beside the plain versions' and
-     the bound from the card's own FP32 / SFU lanes and clock, the SASS of
-     each loop (instructions per pass); then the roofline tool
+     f32; K 4 and 32 with the tool's positions, K 4 mixed, K 32 and 1024
+     with all-masked rows, which must read 1/128 exactly, and the timed
+     K 1024 call itself), their times at K 1024 beside the plain versions'
+     and the bound from the card's own lanes per pipe and clock (which must
+     not exceed the time), K5's registers, spills (none allowed) and
+     occupancy, the SASS of each loop (instructions per pass and per
+     element, no call); then the roofline tool
      (`tools/vpu_roofline.roofline`, counts set to 0 before and read after)
-     with phase 2b's K3 LSH time as its in-situ comparator;
+     with phase 2b's K3 LSH time as its in-situ comparator, whose
+     `mask_chain_share_of_k3` must lie in (0, 1);
   8. the user's path through the command line, in process (`cli.main`),
      counted: a step-kind combined JSON of 64 seeded synthetic songs ->
      `dataset` -> `train --recipe 22-11 --epochs 1` (2 steps of 21 x 1024
@@ -143,9 +148,11 @@ GEN_LEN = 1024                                   # Reformer generation length (t
 K5_REPLACES = 'scripts/vpu_roofline.py:39 (_mask_chain_kernel, via run_chain :90)'
 K6_REPLACES = 'scripts/vpu_roofline.py:63 (_muladd_kernel, via run_muladd :111)'
 ROOFLINE_K = 1024                                # passes of the timed K5 / K6 calls
-# K5 vs plain: each entry within one bf16 ulp (f32 sums in other orders may
-# flip a bf16 rounding); K6 vs plain: bit-equal (the plain version's f64
-# product and sum are exact, so it rounds once per pass, as the FMA does)
+# K5 vs plain: each entry within one bf16 ulp (f32 sums in other orders,
+# ex2.approx and one approximate reciprocal per row may flip a bf16
+# rounding; an exact zero stays exact); K6 vs plain: bit-equal (the plain
+# version's f64 product and sum are exact, so it rounds once per pass, as
+# the FMA does)
 
 # the tensor-core kernels of K1-K4 (bf16), by name in each library's SASS
 TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',),
@@ -1075,33 +1082,46 @@ def reformer_score_and_generate(dev, tok, report):
 # ------------------------------------------------------------ K5 / K6 (phase 7)
 def roofline_phase(dev, k3_ms, report):
     """Phase 7: K5 and K6 against their plain versions, their times and
-    bounds at K = ROOFLINE_K, the SASS of their loops, then the roofline tool
-    (the kernels' main path), counted."""
+    bounds at K = ROOFLINE_K, K5's registers, spills, occupancy and the SASS
+    of both loops, then the roofline tool (the kernels' main path), counted."""
     s, kp, qp = vr.chain_inputs(dev, seed=SEED)
     # a second set of positions where masked, valid and self keys all shape a
-    # row (the tool's positions make every row's softmax its self key)
+    # row (the tool's positions make every row's softmax its self key), and a
+    # third where every key of every even m is masked (p = 1/128 exactly)
     kp_mixed = (torch.arange(rk.W, dtype=torch.int32, device=dev) - 40).expand_as(kp).clone()
     kp_mixed[:, :, ::5] = 10 ** 6
+    kp_masked = kp_mixed.clone()
+    kp_masked[:, ::2] = 10 ** 6
     saved = dict(rk.LAUNCHES)
     checks, err5, err6 = [], 0.0, 0.0
-    for K, kpos in ((4, kp), (32, kp), (4, kp_mixed)):
+    for K, kpos, label in ((4, kp, 'tool'), (32, kp, 'tool'), (4, kp_mixed, 'mixed'),
+                           (32, kp_masked, 'all-masked rows'),
+                           (ROOFLINE_K, kp_masked, 'all-masked rows'),
+                           (ROOFLINE_K, kp, 'tool: the timed call')):
         got5, want5 = rk.mask_chain(s, kpos, qp, K), rk.mask_chain_plain(s, kpos, qp, K)
         got6, want6 = rk.muladd_chain(s, K), rk.muladd_chain_plain(s, K)
         torch.cuda.synchronize()
         d5, d6 = (got5 - want5).abs(), (got6 - want6).abs()
-        rec = dict(K=K, positions='tool' if kpos is kp else 'mixed',
-                   k5_max_abs_err=float(d5.max()),
+        rec = dict(K=K, positions=label, k5_max_abs_err=float(d5.max()),
                    k5_within_one_bf16_ulp=bool((d5 <= 2.0 ** -7 * want5.abs()).all()),
                    k5_bit_equal_share=float((got5 == want5).float().mean()),
                    k6_max_abs_err=float(d6.max()),
                    k6_rel_err=float(d6.max()) / max(float(want6.abs().max()), 1e-30))
+        if kpos is kp_masked:
+            rec['k5_all_masked_rows_exact'] = bool((got5[:, ::2] == 1 / rk.W).all())
         log(f'[k5/k6] {json.dumps(rec)}')
         checks.append(rec)
-        if not (rec['k5_within_one_bf16_ulp'] and rec['k6_max_abs_err'] == 0.0):
+        if not (rec['k5_within_one_bf16_ulp'] and rec['k6_max_abs_err'] == 0.0
+                and rec.get('k5_all_masked_rows_exact', True)):
             raise AssertionError(f'K5 or K6 disagrees with its plain version: {rec}')
         err5, err6 = max(err5, rec['k5_max_abs_err']), max(err6, rec['k6_max_abs_err'])
     rates = vr.card_rates(dev)
     log(f'[k5/k6] card rates: {json.dumps(rates)}')
+    usage = rk.mask_chain_resources(dev)
+    log(f'[mask_chain] registers, local memory and occupancy (128 threads per block): '
+        f'{json.dumps(usage)}')
+    if usage['local_bytes']:
+        raise AssertionError(f'K5 spills or keeps a stack: {usage}')
     os.makedirs(OUT_DIR, exist_ok=True)
     rows = {}
     for name, fn, plain, err in (
@@ -1116,7 +1136,16 @@ def roofline_phase(dev, k3_ms, report):
                           ms=time_ms(fn, iters=5, warmup=1),
                           plain_ms=time_ms(plain, iters=3, warmup=1), library_ms=None,
                           **vr.bound(name, ROOFLINE_K, s.numel(), rates), sass=sass)
+        rows[name]['share_of_bound'] = rows[name]['bound_ms'] / rows[name]['ms']
         log(f'[{name}] {json.dumps(rows[name])}')
+        if 'CALL' in sass['opcodes'] or rows[name]['share_of_bound'] > 1:
+            raise AssertionError(f'{name}: a call in its loop, or faster than its bound')
+    ops = rows['mask_chain']['sass']['opcodes']
+    per_pass = {op: ops.get(op, 0) for op in ('MUFU', 'ISETP', 'FSEL', 'FMNMX', 'F2FP')}
+    log(f'[mask_chain] SASS per pass (one lane, {vr.LANE_VALUES["mask_chain"]} values): '
+        f'{rows["mask_chain"]["sass"]["instructions_per_pass"]} instructions, '
+        f'{rows["mask_chain"]["sass"]["instructions_per_element"]:.3f} per element; '
+        f'{json.dumps(per_pass)}')
     rk.LAUNCHES.update(saved)                    # comparison launches do not count
 
     rk.LAUNCHES.update(mask_chain=0, muladd_chain=0)
@@ -1130,10 +1159,11 @@ def roofline_phase(dev, k3_ms, report):
     if launches != dict(mask_chain=per_kernel, muladd_chain=per_kernel):
         raise AssertionError(f'the roofline tool did not run through K5 and K6: {launches}')
     if not (res['mask_chain_ns_per_pass'] > 0 and res['muladd_ns_per_pass'] > 0
-            and math.isfinite(res['mask_chain_share_of_k3'])):
-        raise AssertionError(f'the roofline figures are not positive: {res}')
+            and 0 < res['mask_chain_share_of_k3'] < 1):
+        raise AssertionError(f'the roofline figures are not positive, or the chain\'s '
+                             f'share of K3 is not in (0, 1): {res}')
     report.update(roofline_checks=checks, roofline_kernels=rows, roofline=res,
-                  roofline_launches=launches)
+                  roofline_launches=launches, mask_chain_usage=usage)
     return rows, launches
 
 

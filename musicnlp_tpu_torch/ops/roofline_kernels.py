@@ -6,15 +6,19 @@ replaces `_mask_chain_kernel` (reached through `run_chain`) with the
 hand-written CUDA C++ kernel `csrc/mask_chain.cu`, K6 replaces
 `_muladd_kernel` (reached through `run_muladd`) with `csrc/muladd_chain.cu`.
 Neither is on a training or inference path: `tools/vpu_roofline.py` runs them
-to ask how much of K3's time its softmax chain can account for on this card.
+to ask what share of K3's time its softmax chain takes on this card (K5 runs
+the chain with the bf16 K3's arithmetic per element, within one bf16 ulp of
+the plain version).
 
   * `mask_chain(s, kp, qp, K)`: K passes of K3's mask / softmax chain over
     s [G, M, C, 128] f32 with key positions kp [G, M, 128] and query
     positions qp [G, M, C] (int32), no dot products (see `mask_chain_plain`).
   * `muladd_chain(s, K)`: K dependent passes of acc = acc * 1.0000001 + s0.
-  Both are wrappers: CPU tensors take the plain PyTorch versions (`*_plain`,
-  the same per-pass arithmetic in a Python loop), CUDA tensors launch the
-  kernel or raise, and any other device raises.  Each launch adds one to
+  * `mask_chain_resources(device)`: K5's registers, local memory and
+    occupancy on the card.
+  The first two are wrappers: CPU tensors take the plain PyTorch versions
+  (`*_plain`, the same per-pass arithmetic in a Python loop), CUDA tensors
+  launch the kernel or raise, and any other device raises.  Each launch adds one to
   `LAUNCHES[<name>]`.
 """
 from __future__ import annotations
@@ -24,8 +28,8 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ['mask_chain', 'mask_chain_plain', 'muladd_chain', 'muladd_chain_plain', 'LAUNCHES',
-           'MULADD_FACTOR', 'W']
+__all__ = ['mask_chain', 'mask_chain_plain', 'mask_chain_resources', 'muladd_chain',
+           'muladd_chain_plain', 'LAUNCHES', 'MULADD_FACTOR', 'W']
 
 LAUNCHES = {'mask_chain': 0, 'muladd_chain': 0}
 W = 128                                          # keys per row (2C of the 22-04 LSH kernel)
@@ -103,6 +107,21 @@ def mask_chain(s: torch.Tensor, kp: torch.Tensor, qp: torch.Tensor, K: int) -> t
         raise RuntimeError(f'mask_chain launch failed: CUDA error {err}')
     LAUNCHES['mask_chain'] += 1
     return out
+
+
+def mask_chain_resources(device) -> dict:
+    """K5's kernel on a CUDA device: registers per thread, local-memory bytes
+    per thread (stack and spills; 0 when nothing spills) and blocks resident
+    on one SM at once, as the loaded library reports them."""
+    from musicnlp_tpu_torch.kernels.build import load
+    fn = load('mask_chain', _MASK_ARGTYPES).mask_chain_resources
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    res = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = fn(res)
+    if err:
+        raise RuntimeError(f'mask_chain resource query failed: CUDA error {err}')
+    return dict(registers=res[0], local_bytes=res[1], blocks_per_sm=res[2])
 
 
 def muladd_chain(s: torch.Tensor, K: int) -> torch.Tensor:

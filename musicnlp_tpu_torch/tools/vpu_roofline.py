@@ -3,11 +3,15 @@
 Counterpart of `scripts/vpu_roofline.py`.  That script asked, on the TPU,
 whether the position-compare / exp / softmax passes inside K3's programs were
 at the vector unit's floor.  This tool asks the same of the H100: it runs
-K3's exact chain with no dot products (K5, `csrc/mask_chain.cu`) and a bare
+K3's chain with no dot products (K5, `csrc/mask_chain.cu`) and a bare
 multiply-add chain (K6, `csrc/muladd_chain.cu`) K times over the script's
 shapes -- G = 64 "programs" of [M, C, W] = [8, 64, 128] f32, positions
 kp = arange(W) - C, qp = arange(C), s from a seeded `torch.Generator` --
-and differences K = 256 and K = 1024 to cancel the launch.
+and differences K = 256 and K = 1024 to cancel the launch.  K5 runs the
+chain with the bf16 K3's own arithmetic per element (`k3_tc`: one FFMA for
+the fold and scale, the compares and selects, exp2f of (x - max) log2 e,
+one reciprocal per row, a bf16 conversion), so its time is the share of
+K3's time that the chain takes.
 
     python -m musicnlp_tpu_torch.tools.vpu_roofline [--out PATH]
 
@@ -17,6 +21,7 @@ writes one JSON object (default `build/vpu_roofline.json`):
     [8, 64, 128] program, (t(1024) - t(256)) / (G * 768).  On the TPU the 64
     programs ran one after another; on the card they run at once on every
     SM, so this is the card's time amortised per program-pass;
+    `mask_chain_bound_ns_per_pass` is the least such time (`bound`);
   * `muladd_ns_per_pass`: the same for one multiply-add pass, and
     `muladd_elems_per_sec` = 65,536 / that, in 10^9 elements per second
     (the script's unit);
@@ -25,12 +30,33 @@ writes one JSON object (default `build/vpu_roofline.json`):
     D 64, chunk 64, bf16, permuted positions and the self bias), and
     `insitu_k3_ns_per_program` = that time over the 768 * 32 / 8 = 3,072
     [8, 64, 128] program-equivalents it covers; `mask_chain_share_of_k3` is
-    the chain's time per program over K3's -- a ratio that can exceed 1,
-    since the bf16 K3 runs a leaner chain (exp2f, a reciprocal per row) than
-    the TPU kernel's exact one that K5 repeats;
+    the chain's time per program over K3's: the share of K3 that its mask /
+    softmax chain takes;
   * each timing is the median of `REPEATS` (5) calls, timed with CUDA
     events after a warm-up call.
 It needs the card: without CUDA it raises.
+
+The bound (`bound`) counts, per element and pass, the instructions that any
+kernel of the chain within the tolerance must issue, each on the pipe that
+executes it on compute capability 9.0 (lanes per SM per clock: NVIDIA's CUDA
+C++ Programming Guide, arithmetic-instruction throughput; the four warp
+schedulers of an SM dispatch 32 lanes per clock each, Hopper architecture
+white paper):
+  K5  FMA pipe (FFMA / FADD / FMUL, 128 lanes): 5 -- fold and scale in one
+        FFMA, the self add, x - max, the sum, * 1/l.  log2 e costs no
+        instruction: it folds into the constants that are pre-scaled anyway
+        (s0 / 8, the fold constant, 1e4 and -1e9), so x is in log2 units and
+        p = exp2(x - max), the difference still taken before any scaling
+        (`tests/test_torch_k5_schedule.py` holds that chain within one bf16
+        ulp of the plain version).  K5 itself multiplies (x - max) by log2 e,
+        as K3 does: one FMUL more than the bound;
+      ALU pipe (ISETP / FSEL / FMNMX / F2FP, 64 lanes): 5 -- the causal and
+        the self compare, the mask select, the max, the bf16 conversion;
+      MUFU (16 lanes): 1 ex2;
+      dispatch (every instruction, 128 lanes): 11, which bounds it.
+  K6  FMA pipe: 1 FFMA (dispatch 1).
+Per-row work (shuffles, the reciprocal, the loop) is left out: it depends on
+how many values a lane holds.  `sass_loop` counts what a kernel issues.
 """
 from __future__ import annotations
 
@@ -50,17 +76,18 @@ from musicnlp_tpu_torch import resolve_device
 from musicnlp_tpu_torch.ops import roofline_kernels as rk
 
 __all__ = ['M', 'C', 'W', 'G', 'K_PAIR', 'REPEATS', 'chain_inputs', 'run_chain', 'run_muladd',
-           'k3_lsh_ms', 'card_rates', 'bound', 'sass_loop', 'count_mma', 'tensor_core_counts',
-           'roofline', 'main']
+           'k3_lsh_ms', 'card_rates', 'bound', 'sass_loop', 'count_mma',
+           'tensor_core_counts', 'roofline', 'main']
 
 M, C, W = 8, 64, 128            # [m, c, 2c] of the base/2048 LSH kernel
 G = 64                          # programs per call
 K_PAIR = (256, 1024)
 REPEATS = 5                     # timed calls per figure (median), after one warm-up
 K3_PROGRAMS = 768 * (2048 // 64) // M      # [8, 64, 128] program-equivalents in one K3 call
-# per element and pass: FP32-pipe operations and special-function (ex2) operations
-OPS = {'mask_chain': dict(fp32=12, sfu=1), 'muladd_chain': dict(fp32=1, sfu=0)}
-FP32_LANES_PER_SM, SFU_LANES_PER_SM = 128, 16               # Hopper SM, per clock
+# instructions per element and pass, by the pipe that executes them (module docstring)
+OPS = {'mask_chain': dict(fma=5, alu=5, mufu=1), 'muladd_chain': dict(fma=1, alu=0, mufu=0)}
+LANES_PER_SM = dict(fma=128, alu=64, mufu=16, dispatch=128)  # Hopper SM, per clock
+LANE_VALUES = dict(mask_chain=32, muladd_chain=8)            # values each lane carries
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM (NVIDIA data sheet)
 OUT_DEFAULT = Path(__file__).resolve().parents[2] / 'build' / 'vpu_roofline.json'
 
@@ -126,30 +153,31 @@ def _nvidia_smi(query: str) -> str:
 
 
 def card_rates(device=None) -> Dict[str, float]:
-    """The card's own peak rates: SMs (torch) x lanes per SM per clock x the
-    maximum SM clock (nvidia-smi)."""
+    """The card's own peak rates: SMs (torch) x lanes per SM per clock of each
+    pipe x the maximum SM clock (nvidia-smi), and the HBM rate."""
     dev = resolve_device(device)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(_nvidia_smi('clocks.max.sm').split()[0]) * 1e6
-    return dict(sms=sms, clock_hz=clock_hz, fp32_per_s=FP32_LANES_PER_SM * sms * clock_hz,
-                sfu_per_s=SFU_LANES_PER_SM * sms * clock_hz, bytes_per_s=HBM_BYTES_PER_S)
+    return dict(sms=sms, clock_hz=clock_hz, bytes_per_s=HBM_BYTES_PER_S,
+                **{f'{pipe}_per_s': lanes * sms * clock_hz
+                   for pipe, lanes in LANES_PER_SM.items()})
 
 
 def bound(name: str, K: int, elems: int, rates: Dict[str, float]) -> Dict[str, object]:
     """The least time of a `name` call with K passes over `elems` elements:
-    the larger of its FP32-pipe operations, its ex2s and its bytes (s and
-    the output once; K5's positions are < 1% and counted too) at the card's
-    rates."""
+    the largest of each pipe's instructions (`OPS`) at its rate, all of them
+    at the dispatch rate, and the bytes (s and the output once; K5's
+    positions are < 1% and counted too).  `pipe` names the one that bounds."""
     ops = OPS[name]
-    t_fp32 = ops['fp32'] * elems * K / rates['fp32_per_s']
-    t_sfu = ops['sfu'] * elems * K / rates['sfu_per_s']
+    n = elems * K
+    times = {pipe: ops[pipe] * n / rates[f'{pipe}_per_s'] for pipe in ops}
+    times['dispatch'] = sum(ops.values()) * n / rates['dispatch_per_s']
     nbytes = 8 * elems + (4 * (G * M * W + G * M * C) if name == 'mask_chain' else 0)
-    t_bytes = nbytes / rates['bytes_per_s']
-    t_ops = max(t_fp32, t_sfu)
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by='operations' if t_ops >= t_bytes else 'bytes',
-                fp32_ms=1e3 * t_fp32, sfu_ms=1e3 * t_sfu, bytes_ms=1e3 * t_bytes,
-                ops_per_elem_pass=ops)
+    times['bytes'] = nbytes / rates['bytes_per_s']
+    pipe = max(times, key=times.get)
+    return dict(bound_ms=1e3 * times[pipe],
+                bound_by='bytes' if pipe == 'bytes' else 'operations', pipe=pipe,
+                **{f'{k}_ms': 1e3 * v for k, v in times.items()}, ops_per_elem_pass=ops)
 
 
 def _cuobjdump() -> str:
@@ -178,7 +206,8 @@ def _sass(name: str) -> str:
 def sass_loop(name: str) -> Dict[str, object]:
     """The SASS of `csrc/<name>.cu`'s kernel (`cuobjdump -sass` of the built
     library): its longest backward branch is the K loop; returns the
-    instructions in one trip (one pass) by opcode, and the SASS text."""
+    instructions in one trip (one pass), per value a lane carries
+    (`LANE_VALUES`: per element and pass) and by opcode, and the SASS text."""
     sass = _sass(name)
     body = sass[sass.index(f'{name}_kernel'):]
     instrs, labels, pending = [], {}, []
@@ -210,8 +239,9 @@ def sass_loop(name: str) -> Dict[str, object]:
     for text in trip:
         op = _opcode(text).split('.')[0]
         opcodes[op] = opcodes.get(op, 0) + 1
-    return dict(instructions_per_pass=len(trip), opcodes=dict(sorted(opcodes.items())),
-                loop=[hex(lo), hex(hi)], sass=sass)
+    return dict(instructions_per_pass=len(trip),
+                instructions_per_element=len(trip) / LANE_VALUES[name],
+                opcodes=dict(sorted(opcodes.items())), loop=[hex(lo), hex(hi)], sass=sass)
 
 
 _FUNCTION = re.compile(r'^\s*Function\s*:\s*(\S+)')
@@ -253,22 +283,24 @@ def roofline(k3_ms: Optional[float] = None, device=None) -> Dict[str, object]:
     if k3_ms is None:
         k3_ms = k3_lsh_ms(dev)
     k3_program_ns = k3_ms * 1e6 / K3_PROGRAMS
+    # the K-differenced bound: operations bound it (the bytes cancel in t2 - t1)
+    bound_pass = bound('mask_chain', k2 - k1, G * elems, card_rates(dev))
     return dict(
         device=torch.cuda.get_device_name(dev), shape=[M, C, W], grid=G, k=[k1, k2],
         repeats=REPEATS, mask_chain_s=[t1, t2], muladd_s=[m1, m2],
         mask_chain_ns_per_pass=per_pass * 1e9,
+        mask_chain_bound_ns_per_pass=bound_pass['bound_ms'] * 1e6 / (G * (k2 - k1)),
         muladd_ns_per_pass=per_muladd * 1e9,
         muladd_elems_per_sec=elems / per_muladd / 1e9,
         insitu_k3_lsh_ms=k3_ms, insitu_k3_programs=K3_PROGRAMS,
         insitu_k3_ns_per_program=k3_program_ns,
         mask_chain_share_of_k3=per_pass * 1e9 / k3_program_ns,
-        note=('mask_chain_ns_per_pass is the card time of one pass of the TPU kernel\'s '
-              'exact compare / exp / softmax chain over one [8, 64, 128] program, amortised '
-              'over the 64 programs the card runs at once; insitu_k3_ns_per_program is K3\'s '
+        note=('mask_chain_ns_per_pass is the card time of one pass of K3\'s compare / exp / '
+              'softmax chain over one [8, 64, 128] program, amortised over the 64 programs '
+              'the card runs at once, with the bf16 K3\'s own arithmetic per element (exp2f, '
+              'one reciprocal per row, a bf16 conversion); insitu_k3_ns_per_program is K3\'s '
               'own time per program-equivalent on this card, and mask_chain_share_of_k3 is '
-              'their ratio, not a share bounded by 1: the chain keeps a correctly rounded '
-              'division and an accurate expf per element, where the bf16 K3 takes exp2f and '
-              'one reciprocal per row, so the chain alone may take longer than all of K3'))
+              'the share of it that the chain takes'))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -213,18 +213,27 @@ def test_reformer_forward_and_backward_launch_once_per_layer(dev):
 @pytest.mark.parametrize('K', [1, 4, 32])
 def test_k5_k6_match_plain(dev, K):
     """K5 (the mask / softmax chain) within one bf16 ulp of its plain version
-    (f32 sums in other orders may flip a bf16 rounding); K6 (the FMA chain)
+    (f32 sums in other orders, ex2.approx and an approximate reciprocal per
+    row may flip a bf16 rounding), on mixed positions and on positions whose
+    even m have every key masked (1/128 exactly); K6 (the FMA chain)
     bit-equal to it (the plain version's f64 product and sum are exact, so
-    it rounds once per pass, as the FMA does).  One launch each."""
+    it rounds once per pass, as the FMA does).  One launch each per input."""
     g = torch.Generator(device=dev).manual_seed(K)
     s = torch.randn(3, 8, 64, rk.W, generator=g, device=dev)
     kp = (torch.arange(rk.W, dtype=torch.int32, device=dev) - 40).expand(3, 8, rk.W).contiguous()
     qp = torch.arange(64, dtype=torch.int32, device=dev).expand(3, 8, 64).contiguous()
     kp[:, :, ::5] = 10 ** 6                    # masked keys beside the valid and self ones
+    kp_masked = kp.clone()
+    kp_masked[:, ::2] = 10 ** 6                # all-masked rows
     before = dict(rk.LAUNCHES)
     got5, got6 = rk.mask_chain(s, kp, qp, K), rk.muladd_chain(s, K)
+    got5m = rk.mask_chain(s, kp_masked, qp, K)
     want5, want6 = rk.mask_chain_plain(s, kp, qp, K), rk.muladd_chain_plain(s, K)
+    want5m = rk.mask_chain_plain(s, kp_masked, qp, K)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES == {n: before[n] + 1 for n in before}
-    assert bool(((got5 - want5).abs() <= 2.0 ** -7 * want5.abs()).all())
+    assert rk.LAUNCHES == dict(mask_chain=before['mask_chain'] + 2,
+                               muladd_chain=before['muladd_chain'] + 1)
+    for got, want in ((got5, want5), (got5m, want5m)):
+        assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs()).all())
+    assert bool((got5m[:, ::2] == 1 / rk.W).all())
     assert got6.equal(want6)

@@ -155,14 +155,50 @@ def test_roofline_tool_needs_the_card(monkeypatch, tmp_path):
 
 
 def test_roofline_bound_counts_the_card_rates():
-    """The bound of a call from the card's rates: K6 is K FMAs per element on
-    the FP32 pipes; K5's 12 FP32 operations per element outweigh its ex2."""
-    rates = dict(fp32_per_s=128 * 132 * 1.98e9, sfu_per_s=16 * 132 * 1.98e9,
-                 bytes_per_s=3.35e12)
+    """The bound of a call from the card's rates, by pipe: K6 is K FFMAs per
+    element on the FMA pipe; K5 is 5 FMA-pipe, 5 ALU-pipe and 1 MUFU
+    instruction per element-pass, and its 11 instructions at the SM's
+    dispatch rate (128 lanes per clock) outweigh every single pipe."""
+    rates = dict(bytes_per_s=3.35e12, **{f'{pipe}_per_s': lanes * 132 * 1.98e9
+                                         for pipe, lanes in tool.LANES_PER_SM.items()})
+    assert tool.LANES_PER_SM == dict(fma=128, alu=64, mufu=16, dispatch=128)
     elems = tool.G * M * C * W
     b6 = tool.bound('muladd_chain', 1024, elems, rates)
-    assert b6['bound_by'] == 'operations'
-    assert b6['bound_ms'] == pytest.approx(1e3 * 1024 * elems / rates['fp32_per_s'])
+    assert b6['bound_by'] == 'operations' and b6['pipe'] == 'fma'
+    assert b6['bound_ms'] == pytest.approx(1e3 * 1024 * elems / rates['fma_per_s'])
     b5 = tool.bound('mask_chain', 1024, elems, rates)
-    assert b5['bound_by'] == 'operations' and b5['fp32_ms'] > b5['sfu_ms'] > b5['bytes_ms']
-    assert b5['bound_ms'] == pytest.approx(12 * b6['bound_ms'])
+    assert b5['ops_per_elem_pass'] == dict(fma=5, alu=5, mufu=1)
+    assert b5['bound_by'] == 'operations' and b5['pipe'] == 'dispatch'
+    assert b5['dispatch_ms'] > b5['alu_ms'] > b5['mufu_ms'] > b5['fma_ms'] > b5['bytes_ms']
+    assert b5['alu_ms'] == pytest.approx(5 * 2 * b6['bound_ms'])      # 64 lanes, not 128
+    assert b5['mufu_ms'] == pytest.approx(8 * b6['bound_ms'])         # 16 lanes
+    assert b5['bound_ms'] == pytest.approx(11 * b6['bound_ms'])
+    assert b5['bound_ms'] == pytest.approx(1.4122, abs=1e-4)
+    # a few passes move no more work than their bytes
+    assert tool.bound('mask_chain', 1, elems, rates)['pipe'] == 'bytes'
+
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_117mask_chain_kernelEPKfPKiS3_Pfiii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                      /* 0x0 */
+        /*0010*/                   LDG.E.128 R4, desc[UR4][R2.64] ;            /* 0x0 */
+.L_x_0:
+        /*0020*/                   FFMA R4, R4, 1.2499999e-07, R8 ;            /* 0x0 */
+        /*0030*/                   ISETP.NE.AND P0, PT, R12, R16, PT ;         /* 0x0 */
+        /*0040*/              @!P0 FADD R4, R4, 10000 ;                        /* 0x0 */
+        /*0050*/                   MUFU.EX2 R5, R4 ;                           /* 0x0 */
+        /*0060*/                   MUFU.RCP R6, R5 ;                           /* 0x0 */
+        /*0070*/                   F2FP.BF16.F32.PACK_AB R4, R5, RZ ;          /* 0x0 */
+        /*0080*/              @!P1 BRA `(.L_x_0) ;                             /* 0x0 */
+        /*0090*/                   EXIT ;                                      /* 0x0 */
+        Function : _ZN12_GLOBAL__N_117other_kernelEv
+        /*0000*/                   EXIT ;                                      /* 0x0 */
+"""
+
+
+def test_sass_loop_counts_one_trip_per_pass_and_element(monkeypatch):
+    monkeypatch.setattr(tool, '_sass', lambda name: SASS)
+    loop = tool.sass_loop('mask_chain')
+    assert loop['instructions_per_pass'] == 7 and loop['loop'] == ['0x20', '0x80']
+    assert loop['instructions_per_element'] == 7 / 32
+    assert loop['opcodes'] == dict(BRA=1, F2FP=1, FADD=1, FFMA=1, ISETP=1, MUFU=2)
