@@ -65,17 +65,35 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      with phase 2b's K3 LSH time as its in-situ comparator, whose
      `mask_chain_share_of_k3` must lie in (0, 1);
   8. the user's path through the command line, in process (`cli.main`),
-     counted: a step-kind combined JSON of 64 seeded synthetic songs ->
-     `dataset` -> `train --recipe 22-11 --epochs 1` (2 steps of 21 x 1024
-     with key insertion, pitch shift, channel mixup and random crop; 12 K1
-     per forward, 12 K2 per step) -> `generate` (4 songs, top_k 8, and one
+     counted, from raw files: 64 seeded synthetic songs rendered by the
+     port's converter, 32 as .mxl and 32 as .mid -> `extract --jobs 4
+     --combine` (worker processes spawned from this process, which holds
+     the card; all 64 extracted, none shorter than 2048 tokens; its seconds
+     and songs/s) -> the port's `MusicExtractor` (full, melody) and
+     `FastMidiExtractor` (full) on tests/goldens/golden*.{musicxml,mid}
+     against the frozen tests/goldens/extraction.json, byte for byte, and
+     both extractors' songs/s on the 32 .mid files -> `dataset` (58 / 6)
+     -> `train --recipe 22-11 --epochs 1` (2 steps of 21 x 1024 with key
+     insertion, pitch shift, channel mixup and random crop; 12 K1 per
+     forward, 12 K2 per step) -> `generate` (4 songs, top_k 8, and one
      conditioned on a rendered song with its key from `KeyFinder`) -> every
-     written .mid / .mxl re-read by the port's io; then `train --recipe 22-04
-     --epochs 1` (1 step of 32 x 2048; 12 K3 + 12 K4 per step) -> `generate`
-     (4 songs, top_p 0.9); wall time per command, the epochs' tokens/s,
-     decode tok/s (with phase 4's request repeated after the CLI's, in the
-     same process state), and the device-busy share of the recipes' own
-     input pipeline feeding training steps.
+     written .mid / .mxl re-read by the port's io -> `generate` with beam
+     search (4 beams), diverse-beam search (2 groups, diversity penalty
+     1.0) and contrastive search (top_k 4, penalty_alpha 0.6), 2 songs
+     each at max_length 1024, every file re-read, no K1 / K2 launch; two
+     beam calls with the same arguments equal, contrastive (top_k 1,
+     penalty_alpha 0) equal to greedy (128 tokens); then `train --recipe
+     22-04 --epochs 1` (1 step of 32 x 2048; 12 K3 + 12 K4 per step) ->
+     `generate` (4 songs, top_p 0.9) -> beam (4 beams) and contrastive
+     search (top_k 4, penalty_alpha 0.6), 2 songs each at max_length 1024
+     (half the model's 2048, to bound the phase's time), every file
+     re-read, no K3 / K4 launch, and the same exact checks; wall time per
+     command, the epochs' tokens/s, decode tok/s (with phase 4's request
+     repeated after the CLI's, in the same process state), each search
+     command's peak device memory and the bytes a search step gathers or
+     copies, the device-busy share of the recipes' own input pipeline
+     feeding training steps, and the seconds of the raw-file, extraction
+     and search parts.
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json;
 training runs write under build/chip_smoke_runs/, removed at the end.
@@ -105,8 +123,10 @@ from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
 from musicnlp_tpu_torch.ops import flash_attention as fa
 from musicnlp_tpu_torch.ops import roofline_kernels as rk
 from musicnlp_tpu_torch.preprocess.dataset import SongDataset
+from musicnlp_tpu_torch.preprocess.fast_extractor import FastMidiExtractor
 from musicnlp_tpu_torch.preprocess.key_finder import KeyFinder
 from musicnlp_tpu_torch.preprocess.music_converter import MusicConverter
+from musicnlp_tpu_torch.preprocess.music_extractor import MusicExtractor
 from musicnlp_tpu_torch.tools import vpu_roofline as vr
 from musicnlp_tpu_torch.trainer import train as tr
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained, score_batch
@@ -166,6 +186,9 @@ FMA_KERNELS = {'flash_rel_attn_fwd': ('flash_rel_attn_fwd_kernel',),
 SASS_MMA = {}                                    # library -> {function: HMMA + HGMMA}, phase 1
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out')
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests', 'goldens')
+SEARCH_LEN = 1024                                # beam / contrastive generation length (tokens)
+EXACT_LEN = 128                                  # the exact search checks' length (tokens)
 
 
 def log(msg: str):
@@ -1272,6 +1295,123 @@ def check_rendered(out_dir, n):
     return bars, sum(valid) / len(valid)
 
 
+def render_songs(songs, out_dir):
+    """Each song rendered by the port's converter to a file a user would
+    extract: the even ones as .mxl, the odd ones as .mid -> the paths."""
+    os.makedirs(out_dir)
+    mc, paths = MusicConverter(mode='full'), []
+    for i, song in enumerate(songs):
+        score = mc.str2score(song['score'], pitch_kind='step', title=song['title'])
+        path = os.path.join(out_dir, f'{song["title"]}.{"mid" if i % 2 else "mxl"}')
+        (score.write_midi if i % 2 else score.write_mxl)(path)
+        paths.append(path)
+    return paths
+
+
+def extraction_checks(mid_paths):
+    """The port's extractors on this machine: `MusicExtractor` (full, melody)
+    on the golden MusicXML files and `FastMidiExtractor` (full) on the golden
+    MIDI files equal the frozen tests/goldens/extraction.json byte for byte;
+    then the Python and native extractors' songs per second on `mid_paths`
+    (host work, one process)."""
+    with open(os.path.join(GOLDEN_DIR, 'extraction.json')) as f:
+        frozen = json.load(f)
+    fast = FastMidiExtractor(mode='full')
+    for name, want in sorted(frozen.items()):
+        score = parse_file(os.path.join(GOLDEN_DIR, f'{name}.musicxml'))
+        got = {mode: MusicExtractor(mode=mode, warn_logger=True)(score, exp='str_join')
+               for mode in ('full', 'melody')}
+        got['fast_full'] = fast(os.path.join(GOLDEN_DIR, f'{name}.mid'))
+        for key, text in got.items():
+            if text != want[key]:
+                raise AssertionError(f'{name} {key}: the extraction differs from the frozen '
+                                     f'golden: {text[:200]}')
+    rates = {}
+    for label, extract in (
+            ('python', lambda p: MusicExtractor(mode='full', with_pitch_step=True)(
+                p, exp='str_join', return_meta=True, return_key=True)),
+            ('native', fast.extract_with_meta)):
+        t0 = time.perf_counter()
+        for p in mid_paths:
+            extract(p)
+        dt = time.perf_counter() - t0
+        rates[label] = dict(songs=len(mid_paths), seconds=dt, songs_per_s=len(mid_paths) / dt)
+    log(f'[extract] goldens equal tests/goldens/extraction.json ({len(frozen)} songs: full, '
+        f'melody, fast_full); on {len(mid_paths)} rendered .mid files: python '
+        f'{rates["python"]["songs_per_s"]:.2f} songs/s, native '
+        f'{rates["native"]["songs_per_s"]:.2f} songs/s')
+    return dict(goldens=len(frozen), **rates)
+
+
+def state_bytes(model, rows):
+    """Bytes of the per-row fields (batch on axis 1) of a decode state of
+    `rows` rows: what a reorder gathers for that many rows."""
+    state = model.init_decode_state(rows)
+    n = sum(x.numel() * x.element_size() for x in state
+            if isinstance(x, torch.Tensor) and x.ndim > 1 and x.shape[1] == rows)
+    del state
+    return n
+
+
+def search_commands(run, root, family, vocab, commands):
+    """`generate` with each strategy's flags (2 songs, SEARCH_LEN tokens):
+    wall seconds, decode tok/s of the sampled tokens, peak device memory and
+    the files re-read; no K1-K4 launch -> {label: record}."""
+    out = {}
+    for label, flags in commands:
+        gen_dir = os.path.join(root, f'search-{family}-{label}')
+        torch.cuda.reset_peak_memory_stats()
+        with DecodeTimer() as timer:
+            wall = run_cli(['generate', '--model-dir', run, '--out', gen_dir, '--n', '2',
+                            '--max-length', str(SEARCH_LEN), *flags])
+            dec = timer.summary(vocab)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bars, valid = check_rendered(gen_dir, 2)
+        for side in (f for f in os.listdir(gen_dir) if f.endswith('.json')):
+            with open(os.path.join(gen_dir, side)) as f:
+                if json.load(f)['strategy'] != flags[1]:
+                    raise AssertionError(f'{gen_dir}/{side}: not a {flags[1]} run')
+        out[label] = dict(flags=flags, wall_s=wall, peak_gib=peak, bars=bars,
+                          bar_durations_valid_share=valid, **dec)
+        log(f'[search] {family} {label}: wall {wall:.1f} s, decode {dec["seconds"]:.1f} s, '
+            f'{dec["decode_tok_per_s"]:.1f} tok/s, lengths {dec["lengths"]}, peak '
+            f'{peak:.2f} GiB, re-read bars {[b["mxl"] for b in bars]}')
+    return out
+
+
+def exact_search_checks(run, dev, key):
+    """On the trained model: two beam calls with the same arguments give the
+    same tokens; contrastive search with one candidate and no penalty gives
+    the greedy tokens (EXACT_LEN tokens, two prompts); and the bytes a search
+    step moves besides the decode: the beam reorder's gather of 8 rows (read
+    and written) and contrastive search's expanded copy (2 rows read, 8
+    written) and its context hiddens."""
+    model, params, tok = load_trained(run, device=dev)
+    gen = MusicGenerator(model, tok, params, augment_key=key is not None)
+    prompts = [gen.unconditional_prompt(key=key),
+               gen.unconditional_prompt(time_sig=(3, 4), tempo=90, key=key)]
+    t0 = time.perf_counter()
+    beams = [gen.generate(prompts, strategy='beam', max_length=EXACT_LEN, num_beams=4)
+             for _ in range(2)]
+    if beams[0] != beams[1]:
+        raise AssertionError(f'two beam calls differ: {beams}')
+    greedy = gen.generate(prompts, strategy='greedy', max_length=EXACT_LEN)
+    contrastive = gen.generate(prompts, strategy='contrastive', max_length=EXACT_LEN, top_k=1,
+                               penalty_alpha=0.0)
+    if contrastive != greedy:
+        raise AssertionError(f'contrastive (1, 0) is not greedy: {contrastive} {greedy}')
+    d = getattr(model, 'hidden_dim', model.cfg.d_model)
+    rec = dict(seconds=time.perf_counter() - t0, beam_repeat_equal=True,
+               contrastive_1_0_is_greedy=True,
+               beam_reorder_bytes_per_step=2 * state_bytes(model, 8),
+               contrastive_expand_bytes_per_step=state_bytes(model, 2) + state_bytes(model, 8),
+               state_bytes_per_row=state_bytes(model, 1),
+               contrastive_ctx_h_bytes=2 * SEARCH_LEN * d * model.cfg.compute_dtype.itemsize)
+    del model, params, gen
+    torch.cuda.empty_cache()
+    return rec
+
+
 def pipeline_profile(recipe, ds_dir, dev):
     """Device-busy share of the recipe's own input pipeline (AugmentedDataset
     batches through `prefetch`, to the card) feeding training steps: one
@@ -1297,16 +1437,37 @@ def pipeline_profile(recipe, ds_dir, dev):
 
 
 def cli_path(dev, report):
-    """Phase 8: dataset -> train --recipe 22-11 -> generate (unconditional and
-    conditional) -> re-read; train --recipe 22-04 -> generate; counted."""
+    """Phase 8: raw .mxl / .mid files -> extract -> dataset -> train --recipe
+    22-11 -> generate (unconditional and conditional) -> re-read -> beam,
+    diverse-beam and contrastive search; train --recipe 22-04 -> generate ->
+    beam and contrastive search; counted."""
     root = os.path.join(RUN_DIR, 'cli')
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     combined, ds = os.path.join(root, 'combined.json'), os.path.join(root, 'dataset')
     songs = synthetic_songs(64, 150, SEED + 30)
-    with open(combined, 'w') as f:
-        json.dump(dict(music=songs, n_song=len(songs), extractor_meta={}), f)
-    rec = dict(walls={})
+    rec = dict(walls={}, added_seconds={})
+    t0 = time.perf_counter()
+    files = render_songs(songs, os.path.join(root, 'raw'))
+    rec['added_seconds']['render'] = time.perf_counter() - t0
+    # extraction in 4 worker processes, spawned from this process, which holds the card
+    rec['walls']['extract'] = run_cli(['extract', *files, '--out', os.path.join(root, 'json'),
+                                       '--jobs', '4', '--combine', combined])
+    rec['added_seconds']['extract'] = rec['walls']['extract']
+    with open(combined) as f:
+        extracted = json.load(f)
+    lens = [len(x['score'].split()) for x in extracted['music']]
+    rec['extract'] = dict(songs=extracted['n_song'], songs_per_s=len(files) / rec['walls']['extract'],
+                          tokens_min=min(lens), tokens_max=max(lens))
+    log(f'[cli] extract: {extracted["n_song"]} of {len(files)} songs (32 .mxl + 32 .mid) in '
+        f'{rec["walls"]["extract"]:.2f} s, {rec["extract"]["songs_per_s"]:.2f} songs/s, '
+        f'{min(lens)}-{max(lens)} tokens each')
+    if extracted['n_song'] != len(files) or min(lens) <= 2048:
+        raise AssertionError(f'extract: {extracted["n_song"]} songs of {len(files)} (an error '
+                             f'writes no song), shortest {min(lens)} tokens')
+    t0 = time.perf_counter()
+    rec['extraction'] = extraction_checks([p for p in files if p.endswith('.mid')])
+    rec['added_seconds']['extraction checks'] = time.perf_counter() - t0
     rec['walls']['dataset'] = run_cli(['dataset', combined, '--out', ds, '--pitch-kind', 'step',
                                        '--test-frac', '0.1'])
     with open(os.path.join(ds, 'meta.json')) as f:
@@ -1383,6 +1544,22 @@ def cli_path(dev, report):
         f'bar_durations_valid {valid:.2f} / {cvalid:.2f}')
     rec['profile_22_11'] = pipeline_profile('22-11', ds, dev)
     log(f'[cli] 22-11 input pipeline + steps: {json.dumps(rec["profile_22_11"])}')
+    # beam, diverse-beam and contrastive search on the trained 22-11 model:
+    # decode only, no K1 / K2 launch
+    t0 = time.perf_counter()
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    key = ['--key', 'CMajor']
+    rec['search_22_11'] = search_commands(run, root, '22-11', dtok.vocab, [
+        ('beam', ['--strategy', 'beam', '--num-beams', '4', *key]),
+        ('diverse-beam', ['--strategy', 'beam', '--num-beams', '4', '--num-beam-groups', '2',
+                          '--diversity-penalty', '1.0', *key]),
+        ('contrastive', ['--strategy', 'contrastive', '--top-k', '4', '--penalty-alpha', '0.6',
+                         *key])])
+    rec['exact_22_11'] = exact_search_checks(run, dev, 'CMajor')
+    log(f'[search] 22-11 exact checks: {json.dumps(rec["exact_22_11"])}')
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f'search runs the plain decode step, no kernel: {fa.LAUNCHES}')
+    rec['added_seconds']['search 22-11'] = time.perf_counter() - t0
     shutil.rmtree(run)
 
     # 22-04: Reformer base, midi vocab 422, 2048, batch 32
@@ -1417,9 +1594,24 @@ def cli_path(dev, report):
     rec['rendered_22_04'] = dict(bars=bars, bar_durations_valid_share=valid)
     log(f'[cli] generate 22-04: {json.dumps(rec["generate_22_04"])}; re-read bars {bars}, '
         f'bar_durations_valid {valid:.2f}')
+    # beam and contrastive search on the trained 22-04 model, at SEARCH_LEN
+    # (half its 2048, to bound the phase's time): no K3 / K4 launch
+    t0 = time.perf_counter()
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    rec['search_22_04'] = search_commands(run, root, '22-04',
+                                          MusicTokenizer(pitch_kind='midi').vocab, [
+        ('beam', ['--strategy', 'beam', '--num-beams', '4']),
+        ('contrastive', ['--strategy', 'contrastive', '--top-k', '4', '--penalty-alpha', '0.6'])])
+    rec['exact_22_04'] = exact_search_checks(run, dev, None)
+    log(f'[search] 22-04 exact checks: {json.dumps(rec["exact_22_04"])}')
+    if any(ck.LAUNCHES.values()):
+        raise AssertionError(f'Reformer search runs no kernel: {ck.LAUNCHES}')
+    rec['added_seconds']['search 22-04'] = time.perf_counter() - t0
     rec['profile_22_04'] = pipeline_profile('22-04', ds, dev)
     log(f'[cli] 22-04 input pipeline + steps: {json.dumps(rec["profile_22_04"])}')
     log(f'[cli] wall seconds per command: {json.dumps(rec["walls"])}')
+    log(f'[cli] seconds of the raw-file, extraction and search parts: '
+        f'{json.dumps(rec["added_seconds"])}, total {sum(rec["added_seconds"].values()):.1f} s')
     report['cli'] = rec
     shutil.rmtree(root, ignore_errors=True)
     return launches_1122, launches_2204

@@ -2,22 +2,25 @@
 (console script `musicnlp-tpu-torch`).
 
 Counterpart of `musicnlp_tpu/cli.py`, with its flags, over the port's own
-data pipeline, Trainer and generator:
+extractor, data pipeline, Trainer and generator:
 
+    python -m musicnlp_tpu_torch extract  SONGS... --out json/ [--combine combined.json]
     python -m musicnlp_tpu_torch dataset  combined.json --out dataset/ [--pitch-kind step]
     python -m musicnlp_tpu_torch train    --dataset dataset/ --out models/run1 \\
                                           [--recipe 22-11 | --model transf-xl --size base]
     python -m musicnlp_tpu_torch generate --model-dir models/run1 --n 4 \\
                                           [--strategy sample --top-k 8] [--key CMajor]
+                                          [--strategy beam --num-beams 4 [--num-beam-groups 2]]
+                                          [--strategy contrastive --top-k 4 --penalty-alpha 0.6]
 
-`train` and `generate` run on CUDA; `--device cpu` asks for the CPU, and
-without CUDA and without it the command exits non-zero with the device
-resolver's error.  `extract` and `download` come with a later slice; the beam
-and contrastive strategies (slice A.3) and the learned tokenizer schemes
-(slice A.4) exit non-zero with their `NotImplementedError`; their own flags
-(`--num-beams`, `--penalty-alpha`, `--tokenizer-path`, ...) come with those
-slices, so argparse refuses them until then.  Heavy imports
-stay inside each command, so `--help` is instant.
+`extract` and `dataset` are host work and never touch the card (`extract
+--jobs N` extracts in N worker processes started by spawn).  `train` and
+`generate` run on CUDA; `--device cpu` asks for the CPU, and without CUDA and
+without it the command exits non-zero with the device resolver's error.
+`download` comes with a later slice; the learned tokenizer schemes (slice
+A.4) exit non-zero with their `NotImplementedError`, and their own flags
+(`--tokenizer-path`) come with that slice, so argparse refuses them until
+then.  Heavy imports stay inside each command, so `--help` is instant.
 """
 from __future__ import annotations
 
@@ -37,6 +40,38 @@ def _device(a):
         return resolve_device(a.device)
     except RuntimeError as e:
         raise SystemExit(f'error: {e}') from e
+
+
+def _cmd_extract(a) -> int:
+    from musicnlp_tpu_torch.preprocess.music_export import MusicExport, combine_saved_songs
+    paths: List[str] = []
+    for s in a.songs:
+        if any(c in s for c in '*?['):
+            hits = sorted(glob.glob(s, recursive=True))
+            if not hits and os.path.exists(s):
+                hits = [s]        # literal filename with bracket chars
+            elif not hits:
+                print(f'warning: pattern matched nothing: {s}', file=sys.stderr)
+        else:
+            hits = [s]
+        paths.extend(hits)
+    if not paths:
+        print('no input songs matched', file=sys.stderr)
+        return 2
+    # step-kind pitch tokens: the reference's corpus layout (its extractor
+    # runs with_pitch_step=True for datasets; dataset --pitch-kind then
+    # remaps step -> midi/degree at materialization)
+    exp = MusicExport(mode=a.mode, extractor_args=dict(with_pitch_step=True))
+    res = exp(paths, output_dir=a.out, save_each=True,
+              parallel=(a.jobs if a.jobs > 1 else False))
+    print(json.dumps({k: v for k, v in res.items() if k != 'errors'}))
+    for e in res['errors']:
+        print(f"error: {e.get('song_path')}: {e.get('error')}", file=sys.stderr)
+    if a.combine:
+        combined = combine_saved_songs(
+            sorted(glob.glob(os.path.join(a.out, '*.json'))), out_path=a.combine)
+        print(f"combined {combined['n_song']} songs -> {a.combine}")
+    return 1 if res['n_error'] and res['n_error'] == res['n_total'] else 0
 
 
 def _cmd_dataset(a) -> int:
@@ -94,9 +129,6 @@ def _cmd_train(a) -> int:
 
 
 def _cmd_generate(a) -> int:
-    if a.strategy in ('beam', 'contrastive'):
-        raise NotImplementedError(f'strategy {a.strategy!r} comes with slice A.3 (beam and '
-                                  f'contrastive search)')
     dev = _device(a)
     import dataclasses
     from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained
@@ -105,10 +137,27 @@ def _cmd_generate(a) -> int:
         model = type(model)(dataclasses.replace(model.cfg, decode_cache_quant=a.kv_cache),
                             device=dev)
     gen = MusicGenerator(model, tok, params, augment_key=a.key is not None, out_dir=a.out)
-    strategy_args = {k: v for k, v in dict(top_k=a.top_k, top_p=a.top_p,
-                                           temperature=a.temperature, typical_p=a.typical_p,
-                                           repetition_penalty=a.repetition_penalty).items()
-                     if v is not None}
+    sampling = {k: v for k, v in dict(top_k=a.top_k, top_p=a.top_p,
+                                      temperature=a.temperature, typical_p=a.typical_p,
+                                      repetition_penalty=a.repetition_penalty).items()
+                if v is not None}
+    if a.strategy == 'beam':
+        if sampling:
+            print(f'warning: beam search ignores {sorted(sampling)} '
+                  '(log-prob beams are deterministic)', file=sys.stderr)
+        strategy_args = dict(num_beams=a.num_beams, length_penalty=a.length_penalty)
+        if a.num_beam_groups > 1:
+            strategy_args.update(num_beam_groups=a.num_beam_groups,
+                                 diversity_penalty=a.diversity_penalty)
+    elif a.strategy == 'contrastive':
+        dropped = sorted(set(sampling) - {'top_k'})
+        if dropped:
+            print(f'warning: contrastive search ignores {dropped}', file=sys.stderr)
+        strategy_args = dict(penalty_alpha=a.penalty_alpha)
+        if a.top_k is not None:       # candidate count (HF semantics)
+            strategy_args['top_k'] = a.top_k
+    else:
+        strategy_args = sampling
     prompt_args = {}
     if a.key:
         prompt_args['key'] = a.key
@@ -130,6 +179,14 @@ def build_parser() -> argparse.ArgumentParser:
         prog='musicnlp_tpu_torch',
         description='symbolic music generation on PyTorch / CUDA (the port of musicnlp_tpu)')
     sub = p.add_subparsers(dest='command', required=True)
+
+    e = sub.add_parser('extract', help='MIDI/MusicXML files -> per-song token JSON')
+    e.add_argument('songs', nargs='+', help='files or globs (.mid/.mxl/.musicxml)')
+    e.add_argument('--out', required=True, help='per-song JSON output dir')
+    e.add_argument('--mode', choices=['full', 'melody'], default='full')
+    e.add_argument('--jobs', type=int, default=1, help='parallel workers')
+    e.add_argument('--combine', help='also merge shards into this combined JSON')
+    e.set_defaults(fn=_cmd_extract)
 
     d = sub.add_parser('dataset', help='combined JSON (or shard dir) -> columnar npz dataset')
     d.add_argument('songs', help='combined.json or a dir of per-song JSONs')
@@ -165,12 +222,20 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--n', type=int, default=1)
     g.add_argument('--strategy', default='sample',
                    choices=['greedy', 'sample', 'beam', 'contrastive'])
-    g.add_argument('--top-k', type=int, default=None, help='sample: top-k filter')
+    g.add_argument('--top-k', type=int, default=None,
+                   help='sample: top-k filter; contrastive: candidate count')
     g.add_argument('--top-p', type=float, default=None)
     g.add_argument('--temperature', type=float, default=None)
     g.add_argument('--typical-p', type=float, default=None, help='sample: typical-decoding mass')
     g.add_argument('--repetition-penalty', type=float, default=None,
                    help='sample: penalty on already-emitted tokens (1 = off)')
+    g.add_argument('--num-beams', type=int, default=4, help='beam strategy')
+    g.add_argument('--num-beam-groups', type=int, default=1,
+                   help='>1 = diverse-group beam search')
+    g.add_argument('--length-penalty', type=float, default=1.0)
+    g.add_argument('--diversity-penalty', type=float, default=1.0)
+    g.add_argument('--penalty-alpha', type=float, default=0.6,
+                   help='contrastive degeneration penalty')
     g.add_argument('--kv-cache', default='bf16', choices=['bf16', 'int8'],
                    help='decode cache storage (TF-XL ring and Reformer LSH caches)')
     g.add_argument('--max-length', type=int, default=None)

@@ -371,3 +371,6 @@ class TransfoXL:
         return state._replace(cache_k=sel(state.cache_k), cache_v=sel(state.cache_v),
                               cache_pos=state.cache_pos.clone(),
                               k_scale=sel(state.k_scale), v_scale=sel(state.v_scale))
+
+    # the generic name beam search looks up on any model
+    reorder_decode_state = select_decode_state

@@ -7,16 +7,16 @@ Counterpart of `musicnlp_tpu/trainer/eval.py` (and of the scoring half of
     for the vanilla tokenizer scheme;
   * `score_batch` is the forward-only loss with NTP accuracy and IKR;
   * `MusicGenerator.generate` turns prompt token strings into generated token
-    strings, greedy or sampled, over the model's incremental decode state;
+    strings -- greedy, sampled, beam or diverse-beam search, or contrastive
+    search -- over the model's incremental decode state (`DecodableModel`);
     `MusicGenerator.__call__` builds unconditional or conditional prompts
     (`conditional_prompt`: the first bars of a song or a rendered MXL, with a
     given key or the best of a key-score dict),
     repairs the sampled tokens (`repair_generated`, `repair_bar_durations`)
     and renders each song to MXL, MIDI and a JSON sidecar.
-Both take either model family: they need only its `loss`, or its
-`compute_params`, `init_decode_state` and `decode_step`.  The token repairs
-are copies of the JAX package's (pure Python).  Beam and contrastive search
-come with slice A.3.
+Both take either model family: they need only its `loss`, or the decode
+protocol `DecodableModel`.  The token repairs are copies of the JAX package's
+(pure Python).
 """
 from __future__ import annotations
 
@@ -24,21 +24,23 @@ import json
 import os
 import time
 from fractions import Fraction
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
-from musicnlp_tpu_torch.ops.sampling import SampleConfig, generate_scan
+from musicnlp_tpu_torch.ops.sampling import (
+    SampleConfig, beam_generate, contrastive_generate, diverse_beam_generate, generate_scan,
+)
 from musicnlp_tpu_torch.preprocess import transform as tsf
 from musicnlp_tpu_torch.preprocess.music_converter import MusicConverter
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
 from musicnlp_tpu_torch.utils.checkpoint import load_meta, restore_pytree
 from musicnlp_tpu_torch.vocab import MusicTokenizer, MusicVocabulary, VocabType
 
-__all__ = ['MusicGenerator', 'MODEL_FAMILIES', 'load_trained', 'score_batch',
+__all__ = ['DecodableModel', 'MusicGenerator', 'MODEL_FAMILIES', 'load_trained', 'score_batch',
            'truncate_first_n_bar', 'truncate_last_bar', 'repair_generated',
            'repair_bar_durations']
 
@@ -369,10 +371,29 @@ def score_batch(model: Model, params: Dict[str, Any], input_ids: torch.Tensor,
     return mets
 
 
+class DecodableModel(Protocol):
+    """What MusicGenerator needs of a model: the incremental-decode protocol
+    that TransfoXL and Reformer both implement (the JAX package's, with the
+    port's `device` and `compute_params`).  Decode states keep the batch on
+    axis 1 of every cache and are updated in place by the step that takes
+    them; `expand_decode_state` and `select_decode_state` (alias
+    `reorder_decode_state`) return states of fresh tensors."""
+    cfg: Any
+    device: torch.device
+
+    def compute_params(self, params): ...
+    def init_decode_state(self, batch_size: int): ...
+    def decode_step(self, params, token_ids, state): ...
+    def decode_step_with_hidden(self, params, token_ids, state): ...
+    def expand_decode_state(self, state, k: int): ...
+    def select_decode_state(self, state, idx): ...
+    def reorder_decode_state(self, state, idx): ...
+
+
 class MusicGenerator:
     """Batched autoregressive song generation and rendering."""
 
-    def __init__(self, model: Model, tokenizer: MusicTokenizer, params,
+    def __init__(self, model: DecodableModel, tokenizer: MusicTokenizer, params,
                  augment_key: bool = False, out_dir: str = 'generated'):
         self.model = model
         self.tokenizer = tokenizer
@@ -451,30 +472,54 @@ class MusicGenerator:
                  **strategy_args) -> List[str]:
         """Prompt token strings -> generated token strings.
 
+        strategy: 'greedy' or 'sample' (strategy_args: the `SampleConfig`
+        warpers); 'beam' (num_beams 4, length_penalty 1.0; num_beam_groups
+        > 1 with diversity_penalty 1.0 is diverse-beam search); or
+        'contrastive' (top_k 4 candidates, penalty_alpha 0.6).
         early_exit_chunk: stop (checking once per chunk of steps) when every
-        song has emitted </s>; the output is the same.  0 disables."""
-        if strategy not in ('greedy', 'sample'):
-            raise NotImplementedError(f'strategy {strategy!r} comes with slice A.3 (beam and '
-                                      f'contrastive search)')
+        song or beam has emitted </s>; the output is the same.  0 disables."""
         tok, model = self.tokenizer, self.model
         dev = model.device
         max_length = max_length or tok.model_max_length
-        cfg = SampleConfig(strategy=strategy, **strategy_args)
         enc = [tok.encode(p) for p in prompts]
         plen = np.array([len(e) for e in enc], np.int64)
         prompt_ids = np.full((len(enc), int(plen.max())), tok.pad_token_id, np.int64)
         for i, e in enumerate(enc):
             prompt_ids[i, :len(e)] = e
+        prompt_ids = torch.as_tensor(prompt_ids, device=dev)
+        plen = torch.as_tensor(plen, device=dev)
         params = model.compute_params(self.params)
-        gen = torch.Generator(device=dev).manual_seed(
-            int(time.time()) if seed is None else int(seed))
-        ids, out_len = generate_scan(
-            lambda t, s: model.decode_step(params, t, s),
-            model.init_decode_state(len(enc)),
-            torch.as_tensor(prompt_ids, device=dev), torch.as_tensor(plen, device=dev),
-            max_length=max_length, eos_id=tok.eos_token_id, pad_id=tok.pad_token_id,
-            sample_cfg=cfg, vocab_size=tok.vocab_size, generator=gen,
-            early_exit_chunk=early_exit_chunk or None)
+        common = dict(max_length=max_length, eos_id=tok.eos_token_id, pad_id=tok.pad_token_id,
+                      early_exit_chunk=early_exit_chunk or None)
+        if strategy == 'contrastive':
+            ids, out_len = contrastive_generate(
+                lambda t, s: model.decode_step_with_hidden(params, t, s),
+                model.init_decode_state(len(enc)), prompt_ids, plen,
+                top_k=int(strategy_args.get('top_k', 4)),
+                penalty_alpha=float(strategy_args.get('penalty_alpha', 0.6)),
+                d_model=getattr(model, 'hidden_dim', model.cfg.d_model),
+                expand_state=model.expand_decode_state, hidden_dtype=model.cfg.compute_dtype,
+                **common)
+        elif strategy == 'beam':
+            beam = dict(num_beams=int(strategy_args.get('num_beams', 4)),
+                        length_penalty=float(strategy_args.get('length_penalty', 1.0)),
+                        reorder_state=model.reorder_decode_state, **common)
+            n_groups = int(strategy_args.get('num_beam_groups', 1))
+            step = lambda t, s: model.decode_step(params, t, s)
+            if n_groups > 1:
+                ids, out_len = diverse_beam_generate(
+                    step, model.init_decode_state, prompt_ids, plen, num_beam_groups=n_groups,
+                    diversity_penalty=float(strategy_args.get('diversity_penalty', 1.0)), **beam)
+            else:
+                ids, out_len = beam_generate(step, model.init_decode_state, prompt_ids, plen,
+                                             **beam)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(
+                int(time.time()) if seed is None else int(seed))
+            ids, out_len = generate_scan(
+                lambda t, s: model.decode_step(params, t, s), model.init_decode_state(len(enc)),
+                prompt_ids, plen, sample_cfg=SampleConfig(strategy=strategy, **strategy_args),
+                vocab_size=tok.vocab_size, generator=gen, **common)
         ids, out_len = ids.cpu().numpy(), out_len.cpu().numpy()
         return [tok.decode(ids[i, :out_len[i]]) for i in range(len(enc))]
 

@@ -1,8 +1,9 @@
 """The port's command line (`python -m musicnlp_tpu_torch`) on the CPU at debug
-width: dataset -> train -> generate on songs the JAX extractor writes, run
-directories read across the two packages, the recipe wiring against the JAX
-`setup_recipe`, and the refusals (beam / contrastive, learned tokenizers, no
-CUDA without `--device cpu`)."""
+width: extract -> dataset -> train -> generate (sampled, beam, diverse-beam
+and contrastive) on the goldens, the port's extracted corpus against the
+JAX-extracted one, run directories read across the two packages, the recipe
+wiring against the JAX `setup_recipe`, and the refusals (learned tokenizers,
+no CUDA without `--device cpu`)."""
 import dataclasses
 import glob
 import json
@@ -29,21 +30,38 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = sorted(glob.glob(os.path.join(REPO, 'tests', 'goldens', 'golden*.musicxml')))
 
 
+def _tripled(combined):
+    """Each song three times (18 songs: the JAX Trainer's batch of 8 divides
+    over its 8 CPU devices)."""
+    return dict(combined, music=[dict(s, title=f'{s["title"]}-{i}') for i in range(3)
+                                 for s in combined['music']])
+
+
 @pytest.fixture(scope='module')
 def corpus(tmp_path_factory):
-    """combined.json of the goldens, extracted (step kind) by the JAX package,
-    each song three times (18 songs: the JAX Trainer's batch of 8 divides over
-    its 8 CPU devices), and the port's `dataset` of it."""
+    """combined.json of the goldens, extracted (step kind) by the port's own
+    `extract` command, each song three times, and the port's `dataset` of it."""
     d = tmp_path_factory.mktemp('cli')
-    MusicExport(mode='full', extractor_args=dict(with_pitch_step=True), verbose=False)(
-        GOLDENS, output_dir=str(d / 'json'), save_each=True)
-    combined = combine_saved_songs(sorted(glob.glob(str(d / 'json' / '*.json'))))
-    combined['music'] = [dict(s, title=f'{s["title"]}-{i}') for i in range(3)
-                         for s in combined['music']]
-    (d / 'combined.json').write_text(json.dumps(combined))
+    assert cli.main(['extract', *GOLDENS, '--out', str(d / 'json'),
+                     '--combine', str(d / 'extracted.json')]) == 0
+    combined = json.loads((d / 'extracted.json').read_text())
+    (d / 'combined.json').write_text(json.dumps(_tripled(combined)))
     assert cli.main(['dataset', str(d / 'combined.json'), '--out', str(d / 'ds'),
                      '--test-frac', '0.34']) == 0
     return d
+
+
+def test_port_corpus_gives_the_jax_corpus_dataset(corpus, tmp_path):
+    """The dataset built from the port's extraction equals, array for array,
+    the one built from the JAX package's extraction of the same files."""
+    MusicExport(mode='full', extractor_args=dict(with_pitch_step=True), verbose=False)(
+        GOLDENS, output_dir=str(tmp_path / 'json'), save_each=True)
+    combined = combine_saved_songs(sorted(glob.glob(str(tmp_path / 'json' / '*.json'))))
+    (tmp_path / 'combined.json').write_text(json.dumps(_tripled(combined)))
+    assert cli.main(['dataset', str(tmp_path / 'combined.json'), '--out', str(tmp_path / 'ds'),
+                     '--test-frac', '0.34']) == 0
+    for name in ('meta.json', 'train.npz', 'test.npz'):
+        assert (tmp_path / 'ds' / name).read_bytes() == (corpus / 'ds' / name).read_bytes(), name
 
 
 @pytest.fixture(scope='module')
@@ -149,21 +167,62 @@ def test_train_recipe_builds_what_jax_builds(recipe, corpus, monkeypatch):
     assert t.tokenizer.model_max_length == j.tokenizer.model_max_length
 
 
+def _rendered(out_dir, n):
+    """The sidecars of a generate run whose MXL files re-read to their bars."""
+    sides = sorted(glob.glob(os.path.join(out_dir, '*.json')))
+    assert len(sides) == n
+    recs = [json.loads(open(p).read()) for p in sides]
+    for side, rec in zip(sides, recs):
+        mxl = side.replace('.json', '.mxl')
+        assert len(parse_file(mxl).parts[0].measures) == rec['text'].split().count('<bar>')
+        assert os.path.getsize(side.replace('.json', '.mid')) > 0
+    return recs
+
+
+@pytest.mark.parametrize('flags,strategy_args', [
+    (['--strategy', 'beam', '--num-beams', '4'], dict(num_beams=4, length_penalty=1.0)),
+    (['--strategy', 'beam', '--num-beams', '4', '--num-beam-groups', '2',
+      '--diversity-penalty', '0.5', '--top-p', '0.9'],
+     dict(num_beams=4, length_penalty=1.0, num_beam_groups=2, diversity_penalty=0.5)),
+    (['--strategy', 'contrastive', '--top-k', '4', '--penalty-alpha', '0.6',
+      '--temperature', '0.7'], dict(penalty_alpha=0.6, top_k=4)),
+])
+def test_search_strategies_render_files(port_run, corpus, capsys, flags, strategy_args):
+    """Beam, diverse-beam and contrastive search through the command line:
+    the strategy arguments the JAX CLI builds (warning about the sampling
+    flags each search ignores), rendered files that re-read."""
+    out = corpus / f'gen-{len(flags)}'
+    assert cli.main(['generate', '--model-dir', str(port_run), '--out', str(out), '--n', '2',
+                     '--key', 'CMajor', '--max-length', '48', '--device', 'cpu', *flags]) == 0
+    err = capsys.readouterr().err
+    assert ('ignores' in err) == any(f in flags for f in ('--top-p', '--temperature'))
+    for rec in _rendered(str(out), 2):
+        assert rec['strategy'] == flags[1] and rec['strategy_args'] == strategy_args
+
+
 def test_refusals_exit_non_zero(port_run, corpus, monkeypatch, capsys):
-    base = ['generate', '--model-dir', str(port_run), '--device', 'cpu', '--strategy']
-    assert cli.main(base + ['beam']) == 2
-    assert cli.main(base + ['contrastive']) == 2
+    """Beam and contrastive search, refused until the search slice, now run
+    (exit 0, files that re-read); the learned-tokenizer scheme still exits 2,
+    its `--tokenizer-path` flag is still unknown, and without CUDA the
+    card's commands exit non-zero."""
+    base = ['generate', '--model-dir', str(port_run), '--device', 'cpu', '--n', '1',
+            '--max-length', '32', '--key', 'CMajor', '--strategy']
+    for strategy in ('beam', 'contrastive'):
+        out = corpus / f'refused-{strategy}'
+        assert cli.main(base + [strategy, '--out', str(out)]) == 0
+        _rendered(str(out), 1)
     assert cli.main(['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'w'),
                      '--tokenizer-scheme', 'wordpiece', '--device', 'cpu']) == 2
     err = capsys.readouterr().err
-    assert err.count('A.3') == 2 and 'learned-tokenizer' in err
-    # the beam / contrastive / learned-tokenizer flags come with their slices
-    for argv in (base + ['sample', '--num-beams', '4'], base + ['sample', '--penalty-alpha', '0.6'],
-                 ['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'w'),
-                  '--tokenizer-path', 'units.json', '--device', 'cpu']):
-        with pytest.raises(SystemExit) as e:
-            cli.main(argv)
-        assert e.value.code == 2
+    assert 'A.3' not in err and 'learned-tokenizer' in err
+    # the search flags parse; the learned-tokenizer flag comes with its slice
+    for argv in (base + ['sample', '--num-beams', '4', '--out', str(corpus / 'f1')],
+                 base + ['sample', '--penalty-alpha', '0.6', '--out', str(corpus / 'f2')]):
+        assert cli.main(argv) == 0
+    with pytest.raises(SystemExit) as e:
+        cli.main(['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'w'),
+                  '--tokenizer-path', 'units.json', '--device', 'cpu'])
+    assert e.value.code == 2
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for argv in (['generate', '--model-dir', str(port_run)],
                  ['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'x')]):

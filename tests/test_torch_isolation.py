@@ -36,7 +36,9 @@ def test_no_jax_in_sys_modules():
         assert not bad, bad
         assert len(names) >= 30, names
         for sub in ('io.musicxml', 'preprocess.dataset', 'preprocess.music_export',
-                    'tools.vpu_roofline', 'ops.roofline_kernels', 'cli', '__main__'):
+                    'tools.vpu_roofline', 'ops.roofline_kernels', 'cli', '__main__',
+                    'native', 'preprocess.music_extractor', 'preprocess.fast_extractor',
+                    'preprocess.warning_logger', 'utils.config', 'utils.music_fs'):
             assert pkg.__name__ + '.' + sub in names, sub
     ''')
     # a PATH without nvcc: importing the kernel modules builds nothing

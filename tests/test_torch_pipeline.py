@@ -216,7 +216,8 @@ def test_conditional_prompt_matches_jax(generators, extracted, tmp_path, kind, k
 def test_call_renders_what_jax_renders(generators, tmp_path):
     """MusicGenerator.__call__(strategy='greedy') at f32: the sidecars' texts
     (after truncation and the full repair) equal the JAX generator's, and the
-    written files parse to the rendered bars."""
+    written files parse to the rendered bars; `generate(strategy='beam')`
+    gives the JAX generator's tokens."""
     gj, gt = generators['degree']
     outs = {}
     for name, g in (('jax', gj), ('torch', gt)):
@@ -230,5 +231,7 @@ def test_call_renders_what_jax_renders(generators, tmp_path):
         n_bar = rt['text'].split().count('<bar>')
         assert len(parse_file(rt['mxl']).parts[0].measures) == n_bar
         assert os.path.getsize(rt['midi']) > 0
-    with pytest.raises(NotImplementedError, match='A.3'):
-        gt.generate([gt.unconditional_prompt(key='CMajor')], strategy='beam')
+    # beam search (refused until the search slice) gives the JAX generator's tokens
+    prompts = [gt.unconditional_prompt(key='CMajor'), gt.unconditional_prompt(key='AMinor')]
+    want = gj.generate(prompts, strategy='beam', max_length=48, num_beams=4)
+    assert gt.generate(prompts, strategy='beam', max_length=48, num_beams=4) == want
