@@ -93,7 +93,29 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      command's peak device memory and the bytes a search step gathers or
      copies, the device-busy share of the recipes' own input pipeline
      feeding training steps, and the seconds of the raw-file, extraction
-     and search parts.
+     and search parts;
+  9. A.6 and A.4 on phase 8's dataset directory, counted: TF-XL base
+     (vocab 1190, bf16) with an attention mask (8 x 1024, padded tails)
+     and a training step with dropatt 0.1 (B 4) run the plain rel_attn
+     (no K1 / K2), the unmasked forward 12 K1, the masked forward in f32 at
+     B 1 against the port's CPU run; over the shipped 262,144-unit
+     WordPiece table (8 x 1024, bf16, dropout 0) the tiled CE (head_chunk
+     16384) against the dense CE on the same parameters and batch (loss,
+     preds where the top two logits are apart, the embedding gradient,
+     each one's step time and peak memory), then `Trainer.train` for one
+     epoch (7 steps, 12 K1 per forward, 12 K2 per step) with
+     `WordPieceMusicTokenizer.from_file` and `StringAugmentedDataset`
+     (key insertion, pitch shift), a bare step's time, tokens/s and peak
+     memory, the head's share of its device time and the busy share of
+     the host pipeline feeding steps; the learned schemes through the
+     command line with the dense head (`train --tokenizer-scheme wordpiece
+     --tokenizer-path <the 262k table>`, base, 1024, batch 4, 1 epoch; a
+     pair-merge table trained here on phase 8's songs and `train
+     --tokenizer-scheme pairmerge`; `generate` 2 x 512 after each, every
+     file re-read; wall seconds per command); the adaptive head (cutoffs
+     (1000,), cluster parameters drawn with numpy): f32 log-probs at B 1
+     on the card against the CPU, their logsumexp, 12 K1 per forward, and
+     64 greedy decode steps in bf16 with no launch.
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json;
 training runs write under build/chip_smoke_runs/, removed at the end.
@@ -122,7 +144,10 @@ from musicnlp_tpu_torch.ops import chunked_attention as ca
 from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
 from musicnlp_tpu_torch.ops import flash_attention as fa
 from musicnlp_tpu_torch.ops import roofline_kernels as rk
-from musicnlp_tpu_torch.preprocess.dataset import SongDataset
+from musicnlp_tpu_torch.ops.losses import chunked_shifted_ce_loss
+from musicnlp_tpu_torch.preprocess.dataset import (
+    SongDataset, StringAugmentedDataset, songdataset_to_dicts,
+)
 from musicnlp_tpu_torch.preprocess.fast_extractor import FastMidiExtractor
 from musicnlp_tpu_torch.preprocess.key_finder import KeyFinder
 from musicnlp_tpu_torch.preprocess.music_converter import MusicConverter
@@ -131,6 +156,10 @@ from musicnlp_tpu_torch.tools import vpu_roofline as vr
 from musicnlp_tpu_torch.trainer import train as tr
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained, score_batch
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
+from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizerTrainer
+from musicnlp_tpu_torch.trainer.wordpiece_tokenizer import (
+    WordPieceMusicTokenizer, WordPieceMusicTrainer,
+)
 from musicnlp_tpu_torch.utils.checkpoint import flatten, params_from_jax
 from musicnlp_tpu_torch.utils.prefetch import prefetch
 from musicnlp_tpu_torch.vocab import MusicTokenizer, MusicVocabulary, N_KEY, key_ordinal2str
@@ -189,6 +218,18 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out'
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests', 'goldens')
 SEARCH_LEN = 1024                                # beam / contrastive generation length (tokens)
 EXACT_LEN = 128                                  # the exact search checks' length (tokens)
+# the shipped 262,144-unit WordPiece table (degree pitches) and the tile of its tiled CE
+TABLE_262K = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'artifacts',
+                          'wordpiece_262144_degree.json.gz')
+HEAD_CHUNK = 16384
+# the tiled CE against the dense CE at V 262,144 in bf16: the same f32
+# products of bf16 operands summed in other orders (the loss); the backward
+# rounds the logits' gradient to bf16 (the embedding gradient, over its max)
+TOL_HEAD = dict(loss=1e-3, embed_grad=2e-2)
+# card vs CPU f32 logits / log-probs over their largest entry (TOL_GRAD's
+# arithmetic over 1024 positions and 12 layers); the adaptive head's
+# logsumexp per position
+TOL_F32_LOGITS, TOL_LSE = 1e-4, 1e-5
 
 
 def log(msg: str):
@@ -414,8 +455,8 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
 # ---------------------------------------------------------------- main path
 def base_config(**kw) -> TransfoXLConfig:
     """The 22-11 recipe's model: TF-XL base, degree vocab, seq 1024, mem 512."""
-    return TransfoXLConfig.from_size('base', vocab_size=1190, max_length=1024,
-                                     **dict(dict(mem_len=512, dropout=0.0), **kw))
+    return TransfoXLConfig.from_size('base', **dict(dict(vocab_size=1190, max_length=1024,
+                                                         mem_len=512, dropout=0.0), **kw))
 
 
 def score_inputs(V, B, T, seed, dev):
@@ -1613,8 +1654,340 @@ def cli_path(dev, report):
     log(f'[cli] seconds of the raw-file, extraction and search parts: '
         f'{json.dumps(rec["added_seconds"])}, total {sum(rec["added_seconds"].values()):.1f} s')
     report['cli'] = rec
-    shutil.rmtree(root, ignore_errors=True)
     return launches_1122, launches_2204
+
+
+# -------------------------------------- A.6 and the learned tokenizers (phase 9)
+def rel_max(a, b) -> float:
+    """Largest error of a against b over b's largest entry."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def dispatch_checks(dev, report):
+    """Phase 9.1, A.6: a forward with an attention mask and a training step
+    with dropatt > 0 run every layer through the plain rel_attn (no K1 / K2
+    launch); without either, K1 runs once per layer; the masked forward in
+    f32 on the card against the port's CPU run."""
+    cfg = base_config()
+    model = TransfoXL(cfg)
+    flat = model.init_flat(SEED)
+    params = params_from_jax(flat, dev)
+    ids, labels = score_inputs(cfg.vocab_size, 8, 1024, SEED + 40, dev)
+    B, T = ids.shape
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    for b in range(B):                            # padded tails: 1024, 922, ..., 308 real
+        mask[b, T - b * T // 10:] = False
+    labels[~mask] = -100
+    rec = {}
+    with torch.no_grad():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+        logits, _, _ = model.forward(params, ids, attn_mask=mask)
+        torch.cuda.synchronize()
+        rec['masked_forward'] = dict(launches=dict(fa.LAUNCHES),
+                                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                     ms=time_ms(lambda: model.forward(params, ids, attn_mask=mask),
+                                                iters=2, warmup=0))
+        if any(rec['masked_forward']['launches'].values()) or not torch.isfinite(logits).all():
+            raise AssertionError(f'the masked forward: {rec["masked_forward"]}')
+        fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+        model.forward(params, ids)
+        torch.cuda.synchronize()
+        rec['unmasked_forward_launches'] = dict(fa.LAUNCHES)
+        if rec['unmasked_forward_launches'] != dict(flash_rel_attn_fwd=cfg.n_layer,
+                                                   flash_rel_attn_bwd=0):
+            raise AssertionError(f'dropatt 0, no mask: {rec["unmasked_forward_launches"]}')
+        del logits
+    # a training step with attention dropout, B 4 (rel_attn keeps its f32
+    # scores, probabilities and dropout mask of every layer for the backward)
+    drop = TransfoXL(base_config(dropatt=0.1, dropout=0.1))
+    leaves = flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    loss, _ = drop.loss(params, ids[:4], labels[:4], generator=gen, deterministic=False)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    rec['dropatt_step'] = dict(loss=float(loss.detach()), launches=dict(fa.LAUNCHES),
+                               seconds=time.perf_counter() - t0,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for t in leaves.values():
+        t.requires_grad_(False)
+    if any(fa.LAUNCHES.values()) or not math.isfinite(float(loss.detach())) or \
+            not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f'the dropatt 0.1 step: {rec["dropatt_step"]}')
+    del grads, loss, params
+    torch.cuda.empty_cache()
+    # the masked forward in f32 at B 1, card against CPU
+    cfg32 = base_config(dtype='float32')
+    with torch.no_grad():
+        card, _, _ = TransfoXL(cfg32).forward(params_from_jax(flat, dev), ids[-2:-1],
+                                              attn_mask=mask[-2:-1])
+        cpu, _, _ = TransfoXL(cfg32, device='cpu').forward(
+            params_from_jax(flat, 'cpu'), ids[-2:-1].cpu(), attn_mask=mask[-2:-1].cpu())
+    rec['masked_f32_card_vs_cpu'] = rel_max(card, cpu)
+    log(f'[dispatch] {json.dumps(rec)}')
+    if not rec['masked_f32_card_vs_cpu'] <= TOL_F32_LOGITS:
+        raise AssertionError(f'masked f32 logits, card vs CPU: {rec["masked_f32_card_vs_cpu"]}')
+    report['dispatch'] = rec
+    torch.cuda.empty_cache()
+
+
+def large_head_checks(dev, ds, report):
+    """Phase 9.2: TF-XL base over the 262,144-unit table, bf16, 8 x 1024.
+    The tiled CE (head_chunk 16384) against the dense CE on the same
+    parameters and batch (dropout 0): loss, preds where the top two logits
+    are apart by more than a bf16 rounding, the embedding gradient, each
+    one's step time and peak memory.  Then `Trainer.train` for one epoch
+    with `WordPieceMusicTokenizer.from_file` and `StringAugmentedDataset`
+    over phase 8's songs (key insertion, pitch shift): launches, step time,
+    tokens/s, peak memory, the device-busy share of the host pipeline that
+    feeds steps, and the head's share of a step's device time."""
+    V = 262144
+    tiled, dense = TransfoXL(base_config(vocab_size=V, head_chunk=HEAD_CHUNK)), \
+        TransfoXL(base_config(vocab_size=V))
+    params = params_from_jax(tiled.init_flat(SEED), dev)
+    leaves = flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    ids, labels = score_inputs(V, 8, 1024, SEED + 41, dev)
+    labels[-3:, -124:] = -100
+
+    def step(model):
+        loss, mets = model.loss(params, ids, labels)
+        return loss, mets, torch.autograd.grad(loss, list(leaves.values()))
+    rec, out = {}, {}
+    for name, model in (('tiled', tiled), ('dense', dense)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+        loss, mets, grads = step(model)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = (float(loss.detach()), mets['preds'], grads[list(leaves).index('embed/weight')])
+        del loss, mets, grads
+        rec[name] = dict(loss=out[name][0], peak_gib=peak, launches=launches,
+                         ms=time_ms(lambda: step(model), iters=2, warmup=0))
+        log(f'[head] {name} CE, V {V}, 8x1024 bf16: {json.dumps(rec[name])}')
+    with torch.no_grad():
+        logits, _, _ = dense.forward(params, ids)
+        top2 = logits[:, :-1].topk(2, dim=-1).values
+        del logits
+    apart = (top2[..., 0] - top2[..., 1]) > 2 ** -8 * top2[..., 0].abs()
+    same = out['tiled'][1][:, :-1][apart] == out['dense'][1][:, :-1][apart]
+    rec['compare'] = dict(
+        loss_rel=abs(out['tiled'][0] - out['dense'][0]) / abs(out['dense'][0]),
+        preds_compared=int(apart.sum()), preds_positions=int(apart.numel()),
+        preds_equal=bool(same.all()), embed_grad_rel=rel_max(out['tiled'][2], out['dense'][2]),
+        tol=TOL_HEAD)
+    log(f'[head] tiled vs dense: {json.dumps(rec["compare"])}')
+    n_layer = tiled.cfg.n_layer
+    if rec['tiled']['launches'] != dict(flash_rel_attn_fwd=n_layer, flash_rel_attn_bwd=n_layer) \
+            or not rec['compare']['loss_rel'] <= TOL_HEAD['loss'] \
+            or not rec['compare']['preds_equal'] \
+            or not rec['compare']['embed_grad_rel'] <= TOL_HEAD['embed_grad']:
+        raise AssertionError(f'the tiled CE against the dense CE: {rec}')
+    del out, top2, apart, same
+    torch.cuda.empty_cache()
+
+    # one epoch of the 262k tier through the Trainer and the string pipeline
+    tok = WordPieceMusicTokenizer.from_file(TABLE_262K, model_max_length=1024)
+    aug = dict(insert_key=True, pitch_shift=True)
+    train = StringAugmentedDataset(songdataset_to_dicts(
+        SongDataset.load(os.path.join(ds, 'train.npz'))), tok, dataset_split='train', **aug)
+    evald = StringAugmentedDataset(songdataset_to_dicts(
+        SongDataset.load(os.path.join(ds, 'test.npz'))), tok, random_crop=False,
+        dataset_split='test', **aug)
+    B = 8
+    run = os.path.join(RUN_DIR, 'wordpiece-262k')
+    trainer = tr.Trainer(TransfoXL(base_config(vocab_size=V, head_chunk=HEAD_CHUNK, dropout=0.1)),
+                         tok, train, evald, out_dir=run, ikr_mode='ins-key',
+                         args=train_args(batch_size=B, num_train_epochs=1, save_per_epoch=False,
+                                         seed=SEED))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    t0 = time.perf_counter()
+    trainer.train(params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    log_ = step_log(run)
+    steps = [r for r in log_ if 'loss' in r]
+    ep = [r for r in log_ if 'train_tokens_per_sec' in r][0]
+    n_steps, n_eval = len(train) // B, -(-len(evald) // B)
+    rec['epoch'] = dict(steps=len(steps), wall_s=wall, launches=launches,
+                        losses=[r['loss'] for r in steps], epoch=ep,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f'[head] Trainer epoch, WordPiece 262k, tiled CE: {json.dumps(rec["epoch"])}')
+    if len(steps) != n_steps or n_steps < 3 or \
+            not all(math.isfinite(r['loss']) for r in steps) or \
+            launches != dict(flash_rel_attn_fwd=n_layer * (n_steps + n_eval),
+                             flash_rel_attn_bwd=n_layer * n_steps):
+        raise AssertionError(f'the 262k epoch: {rec["epoch"]}')
+
+    # a bare step on a batch already on the card; the head's share of its
+    # device time; the host pipeline (string transforms, WordPiece encoding)
+    # feeding steps
+    state = trainer.opt.init(params)
+    batch = tr._to_device(next(train.batches(B, shuffle=True, seed=1)), dev)
+    step_fn = lambda: trainer.train_step(params, state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(step_fn, iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof_step = profile(step_fn)
+    with torch.no_grad():
+        h, _, _ = trainer.model.forward_hidden(params, batch['input_ids'])
+    head_in = [h.detach().requires_grad_(True),
+               params['embed']['weight'].detach().to(h.dtype).requires_grad_(True),
+               params['out_bias'].detach().requires_grad_(True)]
+    prof_head = profile(lambda: torch.autograd.grad(chunked_shifted_ce_loss(
+        head_in[0], batch['labels'], head_in[1], head_in[2], chunk=HEAD_CHUNK)[0], head_in))
+
+    def epoch():
+        for b in prefetch(train.batches(B, shuffle=True, seed=SEED)):
+            trainer.train_step(params, state, tr._to_device(b, dev))
+    prof_pipe = profile(epoch)
+    n_tok = int((batch['labels'] != -100).sum())
+    rec['step'] = dict(ms=ms, tok_per_s=B * 1024 / ms * 1e3, nonpad_tok_per_s=n_tok / ms * 1e3,
+                       peak_gib=peak, device_ms=prof_step['device_ms'],
+                       busy_share=prof_step['busy_share'], head_device_ms=prof_head['device_ms'],
+                       head_share=prof_head['device_ms'] / prof_step['device_ms'],
+                       head_flops_fwd=2 * B * 1023 * 768 * V, top=prof_step['top'][:6])
+    rec['pipeline'] = {k: prof_pipe[k] for k in ('wall_ms', 'device_ms', 'busy_share',
+                                                 'n_kernels')}
+    rec['pipeline']['steps'] = n_steps
+    log(f'[head] 262k step: {json.dumps(rec["step"])}; pipeline + steps: '
+        f'{json.dumps(rec["pipeline"])}')
+    report['large_head'] = rec
+    del trainer, params, state, batch, h, head_in
+    torch.cuda.empty_cache()
+
+
+def learned_cli_path(dev, root, report):
+    """Phase 9.3: the learned schemes through the command line, as the JAX
+    CLI has them (dense head): `train --tokenizer-scheme wordpiece` over the
+    shipped 262k table, TF-XL base, 1024, batch 4, one epoch, then
+    `generate` at max_length 512; the same with a pair-merge table trained
+    here on phase 8's songs; every written file re-read."""
+    ds = os.path.join(root, 'dataset')
+    songs = songdataset_to_dicts(SongDataset.load(os.path.join(ds, 'train.npz')))
+    t0 = time.perf_counter()
+    pm_table = os.path.join(root, 'pairmerge.json')
+    pm = PairMergeTokenizerTrainer(pitch_kind='degree')(
+        list(WordPieceMusicTrainer.key_augmented_corpus(songs)), coverage_ratio=0.95,
+        save=pm_table)
+    rec = dict(pairmerge_table=dict(seconds=time.perf_counter() - t0, vocab_size=pm.vocab_size),
+               walls={})
+    base = ['--model', 'transf-xl', '--size', 'base', '--max-length', '1024', '--batch-size',
+            '4', '--epochs', '1']
+    n_layer, n_steps, n_eval = 12, 58 // 4, -(-6 // 4)
+    for scheme, table in (('wordpiece', TABLE_262K), ('pairmerge', pm_table)):
+        run = os.path.join(root, f'learned-{scheme}')
+        fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+        rec['walls'][f'train {scheme}'] = run_cli(['train', '--dataset', ds, '--out', run,
+                                                   '--tokenizer-scheme', scheme,
+                                                   '--tokenizer-path', table, *base])
+        launches = dict(fa.LAUNCHES)
+        log_ = step_log(run)
+        steps = [r for r in log_ if 'loss' in r]
+        ep = [r for r in log_ if 'train_tokens_per_sec' in r][0]
+        with open(os.path.join(run, 'meta.json')) as f:
+            meta = json.load(f)
+        rec[scheme] = dict(launches=launches, steps=len(steps), epoch=ep,
+                           vocab_size=meta['config']['vocab_size'],
+                           losses=[r['loss'] for r in steps])
+        if len(steps) != n_steps or not all(math.isfinite(r['loss']) for r in steps) or \
+                meta['tokenizer']['scheme'] != scheme or \
+                launches != dict(flash_rel_attn_fwd=n_layer * (n_steps + n_eval),
+                                 flash_rel_attn_bwd=n_layer * n_steps):
+            raise AssertionError(f'train --tokenizer-scheme {scheme}: {rec[scheme]}')
+        gen_dir = os.path.join(root, f'gen-{scheme}')
+        with DecodeTimer() as timer:
+            rec['walls'][f'generate {scheme}'] = run_cli([
+                'generate', '--model-dir', run, '--out', gen_dir, '--n', '2', '--key', 'CMajor',
+                '--max-length', '512', '--seed', str(SEED)])
+            rec[scheme]['generate'] = timer.summary(MusicVocabulary(pitch_kind='degree'))
+        bars, valid = check_rendered(gen_dir, 2)
+        rec[scheme]['rendered'] = dict(bars=bars, bar_durations_valid_share=valid)
+        log(f'[learned] {scheme}: {json.dumps(rec[scheme])}')
+        shutil.rmtree(run)
+    log(f'[learned] wall seconds per command: {json.dumps(rec["walls"])}')
+    report['learned_cli'] = rec
+
+
+def adaptive_checks(dev, report):
+    """Phase 9.4: TF-XL base over the degree vocab with the adaptive head
+    (cutoffs (1000,), cluster parameters drawn with numpy): f32 log-probs
+    at B 1 on the card against the port's CPU run, their logsumexp, K1 once
+    per layer; 64 greedy decode steps through the adaptive head in bf16 with
+    no kernel launch."""
+    cfg = base_config(adaptive_cutoffs=(1000,))
+    flat = TransfoXL(cfg).init_flat(SEED)
+    rng = np.random.default_rng(SEED + 42)
+    flat['adaptive/cluster_w'] = rng.standard_normal((1, cfg.d_model), dtype=np.float32) * 0.02
+    flat['adaptive/cluster_b'] = rng.standard_normal(1).astype(np.float32)
+    ids, _ = score_inputs(cfg.vocab_size, 1, 1024, SEED + 43, dev)
+    cfg32 = dataclasses.replace(cfg, dtype='float32')
+    rec = {}
+    with torch.no_grad():
+        fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+        card, _, _ = TransfoXL(cfg32).forward(params_from_jax(flat, dev), ids)
+        torch.cuda.synchronize()
+        rec['f32_launches'] = dict(fa.LAUNCHES)
+        cpu, _, _ = TransfoXL(cfg32, device='cpu').forward(params_from_jax(flat, 'cpu'),
+                                                          ids.cpu())
+        rec['f32_card_vs_cpu'] = rel_max(card, cpu)
+        rec['f32_lse_max'] = float(torch.logsumexp(card, -1).abs().max())
+        model = TransfoXL(cfg)
+        dparams = model.compute_params(params_from_jax(flat, dev))
+        state = model.init_decode_state(4)
+        tok = torch.from_numpy(np.array([1, 2, 3, 4])).to(dev)
+        fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+        lse = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(64):
+            lp, state = model.decode_step(dparams, tok, state)
+            lse.append(torch.logsumexp(lp, -1).abs().max())
+            tok = lp.argmax(-1)
+        torch.cuda.synchronize()
+        rec['decode'] = dict(steps=64, ms_per_step=(time.perf_counter() - t0) / 64 * 1e3,
+                             launches=dict(fa.LAUNCHES),
+                             lse_max=float(torch.stack(lse).max()))
+    log(f'[adaptive] {json.dumps(rec)}')
+    if rec['f32_launches'] != dict(flash_rel_attn_fwd=cfg.n_layer, flash_rel_attn_bwd=0) or \
+            not rec['f32_card_vs_cpu'] <= TOL_F32_LOGITS or \
+            not rec['f32_lse_max'] <= TOL_LSE or any(rec['decode']['launches'].values()) or \
+            not rec['decode']['lse_max'] <= TOL_LSE:
+        raise AssertionError(f'the adaptive head: {rec}')
+    report['adaptive'] = rec
+    del model, dparams, state
+    torch.cuda.empty_cache()
+
+
+def learned_tokenizer_phase(dev, report):
+    """Phase 9 on phase 8's dataset directory, each part counted."""
+    t0 = time.perf_counter()
+    seconds = {}
+    root = os.path.join(RUN_DIR, 'cli')
+    for name, fn in (('dispatch', lambda: dispatch_checks(dev, report)),
+                     ('large head', lambda: large_head_checks(dev, os.path.join(root, 'dataset'),
+                                                              report)),
+                     ('learned CLI', lambda: learned_cli_path(dev, root, report)),
+                     ('adaptive', lambda: adaptive_checks(dev, report))):
+        t1 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t1
+    report['phase9_seconds'] = dict(seconds, total=time.perf_counter() - t0)
+    log(f'[phase 9] seconds: {json.dumps(report["phase9_seconds"])}')
 
 
 def main() -> int:
@@ -1812,6 +2185,10 @@ def main() -> int:
 
     # 8. the user's path through the command line
     cli_path(dev, report)
+
+    # 9. A.6's plain attention dispatch, the 262k head, the learned
+    # tokenizers through the command line, the adaptive head
+    learned_tokenizer_phase(dev, report)
     report.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                   seconds=time.perf_counter() - t_start)
     shutil.rmtree(RUN_DIR, ignore_errors=True)

@@ -8,6 +8,7 @@ extractor, data pipeline, Trainer and generator:
     python -m musicnlp_tpu_torch dataset  combined.json --out dataset/ [--pitch-kind step]
     python -m musicnlp_tpu_torch train    --dataset dataset/ --out models/run1 \\
                                           [--recipe 22-11 | --model transf-xl --size base]
+                                          [--tokenizer-scheme wordpiece --tokenizer-path T.json.gz]
     python -m musicnlp_tpu_torch generate --model-dir models/run1 --n 4 \\
                                           [--strategy sample --top-k 8] [--key CMajor]
                                           [--strategy beam --num-beams 4 [--num-beam-groups 2]]
@@ -16,11 +17,12 @@ extractor, data pipeline, Trainer and generator:
 `extract` and `dataset` are host work and never touch the card (`extract
 --jobs N` extracts in N worker processes started by spawn).  `train` and
 `generate` run on CUDA; `--device cpu` asks for the CPU, and without CUDA and
-without it the command exits non-zero with the device resolver's error.
-`download` comes with a later slice; the learned tokenizer schemes (slice
-A.4) exit non-zero with their `NotImplementedError`, and their own flags
-(`--tokenizer-path`) come with that slice, so argparse refuses them until
-then.  Heavy imports stay inside each command, so `--help` is instant.
+without it the command exits non-zero with the device resolver's error.  A
+learned tokenizer scheme (wordpiece, pairmerge) reads its trained table from
+`--tokenizer-path` and trains through the string pipeline
+(`StringAugmentedDataset`); `generate` rebuilds it from the run directory.
+`download` comes with a later slice.  Heavy imports stay inside each
+command, so `--help` is instant.
 """
 from __future__ import annotations
 
@@ -87,11 +89,10 @@ def _cmd_dataset(a) -> int:
 
 
 def _cmd_train(a) -> int:
-    if a.tokenizer_scheme != 'vanilla':
-        raise NotImplementedError(f'tokenizer scheme {a.tokenizer_scheme!r} comes with the '
-                                  f'learned-tokenizer slice (A.4)')
     dev = _device(a)
-    from musicnlp_tpu_torch.preprocess.dataset import AugmentedDataset, SongDataset
+    from musicnlp_tpu_torch.preprocess.dataset import (
+        AugmentedDataset, SongDataset, StringAugmentedDataset, songdataset_to_dicts,
+    )
     from musicnlp_tpu_torch.trainer.train import (
         TrainArgs, Trainer, get_model_n_tokenizer, setup_recipe,
     )
@@ -107,8 +108,14 @@ def _cmd_train(a) -> int:
         trainer = setup_recipe(a.recipe, train_sd, eval_datasets=eval_sd, out_dir=a.out,
                                train_args=overrides, device=dev)
     else:
+        scheme = a.tokenizer_scheme
+        if scheme != 'vanilla' and not a.tokenizer_path:
+            print(f'error: --tokenizer-scheme {scheme} requires --tokenizer-path (a trained '
+                  'unit-table json)', file=sys.stderr)
+            return 2
         model, tok = get_model_n_tokenizer(a.model, a.size, pitch_kind=a.pitch_kind,
-                                           max_length=a.max_length, device=dev)
+                                           max_length=a.max_length, tokenizer_scheme=scheme,
+                                           tokenizer_path=a.tokenizer_path, device=dev)
         insert_key = a.insert_key
         if tok.pitch_kind == 'degree' and not insert_key:
             # degree pitch ids are key-conditioned; without the shift the
@@ -117,9 +124,18 @@ def _cmd_train(a) -> int:
                   'enabling --insert-key', file=sys.stderr)
             insert_key = True
         aug = dict(insert_key=insert_key, pitch_shift=insert_key, channel_mixup=a.channel_mixup)
-        train_ds = AugmentedDataset(train_sd, tok, dataset_split='train', **aug)
-        eval_ds = (AugmentedDataset(eval_sd, tok, random_crop=False, dataset_split='test', **aug)
-                   if eval_sd is not None else None)
+        if scheme != 'vanilla':
+            # merged ids exist only after tokenizing the augmented token strings
+            train_ds = StringAugmentedDataset(songdataset_to_dicts(train_sd), tok,
+                                              dataset_split='train', **aug)
+            eval_ds = (StringAugmentedDataset(songdataset_to_dicts(eval_sd), tok,
+                                              random_crop=False, dataset_split='test', **aug)
+                       if eval_sd is not None else None)
+        else:
+            train_ds = AugmentedDataset(train_sd, tok, dataset_split='train', **aug)
+            eval_ds = (AugmentedDataset(eval_sd, tok, random_crop=False, dataset_split='test',
+                                        **aug)
+                       if eval_sd is not None else None)
         args = TrainArgs.from_preset(a.model, a.size, **overrides)
         trainer = Trainer(model, tok, train_ds, eval_ds, args=args, out_dir=a.out)
     summary = trainer.train()
@@ -212,7 +228,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument('--channel-mixup', action='store_true')
     t.add_argument('--tokenizer-scheme', default='vanilla',
                    choices=['vanilla', 'wordpiece', 'pairmerge'],
-                   help='only vanilla until the learned-tokenizer slice')
+                   help='learned tokenizers train via the string pipeline; '
+                        'generate reloads them from the run dir automatically')
+    t.add_argument('--tokenizer-path',
+                   help='trained unit-table json(.gz) for wordpiece/pairmerge '
+                        '(e.g. artifacts/wordpiece_262144_degree.json.gz)')
     t.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     t.set_defaults(fn=_cmd_train)
 

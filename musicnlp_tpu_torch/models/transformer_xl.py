@@ -1,21 +1,21 @@
 """Transformer-XL music LM in PyTorch.
 
 Counterpart of `musicnlp_tpu/models/transformer_xl.py`: the same size presets,
-tied embedding / dense softmax head, relative-position attention with a
-fixed-shape right-aligned memory, a dense-head loss with NTP accuracy (over
-one segment, or segment by segment with carried memory), and an exact KV
-ring-cache decode step (bf16 or int8 caches).
+a tied embedding with a dense softmax head (or the HF-compatible adaptive
+head, `adaptive_cutoffs`), relative-position attention with a fixed-shape
+right-aligned memory, a loss with NTP accuracy (over dense logits, tiled over
+the vocab with `head_chunk`, or segment by segment with carried memory), and
+an exact KV ring-cache decode step (bf16 or int8 caches).
 
 Parameters are a nested dict of float32 tensors in the JAX package's layouts
-(`utils/checkpoint.params_from_jax` carries JAX parameters in).  Every
+(`utils/checkpoint.params_from_jax` carries JAX parameters in).  An
 attention layer of `forward` runs through kernels K1 (forward) and K2
 (backward) of `ops/flash_attention.py` (on CPU tensors, their plain
 versions).  Like the TPU kernels, they have no key-padding mask and no
-attention-probability dropout: the JAX model sends a forward with
-`attn_mask` or with `dropatt > 0` to its plain `rel_attn`.  That dispatch
-is not ported yet, so `forward` takes no `attn_mask` and raises when
-`dropatt` would apply (every preset has dropatt = 0).  Dropout draws come
-from an explicit `torch.Generator`.
+attention-probability dropout, so a forward with `attn_mask` or with
+`dropatt > 0` runs every layer through the plain `ops/attention.rel_attn`,
+as the JAX model does.  Dropout draws come from an explicit
+`torch.Generator`.
 """
 from __future__ import annotations
 
@@ -27,11 +27,13 @@ import torch
 
 from musicnlp_tpu_torch import resolve_device
 from musicnlp_tpu_torch.ops.attention import (
-    decode_pos_table, quantize_kv_rows, rel_attn_decode_step,
+    decode_pos_table, quantize_kv_rows, rel_attn, rel_attn_decode_step,
 )
 from musicnlp_tpu_torch.ops.flash_attention import fused_rel_attn
 from musicnlp_tpu_torch.ops.layers import Params, dropout, ffn
-from musicnlp_tpu_torch.ops.losses import PT_LOSS_PAD, ntp_accuracy, shifted_ce_loss
+from musicnlp_tpu_torch.ops.losses import (
+    PT_LOSS_PAD, chunked_shifted_ce_loss, ntp_accuracy, shifted_ce_loss,
+)
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax
 
 __all__ = ['TransfoXLConfig', 'TransfoXL', 'DecodeState']
@@ -41,9 +43,16 @@ _DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32, 'float16': torc
 
 @dataclass(frozen=True)
 class TransfoXLConfig:
-    """The JAX package's config less its TPU execution knobs (flash block
-    sizes, remat, vocab tiling / sharding), which change how a result is
-    computed there but not the result; `load_trained` drops them."""
+    """The JAX package's config less the knobs of its TPU execution (flash
+    block sizes and use, remat) and of its device mesh (`shard_vocab`),
+    which change how a result is computed there but not the result;
+    `load_trained` drops them.
+
+    head_chunk: train through the tiled CE over the tied head in tiles of
+    this many vocab rows (`ops/losses.chunked_shifted_ce_loss`), so no
+    [B, T, V] logits exist; None = dense logits.  adaptive_cutoffs: the
+    HF-compatible adaptive softmax head (cluster factorization), whose
+    "logits" are log-probs, for checkpoints trained with it."""
     vocab_size: int = 1190
     model_size: str = 'base'
     d_model: int = 768
@@ -59,6 +68,8 @@ class TransfoXLConfig:
     pre_lnorm: bool = False
     init_std: float = 0.02
     dtype: str = 'bfloat16'
+    head_chunk: Optional[int] = None
+    adaptive_cutoffs: Optional[Tuple[int, ...]] = None
     decode_cache_quant: Optional[str] = None    # None | 'int8'
     attn_window: Optional[int] = None
 
@@ -134,6 +145,10 @@ class TransfoXL:
 
         flat = {'embed/weight': normal(cfg.vocab_size, D),
                 'out_bias': np.zeros(cfg.vocab_size, np.float32)}
+        if cfg.adaptive_cutoffs:
+            n_cl = len(cfg.adaptive_cutoffs)
+            flat.update({'adaptive/cluster_w': np.zeros((n_cl, D), np.float32),
+                         'adaptive/cluster_b': np.zeros(n_cl, np.float32)})
         for li in range(cfg.n_layer):
             a, f = f'layers/{li}/attn', f'layers/{li}/ffn'
             flat.update({
@@ -177,24 +192,25 @@ class TransfoXL:
     # --------------------------------------------------------------- forward
     def forward(self, params: Params, input_ids: torch.Tensor,
                 mems: Optional[torch.Tensor] = None, mem_valid=0,
+                attn_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, deterministic: bool = True):
         """input_ids [B, Q] -> (logits f32 [B, Q, V], new_mems, new_valid)."""
         h, new_mems, new_valid = self.forward_hidden(
-            params, input_ids, mems=mems, mem_valid=mem_valid,
+            params, input_ids, mems=mems, mem_valid=mem_valid, attn_mask=attn_mask,
             generator=generator, deterministic=deterministic)
         return self._lm_head(params, h), new_mems, new_valid
 
     def forward_hidden(self, params: Params, input_ids: torch.Tensor,
                        mems: Optional[torch.Tensor] = None, mem_valid=0,
+                       attn_mask: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
                        deterministic: bool = True):
         """Trunk only: final hidden states [B, Q, d], new memory, new valid count.
-        mems [L, B, M, d] right-aligned memory or None."""
+        mems [L, B, M, d] right-aligned memory or None; attn_mask [B, Q] bool
+        (True = real token) masks padded keys."""
         cfg = self.cfg
-        if cfg.dropatt > 0 and not deterministic:
-            raise NotImplementedError('attention-probability dropout (dropatt > 0) runs on the '
-                                      'plain rel_attn path, whose dispatch is not ported yet; '
-                                      'K1/K2, like the TPU kernels, have none: set dropatt=0')
+        # K1 / K2 have neither a key mask nor attention dropout
+        plain = attn_mask is not None or cfg.dropatt > 0
         dtype = cfg.compute_dtype
         B, Q = input_ids.shape
         h = params['embed']['weight'].to(dtype)[input_ids.long()]
@@ -210,10 +226,17 @@ class TransfoXL:
                 # memory stores this layer's INPUT hiddens (TF-XL semantics)
                 new_mems.append(torch.cat([mems[li], h], dim=1)[:, -cfg.mem_len:].detach())
                 layer_mems = mems[li]
-            h = fused_rel_attn(
-                layer['attn'], h, layer_mems, mem_valid, clamp_len=cfg.clamp_len,
-                pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout, generator=generator,
-                deterministic=deterministic, window=cfg.attn_window)
+            if plain:
+                h = rel_attn(
+                    layer['attn'], h, layer_mems, mem_valid, clamp_len=cfg.clamp_len,
+                    pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
+                    dropatt_rate=cfg.dropatt, generator=generator,
+                    deterministic=deterministic, attn_mask=attn_mask, window=cfg.attn_window)
+            else:
+                h = fused_rel_attn(
+                    layer['attn'], h, layer_mems, mem_valid, clamp_len=cfg.clamp_len,
+                    pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout, generator=generator,
+                    deterministic=deterministic, window=cfg.attn_window)
             h = ffn(layer['ffn'], h, pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
                     generator=generator, deterministic=deterministic)
 
@@ -224,19 +247,54 @@ class TransfoXL:
         return h, None, torch.zeros((), dtype=torch.int32, device=h.device)
 
     def _lm_head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
-        """Tied dense head; f32 logits from compute-dtype operands."""
-        w = params['embed']['weight'].to(h.dtype)
-        return h.float() @ w.float().T + params['out_bias'].float()
+        """Tied dense head: f32 logits from compute-dtype operands.  With
+        `adaptive_cutoffs`, the adaptive head's log-probs instead (HF
+        ProjectedAdaptiveLogSoftmax with div_val 1 and no projection): a
+        head softmax over the first cutoff's tokens and one logit per tail
+        cluster, plus each cluster's own softmax over its tokens."""
+        w = params['embed']['weight'].to(h.dtype).float()
+        bias = params['out_bias'].float()
+        hf = h.float()
+        if not self.cfg.adaptive_cutoffs:
+            return hf @ w.T + bias
+        cuts = (0, *self.cfg.adaptive_cutoffs, self.cfg.vocab_size)
+        c0 = cuts[1]
+        ad = params['adaptive']
+        head_w = torch.cat([w[:c0], ad['cluster_w'].to(h.dtype).float()])
+        head_b = torch.cat([bias[:c0], ad['cluster_b'].float()])
+        head_lp = torch.log_softmax(hf @ head_w.T + head_b, dim=-1)
+        parts = [head_lp[..., :c0]]
+        for i in range(len(cuts) - 2):
+            lo, hi = cuts[i + 1], cuts[i + 2]
+            tail_lp = torch.log_softmax(hf @ w[lo:hi].T + bias[lo:hi], dim=-1)
+            parts.append(head_lp[..., c0 + i:c0 + i + 1] + tail_lp)
+        return torch.cat(parts, dim=-1)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Params, input_ids: torch.Tensor, labels: torch.Tensor,
              generator: Optional[torch.Generator] = None, deterministic: bool = True,
              n_seg: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """CLM loss + aux metrics (dense head).  n_seg > 1 trains segment by
-        segment with the memory carried across segments (`_loss_segments`)."""
+        """CLM loss + aux metrics: over dense logits, or with `head_chunk`
+        through the tiled CE (no [B, T, V] logits).  n_seg > 1 trains segment
+        by segment with the memory carried across segments (`_loss_segments`)."""
+        cfg = self.cfg
+        if cfg.head_chunk and cfg.adaptive_cutoffs:
+            raise ValueError('head_chunk trains over the dense tied head while forward and '
+                             'decode score through the adaptive clusters: training and '
+                             'scoring would disagree for an adaptive checkpoint')
         if n_seg > 1:
+            if cfg.head_chunk:
+                raise ValueError('head_chunk (the tiled large-vocab CE) requires n_seg == 1; '
+                                 'segment training materializes per-segment logits')
             return self._loss_segments(params, input_ids, labels, n_seg=n_seg,
                                        generator=generator, deterministic=deterministic)
+        if cfg.head_chunk:
+            h, _, _ = self.forward_hidden(params, input_ids, generator=generator,
+                                          deterministic=deterministic)
+            loss, n_tok, preds = chunked_shifted_ce_loss(
+                h, labels, params['embed']['weight'].to(h.dtype), params['out_bias'],
+                chunk=cfg.head_chunk)
+            return loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok, preds=preds)
         logits, _, _ = self.forward(params, input_ids, generator=generator,
                                     deterministic=deterministic)
         loss, n_tok = shifted_ce_loss(logits, labels)

@@ -1,8 +1,7 @@
 """Copy of `musicnlp_tpu/preprocess/dataset.py` (pure Python / numpy): the port keeps its own copy
 and imports nothing from the JAX package; only the import paths differ
-(held against the original by tests/test_torch_pipeline.py).  The string
-pipeline of the learned tokenizers (`StringAugmentedDataset`) and
-`iter_song_w_all_keys` come with the learned-tokenizer slice.
+(held against the original by tests/test_torch_pipeline.py and, for the
+learned tokenizers' string pipeline, tests/test_torch_tokenizers.py).
 
 Training dataset pipeline: columnar token arrays + augmentation chain.
 
@@ -35,7 +34,8 @@ from musicnlp_tpu_torch.vocab import (
 
 __all__ = [
     'load_songs', 'EncodedSong', 'SongDataset', 'AugmentedDataset',
-    'ProportionMixingDataset', 'songdataset_to_dicts',
+    'StringAugmentedDataset', 'ProportionMixingDataset', 'iter_song_w_all_keys',
+    'songdataset_to_dicts',
 ]
 
 
@@ -64,6 +64,22 @@ def load_songs(*paths: str) -> List[Dict]:
             d = d.get('music') or d.get('songs') or [d]
         songs.extend(d)
     return songs
+
+
+@dataclass
+class _AllKeysOutput:
+    generator: Iterator
+    total: int
+
+
+def iter_song_w_all_keys(songs: List[Dict]) -> _AllKeysOutput:
+    """Yield (score, key) for each song x candidate key (reference dataset.py:136)."""
+    def gen():
+        for s in songs:
+            for k in s['keys']:
+                yield s['score'], k
+    total = sum(len(s['keys']) for s in songs)
+    return _AllKeysOutput(generator=gen(), total=total)
 
 
 @dataclass
@@ -450,3 +466,82 @@ class ProportionMixingDataset:
                 idxs = idxs[hid * per:(hid + 1) * per]
             items = [self[int(j)] for j in idxs]
             yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class StringAugmentedDataset:
+    """Reference-style per-sample STRING pipeline (reference dataset.py:208-365).
+
+    The id-space `AugmentedDataset` compiles augmentations to base-vocab
+    permutation tables, which cannot represent a LEARNED tokenizer's merged
+    ids (wordpiece / pair-merge).  This class runs the transform chain on
+    token strings and then the learned tokenizer, exactly like the reference:
+    RandomCrop -> SanitizeRare -> (AugmentKey | ToMidiPitch) -> ChannelMixer
+    -> tokenizer(pad/truncate).
+    """
+    PT_LOSS_PAD = -100
+
+    def __init__(
+            self, songs: List[Dict], tokenizer: MusicTokenizer,
+            random_crop: Union[bool, int] = True, min_seg_length: int = 16,
+            insert_key: bool = False, pitch_shift: bool = False,
+            channel_mixup: Union[bool, str] = False, mode: str = 'full',
+            dataset_split: str = 'train', seed: int = 77,
+    ):
+        self.songs = songs
+        self.tokenizer = tokenizer
+        self.max_length = tokenizer.model_max_length
+        self.dataset_split = dataset_split
+        rng = np.random.default_rng(seed)
+        self.rng = rng
+        pk = tokenizer.pitch_kind
+
+        vocab_step = MusicVocabulary(pitch_kind='step')
+        chain = []
+        if random_crop and dataset_split == 'train':
+            chain.append(tsf.RandomCrop(
+                vocab=vocab_step, min_seg_length=min_seg_length,
+                crop_mult=1 if random_crop is True else int(random_crop),
+                rng=rng, return_as_list=True))
+        self._sanitize = tsf.SanitizeRare(vocab=vocab_step, return_as_list=True)
+        self._aug_key = None
+        self._to_midi = None
+        if insert_key and pitch_shift:
+            assert pk == 'degree'
+            self._aug_key = tsf.AugmentKey(vocab=tokenizer.vocab
+                                           if tokenizer.vocab.pitch_kind == 'degree'
+                                           else MusicVocabulary(pitch_kind='degree'),
+                                           rng=rng, return_as_list=True)
+        elif pk == 'midi':
+            self._to_midi = tsf.ToMidiPitch(vocab=vocab_step, return_as_list=True)
+        self._mixer = None
+        if channel_mixup:
+            self._mixer = tsf.ChannelMixer(
+                rng=rng, mode='full' if channel_mixup is True else channel_mixup,
+                return_as_list=True)
+        self._pre = chain
+
+    def __len__(self):
+        return len(self.songs)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        s = self.songs[idx]
+        toks: Union[str, List[str]] = s['score']
+        for t in self._pre:
+            toks = t(toks)
+        toks = self._sanitize(toks)
+        if self._aug_key is not None:
+            toks = self._aug_key((toks, s.get('keys') or {}))
+        elif self._to_midi is not None:
+            toks = self._to_midi(toks)
+        if self._mixer is not None:
+            toks = self._mixer(toks)
+        ids = np.asarray(self.tokenizer.encode(
+            toks, padding='max_length', truncation=True), dtype=np.int32)
+        pad = self.tokenizer.pad_token_id
+        labels = np.where(ids == pad, StringAugmentedDataset.PT_LOSS_PAD,
+                          ids).astype(np.int32)
+        ks = np.asarray(tsf.CombineKeys.get_key_scores(s.get('keys') or {}),
+                        np.float32)
+        return dict(input_ids=ids, labels=labels, key_scores=ks)
+
+    batches = AugmentedDataset.batches

@@ -340,8 +340,6 @@ def load_trained(out_dir: str, device: Optional[Union[str, torch.device]] = None
     name = meta.get('model_name', 'transf-xl')
     if name not in MODEL_FAMILIES:
         raise ValueError(f'Unknown model {name!r}')
-    if meta['config'].get('adaptive_cutoffs'):
-        raise NotImplementedError('the adaptive head comes with a later slice')
     model_cls, cfg_cls = MODEL_FAMILIES[name]
     fields = cfg_cls.__dataclass_fields__
     # tuple fields come back from JSON as lists

@@ -33,6 +33,8 @@ from musicnlp_tpu_torch.models.reformer import Reformer
 from musicnlp_tpu_torch.ops.losses import PT_LOSS_PAD
 from musicnlp_tpu_torch.trainer.eval import MODEL_FAMILIES, Model, score_batch
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
+from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizer
+from musicnlp_tpu_torch.trainer.wordpiece_tokenizer import WordPieceMusicTokenizer
 from musicnlp_tpu_torch.utils import checkpoint as ckpt
 from musicnlp_tpu_torch.utils.prefetch import prefetch
 from musicnlp_tpu_torch.vocab import MusicTokenizer
@@ -415,13 +417,24 @@ def _model_name(model: Model) -> str:
 
 
 def describe_tokenizer(tokenizer: MusicTokenizer, out_dir: str) -> Dict:
-    """The tokenizer's identity as `meta.json` records it (vanilla scheme)."""
-    if type(tokenizer).__name__ != 'MusicTokenizer':
-        raise NotImplementedError(f'{type(tokenizer).__name__} comes with the learned-'
-                                  f'tokenizer slice')
-    return dict(pitch_kind=tokenizer.pitch_kind, precision=tokenizer.vocab.precision,
-                model_max_length=tokenizer.model_max_length,
-                vocab_size=tokenizer.vocab_size, scheme='vanilla')
+    """The tokenizer's identity as `meta.json` records it.  A learned
+    tokenizer (wordpiece / pairmerge) also writes its trained table to
+    `out_dir/tokenizer.json`, so the run directory is self-contained and
+    `rebuild_tokenizer` restores the same tokenizer."""
+    d = dict(pitch_kind=tokenizer.pitch_kind, precision=tokenizer.vocab.precision,
+             model_max_length=tokenizer.model_max_length, vocab_size=tokenizer.vocab_size)
+    if isinstance(tokenizer, WordPieceMusicTokenizer):
+        d['scheme'] = 'wordpiece'
+    elif isinstance(tokenizer, PairMergeTokenizer):
+        d['scheme'] = 'pairmerge'
+    else:
+        d['scheme'] = 'vanilla'
+        return d
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'tokenizer.json'), 'w') as f:
+        json.dump(tokenizer.meta, f)
+    d['tokenizer_file'] = 'tokenizer.json'
+    return d
 
 
 def rebuild_tokenizer(meta: Dict, out_dir: str) -> MusicTokenizer:
@@ -429,27 +442,38 @@ def rebuild_tokenizer(meta: Dict, out_dir: str) -> MusicTokenizer:
     tk = meta.get('tokenizer')
     if tk is None:                  # checkpoints from before the identity was recorded
         return MusicTokenizer(pitch_kind='degree')
-    if tk['scheme'] != 'vanilla':
-        raise NotImplementedError(f"tokenizer scheme {tk['scheme']!r} comes with the "
-                                  f"learned-tokenizer slice")
-    return MusicTokenizer(pitch_kind=tk['pitch_kind'], precision=tk.get('precision', 5),
-                          model_max_length=tk['model_max_length'])
+    scheme = tk['scheme']
+    if scheme == 'vanilla':
+        return MusicTokenizer(pitch_kind=tk['pitch_kind'], precision=tk.get('precision', 5),
+                              model_max_length=tk['model_max_length'])
+    path = os.path.join(out_dir, tk['tokenizer_file'])
+    if scheme == 'wordpiece':
+        return WordPieceMusicTokenizer.from_file(path, model_max_length=tk['model_max_length'])
+    if scheme != 'pairmerge':
+        raise ValueError(f'Unknown tokenizer scheme {scheme!r}')
+    return PairMergeTokenizer.from_file(path, model_max_length=tk['model_max_length'])
 
 
 def get_model_n_tokenizer(model_name: str, model_size: str, vocab_size: int = None,
                           pitch_kind: str = 'degree', max_length: int = None,
                           model_config: Dict = None, tokenizer_scheme: str = 'vanilla',
+                          tokenizer_path: str = None,
                           device: Optional[Union[str, torch.device]] = None
                           ) -> Tuple[Model, MusicTokenizer]:
     """Model + tokenizer wiring of the reference (train.py:31-59): TF-XL or
-    the Reformer with the vanilla tokenizer; the learned tokenizers raise."""
-    if tokenizer_scheme != 'vanilla':
-        raise NotImplementedError(f'tokenizer scheme {tokenizer_scheme!r} comes with the '
-                                  f'learned-tokenizer slice')
+    the Reformer; the tokenizer scheme is vanilla, or wordpiece / pairmerge
+    with the trained table read from `tokenizer_path`."""
+    if tokenizer_scheme == 'vanilla':
+        tokenizer = MusicTokenizer(pitch_kind=pitch_kind)
+    elif tokenizer_scheme == 'wordpiece':
+        tokenizer = WordPieceMusicTokenizer.from_file(tokenizer_path)
+    elif tokenizer_scheme == 'pairmerge':
+        tokenizer = PairMergeTokenizer.from_file(tokenizer_path)
+    else:
+        raise ValueError(f'Unknown tokenizer scheme {tokenizer_scheme!r}')
     if model_name not in MODEL_FAMILIES:
         raise ValueError(f'Unknown model {model_name!r}')
     model_cls, cfg_cls = MODEL_FAMILIES[model_name]
-    tokenizer = MusicTokenizer(pitch_kind=pitch_kind)
     cfg = cfg_cls.from_size(model_size, vocab_size or tokenizer.vocab_size,
                             max_length=max_length, **(model_config or {}))
     tokenizer.model_max_length = cfg.max_length

@@ -2,8 +2,9 @@
 width: extract -> dataset -> train -> generate (sampled, beam, diverse-beam
 and contrastive) on the goldens, the port's extracted corpus against the
 JAX-extracted one, run directories read across the two packages, the recipe
-wiring against the JAX `setup_recipe`, and the refusals (learned tokenizers,
-no CUDA without `--device cpu`)."""
+wiring against the JAX `setup_recipe`, the learned tokenizer schemes
+(wordpiece, pairmerge) from train to generate, and the refusals (a learned
+scheme without its table, no CUDA without `--device cpu`)."""
 import dataclasses
 import glob
 import json
@@ -21,10 +22,13 @@ from musicnlp_tpu.trainer import train as jtrain
 from musicnlp_tpu.utils.checkpoint import _flatten
 from musicnlp_tpu_torch import cli
 from musicnlp_tpu_torch.io import parse_file
-from musicnlp_tpu_torch.preprocess.dataset import SongDataset
+from musicnlp_tpu_torch.preprocess.dataset import SongDataset, songdataset_to_dicts
 from musicnlp_tpu_torch.trainer import eval as teval
 from musicnlp_tpu_torch.trainer import train as ttrain
+from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizerTrainer
+from musicnlp_tpu_torch.trainer.wordpiece_tokenizer import WordPieceMusicTrainer
 from musicnlp_tpu_torch.utils.checkpoint import flatten
+from musicnlp_tpu_torch.vocab import MusicVocabulary
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = sorted(glob.glob(os.path.join(REPO, 'tests', 'goldens', 'golden*.musicxml')))
@@ -202,27 +206,29 @@ def test_search_strategies_render_files(port_run, corpus, capsys, flags, strateg
 
 def test_refusals_exit_non_zero(port_run, corpus, monkeypatch, capsys):
     """Beam and contrastive search, refused until the search slice, now run
-    (exit 0, files that re-read); the learned-tokenizer scheme still exits 2,
-    its `--tokenizer-path` flag is still unknown, and without CUDA the
-    card's commands exit non-zero."""
+    (exit 0, files that re-read); a learned-tokenizer scheme without
+    `--tokenizer-path` exits 2 with the JAX CLI's message (the flag parses),
+    and without CUDA the card's commands exit non-zero."""
     base = ['generate', '--model-dir', str(port_run), '--device', 'cpu', '--n', '1',
             '--max-length', '32', '--key', 'CMajor', '--strategy']
     for strategy in ('beam', 'contrastive'):
         out = corpus / f'refused-{strategy}'
         assert cli.main(base + [strategy, '--out', str(out)]) == 0
         _rendered(str(out), 1)
-    assert cli.main(['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'w'),
-                     '--tokenizer-scheme', 'wordpiece', '--device', 'cpu']) == 2
+    capsys.readouterr()
+    train = ['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'w'),
+             '--tokenizer-scheme', 'wordpiece']
+    assert cli.main(train + ['--device', 'cpu']) == 2
     err = capsys.readouterr().err
-    assert 'A.3' not in err and 'learned-tokenizer' in err
-    # the search flags parse; the learned-tokenizer flag comes with its slice
+    assert jcli.main(train) == 2
+    assert err == capsys.readouterr().err and '--tokenizer-path' in err
+    assert not (corpus / 'w').exists()
+    # the search flags and the learned-tokenizer flag parse
     for argv in (base + ['sample', '--num-beams', '4', '--out', str(corpus / 'f1')],
                  base + ['sample', '--penalty-alpha', '0.6', '--out', str(corpus / 'f2')]):
         assert cli.main(argv) == 0
-    with pytest.raises(SystemExit) as e:
-        cli.main(['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'w'),
-                  '--tokenizer-path', 'units.json', '--device', 'cpu'])
-    assert e.value.code == 2
+    assert cli.build_parser().parse_args(train + ['--tokenizer-path', 'units.json']) \
+        .tokenizer_path == 'units.json'
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for argv in (['generate', '--model-dir', str(port_run)],
                  ['train', '--dataset', str(corpus / 'ds'), '--out', str(corpus / 'x')]):
@@ -230,3 +236,42 @@ def test_refusals_exit_non_zero(port_run, corpus, monkeypatch, capsys):
             cli.main(argv)
         assert e.value.code != 0
     assert not (corpus / 'x').exists()
+
+
+@pytest.mark.parametrize('scheme', ['wordpiece', 'pairmerge'])
+def test_learned_tokenizer_train_then_generate(scheme, corpus, tmp_path):
+    """`train --tokenizer-scheme wordpiece|pairmerge --tokenizer-path` with a
+    table trained here on the corpus (degree kind, each song in each of its
+    keys): the string pipeline trains the debug model over the table's
+    vocab, the run directory carries the table, `generate` rebuilds the
+    tokenizer and writes files that re-read, and the JAX package loads the
+    run with the same tokenizer."""
+    songs = songdataset_to_dicts(SongDataset.load(str(corpus / 'ds' / 'train.npz')))
+    texts = list(WordPieceMusicTrainer.key_augmented_corpus(songs))
+    table = str(tmp_path / 'table.json')
+    if scheme == 'wordpiece':
+        n_base = len(MusicVocabulary(pitch_kind='degree'))
+        tok = WordPieceMusicTrainer(pitch_kind='degree')(texts, 2 * n_base + 200, save=table)
+    else:
+        tok = PairMergeTokenizerTrainer(pitch_kind='degree')(texts, coverage_ratio=0.9,
+                                                             save=table)
+    run = tmp_path / 'run'
+    assert cli.main(['train', '--dataset', str(corpus / 'ds'), '--out', str(run), '--size',
+                     'debug', '--epochs', '1', '--device', 'cpu', '--tokenizer-scheme', scheme,
+                     '--tokenizer-path', table]) == 0
+    meta = json.loads((run / 'meta.json').read_text())
+    assert meta['tokenizer']['scheme'] == scheme
+    assert meta['config']['vocab_size'] == meta['tokenizer']['vocab_size'] == tok.vocab_size
+    log = [json.loads(line) for line in (run / 'train_log.jsonl').read_text().splitlines()]
+    assert len([r for r in log if 'loss' in r]) == 6 and 'eval_loss' in log[-1]
+    assert all(np.isfinite(r['loss']) for r in log if 'loss' in r)
+    out = tmp_path / 'gen'
+    assert cli.main(['generate', '--model-dir', str(run), '--out', str(out), '--n', '2',
+                     '--key', 'CMajor', '--top-k', '8', '--max-length', '64', '--seed', '0',
+                     '--device', 'cpu']) == 0
+    _rendered(str(out), 2)
+    _, _, ttok = teval.load_trained(str(run), device='cpu')
+    _, _, jtok = jeval.load_trained(str(run))
+    assert type(ttok).__name__ == type(jtok).__name__ == type(tok).__name__
+    assert ttok.meta == jtok.meta == tok.meta
+    assert ttok.encode(texts[0]) == jtok.encode(texts[0])

@@ -1,5 +1,6 @@
-"""K1-K6 on the card against their plain versions (needs an NVIDIA GPU and
-nvcc).
+"""K1-K6 on the card against their plain versions, and the tiled CE's card
+path (bf16 tiles on the tensor cores) against the dense CE (needs an NVIDIA
+GPU and nvcc).
 
 Run on a GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`;
 elsewhere these tests skip.  `chip_smoke.py` holds both kernels against the
@@ -237,3 +238,35 @@ def test_k5_k6_match_plain(dev, K):
         assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs()).all())
     assert bool((got5m[:, ::2] == 1 / rk.W).all())
     assert got6.equal(want6)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_tiled_ce_matches_dense_on_card(dev, dtype):
+    """The tiled CE on CUDA tensors (bf16 operands on the tensor cores with
+    f32 results, the backward's products from the bf16-rounded logit
+    gradient) against the dense CE of the same f32 products: loss, preds
+    where the top two logits are apart, and the gradients."""
+    from musicnlp_tpu_torch.ops.losses import chunked_shifted_ce_loss, shifted_ce_loss
+    g = torch.Generator(device='cpu').manual_seed(0)
+    B, T, d, V = 2, 65, 64, 3000
+    h = torch.randn(B, T, d, generator=g).to(dev, dtype)
+    w = (torch.randn(V, d, generator=g) * 0.3).to(dev, dtype)
+    b = (torch.randn(V, generator=g) * 0.1).to(dev)
+    lab = torch.randint(0, V, (B, T), generator=g).to(dev)
+    lab[0, :5] = -100
+    ins = [x.detach().requires_grad_(True) for x in (h, w, b)]
+    loss, n, preds = chunked_shifted_ce_loss(*ins[:1], lab, *ins[1:], chunk=1024)
+    grads = torch.autograd.grad(loss, ins)
+    ref_ins = [x.detach().requires_grad_(True) for x in (h, w, b)]
+    logits = ref_ins[0].float() @ ref_ins[1].float().T + ref_ins[2]
+    ref, ref_n = shifted_ce_loss(logits, lab)
+    ref_grads = torch.autograd.grad(ref, ref_ins)
+    torch.cuda.synchronize()
+    assert float(n) == float(ref_n)
+    torch.testing.assert_close(loss, ref, rtol=1e-5 if dtype == torch.float32 else 1e-3, atol=0)
+    top2 = logits.detach().topk(2, dim=-1).values
+    apart = (top2[..., 0] - top2[..., 1]) > 1e-2 * top2[..., 0].abs().clamp(min=1)
+    assert torch.equal(preds[:, :-1][apart[:, :-1]], logits.argmax(-1)[:, :-1][apart[:, :-1]])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, e in zip(grads, ref_grads):
+        assert float((a.float() - e.float()).abs().max() / e.float().abs().max()) < tol

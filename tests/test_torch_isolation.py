@@ -38,7 +38,9 @@ def test_no_jax_in_sys_modules():
         for sub in ('io.musicxml', 'preprocess.dataset', 'preprocess.music_export',
                     'tools.vpu_roofline', 'ops.roofline_kernels', 'cli', '__main__',
                     'native', 'preprocess.music_extractor', 'preprocess.fast_extractor',
-                    'preprocess.warning_logger', 'utils.config', 'utils.music_fs'):
+                    'preprocess.warning_logger', 'utils.config', 'utils.music_fs',
+                    'trainer.wordpiece_tokenizer', 'trainer.pair_merge_tokenizer',
+                    'native._py_wordpiece'):
             assert pkg.__name__ + '.' + sub in names, sub
     ''')
     # a PATH without nvcc: importing the kernel modules builds nothing

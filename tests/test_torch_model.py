@@ -337,18 +337,64 @@ def test_seeded_init_is_the_jax_layout(pair):
                        torch.from_numpy(flat['layers/1/attn/qkv']))
 
 
-def test_attention_dropout_raises_until_k1_has_it(pair):
-    """K1/K2, like the TPU kernels, have no attention-probability dropout, and
-    the plain rel_attn dispatch the JAX model uses for it is not ported: a
-    training forward with dropatt > 0 raises instead of leaving the kernels;
-    scoring (deterministic) runs."""
+def _count_fused(monkeypatch):
+    """Counts the layers that run through K1 / K2 (`fused_rel_attn`)."""
+    from musicnlp_tpu_torch.models import transformer_xl as txl
+    calls = []
+    real = txl.fused_rel_attn
+    monkeypatch.setattr(txl, 'fused_rel_attn', lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+def test_attention_dropout_raises_until_k1_has_it(pair, monkeypatch):
+    """K1/K2, like the TPU kernels, have no attention-probability dropout:
+    with dropatt > 0 every layer runs the plain rel_attn, as the JAX model
+    dispatches it, so a training forward draws the dropout there and never
+    reaches K1 / K2, and scoring (deterministic) equals the JAX model's."""
     jm, jp, _, tp = pair
-    tm = TransfoXL(dataclasses.replace(
-        TransfoXLConfig(vocab_size=jm.cfg.vocab_size, **CFG), dropatt=0.1), device='cpu')
+    cfg = dataclasses.replace(TransfoXLConfig(vocab_size=jm.cfg.vocab_size, **CFG), dropatt=0.1)
+    tm = TransfoXL(cfg, device='cpu')
+    calls = _count_fused(monkeypatch)
     ids = _ids(14, 1, 16, tm.cfg.vocab_size)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        tm.forward(tp, torch.from_numpy(ids), generator=torch.Generator().manual_seed(0),
-                   deterministic=False)
+    a, _, _ = tm.forward(tp, torch.from_numpy(ids), generator=torch.Generator().manual_seed(0),
+                         deterministic=False)
+    b, _, _ = tm.forward(tp, torch.from_numpy(ids), generator=torch.Generator().manual_seed(1),
+                         deterministic=False)
+    assert not calls and torch.isfinite(a).all() and not torch.equal(a, b)
+    loss, _ = tm.loss(tp, torch.from_numpy(ids), torch.from_numpy(ids),
+                      generator=torch.Generator().manual_seed(0), deterministic=False)
+    assert torch.isfinite(loss) and not calls
     got, _, _ = tm.forward(tp, torch.from_numpy(ids))
-    want, _, _ = jm.forward(jp, jnp.asarray(ids))
+    want, _, _ = JModel(dataclasses.replace(jm.cfg, dropatt=0.1)).forward(jp, jnp.asarray(ids))
     np.testing.assert_allclose(np_of(got), np_of(want), **LOGIT_TOL)
+    assert not calls
+    TransfoXL(dataclasses.replace(cfg, dropatt=0.0), device='cpu').forward(
+        tp, torch.from_numpy(ids))
+    assert len(calls) == cfg.n_layer
+
+
+@pytest.mark.parametrize('with_memory', [False, True])
+def test_forward_with_attn_mask_matches_jax(pair, monkeypatch, with_memory):
+    """forward(attn_mask=...) masks padded keys through the plain rel_attn
+    in every layer, with and without memory, as the JAX model does."""
+    jm, jp, tm, tp = pair
+    calls = _count_fused(monkeypatch)
+    ids = _ids(15, 2, 24, tm.cfg.vocab_size)
+    mask = np.ones((2, 24), bool)
+    mask[1, 17:] = False                                # a padded tail
+    mask[0, 5] = False
+    kw, jkw = {}, {}
+    if with_memory:
+        jmems, _ = jm.init_mems(2)
+        jmems = jnp.asarray(randn(16, *jmems.shape))
+        kw = dict(mems=torch.from_numpy(np.array(jmems)), mem_valid=20)
+        jkw = dict(mems=jmems, mem_valid=20)
+    want, jm_new, _ = jm.forward(jp, jnp.asarray(ids), attn_mask=jnp.asarray(mask), **jkw)
+    got, tm_new, _ = tm.forward(tp, torch.from_numpy(ids), attn_mask=torch.from_numpy(mask), **kw)
+    np.testing.assert_allclose(np_of(got), np_of(want), **LOGIT_TOL)
+    if with_memory:
+        np.testing.assert_allclose(np_of(tm_new), np_of(jm_new), **LOGIT_TOL)
+    assert not calls
+    plain, _, _ = tm.forward(tp, torch.from_numpy(ids), **kw)
+    assert len(calls) == tm.cfg.n_layer
+    assert not np.allclose(np_of(plain[1, :17]), np_of(got[1, :17]))   # row 0's hole at 5

@@ -22,6 +22,7 @@ from musicnlp_tpu.utils import checkpoint as jckpt
 from musicnlp_tpu.vocab import MusicTokenizer as JTok, MusicVocabulary as JVocab
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.trainer import train as ttrain
+from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizerTrainer
 from musicnlp_tpu_torch.trainer.eval import load_trained
 from musicnlp_tpu_torch.utils import checkpoint as tckpt
 from musicnlp_tpu_torch.vocab import MusicTokenizer
@@ -357,7 +358,10 @@ def test_trained_run_read_by_both_packages(small_run, tmp_path):
     np.testing.assert_allclose(np_of(back), np_of(got), rtol=1e-4, atol=1e-4)
 
 
-def test_wiring_raises_for_later_slices():
+def test_wiring_raises_for_later_slices(tmp_path):
+    """The wiring of both families and every tokenizer scheme, as the JAX
+    package wires them: a learned scheme reads its table from a path and
+    sizes the model's vocab by it; unknown names are refused."""
     model, tok = ttrain.get_model_n_tokenizer('transf-xl', 'debug', device='cpu')
     assert tok.pitch_kind == 'degree' and model.cfg.vocab_size == tok.vocab_size
     assert ttrain.rebuild_tokenizer(dict(tokenizer=ttrain.describe_tokenizer(tok, '')), '') \
@@ -366,8 +370,19 @@ def test_wiring_raises_for_later_slices():
         == 'Reformer'
     with pytest.raises(ValueError, match='Unknown model'):
         ttrain.get_model_n_tokenizer('gpt2', 'debug', device='cpu')
-    with pytest.raises(NotImplementedError, match='tokenizer'):
-        ttrain.get_model_n_tokenizer('transf-xl', 'debug', tokenizer_scheme='wordpiece')
+    song = ('TimeSig_4/4 Tempo_120 <bar> <melody> p_1/4 d_1 p_5/4 d_1 p_8/4 d_2 <bass> '
+            'p_1/3 d_4 </s>')
+    PairMergeTokenizerTrainer(pitch_kind='midi')([song] * 2, coverage_ratio=1.0,
+                                                 save=str(tmp_path / 'pm.json'))
+    args = dict(pitch_kind='midi', tokenizer_scheme='pairmerge',
+                tokenizer_path=str(tmp_path / 'pm.json'))
+    model, tok = ttrain.get_model_n_tokenizer('reformer', 'debug', device='cpu', **args)
+    jmodel, jtok = jtrain.get_model_n_tokenizer('reformer', 'debug', **args)
+    assert type(tok).__name__ == 'PairMergeTokenizer' and tok.meta == jtok.meta
+    assert model.cfg.vocab_size == jmodel.cfg.vocab_size == tok.vocab_size > len(tok.vocab)
+    assert tok.encode(song) == jtok.encode(song)
+    with pytest.raises(ValueError, match='scheme'):
+        ttrain.get_model_n_tokenizer('transf-xl', 'debug', tokenizer_scheme='bpe')
     tr = ttrain.get_all_setup('transf-xl', 'debug', train_dataset=_Rows(np.zeros((4, 8))),
                               device='cpu')
     assert tr.args.batch_size == 2 and tr.args.lr_scheduler_type == 'constant'
