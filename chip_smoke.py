@@ -17,8 +17,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      kernel -- the bf16 kernels must have some, the f32 ones keep FMAs;
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
-     a memory + window case, a head-dim-16 ragged case and the 22-12 shape
-     (TF-XL small: T 2048, full memory M 1024, clamp 1024, B 4, bf16); times of each
+     a memory + window case, a head-dim-16 ragged case, the 22-12 shape
+     (TF-XL small: T 2048, full memory M 1024, clamp 1024, B 4, bf16) and
+     the HF-imported TF-XL's window (same_length: window 512 at T 1024,
+     clamp 1024; K1 B 8 without and with a full 512 memory, K2 at B 21 and
+     with the memory, bf16, and an f32 B 2 memory case); times of each
      kernel, its plain version and a one-call PyTorch yardstick the port
      never calls (`scaled_dot_product_attention` with the positional term as
      a float mask; for K2 its backward, with the mask requiring grad); K2's
@@ -115,7 +118,26 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      file re-read; wall seconds per command); the adaptive head (cutoffs
      (1000,), cluster parameters drawn with numpy): f32 log-probs at B 1
      on the card against the CPU, their logsumexp, 12 K1 per forward, and
-     64 greedy decode steps in bf16 with no launch.
+     64 greedy decode steps in bf16 with no launch;
+ 10. A.7, counts set to 0 before each path and read after: an HF
+     TransfoXLLMHeadModel checkpoint at the 22-11 widths (cutoffs [1000],
+     same_length, mem_len 512; a state dict under HF's key names made with
+     numpy) through `from_hf_transfo_xl` -> `score_batch` 8 x 1024 (12
+     windowed K1), a forward over a full 512 memory (12 K1), f32 log-probs
+     at B 1 card vs CPU and their logsumexp, save + `load_trained` +
+     `MusicGenerator` 2 x 1024 (sample, top_k 8, no K1, every file
+     re-read), and a 21 x 1024 step with `remat_attn` off and on (equal
+     loss, gradients within 1e-4 of each leaf's max, K1 12 / 24 and K2 12,
+     step ms and peak GiB each); an HF ReformerModelWithLMHead checkpoint
+     at the 22-04 widths through `from_hf_reformer` (hf_compat) ->
+     `score_batch` 8 x 2048 (12 K3), f32 logits at depth 2 card vs CPU, a
+     32 x 2048 step with `remat` (24 K3, 12 K4), 2 sampled songs x 1024,
+     128 greedy tokens through 'scan', the streamed scan (chunk 512) and
+     'bounded' (window 32), each twice in mirrored order, with tok/s and
+     peak memory each, in f32 at B 1 over 640 steps the streamed scan and
+     'bounded' (window at least the largest bucket) against 'scan' on
+     'scan''s bucket ids, a contrastive search over the [2 d] hidden; the native
+     22-04 step at 32 x 2048 with `remat` off and on (K3 12 / 24, K4 12).
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json;
 training runs write under build/chip_smoke_runs/, removed at the end.
@@ -131,6 +153,7 @@ import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -138,6 +161,7 @@ import torch
 from musicnlp_tpu_torch import cli
 from musicnlp_tpu_torch.io import parse_file, read_midi
 from musicnlp_tpu_torch.kernels.build import build_all
+from musicnlp_tpu_torch.models import reformer as reformer_module
 from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops import chunked_attention as ca
@@ -160,7 +184,8 @@ from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizerTr
 from musicnlp_tpu_torch.trainer.wordpiece_tokenizer import (
     WordPieceMusicTokenizer, WordPieceMusicTrainer,
 )
-from musicnlp_tpu_torch.utils.checkpoint import flatten, params_from_jax
+from musicnlp_tpu_torch.utils.checkpoint import flatten, params_from_jax, save_meta, save_pytree
+from musicnlp_tpu_torch.utils.hf_import import from_hf_reformer, from_hf_transfo_xl
 from musicnlp_tpu_torch.utils.prefetch import prefetch
 from musicnlp_tpu_torch.vocab import MusicTokenizer, MusicVocabulary, N_KEY, key_ordinal2str
 
@@ -230,6 +255,13 @@ TOL_HEAD = dict(loss=1e-3, embed_grad=2e-2)
 # arithmetic over 1024 positions and 12 layers); the adaptive head's
 # logsumexp per position
 TOL_F32_LOGITS, TOL_LSE = 1e-4, 1e-5
+# W_r's gradient (TF-XL's `attn/r`) between two bf16 training steps, over
+# its largest entry: K2 sums the distance table's gradient with atomics in
+# an order that changes from run to run, and its bf16 rounding may then
+# flip.  The same step run twice with the same knob spread by up to 4.9e-3
+# on an H100 (PERF.md); the bound is twice that, and the remat on / off gap
+# and the off / off spread are each held to it
+TOL_W_R = 1e-2
 
 
 def log(msg: str):
@@ -973,10 +1005,11 @@ def reformer_training_path(dev, tok, report):
 
 class SharedBranches:
     """Within the block, the two places where the Reformer branches on a
-    computed value -- the LSH bucket argmax (`lsh_buckets`) and the FFN relu
-    (`torch.relu`) -- keep what they compute in `seen`; with `replaying` set
-    they use `recorded` instead (in order, moved to the run's device) and
-    count the entries their own arithmetic would have changed.  The card and
+    computed value -- the LSH bucket argmax (`lsh_buckets`, in the forward and
+    in the decode step) and the FFN relu (`torch.relu`) -- keep what they
+    compute in `seen`; with `replaying` set they use `recorded` instead (in
+    order, moved to the run's device) and count the entries their own
+    arithmetic would have changed.  The card and
     the CPU sum in other orders, so a hash on a near-tie may land in another
     bucket, and a relu input within rounding of 0 may take the other side of
     the kink, which moves that token's share of an FFN weight gradient by a
@@ -1005,12 +1038,19 @@ class SharedBranches:
     def relu(self, x):
         return torch.where(self._share('relu', x > 0), x, torch.zeros_like(x))
 
+    def replay(self):
+        """Replay what the first run saw (again, for each later run)."""
+        self.recorded = {k: list(v) for k, v in self.seen.items()}
+        self.replaying = True
+
     def __enter__(self):
-        ca.lsh_buckets, torch.relu = self.buckets, self.relu
+        ca.lsh_buckets = reformer_module.lsh_buckets = self.buckets
+        torch.relu = self.relu
         return self
 
     def __exit__(self, *exc):
-        ca.lsh_buckets, torch.relu = self.real
+        ca.lsh_buckets = reformer_module.lsh_buckets = self.real[0]
+        torch.relu = self.real[1]
 
 
 def reformer_card_vs_cpu(dev, report):
@@ -1990,6 +2030,488 @@ def learned_tokenizer_phase(dev, report):
     log(f'[phase 9] seconds: {json.dumps(report["phase9_seconds"])}')
 
 
+# ------------------------------------ HF interop and the models' knobs (phase 10)
+def normal(rng, *shape, std=0.02):
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+
+SCAN_CHUNK = 512          # the streamed LSH scan's chunk (decode_scan_chunk), phase 10
+GREEDY_LEN = 128          # greedy tokens per decode estimator, phase 10
+CONTRASTIVE_LEN = 256     # the contrastive search's length over the [2 d] hidden, phase 10
+# HF config objects, by HF's attribute names: TF-XL at the 22-11 widths (the
+# reference's cutoffs [1000] for vocab >= 1000; HF's defaults same_length and
+# untie_r) and the Reformer at the 22-04 widths (relu, layer_norm_eps 1e-12,
+# axial (32, 64) x (192, 576), chunks of 64 in HF's causal one-look-back layout)
+HF_TFXL = dict(vocab_size=1190, d_model=768, d_embed=768, n_head=12, d_head=64, d_inner=3072,
+               n_layer=12, mem_len=512, clamp_len=1024, cutoffs=[1000], div_val=1,
+               same_length=True, untie_r=True, dropout=0.1, pre_lnorm=False)
+HF_REFORMER = dict(vocab_size=422, hidden_size=768, num_attention_heads=12,
+                   attention_head_size=64, feed_forward_size=3072,
+                   attn_layers=['local', 'lsh'] * 6, axial_pos_shape=[32, 64],
+                   axial_pos_embds_dim=[192, 576], max_position_embeddings=2048,
+                   local_attn_chunk_length=64, lsh_attn_chunk_length=64,
+                   local_num_chunks_before=1, local_num_chunks_after=0,
+                   lsh_num_chunks_before=1, lsh_num_chunks_after=0, num_hashes=2,
+                   num_buckets=64, hidden_act='relu', hidden_dropout_prob=0.05,
+                   layer_norm_eps=1e-12)
+
+
+def hf_tfxl_checkpoint(seed):
+    """An HF TransfoXLLMHeadModel checkpoint made with numpy: a namespace of
+    HF's config names (`HF_TFXL`) and a state dict under HF's key names,
+    with a tied output embedding and the adaptive head's cluster."""
+    hc = SimpleNamespace(**HF_TFXL)
+    rng = np.random.default_rng(seed)
+    V, d, N, H, F = hc.vocab_size, hc.d_model, hc.n_head, hc.d_head, hc.d_inner
+    embed = normal(rng, V, d)
+    sd = {'transformer.word_emb.emb_layers.0.weight': embed,
+          'crit.out_layers.0.weight': embed, 'crit.out_layers.0.bias': normal(rng, V),
+          'crit.cluster_weight': normal(rng, 1, d), 'crit.cluster_bias': normal(rng, 1)}
+    for i in range(hc.n_layer):
+        p = f'transformer.layers.{i}.'
+        sd.update({
+            p + 'dec_attn.qkv_net.weight': normal(rng, 3 * N * H, d),
+            p + 'dec_attn.r_net.weight': normal(rng, N * H, d),
+            p + 'dec_attn.o_net.weight': normal(rng, d, N * H),
+            p + 'dec_attn.r_w_bias': normal(rng, N, H, std=0.1),
+            p + 'dec_attn.r_r_bias': normal(rng, N, H, std=0.1),
+            p + 'dec_attn.layer_norm.weight': 1 + normal(rng, d),
+            p + 'dec_attn.layer_norm.bias': normal(rng, d),
+            p + 'pos_ff.CoreNet.0.weight': normal(rng, F, d),
+            p + 'pos_ff.CoreNet.0.bias': normal(rng, F),
+            p + 'pos_ff.CoreNet.3.weight': normal(rng, d, F),
+            p + 'pos_ff.CoreNet.3.bias': normal(rng, d),
+            p + 'pos_ff.layer_norm.weight': 1 + normal(rng, d),
+            p + 'pos_ff.layer_norm.bias': normal(rng, d)})
+    return hc, sd
+
+
+def hf_reformer_checkpoint(seed):
+    """An HF ReformerModelWithLMHead checkpoint made with numpy: a namespace
+    of HF's config names (`HF_REFORMER`) and a state dict under HF's key
+    names, the final norm and head over both streams."""
+    hc = SimpleNamespace(**HF_REFORMER)
+    rng = np.random.default_rng(seed)
+    V, d, F = hc.vocab_size, hc.hidden_size, hc.feed_forward_size
+    NH = hc.num_attention_heads * hc.attention_head_size
+    (n1, n2), (d1, d2) = hc.axial_pos_shape, hc.axial_pos_embds_dim
+    sd = {'reformer.embeddings.word_embeddings.weight': normal(rng, V, d),
+          'reformer.embeddings.position_embeddings.weights.0': normal(rng, n1, 1, d1),
+          'reformer.embeddings.position_embeddings.weights.1': normal(rng, 1, n2, d2),
+          'reformer.encoder.layer_norm.weight': 1 + normal(rng, 2 * d),
+          'reformer.encoder.layer_norm.bias': normal(rng, 2 * d),
+          'lm_head.decoder.weight': normal(rng, V, 2 * d), 'lm_head.decoder.bias': normal(rng, V)}
+    for i, kind in enumerate(hc.attn_layers):
+        p = f'reformer.encoder.layers.{i}.'
+        sa = p + 'attention.self_attention.'
+        if kind == 'local':
+            sd.update({sa + 'query.weight': normal(rng, NH, d),
+                       sa + 'key.weight': normal(rng, NH, d)})
+        else:
+            sd[sa + 'query_key.weight'] = normal(rng, NH, d)
+        sd.update({
+            sa + 'value.weight': normal(rng, NH, d),
+            p + 'attention.output.dense.weight': normal(rng, d, NH),
+            p + 'attention.layer_norm.weight': 1 + normal(rng, d),
+            p + 'attention.layer_norm.bias': normal(rng, d),
+            p + 'feed_forward.dense.dense.weight': normal(rng, F, d),
+            p + 'feed_forward.dense.dense.bias': normal(rng, F),
+            p + 'feed_forward.output.dense.weight': normal(rng, d, F),
+            p + 'feed_forward.output.dense.bias': normal(rng, d),
+            p + 'feed_forward.layer_norm.weight': 1 + normal(rng, d),
+            p + 'feed_forward.layer_norm.bias': normal(rng, d)})
+    return hc, sd
+
+
+def loss_and_grads(model, params, ids, labels, seed):
+    """One step's loss and gradients (dropout on, a generator seeded with
+    `seed`) and its peak memory, for comparing a knob on and off."""
+    leaves = flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=ids.device).manual_seed(seed)
+    loss, _ = model.loss(params, ids, labels, generator=gen, deterministic=False)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    out = dict(loss=float(loss.detach()),
+               grad_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for t in leaves.values():
+        t.requires_grad_(False)
+    return out, dict(zip(leaves, grads))
+
+
+def remat_pair(name, make_model, params, batch, tok, args, launches, want, report):
+    """The same step with the knob off and on: equal loss and gradients
+    within TOL_GRAD of each leaf's largest entry -- but for W_r (TF-XL's
+    `attn/r`), whose gradient K2 sums with atomics into the distance
+    table's and rounds to bf16, so that a rounding may flip from run to
+    run: that leaf's gap, and its spread between two runs of the step
+    without the knob, are each held within TOL_W_R.  Then each one's
+    `Trainer.train_step`, the main training path: its kernel launches,
+    counted from 0 around one step and held to `want`, its time and its peak
+    memory (the optimizer moves `params`)."""
+    runs, grads = {}, {}
+    for key, on in (('off', False), ('on', True), ('off-again', False)):
+        runs[key], grads[key] = loss_and_grads(make_model(on), params, batch['input_ids'],
+                                               batch['labels'], SEED)
+
+    def rel(a, b):
+        return {k: rel_max(grads[a][k], grads[b][k]) if grads[b][k].abs().max() > 0
+                else float(grads[a][k].abs().max()) for k in grads[b]}
+    on_off, spread = rel('on', 'off'), rel('off-again', 'off')
+    del grads
+    atomic = [k for k in on_off if k.endswith('/attn/r')]
+    rest = [k for k in on_off if k not in atomic]
+    worst = max(rest, key=on_off.get)
+    rec = dict(off=runs['off'], on=runs['on'], worst_grad=worst, worst_grad_rel=on_off[worst],
+               w_r_rel=max((on_off[k] for k in atomic), default=0.0),
+               w_r_rel_off_vs_off=max((spread[k] for k in atomic), default=0.0),
+               loss_off_again=runs['off-again']['loss'])
+    leaves = flatten(params)
+    for key, on in (('off', False), ('on', True)):
+        trainer = tr.Trainer(make_model(on), tok, range(len(batch['input_ids'])), args=args,
+                             out_dir=os.path.join(RUN_DIR, 'remat'))
+        state = trainer.opt.init(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in launches:
+            launches[k] = 0
+        trainer.train_step(params, state, batch)
+        torch.cuda.synchronize()
+        runs[key]['launches'] = dict(launches)
+        runs[key]['step_ms'] = time_ms(lambda: trainer.train_step(params, state, batch),
+                                       iters=2, warmup=0)
+        runs[key]['step_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for t in leaves.values():
+            t.requires_grad_(False)
+        del trainer, state
+    log(f'[remat] {name}: {json.dumps(rec)}')
+    report.setdefault('remat', {})[name] = rec
+    if runs['on']['loss'] != runs['off']['loss'] or on_off[worst] > TOL_GRAD or \
+            max(rec['w_r_rel'], rec['w_r_rel_off_vs_off']) > TOL_W_R or \
+            runs['off']['launches'] != want[False] or runs['on']['launches'] != want[True]:
+        raise AssertionError(f'{name}: remat on and off disagree: {rec} (launches wanted {want})')
+    return rec
+
+
+def hf_tfxl_checks(dev, report):
+    """Phase 10.1: an HF TF-XL checkpoint at the 22-11 widths, imported
+    (`from_hf_transfo_xl`, the window 512 of HF's same_length, the adaptive
+    head), through the port's entry points: `score_batch` 8 x 1024 (12
+    windowed K1), a forward over a full 512 memory (12 K1), f32 log-probs at
+    B 1 card vs CPU and their logsumexp; save, `load_trained`, and
+    `MusicGenerator` 2 x 1024 (sample, top_k 8; no K1), every file re-read;
+    a training step at 21 x 1024 with `remat_attn` off and on."""
+    hc, sd = hf_tfxl_checkpoint(SEED)
+    t0 = time.perf_counter()
+    cfg, nested = from_hf_transfo_xl(sd, hf_config=hc, max_length=1024)
+    params = params_from_jax(nested, dev)
+    rec = dict(import_s=time.perf_counter() - t0, config=dataclasses.asdict(cfg))
+    if (cfg.attn_window, cfg.mem_len, cfg.adaptive_cutoffs, cfg.model_size) != \
+            (hc.mem_len, hc.mem_len, tuple(hc.cutoffs), 'hf-import'):
+        raise AssertionError(f'the imported TF-XL config: {cfg}')
+    tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
+    model = TransfoXL(cfg)
+    ids, labels = score_inputs(cfg.vocab_size, 8, 1024, SEED + 50, dev)
+    key_scores = torch.from_numpy(
+        np.random.default_rng(SEED + 51).random((21, N_KEY)).astype(np.float32)).to(dev)
+    ikr = IkrMetric(tok, mode='vanilla')
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    mets = score_batch(model, params, ids, labels, ikr, key_scores[:8])
+    torch.cuda.synchronize()
+    rec['score'] = {k: float(v) for k, v in mets.items()}
+    rec['score_launches'] = dict(fa.LAUNCHES)
+    rec['score_ms'] = time_ms(lambda: score_batch(model, params, ids, labels, ikr,
+                                                  key_scores[:8]), iters=3, warmup=0)
+    if rec['score_launches'] != dict(flash_rel_attn_fwd=cfg.n_layer, flash_rel_attn_bwd=0) or \
+            not all(math.isfinite(v) for v in rec['score'].values()) or \
+            abs(rec['score']['loss'] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f'scoring the imported TF-XL: {rec}')
+    with torch.no_grad():
+        mems = torch.zeros(cfg.n_layer, 8, cfg.mem_len, cfg.d_model, dtype=cfg.compute_dtype,
+                           device=dev)
+        fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+        logits, new_mems, valid = model.forward(params, ids, mems=mems, mem_valid=cfg.mem_len)
+        torch.cuda.synchronize()
+        rec['memory_forward_launches'] = dict(fa.LAUNCHES)
+        if rec['memory_forward_launches'] != dict(flash_rel_attn_fwd=cfg.n_layer,
+                                                  flash_rel_attn_bwd=0) or \
+                not torch.isfinite(logits).all() or int(valid) != cfg.mem_len:
+            raise AssertionError(f'the imported TF-XL over a 512 memory: {rec}')
+        del logits, new_mems, mems
+        cfg32 = dataclasses.replace(cfg, dtype='float32')
+        card, _, _ = TransfoXL(cfg32).forward(params, ids[:1])
+        cpu, _, _ = TransfoXL(cfg32, device='cpu').forward(params_from_jax(nested, 'cpu'),
+                                                          ids[:1].cpu())
+        rec['f32_card_vs_cpu'] = rel_max(card, cpu)
+        rec['f32_lse_max'] = float(torch.logsumexp(card, -1).abs().max())
+        del card, cpu
+    if not rec['f32_card_vs_cpu'] <= TOL_F32_LOGITS or not rec['f32_lse_max'] <= TOL_LSE:
+        raise AssertionError(f'the imported TF-XL in f32, card vs CPU: {rec}')
+
+    # save, load_trained and generate over the windowed KV ring (no K1)
+    run = os.path.join(RUN_DIR, 'hf-tfxl')
+    shutil.rmtree(run, ignore_errors=True)
+    save_pytree(os.path.join(run, 'trained'), params)
+    save_meta(os.path.join(run, 'meta.json'), dict(
+        model_name='transf-xl', config=dataclasses.asdict(cfg),
+        tokenizer=tr.describe_tokenizer(tok, run)))
+    lmodel, lparams, ltok = load_trained(run, device=dev)
+    if lmodel.cfg != cfg:
+        raise AssertionError(f'load_trained changed the imported config: {lmodel.cfg}')
+    out_dir = os.path.join(run, 'generated')
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    t0 = time.perf_counter()
+    with DecodeTimer() as timer:
+        MusicGenerator(lmodel, ltok, lparams, out_dir=out_dir)(
+            mode='unconditional', strategy='sample', n_song=2, max_length=1024, top_k=8,
+            seed=SEED)
+    with_rendering = time.perf_counter() - t0
+    bars, valid = check_rendered(out_dir, 2)
+    rec['generate'] = dict(timer.summary(ltok.vocab), seconds_with_rendering=with_rendering,
+                           launches=dict(fa.LAUNCHES), bars=bars, bar_durations_valid=valid)
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f'generation from the imported TF-XL launched a kernel: {rec}')
+    del lmodel, lparams
+
+    # a training step at 21 x 1024 (dropout 0.1), remat_attn off and on
+    tids, tlabels = score_inputs(cfg.vocab_size, 21, 1024, SEED + 52, dev)
+    batch = dict(input_ids=tids, labels=tlabels, key_scores=key_scores)
+    n = cfg.n_layer
+    remat_pair('hf-tfxl-21x1024', lambda on: TransfoXL(dataclasses.replace(cfg, remat_attn=on)),
+               params, batch, tok, train_args(seed=SEED), fa.LAUNCHES,
+               {False: dict(flash_rel_attn_fwd=n, flash_rel_attn_bwd=n),
+                True: dict(flash_rel_attn_fwd=2 * n, flash_rel_attn_bwd=n)}, report)
+    log(f'[hf-tfxl] {json.dumps({k: v for k, v in rec.items() if k != "config"})}')
+    report['hf_tfxl'] = rec
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def largest_bucket(state) -> int:
+    """The most positions any (layer, row, head, round) bucket holds in a
+    'scan' decode state's bucket cache."""
+    sb = state.lsh_buckets.long()
+    return max(int((sb == b).sum(-1).max()) for b in range(int(sb.max()) + 1))
+
+
+def decode_logits(model, params, ids):
+    """Teacher-forced decode logits [B, n, V] over ids [B, n], and the state."""
+    st, out = model.init_decode_state(ids.shape[0]), []
+    with torch.no_grad():
+        for t in range(ids.shape[1]):
+            lg, st = model.decode_step(params, ids[:, t], st)
+            out.append(lg)
+    return torch.stack(out, 1), st
+
+
+def hf_reformer_checks(dev, report):
+    """Phase 10.2: an HF Reformer checkpoint at the 22-04 widths, imported
+    (`from_hf_reformer`: hf_compat, two streams, [2 d] head): `score_batch`
+    8 x 2048 (12 K3); f32 logits at depth 2, card vs CPU on shared
+    branches; a training step at 32 x 2048 with `remat` (24 K3, 12 K4);
+    2 x 1024 sampled songs (top_p 0.9, 'scan'); 128 greedy tokens through
+    'scan', the streamed scan (decode_scan_chunk 512) and 'bounded'
+    (decode_window 32), each twice, each one's tok/s and peak memory; in f32 at B 1,
+    the streamed scan and 'bounded' (its window at least the largest
+    bucket) against 'scan'; one contrastive search over the [2 d] hidden."""
+    hc, sd = hf_reformer_checkpoint(SEED + 1)
+    cfg, nested = from_hf_reformer(sd, hf_config=hc)
+    params = params_from_jax(nested, dev)
+    if not cfg.hf_compat or cfg.ln_eps != 1e-12 or \
+            cfg.lsh_buckets_at(cfg.max_length) != hc.num_buckets:
+        raise AssertionError(f'the imported Reformer config: {cfg}')
+    rec = dict(config=dataclasses.asdict(cfg))
+    rtok = MusicTokenizer(pitch_kind='midi', model_max_length=2048)
+    model = Reformer(cfg)
+    n_layer = len(cfg.attn_layers)
+    ids, labels = score_inputs(cfg.vocab_size, 32, cfg.max_length, SEED + 60, dev)
+    key_scores = torch.from_numpy(
+        np.random.default_rng(SEED + 61).random((32, N_KEY)).astype(np.float32)).to(dev)
+    ikr = IkrMetric(rtok, mode='vanilla')
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    mets = score_batch(model, params, ids[:8], labels[:8], ikr, key_scores[:8])
+    torch.cuda.synchronize()
+    rec['score'] = {k: float(v) for k, v in mets.items()}
+    rec['score_launches'] = dict(ck.LAUNCHES)
+    rec['score_ms'] = time_ms(lambda: score_batch(model, params, ids[:8], labels[:8], ikr,
+                                                  key_scores[:8]), iters=3, warmup=0)
+    if rec['score_launches'] != dict(chunked_window_attn_fwd=n_layer,
+                                     chunked_window_attn_bwd=0) or \
+            not all(math.isfinite(v) for v in rec['score'].values()) or \
+            abs(rec['score']['loss'] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f'scoring the imported Reformer: {rec}')
+
+    # f32 logits at depth 2 (one local, one LSH layer), card vs CPU
+    hc2 = SimpleNamespace(**dict(vars(hc), attn_layers=hc.attn_layers[:2]))
+    cfg2, nested2 = from_hf_reformer(sd, hf_config=hc2, dtype='float32')
+    outs = []
+    with SharedBranches() as shared, torch.no_grad():
+        for device in (dev, torch.device('cpu')):
+            outs.append(Reformer(cfg2, device=device).forward(
+                params_from_jax(nested2, device), ids[:1].to(device)).cpu())
+            shared.recorded, shared.replaying = shared.seen, True
+    rec['f32_depth2_card_vs_cpu'] = rel_max(outs[0], outs[1])
+    rec['f32_depth2_branches_differing'] = dict(shared.differ)
+    del outs
+    if not rec['f32_depth2_card_vs_cpu'] <= TOL_F32_LOGITS:
+        raise AssertionError(f'the imported Reformer in f32, card vs CPU: {rec}')
+
+    # one training step at 32 x 2048 with remat, counted and timed
+    rmodel = Reformer(dataclasses.replace(cfg, remat=True))
+    trainer = tr.Trainer(rmodel, rtok, range(32), args=reformer_train_args(seed=SEED),
+                         out_dir=os.path.join(RUN_DIR, 'hf-reformer'))
+    state = trainer.opt.init(params)
+    batch = dict(input_ids=ids, labels=labels, key_scores=key_scores)
+    leaves = flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    step_mets = trainer.train_step(params, state, batch)
+    torch.cuda.synchronize()
+    rec['train_launches'] = dict(ck.LAUNCHES)
+    rec['train_loss'] = float(step_mets['loss'])
+    rec['train_grad_norm'] = float(step_mets['grad_norm'])
+    rec['train_step_ms'] = time_ms(lambda: trainer.train_step(params, state, batch), iters=2,
+                                   warmup=0)
+    rec['train_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for t in leaves.values():
+        t.requires_grad_(False)
+    del trainer, state, batch, step_mets
+    torch.cuda.empty_cache()
+    if rec['train_launches'] != dict(chunked_window_attn_fwd=2 * n_layer,
+                                     chunked_window_attn_bwd=n_layer) or \
+            not math.isfinite(rec['train_loss']) or not math.isfinite(rec['train_grad_norm']):
+        raise AssertionError(f'the imported Reformer training step with remat: {rec}')
+
+    # decode: 2 sampled songs through 'scan', then 128 greedy tokens per estimator
+    gen = MusicGenerator(model, rtok, params)
+    prompts = [gen.unconditional_prompt(time_sig=(4, 4), tempo=120),
+               gen.unconditional_prompt(time_sig=(3, 4), tempo=90)]
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = gen.generate(prompts, strategy='sample', seed=SEED, max_length=GEN_LEN, top_p=0.9)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    new = sum(len(t_.split()) - len(p_.split()) for t_, p_ in zip(texts, prompts))
+    rec['sample'] = dict(seconds=dt, new_tokens=new, decode_tok_per_s=new / dt,
+                         lengths=[len(t_.split()) for t_ in texts])
+    plen = len(prompts[0].split())
+    estimators = {'scan': dict(), f'scan-chunk-{SCAN_CHUNK}': dict(decode_scan_chunk=SCAN_CHUNK),
+                  'bounded-w32': dict(decode_mode='bounded', decode_window=32)}
+    # each estimator twice, in the order a b c c b a: the decode is paced by
+    # the shared host, so one call alone does not rank them
+    rec['greedy'] = {label: dict(decode_tok_per_s=[], seconds=[], peak_gib=[])
+                     for label in estimators}
+    outs = {}
+    for label in list(estimators) + list(estimators)[::-1]:
+        g = MusicGenerator(Reformer(dataclasses.replace(cfg, **estimators[label])), rtok, params)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = g.generate(prompts, strategy='greedy', max_length=plen + GREEDY_LEN,
+                         early_exit_chunk=0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        new = sum(len(t_.split()) - plen for t_ in out)
+        r = rec['greedy'][label]
+        r['decode_tok_per_s'].append(new / dt)
+        r['seconds'].append(dt)
+        r['peak_gib'].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        r['same_tokens_twice'] = outs.setdefault(label, out) == out
+        texts += out
+    for label, out in outs.items():
+        rec['greedy'][label]['same_tokens_as_scan'] = out == outs['scan']
+    for t_ in texts:
+        if any(x not in rtok.vocab.tok2id for x in t_.split()):
+            raise AssertionError(f'a generated token is not in the vocabulary: {t_[:200]}')
+    if any(ck.LAUNCHES.values()):
+        raise AssertionError(f'Reformer decode launched a kernel: {dict(ck.LAUNCHES)}')
+
+    # f32 B 1, teacher forced over two streamed chunks and a bit: the
+    # streamed scan and 'bounded' against the one-pass scan
+    # (on the scan's bucket ids and relu branches: an f32 rounding that lands
+    # another way can flip a hash on a near-tie, and the estimators are held
+    # to their arithmetic, not to that luck)
+    p32 = params_from_jax(nested, dev)
+    fids = ids[:1, :SCAN_CHUNK + SCAN_CHUNK // 4]
+    cfg32 = dataclasses.replace(cfg, dtype='float32')
+    with SharedBranches() as shared:
+        ref, st = decode_logits(Reformer(cfg32), p32, fids)
+        occupancy = largest_bucket(st)
+        window = max(32, occupancy)
+        shared.replay()
+        chunked, _ = decode_logits(Reformer(dataclasses.replace(
+            cfg32, decode_scan_chunk=SCAN_CHUNK)), p32, fids)
+        shared.replay()
+        bounded, _ = decode_logits(Reformer(dataclasses.replace(
+            cfg32, decode_mode='bounded', decode_window=window)), p32, fids)
+    rec['f32_decode'] = dict(steps=fids.shape[1], largest_bucket=occupancy,
+                             bounded_window=window, chunked_vs_scan=rel_max(chunked, ref),
+                             bounded_vs_scan=rel_max(bounded, ref),
+                             branches_differing=dict(shared.differ),
+                             branches=dict(shared.total))
+    del ref, chunked, bounded, p32, shared
+    if not (rec['f32_decode']['chunked_vs_scan'] <= TOL_F32_LOGITS and
+            rec['f32_decode']['bounded_vs_scan'] <= TOL_F32_LOGITS):
+        raise AssertionError(f'the Reformer decode estimators disagree: {rec["f32_decode"]}')
+
+    # contrastive search over the [2 d] hidden
+    t0 = time.perf_counter()
+    (ctext,) = gen.generate(prompts[:1], strategy='contrastive', top_k=4, penalty_alpha=0.6,
+                            max_length=CONTRASTIVE_LEN)
+    torch.cuda.synchronize()
+    rec['contrastive'] = dict(seconds=time.perf_counter() - t0, length=len(ctext.split()),
+                              hidden_dim=model.hidden_dim)
+    if model.hidden_dim != 2 * cfg.d_model or not ctext.startswith(prompts[0]) or \
+            any(x not in rtok.vocab.tok2id for x in ctext.split()):
+        raise AssertionError(f'contrastive search over the imported Reformer: {rec}')
+    log(f'[hf-reformer] {json.dumps({k: v for k, v in rec.items() if k != "config"})}')
+    report['hf_reformer'] = rec
+    del params, model, gen
+    torch.cuda.empty_cache()
+
+
+def native_remat_checks(dev, report):
+    """Phase 10.3: the native 22-04 model (what users train) with remat, one
+    step at 32 x 2048 against the same step without it."""
+    cfg = reformer_config()
+    params = params_from_jax(Reformer(cfg, device='cpu').init_flat(SEED), dev)
+    rtok = MusicTokenizer(pitch_kind='midi', model_max_length=2048)
+    ids, labels = score_inputs(cfg.vocab_size, 32, cfg.max_length, SEED + 70, dev)
+    key_scores = torch.from_numpy(
+        np.random.default_rng(SEED + 71).random((32, N_KEY)).astype(np.float32)).to(dev)
+    n = len(cfg.attn_layers)
+    remat_pair('reformer-22-04-32x2048', lambda on: Reformer(dataclasses.replace(cfg, remat=on)),
+               params, dict(input_ids=ids, labels=labels, key_scores=key_scores), rtok,
+               reformer_train_args(seed=SEED), ck.LAUNCHES,
+               {False: dict(chunked_window_attn_fwd=n, chunked_window_attn_bwd=n),
+                True: dict(chunked_window_attn_fwd=2 * n, chunked_window_attn_bwd=n)}, report)
+    del params
+    torch.cuda.empty_cache()
+
+
+def hf_interop_phase(dev, report):
+    """Phase 10, each part counted and timed."""
+    t0 = time.perf_counter()
+    seconds = {}
+    for name, fn in (('hf tf-xl', hf_tfxl_checks), ('hf reformer', hf_reformer_checks),
+                     ('native remat', native_remat_checks)):
+        t1 = time.perf_counter()
+        fn(dev, report)
+        seconds[name] = time.perf_counter() - t1
+    report['phase10_seconds'] = dict(seconds, total=time.perf_counter() - t0)
+    log(f'[phase 10] seconds: {json.dumps(report["phase10_seconds"])}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2030,6 +2552,14 @@ def main() -> int:
         # B 4: the plain version's [BN, T, T+S] f32 scores stay near 1.3 GB
         k1_case(dev, '22-12-bf16', torch.bfloat16, 4, 8, 2048, 1024, 64, 1024, 1024, 0, 8,
                 True),
+        # HF-imported TF-XL (phase 10): same_length makes every query attend a
+        # mem_len-wide window, 512 at T 1024, with or without a 512 memory
+        k1_case(dev, 'hf-window-bf16', torch.bfloat16, 8, 12, 1024, 0, 64, 1024, 0, 512, 9,
+                True),
+        k1_case(dev, 'hf-window-mem-bf16', torch.bfloat16, 8, 12, 1024, 512, 64, 1024, 512,
+                512, 10, True),
+        k1_case(dev, 'hf-window-mem-f32', torch.float32, 2, 12, 1024, 512, 64, 1024, 512, 512,
+                11, False),
     ]
     k2 = [
         k2_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 21, True),
@@ -2043,7 +2573,19 @@ def main() -> int:
                 False),
         k2_case(dev, '22-12-bf16', torch.bfloat16, 4, 8, 2048, 1024, 64, 1024, 1024, 0, 27,
                 False),
+        k2_case(dev, 'hf-window-train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 512,
+                28, True),
+        k2_case(dev, 'hf-window-mem-bf16', torch.bfloat16, 8, 12, 1024, 512, 64, 1024, 512, 512,
+                29, False),
+        k2_case(dev, 'hf-window-mem-f32', torch.float32, 2, 12, 1024, 512, 64, 1024, 512, 512,
+                30, False),
     ]
+    k1_ms = {c['case']: c.get('ms') for c in k1}
+    k2_ms = {c['case']: c.get('ms') for c in k2}
+    log(f'[k1/k2] windowed (HF same_length) vs full causal, bf16 ms: K1 B 8 '
+        f'{k1_ms["hf-window-bf16"]:.4f} vs {k1_ms["base-bf16"]:.4f}, with a 512 memory '
+        f'{k1_ms["hf-window-mem-bf16"]:.4f}; K2 B 21 {k2_ms["hf-window-train-bf16"]:.4f} vs '
+        f'{k2_ms["train-bf16"]:.4f}')
     report.update(k1_cases=k1, k2_cases=k2)
 
     # 2b. K3 and K4 against their plain versions on the card: the 22-04
@@ -2189,6 +2731,10 @@ def main() -> int:
     # 9. A.6's plain attention dispatch, the 262k head, the learned
     # tokenizers through the command line, the adaptive head
     learned_tokenizer_phase(dev, report)
+
+    # 10. HF checkpoints of both families through the entry points, remat_attn
+    # and remat, the 'bounded' and streamed LSH decode
+    hf_interop_phase(dev, report)
     report.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                   seconds=time.perf_counter() - t_start)
     shutil.rmtree(RUN_DIR, ignore_errors=True)

@@ -4,21 +4,24 @@ Counterpart of `musicnlp_tpu/models/reformer.py`: the same size presets
 (alternating local / LSH attention layers, axial position embeddings, a
 separate key projection in local layers, shared-QK LSH layers with
 `n_hashes` rounds, feed-forward 4x, untied LM head), a pre-norm residual
-stack, the CLM loss with NTP accuracy, and the incremental 'scan' decode
-step (a lossless 2*chunk ring in local layers; in LSH layers a masked scan of
-the whole cache by bucket id, bf16 or int8).
+stack, the CLM loss with NTP accuracy, and the incremental decode step (a
+lossless 2*chunk ring in local layers; in LSH layers either a masked scan of
+the cache by bucket id, in one pass or streamed in `decode_scan_chunk`-wide
+chunks, bf16 or int8 -- 'scan' -- or per-bucket recency rings --
+'bounded').  `hf_compat` is the layout of HF `ReformerModelWithLMHead`
+checkpoints (`utils/hf_import.from_hf_reformer`): reversible two-stream
+residuals, a separate query in local layers, and the final norm and head
+over both streams.  `remat` recomputes each attention and feed-forward block
+in the backward (`ops/layers.remat`).
 
 Parameters are a nested dict of float32 tensors in the JAX package's layouts
 (`utils/checkpoint.params_from_jax` carries JAX parameters in).  Every
 attention layer of `forward` runs through kernels K3 (forward) and K4
 (backward) of `ops/chunked_attention_kernel.py` (on CPU tensors, their plain
 versions); decode was never a kernel and is plain torch.  The LSH rotations
-are the JAX model's own draws (`ops/chunked_attention.lsh_rotations`).
-
-Not ported yet (each raises `NotImplementedError`): `hf_compat` (the
-reversible two-stream layout of HF checkpoints), `remat`, the 'bounded'
-decode estimator and a streamed `decode_scan_chunk`.  Dropout draws come
-from an explicit `torch.Generator`, not JAX's.
+are the JAX model's own draws (`ops/chunked_attention.lsh_rotations`), so
+a recomputed block buckets as its forward did.  Dropout draws come from an
+explicit `torch.Generator`, not JAX's.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from musicnlp_tpu_torch.ops.attention import quantize_kv_rows
 from musicnlp_tpu_torch.ops.chunked_attention import (
     NEG_INF, SELF_BIAS, local_attention, lsh_attention, lsh_buckets, lsh_rotations,
 )
-from musicnlp_tpu_torch.ops.layers import Params, dense, dropout, layer_norm
+from musicnlp_tpu_torch.ops.layers import Params, dense, dropout, layer_norm, remat
 from musicnlp_tpu_torch.ops.losses import ntp_accuracy, shifted_ce_loss
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax
 
@@ -53,7 +56,13 @@ def _auto_buckets(T: int, chunk: int) -> int:
 
 @dataclass(frozen=True)
 class ReformerConfig:
-    """The JAX package's config, field for field (its `meta.json` loads here)."""
+    """The JAX package's config, field for field (its `meta.json` loads here).
+
+    decode_mode: 'scan' or 'bounded' (`ReformerDecodeState`).
+    decode_scan_chunk: 'scan' reads the live prefix of the LSH cache in
+    chunks of this many positions with an online softmax; None reads the
+    whole cache in one pass.  It must divide max_length.
+    hf_compat: the HF `ReformerModelWithLMHead` layout (module docstring)."""
     vocab_size: int = 1190
     model_size: str = 'base'
     d_model: int = 768
@@ -135,15 +144,29 @@ class ReformerConfig:
 
 
 class ReformerDecodeState(NamedTuple):
-    """Incremental ('scan') decode state, updated IN PLACE by `decode_step`
-    (one slot per step), so a state is consumed by the step that takes it.
-    Every cache keeps batch on axis 1; the time axis comes before the head
-    dim (the port's layout, not the TPU's lane-minor one)."""
+    """Incremental decode state, updated IN PLACE by `decode_step` (one slot
+    per step), so a state is consumed by the step that takes it.  Every cache
+    keeps batch on axis 1; the time axis comes before the head dim (the
+    port's layout, not the TPU's lane-minor one).
+
+    LSH layers cache normalized keys and values; a query attends causally
+    over the earlier positions of its own bucket plus the whole current
+    chunk.  'scan' masks the cache by the bucket id of every position
+    (`lsh_buckets`); 'bounded' keeps, per (head, round, bucket), a ring of
+    the `decode_window` latest positions of that bucket (`lsh_ring`, with
+    each bucket's write count in `lsh_cnt`) and attends to those and the
+    current chunk only.  Where decode_window is at least the most positions
+    any bucket receives, the rings lose nothing and the two agree
+    (decode_window * n_buckets >= max_length alone does not ensure it: a
+    bucket may receive more than its share).  The fields of the other mode
+    are allocated [n_lsh, B, 1, 1, 1] and left alone."""
     local_k: torch.Tensor       # [n_local, B, N, 2c, H] ring of projected keys
     local_v: torch.Tensor       # [n_local, B, N, 2c, H]
     lsh_k: torch.Tensor         # [n_lsh, B, N, L, H] normalized keys (or int8)
     lsh_v: torch.Tensor         # [n_lsh, B, N, L, H]
-    lsh_buckets: torch.Tensor   # [n_lsh, B, N, R, L] int16, -1 = unwritten
+    lsh_buckets: torch.Tensor   # [n_lsh, B, N, R, L] int16, -1 = unwritten ('scan')
+    lsh_ring: torch.Tensor      # [n_lsh, B, N, R, nb * W] int32 positions, -1 ('bounded')
+    lsh_cnt: torch.Tensor       # [n_lsh, B, N, R, nb] int32 writes per bucket ('bounded')
     step: int
     lsh_k_scale: Optional[torch.Tensor] = None   # [n_lsh, B, N, L] f32 for int8 caches
     lsh_v_scale: Optional[torch.Tensor] = None
@@ -160,12 +183,6 @@ class Reformer:
 
     def __init__(self, config: ReformerConfig,
                  device: Optional[Union[str, torch.device]] = None):
-        if config.hf_compat:
-            raise NotImplementedError('hf_compat (the reversible two-stream layout of HF '
-                                      'checkpoints) comes with the HF-interop slice')
-        if config.remat:
-            raise NotImplementedError('remat (activation recomputation) comes with a later '
-                                      'slice; training at 22-04 fits without it')
         self.cfg = config
         self.device = resolve_device(device)
 
@@ -173,7 +190,8 @@ class Reformer:
     def init_flat(self, seed: int = 0) -> Dict[str, np.ndarray]:
         """Random parameters made with numpy from `seed`, in the JAX layout
         under flat '/'-joined keys (normal(0, init_std) matrices and axial
-        embeddings, zero biases, unit layer-norm scales)."""
+        embeddings, zero biases, unit layer-norm scales); with `hf_compat`, a
+        query per local layer and the final norm and head over [2 d]."""
         cfg = self.cfg
         rng = np.random.default_rng(seed)
         D, N, H, F, V = cfg.d_model, cfg.n_head, cfg.d_head, cfg.d_ff, cfg.vocab_size
@@ -183,13 +201,14 @@ class Reformer:
         def normal(*shape):
             return rng.standard_normal(shape, dtype=np.float32) * np.float32(cfg.init_std)
 
-        def ln(prefix):
-            return {f'{prefix}/scale': np.ones(D, np.float32),
-                    f'{prefix}/bias': np.zeros(D, np.float32)}
+        def ln(prefix, width=D):
+            return {f'{prefix}/scale': np.ones(width, np.float32),
+                    f'{prefix}/bias': np.zeros(width, np.float32)}
 
+        d_out = 2 * D if cfg.hf_compat else D
         flat = {'embed/weight': normal(V, D), 'axial1': normal(n1, 1, d1),
-                'axial2': normal(1, n2, d2), 'lm_head/w': normal(D, V),
-                'lm_head/b': np.zeros(V, np.float32), **ln('ln_f')}
+                'axial2': normal(1, n2, d2), 'lm_head/w': normal(d_out, V),
+                'lm_head/b': np.zeros(V, np.float32), **ln('ln_f', d_out)}
         for li, kind in enumerate(cfg.attn_layers):
             a, f = f'layers/{li}/attn', f'layers/{li}/ffn'
             flat.update({f'{a}/qk': normal(D, N, H), f'{a}/v': normal(D, N, H),
@@ -199,10 +218,21 @@ class Reformer:
                          **ln(f'{f}/ln')})
             if kind == 'local':
                 flat[f'{a}/k'] = normal(D, N, H)
+                if cfg.hf_compat:
+                    flat[f'{a}/q'] = normal(D, N, H)
         return flat
 
     def init(self, seed: int = 0) -> Params:
         return params_from_jax(self.init_flat(seed), self.device)
+
+    def unread_leaves(self) -> frozenset:
+        """Flat keys of the leaves the loss never reads: under `hf_compat` a
+        local layer attends through its own 'q' and keeps 'qk' only for the
+        JAX layout."""
+        if not self.cfg.hf_compat:
+            return frozenset()
+        return frozenset(f'layers/{li}/attn/qk' for li, kind in enumerate(self.cfg.attn_layers)
+                         if kind == 'local')
 
     def compute_params(self, params: Params) -> Params:
         """A view of `params` with the matmul weights cast once to the compute
@@ -211,7 +241,7 @@ class Reformer:
         dt = self.cfg.compute_dtype
 
         def attn(p):
-            return {**p, **{k: p[k].to(dt) for k in ('qk', 'k', 'v', 'o') if k in p}}
+            return {**p, **{k: p[k].to(dt) for k in ('q', 'qk', 'k', 'v', 'o') if k in p}}
 
         def ffn_p(p):
             return {**p, 'w1': {**p['w1'], 'w': p['w1']['w'].to(dt)},
@@ -242,11 +272,26 @@ class Reformer:
             raise ValueError(f'T={T} must be a multiple of the chunk sizes')
         h = params['embed']['weight'].to(dtype)[input_ids.long()]
         h = h + self._pos_emb(params, T, dtype)[None]
-        for li, layer in enumerate(params['layers']):
-            a = self._attn_block(layer['attn'], cfg.attn_layers[li], li, h, pad_mask)
-            h = h + dropout(a, cfg.dropout, generator, deterministic)
-            f = self._ffn_block(layer['ffn'], h)
-            h = h + dropout(f, cfg.dropout, generator, deterministic)
+
+        def block(fn, *args):
+            return remat(fn, *args) if cfg.remat else fn(*args)
+        if cfg.hf_compat:
+            # reversible two-stream residuals (HF's layout), both streams
+            # starting from the embedding: Y1 = X1 + attn(LN X2), Y2 = X2 +
+            # ff(LN Y1); autograd runs through them, as in the JAX model
+            x1 = x2 = h
+            for li, layer in enumerate(params['layers']):
+                a = block(self._attn_block, layer['attn'], cfg.attn_layers[li], li, x2, pad_mask)
+                x1 = x1 + dropout(a, cfg.dropout, generator, deterministic)
+                f = block(self._ffn_block, layer['ffn'], x1)
+                x2 = x2 + dropout(f, cfg.dropout, generator, deterministic)
+            h = torch.cat([x1, x2], dim=-1)
+        else:
+            for li, layer in enumerate(params['layers']):
+                a = block(self._attn_block, layer['attn'], cfg.attn_layers[li], li, h, pad_mask)
+                h = h + dropout(a, cfg.dropout, generator, deterministic)
+                f = block(self._ffn_block, layer['ffn'], h)
+                h = h + dropout(f, cfg.dropout, generator, deterministic)
         return self._lm_head(params, layer_norm(params['ln_f'], h, eps=cfg.ln_eps))
 
     def _lm_head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -265,12 +310,13 @@ class Reformer:
                     pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         x = layer_norm(p['ln'], h, eps=cfg.ln_eps)
-        qk = self._proj(x, p['qk'])
         v = self._proj(x, p['v'])
         if kind == 'local':
-            ctx = local_attention(qk, self._proj(x, p['k']), v, chunk=cfg.local_chunk,
-                                  pad_mask=pad_mask)
+            # HF's local layers have their own query; native ones share 'qk'
+            ctx = local_attention(self._proj(x, p.get('q', p['qk'])), self._proj(x, p['k']), v,
+                                  chunk=cfg.local_chunk, pad_mask=pad_mask)
         else:
+            qk = self._proj(x, p['qk'])
             T = h.shape[1]
             nb = cfg.lsh_buckets_at(T)
             rots = lsh_rotations(cfg.lsh_seed, layer_idx, cfg.n_hashes, cfg.d_head, nb,
@@ -306,13 +352,16 @@ class Reformer:
 
     def init_decode_state(self, batch_size: int) -> ReformerDecodeState:
         cfg = self.cfg
-        if cfg.decode_mode != 'scan':
-            raise NotImplementedError(f"decode_mode={cfg.decode_mode!r} (per-bucket recency "
-                                      f"rings) comes with a later slice; use 'scan'")
-        if cfg.decode_scan_chunk not in (None, cfg.max_length):
-            raise NotImplementedError('a streamed decode_scan_chunk comes with a later slice; '
-                                      'the scan reads the whole cache in one pass')
+        if cfg.decode_mode not in ('scan', 'bounded'):
+            raise ValueError(f"decode_mode is 'scan' or 'bounded': {cfg.decode_mode!r}")
         quant = cfg.decode_cache_quant == 'int8'
+        bounded = cfg.decode_mode == 'bounded'
+        if quant and bounded:
+            raise ValueError("decode_cache_quant='int8' supports only decode_mode='scan' "
+                             "(the bounded decode gathers single rows, not streams)")
+        if cfg.max_length % (cfg.decode_scan_chunk or cfg.max_length):
+            raise ValueError(f'decode_scan_chunk {cfg.decode_scan_chunk} does not divide '
+                             f'max_length {cfg.max_length}')
         n_local, n_lsh = self._n_kind()
         B, N, H, L, R = batch_size, cfg.n_head, cfg.d_head, cfg.max_length, cfg.n_hashes
         dt, dev = cfg.compute_dtype, self.device
@@ -323,12 +372,21 @@ class Reformer:
 
         def scales():
             return torch.zeros(n_lsh, B, N, L, dtype=torch.float32, device=dev) if quant else None
+
+        def unused(dtype):
+            return torch.zeros(n_lsh, B, 1, 1, 1, dtype=dtype, device=dev)
         return ReformerDecodeState(
             local_k=torch.zeros(n_local, B, N, 2 * cfg.local_chunk, H, dtype=dt, device=dev),
             local_v=torch.zeros(n_local, B, N, 2 * cfg.local_chunk, H, dtype=dt, device=dev),
             lsh_k=torch.zeros(n_lsh, B, N, L, H, dtype=lsh_dt, device=dev),
             lsh_v=torch.zeros(n_lsh, B, N, L, H, dtype=lsh_dt, device=dev),
-            lsh_buckets=torch.full((n_lsh, B, N, R, L), -1, dtype=torch.int16, device=dev),
+            lsh_buckets=(unused(torch.int16) if bounded else
+                         torch.full((n_lsh, B, N, R, L), -1, dtype=torch.int16, device=dev)),
+            lsh_ring=(torch.full((n_lsh, B, N, R, nb * cfg.decode_window), -1,
+                                 dtype=torch.int32, device=dev)
+                      if bounded else unused(torch.int32)),
+            lsh_cnt=(torch.zeros(n_lsh, B, N, R, nb, dtype=torch.int32, device=dev)
+                     if bounded else unused(torch.int32)),
             step=0, lsh_k_scale=scales(), lsh_v_scale=scales())
 
     def _pos_emb_row(self, params: Params, t: int, dtype) -> torch.Tensor:
@@ -342,8 +400,9 @@ class Reformer:
 
     def decode_step_with_hidden(self, params: Params, token_ids: torch.Tensor,
                                 state: ReformerDecodeState):
-        """token_ids [B] -> (logits f32 [B, V], final hidden [B, d], next state).
-        Exact against `forward` while the position is in the first chunk."""
+        """token_ids [B] -> (logits f32 [B, V], the final norm's output
+        [B, hidden_dim], next state).  Exact against `forward` while the
+        position is in the first chunk."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
         t, L = state.step, cfg.max_length
@@ -352,6 +411,7 @@ class Reformer:
         scale = 1.0 / (cfg.d_head ** 0.5)
         h = params['embed']['weight'].to(dtype)[token_ids.long()]
         h = h + self._pos_emb_row(params, t, dtype)[None]
+        x1 = h                      # hf_compat: the first stream; h carries the second
         B, dev = h.shape[0], h.device
         lk, lv, sk, sv, sb = (state.local_k, state.local_v, state.lsh_k, state.lsh_v,
                               state.lsh_buckets)
@@ -365,8 +425,9 @@ class Reformer:
 
             def proj(w):
                 return (x @ w.to(dtype).reshape(cfg.d_model, N * H)).reshape(B, N, H)
-            q, v = proj(p['qk']), proj(p['v'])
+            v = proj(p['v'])
             if cfg.attn_layers[li] == 'local':
+                q = proj(p.get('q', p['qk']))
                 c = cfg.local_chunk
                 W = 2 * c
                 lk[il, :, :, t % W] = proj(p['k'])
@@ -381,6 +442,7 @@ class Reformer:
                                    lv[il].float()).to(dtype)
                 il += 1
             else:
+                q = proj(p['qk'])
                 qf = q.float()
                 # HF _len_and_dim_norm: rms-normalized keys carrying 1/sqrt(H)
                 kn = (qf * torch.rsqrt((qf * qf).mean(dim=-1, keepdim=True) + 1e-6)
@@ -397,41 +459,155 @@ class Reformer:
                 nb = cfg.lsh_buckets_at(L)
                 rots = lsh_rotations(cfg.lsh_seed, li, cfg.n_hashes, H, nb, dev)
                 bt = lsh_buckets(qf, rots).permute(1, 2, 0)                 # [B, N, R]
-                sb[ish, :, :, :, t] = bt.to(sb.dtype)
-                c = cfg.lsh_chunk
-                chunk_start = (t // c) * c
-                pos = torch.arange(L, device=dev)
-                # the scores read the cache as stored; int8 row scales fold back in
-                sc0 = torch.einsum('bnh,bnlh->bnl', q.float(), sk[ish].to(dtype).float())
-                if quant:
-                    sc0 = sc0 * sks[ish]
-                sc0 = torch.where(pos == t, sc0 + SELF_BIAS, sc0)
-                mask = (pos <= t) & ((sb[ish] == bt[..., None].to(sb.dtype))
-                                     | (pos >= chunk_start))                # [B, N, R, L]
-                sc = torch.where(mask, sc0[:, :, None], torch.full_like(sc0[:, :, None],
-                                                                          NEG_INF))
-                lse = torch.logsumexp(sc, dim=-1)                           # [B, N, R]
-                pr = torch.exp(sc - lse[..., None])
-                if cfg.n_hashes > 1:
-                    pr = pr * torch.softmax(lse, dim=-1)[..., None]
-                prc = pr.sum(dim=2)                                         # [B, N, L]
-                if quant:
-                    prc = prc * svs[ish]
-                ctx = torch.einsum('bnl,bnlh->bnh', prc.to(dtype).float(),
-                                   sv[ish].to(dtype).float()).to(dtype)
+                chunk_start = (t // cfg.lsh_chunk) * cfg.lsh_chunk
+                if cfg.decode_mode == 'bounded':
+                    ctx = self._lsh_attend_bounded(q, sk[ish], sv[ish], state.lsh_ring[ish],
+                                                   state.lsh_cnt[ish], bt, t, chunk_start, nb)
+                else:
+                    sb[ish, :, :, :, t] = bt.to(sb.dtype)
+                    ctx = self._lsh_attend_scan(
+                        q, sk[ish], sv[ish], sb[ish], bt.to(sb.dtype), t, chunk_start,
+                        sks[ish] if quant else None, svs[ish] if quant else None)
                 ish += 1
             a = ctx.reshape(B, N * H) @ p['o'].to(dtype).reshape(N * H, cfg.d_model)
-            h = h + a
             fp = layer['ffn']
-            xf = layer_norm(fp['ln'], h, eps=cfg.ln_eps)
+            if cfg.hf_compat:
+                # Y1 = X1 + attn(LN X2); Y2 = X2 + ff(LN Y1)
+                x1 = x1 + a
+                xf = layer_norm(fp['ln'], x1, eps=cfg.ln_eps)
+            else:
+                h = h + a
+                xf = layer_norm(fp['ln'], h, eps=cfg.ln_eps)
             h = h + dense(fp['w2'], torch.relu(dense(fp['w1'], xf)))
+        if cfg.hf_compat:
+            h = torch.cat([x1, h], dim=-1)
         h = layer_norm(params['ln_f'], h, eps=cfg.ln_eps)
         return self._lm_head(params, h), h, state._replace(step=t + 1)
 
+    def _lsh_scores(self, q, sk, sb, bt, t: int, chunk_start: int, k_scale, lo: int,
+                    hi: int):
+        """Scores of q [B, N, H] against the cache's positions [lo, hi) per
+        hash round, -> (sc [B, N, R, hi - lo] f32 with NEG_INF where masked,
+        mask).  A key is visible up to t when it shares the query's bucket
+        or lies in the current chunk; the self key carries SELF_BIAS.  The
+        scores read the cache as stored; int8 row scales fold back in."""
+        sl = slice(lo, hi)
+        pos = torch.arange(lo, hi, device=q.device)
+        sc0 = torch.einsum('bnh,bnlh->bnl', q.float(),
+                           sk[:, :, sl].to(self.cfg.compute_dtype).float())
+        if k_scale is not None:
+            sc0 = sc0 * k_scale[..., sl]
+        sc0 = torch.where(pos == t, sc0 + SELF_BIAS, sc0)
+        mask = (pos <= t) & ((sb[..., sl] == bt[..., None]) | (pos >= chunk_start))
+        sc = torch.where(mask, sc0[:, :, None], torch.full_like(sc0[:, :, None], NEG_INF))
+        return sc, mask
+
+    def _lsh_attend_scan(self, q, sk, sv, sb, bt, t: int, chunk_start: int, k_scale, v_scale):
+        """'scan' LSH attention of one step over the cache: q [B, N, H];
+        sk, sv [B, N, L, H]; sb [B, N, R, L] bucket ids; bt [B, N, R] this
+        step's buckets; k_scale, v_scale [B, N, L] for int8 caches, else
+        None.  Keys of the query's bucket up to t and the whole current chunk
+        are attended; each hash round normalizes on its own, and the rounds
+        combine by the softmax of their logsumexps.  Returns ctx [B, N, H]."""
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        L = cfg.max_length
+        CH = cfg.decode_scan_chunk or L
+        if CH == L:
+            # one pass over the whole cache; the rounds fold into the
+            # probabilities before the V product, so V is read once
+            sc, _ = self._lsh_scores(q, sk, sb, bt, t, chunk_start, k_scale, 0, L)
+            lse = torch.logsumexp(sc, dim=-1)                               # [B, N, R]
+            pr = torch.exp(sc - lse[..., None])
+            if cfg.n_hashes > 1:
+                pr = pr * torch.softmax(lse, dim=-1)[..., None]
+            prc = pr.sum(dim=2)                                             # [B, N, L]
+            if v_scale is not None:
+                prc = prc * v_scale
+            return torch.einsum('bnl,bnlh->bnh', prc.to(dtype).float(),
+                                sv.to(dtype).float()).to(dtype)
+        # streamed: only the live prefix, CH positions at a time, with a
+        # running max / sum / accumulator per round (f32)
+        B, N, R, H = q.shape[0], q.shape[1], cfg.n_hashes, q.shape[2]
+        dev = q.device
+        m_run = torch.full((B, N, R), NEG_INF, dtype=torch.float32, device=dev)
+        l_run = torch.zeros(B, N, R, dtype=torch.float32, device=dev)
+        acc = torch.zeros(B, N, R, H, dtype=torch.float32, device=dev)
+        for off in range(0, (t // CH + 1) * CH, CH):
+            sl = slice(off, off + CH)
+            sc, mask = self._lsh_scores(q, sk, sb, bt, t, chunk_start, k_scale, off, off + CH)
+            m_new = torch.maximum(m_run, sc.amax(dim=-1))
+            # the mask on p itself: a chunk with no visible key would
+            # otherwise weigh exp(NEG_INF - NEG_INF) = 1 per entry while no
+            # earlier chunk has raised the running max above the mask value
+            pv = torch.where(mask, torch.exp(sc - m_new[..., None]), torch.zeros_like(sc))
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + pv.sum(dim=-1)
+            if v_scale is not None:
+                pv = pv * v_scale[..., sl][:, :, None]
+            acc = acc * alpha[..., None] + torch.einsum(
+                'bnrl,bnlh->bnrh', pv.to(dtype).float(), sv[:, :, sl].to(dtype).float())
+            m_run = m_new
+        lse = m_run + torch.log(l_run.clamp(min=1e-30))
+        ctx_r = acc / l_run.clamp(min=1e-30)[..., None]
+        if R > 1:
+            return (torch.softmax(lse, dim=-1)[..., None] * ctx_r).sum(dim=2).to(dtype)
+        return ctx_r[:, :, 0].to(dtype)
+
+    def _lsh_attend_bounded(self, q, sk, sv, ring, cnt, bt, t: int, chunk_start: int,
+                            nb: int) -> torch.Tensor:
+        """'bounded' LSH attention of one step: q [B, N, H]; sk, sv
+        [B, N, L, H]; ring [B, N, R, nb * W] and cnt [B, N, R, nb] (this
+        layer's, updated in place); bt [B, N, R].  Each round attends its own
+        bucket's latest W positions before the current chunk, plus the chunk;
+        the rounds combine by the softmax of their logsumexps.  Then t joins
+        its bucket's ring.  Returns ctx [B, N, H]."""
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        R, W, c = cfg.n_hashes, cfg.decode_window, cfg.lsh_chunk
+        B, N, H = q.shape
+        dev = q.device
+        slot_idx = bt[..., None] * W + torch.arange(W, device=dev)          # [B, N, R, W]
+        cand = torch.gather(ring, -1, slot_idx).long()                      # [B, N, R, W]
+        cand_ok = (cand >= 0) & (cand < chunk_start)       # the chunk covers the rest
+        ccpos = chunk_start + torch.arange(c, device=dev)
+        chunk_ok = (ccpos <= t).expand(B, N, c)
+        posS = torch.cat([cand.reshape(B, N, R * W), ccpos.expand(B, N, c)], dim=-1)
+        idx = posS.clamp(min=0).long()[..., None].expand(B, N, R * W + c, H)
+        k_sel = torch.gather(sk, 2, idx)                                    # [B, N, S, H]
+        v_sel = torch.gather(sv, 2, idx)
+        s = torch.einsum('bnh,bnsh->bns', q.float(), k_sel.float())         # keys carry scale
+        s = torch.where(posS == t, s + SELF_BIAS, s)
+        none = torch.zeros(B, N, W, dtype=torch.bool, device=dev)
+        lses, prs = [], []
+        for r in range(R):
+            m = torch.cat([cand_ok[:, :, r] if rr == r else none for rr in range(R)]
+                          + [chunk_ok], dim=-1)
+            sc = torch.where(m, s, torch.full_like(s, NEG_INF))
+            lse = torch.logsumexp(sc, dim=-1)                               # [B, N]
+            lses.append(lse)
+            prs.append(torch.exp(sc - lse[..., None]))
+        if R == 1:
+            pr = prs[0]
+        else:
+            w = torch.softmax(torch.stack(lses, dim=-1), dim=-1)            # [B, N, R]
+            pr = sum(w[..., r:r + 1] * prs[r] for r in range(R))
+        ctx = torch.einsum('bns,bnsh->bnh', pr.to(dtype).float(), v_sel.float()).to(dtype)
+
+        # t joins its bucket's ring: a one-hot select, as in the JAX model
+        cnt_b = torch.gather(cnt, -1, bt[..., None])[..., 0]                # [B, N, R]
+        j = bt * W + cnt_b % W
+        ring.copy_(torch.where(torch.arange(nb * W, device=dev) == j[..., None],
+                               torch.full_like(ring, t), ring))
+        cnt.copy_(torch.where(torch.arange(nb, device=dev) == bt[..., None],
+                              cnt_b[..., None] + 1, cnt))
+        return ctx
+
     @property
     def hidden_dim(self) -> int:
-        """Width of decode_step_with_hidden's hidden output."""
-        return self.cfg.d_model
+        """Width of decode_step_with_hidden's hidden output: both streams
+        under hf_compat."""
+        return (2 if self.cfg.hf_compat else 1) * self.cfg.d_model
 
     @staticmethod
     def expand_decode_state(state: ReformerDecodeState, k: int) -> ReformerDecodeState:
@@ -466,4 +642,5 @@ class Reformer:
         return logits[:, state.step], ReformerExactDecodeState(buf=buf, step=state.step + 1)
 
 
-_CACHES = ('local_k', 'local_v', 'lsh_k', 'lsh_v', 'lsh_buckets', 'lsh_k_scale', 'lsh_v_scale')
+_CACHES = ('local_k', 'local_v', 'lsh_k', 'lsh_v', 'lsh_buckets', 'lsh_ring', 'lsh_cnt',
+           'lsh_k_scale', 'lsh_v_scale')

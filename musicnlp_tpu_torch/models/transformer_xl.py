@@ -14,11 +14,15 @@ attention layer of `forward` runs through kernels K1 (forward) and K2
 versions).  Like the TPU kernels, they have no key-padding mask and no
 attention-probability dropout, so a forward with `attn_mask` or with
 `dropatt > 0` runs every layer through the plain `ops/attention.rel_attn`,
-as the JAX model does.  Dropout draws come from an explicit
-`torch.Generator`.
+as the JAX model does.  With `remat_attn` each layer's fused attention is
+recomputed in the backward (`ops/layers.remat`).  Dropout draws come from an
+explicit `torch.Generator`.  HF `TransfoXLLMHeadModel` checkpoints come in
+through `utils/hf_import.from_hf_transfo_xl` (the adaptive head, HF's
+`same_length` window as `attn_window`).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
@@ -30,7 +34,7 @@ from musicnlp_tpu_torch.ops.attention import (
     decode_pos_table, quantize_kv_rows, rel_attn, rel_attn_decode_step,
 )
 from musicnlp_tpu_torch.ops.flash_attention import fused_rel_attn
-from musicnlp_tpu_torch.ops.layers import Params, dropout, ffn
+from musicnlp_tpu_torch.ops.layers import Params, dropout, ffn, remat
 from musicnlp_tpu_torch.ops.losses import (
     PT_LOSS_PAD, chunked_shifted_ce_loss, ntp_accuracy, shifted_ce_loss,
 )
@@ -44,11 +48,14 @@ _DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32, 'float16': torc
 @dataclass(frozen=True)
 class TransfoXLConfig:
     """The JAX package's config less the knobs of its TPU execution (flash
-    block sizes and use, remat) and of its device mesh (`shard_vocab`),
-    which change how a result is computed there but not the result;
+    block sizes and use) and of its device mesh (`shard_vocab`), which
+    change how a result is computed there but not the result;
     `load_trained` drops them.
 
-    head_chunk: train through the tiled CE over the tied head in tiles of
+    remat_attn: recompute each layer's fused attention (K1 and the layer's
+    projections) in the backward instead of keeping its activations: one
+    more K1 launch per layer and step, for less memory; the result is the
+    same (`ops/layers.remat` replays the dropout draws).  head_chunk: train through the tiled CE over the tied head in tiles of
     this many vocab rows (`ops/losses.chunked_shifted_ce_loss`), so no
     [B, T, V] logits exist; None = dense logits.  adaptive_cutoffs: the
     HF-compatible adaptive softmax head (cluster factorization), whose
@@ -72,6 +79,7 @@ class TransfoXLConfig:
     adaptive_cutoffs: Optional[Tuple[int, ...]] = None
     decode_cache_quant: Optional[str] = None    # None | 'int8'
     attn_window: Optional[int] = None
+    remat_attn: bool = False
 
     presets = {
         'debug': dict(d_model=128, n_head=8, n_layer=4),
@@ -130,6 +138,10 @@ class TransfoXL:
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = config
         self.device = resolve_device(device)
+
+    def unread_leaves(self) -> frozenset:
+        """Flat keys of the leaves the loss never reads: none."""
+        return frozenset()
 
     # ------------------------------------------------------------------ init
     def init_flat(self, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -233,10 +245,15 @@ class TransfoXL:
                     dropatt_rate=cfg.dropatt, generator=generator,
                     deterministic=deterministic, attn_mask=attn_mask, window=cfg.attn_window)
             else:
-                h = fused_rel_attn(
-                    layer['attn'], h, layer_mems, mem_valid, clamp_len=cfg.clamp_len,
-                    pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout, generator=generator,
+                attn = functools.partial(
+                    fused_rel_attn, clamp_len=cfg.clamp_len, pre_lnorm=cfg.pre_lnorm,
+                    dropout_rate=cfg.dropout, generator=generator,
                     deterministic=deterministic, window=cfg.attn_window)
+                if cfg.remat_attn:
+                    h = remat(attn, layer['attn'], h, layer_mems, mem_valid,
+                              generator=generator)
+                else:
+                    h = attn(layer['attn'], h, layer_mems, mem_valid)
             h = ffn(layer['ffn'], h, pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
                     generator=generator, deterministic=deterministic)
 

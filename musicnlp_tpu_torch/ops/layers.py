@@ -7,11 +7,12 @@ layer norms and float32 bias adds.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ['Params', 'dense', 'layer_norm', 'ffn', 'sinusoid_pos_emb', 'dropout']
+__all__ = ['Params', 'dense', 'layer_norm', 'ffn', 'sinusoid_pos_emb', 'dropout', 'remat']
 
 Params = Dict[str, Any]
 
@@ -39,6 +40,38 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def remat(fn: Callable[..., torch.Tensor], *args,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """fn(*args) with its activations dropped after the forward and
+    recomputed in the backward (`torch.utils.checkpoint`, non-reentrant), the
+    counterpart of `jax.checkpoint`; without autograd, fn(*args).
+
+    `torch.utils.checkpoint` replays the global RNG, not a `torch.Generator`,
+    and every draw here comes from an explicit generator: the recompute
+    rewinds `generator` to where the forward found it, so fn's dropout masks
+    are drawn again bit for bit, and then puts it back where the forward
+    left it, so the step's later draws do not move."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    start = generator.get_state()
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:              # the recompute may stop early, by an exception
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def ffn(p: Params, x: torch.Tensor, *, pre_lnorm: bool = False,

@@ -266,7 +266,14 @@ class Trainer:
         loss, mets = self.model.loss(params, batch['input_ids'], batch['labels'],
                                      generator=self.generator, deterministic=False,
                                      n_seg=self.args.n_seg)
-        grads = torch.autograd.grad(loss, list(flat.values()))
+        # a leaf the model names as unread (an HF-imported Reformer's local
+        # 'qk', kept for the JAX layout) gets a zero gradient, as under
+        # jax.grad; any other leaf cut off from the loss is a wiring fault
+        grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        stray = {k for k, g in zip(flat, grads) if g is None} - self.model.unread_leaves()
+        if stray:
+            raise RuntimeError(f'the loss reads no path to {sorted(stray)}')
+        grads = [torch.zeros_like(v) if g is None else g for v, g in zip(flat.values(), grads)]
         mets['grad_norm'] = global_norm(grads)
         self.opt.step(params, dict(zip(flat.keys(), grads)), opt_state)
         with torch.no_grad():

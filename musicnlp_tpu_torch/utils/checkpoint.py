@@ -58,14 +58,15 @@ def _unflatten(flat: Dict[str, Any]):
     return listify(root)
 
 
-def params_from_jax(flat: Dict[str, np.ndarray],
+def params_from_jax(flat: Dict[str, Any],
                     device: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
-    """JAX parameters as numpy arrays under flat '/'-joined keys (what the
-    JAX package's npz checkpoints hold) -> the port's nested dict of tensors
-    on `device` (CUDA unless 'cpu' is asked for)."""
+    """JAX parameters as numpy arrays, under flat '/'-joined keys (what the
+    JAX package's npz checkpoints hold) or nested (what `utils/hf_import`
+    returns) -> the port's nested dict of tensors on `device` (CUDA unless
+    'cpu' is asked for)."""
     dev = resolve_device(device)
     return _unflatten({k: torch.from_numpy(np.array(v, copy=True)).to(dev)
-                       for k, v in flat.items()})
+                       for k, v in flatten(flat).items()})
 
 
 def params_to_jax(params) -> Dict[str, np.ndarray]:

@@ -19,6 +19,7 @@ from musicnlp_tpu_torch.ops.flash_attention import flash_rel_attn_fwd
 from musicnlp_tpu_torch.ops.roofline_kernels import mask_chain, muladd_chain
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax, save_meta
+from musicnlp_tpu_torch.utils.hf_import import to_hf_reformer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +32,7 @@ def test_no_jax_in_sys_modules():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split('.')[0] in ('jax', 'jaxlib', 'musicnlp_tpu'))
+                     if m.split('.')[0] in ('jax', 'jaxlib', 'musicnlp_tpu', 'transformers'))
         print(len(names), bad)
         assert not bad, bad
         assert len(names) >= 30, names
@@ -40,7 +41,7 @@ def test_no_jax_in_sys_modules():
                     'native', 'preprocess.music_extractor', 'preprocess.fast_extractor',
                     'preprocess.warning_logger', 'utils.config', 'utils.music_fs',
                     'trainer.wordpiece_tokenizer', 'trainer.pair_merge_tokenizer',
-                    'native._py_wordpiece'):
+                    'native._py_wordpiece', 'utils.hf_import'):
             assert pkg.__name__ + '.' + sub in names, sub
     ''')
     # a PATH without nvcc: importing the kernel modules builds nothing
@@ -116,11 +117,63 @@ def test_k5_k6_wrappers_refuse_other_devices():
         muladd_chain(s, 4)
 
 
-@pytest.mark.parametrize('field,value', [('hf_compat', True), ('remat', True),
-                                         ('decode_mode', 'bounded'), ('decode_scan_chunk', 32)])
-def test_deferred_reformer_fields_raise(field, value):
-    """Config fields whose code paths come with later slices refuse to run
-    instead of computing something else."""
-    cfg = dataclasses.replace(ReformerConfig.from_size('debug', vocab_size=422), **{field: value})
-    with pytest.raises(NotImplementedError, match='slice'):
-        Reformer(cfg, device='cpu').init_decode_state(1)
+def _refusal(case):
+    cfg = ReformerConfig.from_size('debug', vocab_size=422)
+    if case == 'bounded-int8':
+        cfg = dataclasses.replace(cfg, decode_mode='bounded', decode_cache_quant='int8')
+    elif case == 'unknown-decode-mode':
+        cfg = dataclasses.replace(cfg, decode_mode='sorted')
+    elif case == 'scan-chunk-not-dividing':
+        cfg = dataclasses.replace(cfg, decode_scan_chunk=48)        # max_length 64
+    else:
+        return lambda: to_hf_reformer(cfg, {})
+    return lambda: Reformer(cfg, device='cpu').init_decode_state(1)
+
+
+@pytest.mark.parametrize('case,error', [('bounded-int8', ValueError),
+                                        ('unknown-decode-mode', ValueError),
+                                        ('scan-chunk-not-dividing', ValueError),
+                                        ('export-native-reformer', NotImplementedError)])
+def test_reformer_refusals(case, error):
+    """What the Reformer cannot compute raises instead of computing something
+    else: int8 caches with the 'bounded' decode (it gathers single rows), an
+    unknown decode mode, a streamed scan chunk that does not divide
+    max_length, and an HF export of the native (not hf_compat) stack."""
+    with pytest.raises(error):
+        _refusal(case)()
+
+
+def test_hf_import_needs_no_transformers():
+    """The card's machine has no `transformers`: the import functions run
+    without it (a state dict and a namespace of HF's names), and only the
+    export functions ask for it."""
+    code = textwrap.dedent('''
+        import sys, types
+        sys.modules['transformers'] = None
+        import numpy as np
+        from musicnlp_tpu_torch.utils import hf_import
+        hc = types.SimpleNamespace(vocab_size=10, d_model=8, d_embed=8, n_head=2, d_head=4,
+                                   d_inner=16, n_layer=1, mem_len=4, clamp_len=8, cutoffs=[],
+                                   dropout=0.0)
+        p = 'transformer.layers.0.'
+        shapes = {'transformer.word_emb.emb_layers.0.weight': (10, 8),
+                  'crit.out_layers.0.bias': (10,), p + 'dec_attn.qkv_net.weight': (24, 8),
+                  p + 'dec_attn.r_net.weight': (8, 8), p + 'dec_attn.o_net.weight': (8, 8),
+                  p + 'dec_attn.r_w_bias': (2, 4), p + 'dec_attn.r_r_bias': (2, 4),
+                  p + 'dec_attn.layer_norm.weight': (8,), p + 'dec_attn.layer_norm.bias': (8,),
+                  p + 'pos_ff.CoreNet.0.weight': (16, 8), p + 'pos_ff.CoreNet.0.bias': (16,),
+                  p + 'pos_ff.CoreNet.3.weight': (8, 16), p + 'pos_ff.CoreNet.3.bias': (8,),
+                  p + 'pos_ff.layer_norm.weight': (8,), p + 'pos_ff.layer_norm.bias': (8,)}
+        sd = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
+        cfg, params = hf_import.from_hf_transfo_xl(sd, hf_config=hc)
+        assert cfg.attn_window == 4 and params['layers'][0]['attn']['qkv'].shape == (8, 3, 2, 4)
+        try:
+            hf_import.to_hf_transfo_xl(cfg, params)
+        except ImportError:
+            print('export needs transformers')
+    ''')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert 'export needs transformers' in out.stdout
