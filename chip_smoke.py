@@ -14,7 +14,8 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device and build: the card's name and power limit, `nvcc` of every
      kernel source in `musicnlp_tpu_torch/csrc/`, all started together; the
      tensor-core instructions (HMMA / HGMMA) in the SASS of each K1-K4
-     kernel -- the bf16 kernels must have some, the f32 ones keep FMAs;
+     kernel -- the bf16 kernels must have some, the FMA ones (f32, f16,
+     head dim 128, K3 / K4's tiled kernels) none;
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
      a memory + window case, a head-dim-16 ragged case, the 22-12 shape
@@ -25,7 +26,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      kernel, its plain version and a one-call PyTorch yardstick the port
      never calls (`scaled_dot_product_attention` with the positional term as
      a float mask; for K2 its backward, with the mask requiring grad); K2's
-     achieved TFLOP/s (`k2_work`'s operations over its time);
+     achieved TFLOP/s (`k2_work`'s operations over its time); and the shapes
+     ROADMAP C.1 widened the kernels to, at phase 11's shapes: head dim 128
+     (B 2 x 8 heads, T 1024) in bf16 and f32, f16 at the 22-11 widths, and
+     an f16 head-dim-128 memory + window case;
   3. the training path, counts set to 0 before and read after:
      `Trainer.train` for one epoch of 6 steps of 21 x 1024 seeded synthetic
      songs (dropout 0.1, warmup-cosine AdamW, eval with a padded final batch,
@@ -47,7 +51,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      versions were held in phase 2b (the 22-04 local and LSH shapes in bf16
      and f32, padded cases, a D 32 / chunk 32 single-block case, bf16
      D 16 and D 32 / chunk 32 padded cases; times of each kernel, its plain version and an
-     SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s);
+     SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s; and
+     the tiled kernels C.1 added: chunk 128 at phase 11's local shape in
+     f32 and bf16, chunk 128 / D 128 in bf16, the LSH shape in f16, chunk 16
+     padded);
      `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
      K4 launches per step), `load_trained` + `score_batch` on the
      run, step time, memory and a profile, a 15-step overfit; one f32 step
@@ -138,6 +145,26 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      'bounded' (window at least the largest bucket) against 'scan' on
      'scan''s bucket ids, a contrastive search over the [2 d] hidden; the native
      22-04 step at 32 x 2048 with `remat` off and on (K3 12 / 24, K4 12).
+ 11. C.1, A.8 and A.9, counts (K1-K4) set to 0 before each path and read
+     after: a TF-XL at head dim 128 (d_model 1024, 8 heads) in f32 and
+     bf16 and one in float16 (22-11 widths), depth 2, `score_batch` 2 x
+     1024 (2 K1 each: the FMA kernel), logits against the port's f32 CPU
+     run (f32: 1e-4 of their max; bf16 / f16 at `TOL_16_LOGITS`, which a
+     control with the attention dropped must exceed 4 times), an f32
+     head-dim-128 step card vs CPU (K1 / K2); a Reformer with local_chunk
+     128, depth 2: an f32 step card vs CPU (K3 / K4: the tiled kernels in
+     the local layer) and `score_batch` 2 x 2048 (2 K3); one 22-11
+     `Trainer.train_step` (21 x 1024, bf16) inside `device_trace` after a
+     traced warm-up step, 3 times, each Chrome trace naming k1_tc,
+     k2_dkdv_tc and k2_dq_tc 12 times in the read step, `StepTimer` over 3
+     more steps, and one 22-04 step at 2 x 2048 (12 K3, 12 K4); on phase
+     8's run: `summarize_run` of its
+     22-04 train log, `MusicVisualize` reports and `MusicStats` of its
+     generated songs, `ground_truth_ikr` of its dataset on the card and the
+     CPU, melody grids of 8 rendered .mxl songs and `PitchEmbedding` trained
+     on them on the card and on the CPU from one seed (emb_in within 1e-4
+     of its max); `download` listing the registry, an artifact fetched from
+     a `file://` zip with its sha256 pin, a wrong pin refused.
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json;
 training runs write under build/chip_smoke_runs/, removed at the end.
@@ -145,14 +172,19 @@ Without CUDA, or without the package beside it, it fails before any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import math
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
 import time
+import zipfile
 from types import SimpleNamespace
 
 import numpy as np
@@ -169,28 +201,35 @@ from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
 from musicnlp_tpu_torch.ops import flash_attention as fa
 from musicnlp_tpu_torch.ops import roofline_kernels as rk
 from musicnlp_tpu_torch.ops.losses import chunked_shifted_ce_loss
+from musicnlp_tpu_torch.postprocess import MusicStats, MusicVisualize, summarize_run
 from musicnlp_tpu_torch.preprocess.dataset import (
-    SongDataset, StringAugmentedDataset, songdataset_to_dicts,
+    AugmentedDataset, SongDataset, StringAugmentedDataset, songdataset_to_dicts,
 )
 from musicnlp_tpu_torch.preprocess.fast_extractor import FastMidiExtractor
 from musicnlp_tpu_torch.preprocess.key_finder import KeyFinder
+from musicnlp_tpu_torch.preprocess.melody_grid import MelodyGridExtractor
 from musicnlp_tpu_torch.preprocess.music_converter import MusicConverter
 from musicnlp_tpu_torch.preprocess.music_extractor import MusicExtractor
 from musicnlp_tpu_torch.tools import vpu_roofline as vr
 from musicnlp_tpu_torch.trainer import train as tr
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained, score_batch
+from musicnlp_tpu_torch.trainer.melody_w2v import PitchEmbedding
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
 from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizerTrainer
 from musicnlp_tpu_torch.trainer.wordpiece_tokenizer import (
     WordPieceMusicTokenizer, WordPieceMusicTrainer,
 )
+from musicnlp_tpu_torch.utils import download
 from musicnlp_tpu_torch.utils.checkpoint import flatten, params_from_jax, save_meta, save_pytree
 from musicnlp_tpu_torch.utils.hf_import import from_hf_reformer, from_hf_transfo_xl
 from musicnlp_tpu_torch.utils.prefetch import prefetch
+from musicnlp_tpu_torch.utils.profiling import StepTimer, device_trace, step_kernels
 from musicnlp_tpu_torch.vocab import MusicTokenizer, MusicVocabulary, N_KEY, key_ordinal2str
 
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM (NVIDIA data sheet)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense bf16 tensor / f32
+# dense bf16 / f16 tensor-core and f32 rates: the bound of an f16 or bf16
+# call is its tensor-core time even where an FMA kernel runs it
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 SEED = 0
 K1_REPLACES = 'musicnlp_tpu/ops/pallas/flash_attention.py:115 (_make_fwd, via _fwd_call :354)'
 K2_REPLACES = ('musicnlp_tpu/ops/pallas/flash_attention.py:194 (_make_bwd_fused, via '
@@ -198,11 +237,12 @@ K2_REPLACES = ('musicnlp_tpu/ops/pallas/flash_attention.py:194 (_make_bwd_fused,
 # K1 vs plain, per case: ctx (bf16 output rounding ~ 2^-8 of |ctx| <= ~3;
 # p rounded against the running vs the global max) and lse (same f32 scores,
 # other summation order)
-TOL = {torch.float32: dict(ctx=1e-4, lse=1e-3), torch.bfloat16: dict(ctx=2e-2, lse=1e-3)}
+TOL = {torch.float32: dict(ctx=1e-4, lse=1e-3), torch.bfloat16: dict(ctx=2e-2, lse=1e-3),
+       torch.float16: dict(ctx=5e-3, lse=1e-3)}          # f16: 2^-11, 8x finer than bf16
 # K2 vs plain, each output's largest error over its largest entry: f32 sums
 # in other orders (dG by atomics, in an order that changes from run to run);
 # bf16 also rounds p and ds to bf16, and a rounding that flips moves an ulp
-TOL_K2 = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL_K2 = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 # card vs CPU f32 gradients, over each tensor's largest entry: the same f32
 # arithmetic summed in other orders over 1024-2048 positions and two layers
 # (the Reformer's on the same LSH buckets and relu branches, SharedBranches)
@@ -228,15 +268,17 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # version's f64 product and sum are exact, so it rounds once per pass, as
 # the FMA does)
 
-# the tensor-core kernels of K1-K4 (bf16), by name in each library's SASS
+# the tensor-core kernels of K1-K4 (bf16, head dims to 64; K3 / K4 at
+# chunks 32 and 64) and their FMA kernels, by name in each library's SASS
 TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',),
               'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc'),
               'chunked_window_attn_fwd': ('k3_tc',),
               'chunked_window_attn_bwd': ('k4_tc',)}
 FMA_KERNELS = {'flash_rel_attn_fwd': ('flash_rel_attn_fwd_kernel',),
                'flash_rel_attn_bwd': ('k2_dkdv_kernel', 'k2_dq_kernel'),
-               'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel',),
-               'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel',)}
+               'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel', 'k3_tiled'),
+               'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel', 'k4_dq_tiled',
+                                           'k4_dkdv_tiled')}
 SASS_MMA = {}                                    # library -> {function: HMMA + HGMMA}, phase 1
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out')
@@ -314,8 +356,9 @@ def profile(fn) -> dict:
 
 def tensor_core_check(report):
     """HMMA / HGMMA instructions in the SASS of every K1-K4 kernel: each bf16
-    kernel must have some (an FMA-only build is not the tensor-core design),
-    the f32 kernels none (their parity rests on f32 FMAs)."""
+    tensor-core kernel must have some (an FMA-only build is not the
+    tensor-core design), the FMA kernels none (the f32 parity rests on f32
+    FMAs)."""
     for lib, tc_names in TC_KERNELS.items():
         SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
         for name in tc_names + FMA_KERNELS[lib]:
@@ -327,10 +370,11 @@ def tensor_core_check(report):
     report['sass_tensor_core_instructions'] = dict(SASS_MMA)
 
 
-def mma_instructions(lib, dtype, template_args):
-    """Tensor-core instructions of the kernels a call of `lib` runs in this
-    dtype, at these template arguments (a mangled-name fragment)."""
-    names = TC_KERNELS[lib] if dtype == torch.bfloat16 else FMA_KERNELS[lib]
+def mma_instructions(lib, tc, template_args):
+    """Tensor-core instructions of the kernels a call of `lib` runs -- its
+    tensor-core kernels if `tc`, else its FMA ones -- at these template
+    arguments (a mangled-name fragment)."""
+    names = TC_KERNELS[lib] if tc else FMA_KERNELS[lib]
     return sum(c for f, c in SASS_MMA[lib].items()
                if template_args in f and any(n in f for n in names))
 
@@ -390,8 +434,8 @@ def k1_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], BN=B * N, T=T, S=S, M=M, H=H,
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=err,
                lse_max_abs_err=lse_err, tol_ctx=tol['ctx'], tol_lse=tol['lse'],
-               tensor_core_instructions=mma_instructions('flash_rel_attn_fwd', dtype,
-                                                         f'Li{H}E'))
+               tensor_core_instructions=mma_instructions(
+                   'flash_rel_attn_fwd', dtype == torch.bfloat16 and H <= 64, f'Li{H}E'))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=M, scale=scale,
                                                           window=window))
@@ -462,8 +506,8 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], BN=B * N, T=T, S=S, M=M, H=H,
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=max(errs.values()),
                abs_err=errs, rel_err=rel, tol_rel=TOL_K2[dtype],
-               tensor_core_instructions=mma_instructions('flash_rel_attn_bwd', dtype,
-                                                         f'Li{H}E'))
+               tensor_core_instructions=mma_instructions(
+                   'flash_rel_attn_bwd', dtype == torch.bfloat16 and H <= 64, f'Li{H}E'))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_bwd(*args, **kw))
         rec['plain_ms'] = time_ms(lambda: fa.flash_rel_attn_bwd_plain(*args, **kw), iters=3)
@@ -711,38 +755,55 @@ def resume_check(dev, tok):
     return rec
 
 
-def card_vs_cpu_grads(dev, report):
-    """One training step's gradients in f32, base width, depth 2, B 1, T 1024,
-    dropout 0: the card (K1 + K2) against the port's CPU run (plain versions)."""
-    cfg = base_config(dtype='float32', n_layer=2)
+def card_vs_cpu_grads(dev, report, key='grads_card_vs_cpu', share_branches=False, **cfg_kw):
+    """One training step's gradients in f32, base width (`cfg_kw` changes
+    the configuration), depth 2, B 1, T 1024, dropout 0: the card (K1 + K2)
+    against the port's CPU run (plain versions); with `share_branches` the
+    CPU takes the card's FFN relu branches (`SharedBranches`)."""
+    cfg = base_config(**dict(dict(dtype='float32', n_layer=2), **cfg_kw))
     rows = SyntheticSongs(MusicTokenizer(pitch_kind='degree'), 1, SEED + 14)
     ids, labels = torch.from_numpy(rows.ids), torch.from_numpy(rows.labels)
     flat = TransfoXL(cfg, device='cpu').init_flat(SEED)
     grads = []
-    for device in (dev, torch.device('cpu')):
-        model = TransfoXL(cfg, device=device)
-        params = params_from_jax(flat, device)
-        leaves = flatten(params)
-        for t in leaves.values():
-            t.requires_grad_(True)
-        saved = dict(fa.LAUNCHES)
-        loss, _ = model.loss(params, ids.to(device), labels.to(device))
-        g = torch.autograd.grad(loss, list(leaves.values()))
-        if device.type == 'cuda' and (fa.LAUNCHES['flash_rel_attn_fwd'] - saved['flash_rel_attn_fwd'],
-                                      fa.LAUNCHES['flash_rel_attn_bwd'] - saved['flash_rel_attn_bwd']
-                                      ) != (cfg.n_layer, cfg.n_layer):
-            raise AssertionError('the card step did not run through K1 and K2')
-        fa.LAUNCHES.update(saved)
-        grads.append((float(loss.detach()), {k: t.detach().cpu() for k, t in zip(leaves, g)}))
+    shared = SharedBranches() if share_branches else contextlib.nullcontext()
+    with shared:
+        for device in (dev, torch.device('cpu')):
+            grads.append(_tfxl_step_grads(cfg, flat, device, ids, labels))
+            if share_branches:
+                shared.replay()                      # the CPU takes the card's branches
     (l_card, g_card), (l_cpu, g_cpu) = grads
     rel = {k: float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max().clamp(min=1e-30))
            for k in g_cpu}
     worst = max(rel, key=rel.get)
-    log(f'[train] f32 step, depth 2, B 1: loss card {l_card:.7f} cpu {l_cpu:.7f}; gradients '
-        f'worst {worst} {rel[worst]:.2e} of its largest entry (tol {TOL_GRAD})')
-    report['grads_card_vs_cpu'] = dict(loss_card=l_card, loss_cpu=l_cpu, rel=rel)
+    flips = (f'; CPU relu branches that differ from the card\'s (the card\'s are used): '
+             f'{shared.differ["relu"]} of {shared.total["relu"]}' if share_branches else '')
+    log(f'[train] f32 step, depth 2, B 1 {cfg_kw or ""}: loss card {l_card:.7f} cpu '
+        f'{l_cpu:.7f}; gradients worst {worst} {rel[worst]:.2e} of its largest entry (tol '
+        f'{TOL_GRAD}){flips}')
+    report[key] = dict(loss_card=l_card, loss_cpu=l_cpu, rel=rel)
+    if share_branches:
+        report[key].update(relu_differing=shared.differ['relu'], relu=shared.total['relu'])
     if rel[worst] > TOL_GRAD or abs(l_card - l_cpu) > 1e-4 * abs(l_cpu):
         raise AssertionError(f'card and CPU f32 gradients disagree: {worst} {rel[worst]}')
+
+
+def _tfxl_step_grads(cfg, flat, device, ids, labels):
+    """(loss, {leaf: gradient on the CPU}) of one f32 TF-XL step on `device`;
+    on the card, through K1 and K2 once per layer."""
+    model = TransfoXL(cfg, device=device)
+    params = params_from_jax(flat, device)
+    leaves = flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    saved = dict(fa.LAUNCHES)
+    loss, _ = model.loss(params, ids.to(device), labels.to(device))
+    g = torch.autograd.grad(loss, list(leaves.values()))
+    if device.type == 'cuda' and (fa.LAUNCHES['flash_rel_attn_fwd'] - saved['flash_rel_attn_fwd'],
+                                  fa.LAUNCHES['flash_rel_attn_bwd'] - saved['flash_rel_attn_bwd']
+                                  ) != (cfg.n_layer, cfg.n_layer):
+        raise AssertionError('the card step did not run through K1 and K2')
+    fa.LAUNCHES.update(saved)
+    return float(loss.detach()), {k: t.detach().cpu() for k, t in zip(leaves, g)}
 
 
 def run_generation(model, params, tok, n_req, strategy, seed, **kw):
@@ -779,6 +840,12 @@ def chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed):
     kpos = torch.where(qpos >= T - pads, torch.full_like(qpos, T), qpos) if pads else qpos
     return ([x.to(dtype) for x in (q, k, v)]
             + [p.to(torch.int32).contiguous() for p in (qpos, kpos)])
+
+
+def chunked_tc(dtype, chunk, D) -> bool:
+    """Whether K3 / K4 run this call on their tensor-core kernels (else the
+    f32 FMA kernel or the tiled ones)."""
+    return dtype == torch.bfloat16 and chunk in (32, 64) and D <= 64
 
 
 def chunked_flops(qpos, kpos, chunk, D, products):
@@ -822,8 +889,8 @@ def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
                lsh=lsh, pads=pads, max_abs_err=err, lse_max_abs_err=lse_err,
                tol_ctx=tol['ctx'], tol_lse=tol['lse'],
-               tensor_core_instructions=mma_instructions('chunked_window_attn_fwd', dtype,
-                                                         f'Li{chunk}ELi{D}E'))
+               tensor_core_instructions=mma_instructions(
+                   'chunked_window_attn_fwd', chunked_tc(dtype, chunk, D), f'Li{D}E'))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos,
                                                                        **kw), iters=3)
@@ -863,8 +930,8 @@ def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
                lsh=lsh, pads=pads, max_abs_err=max(errs.values()), abs_err=errs, rel_err=rel,
                tol_rel=TOL_K4[dtype],
-               tensor_core_instructions=mma_instructions('chunked_window_attn_bwd', dtype,
-                                                         f'Li{chunk}ELi{D}E'))
+               tensor_core_instructions=mma_instructions(
+                   'chunked_window_attn_bwd', chunked_tc(dtype, chunk, D), f'Li{D}E'))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_bwd(*args, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_bwd_plain(*args, **kw), iters=3)
     ys = sdpa_window_yardstick(q, k, v, qpos, kpos, **kw)
@@ -1053,12 +1120,12 @@ class SharedBranches:
         torch.relu = self.real[1]
 
 
-def reformer_card_vs_cpu(dev, report):
+def reformer_card_vs_cpu(dev, report, key='reformer_grads_card_vs_cpu', **cfg_kw):
     """One f32 training step's loss and gradients, base width, depth 2 (one
-    local and one LSH layer), B 1, T 2048, dropout 0: the card (K3 + K4)
-    against the port's CPU run (plain versions), on the same branches
-    (`SharedBranches`)."""
-    cfg = reformer_config(dtype='float32', attn_layers=('local', 'lsh'))
+    local and one LSH layer; `cfg_kw` changes the configuration), B 1, T
+    2048, dropout 0: the card (2 K3 + 2 K4) against the port's CPU run
+    (plain versions), on the same branches (`SharedBranches`)."""
+    cfg = reformer_config(**dict(dict(dtype='float32', attn_layers=('local', 'lsh')), **cfg_kw))
     rows = SyntheticSongs(MusicTokenizer(pitch_kind='midi'), 1, SEED + 23,
                           length=cfg.max_length, insert_key=False)
     ids, labels = torch.from_numpy(rows.ids), torch.from_numpy(rows.labels)
@@ -1087,12 +1154,11 @@ def reformer_card_vs_cpu(dev, report):
            for k in g_cpu}
     worst = max(rel, key=rel.get)
     flips = {k: f'{shared.differ[k]} of {shared.total[k]}' for k in shared.total}
-    log(f'[reformer-train] f32 step, depth 2, B 1: loss card {l_card:.7f} cpu {l_cpu:.7f}; '
-        f'gradients worst {worst} {rel[worst]:.2e} of its largest entry (tol {TOL_GRAD}); '
-        f'CPU branches that differ from the card\'s (the card\'s are used): {flips}')
-    report['reformer_grads_card_vs_cpu'] = dict(loss_card=l_card, loss_cpu=l_cpu, rel=rel,
-                                                branches_differing=shared.differ,
-                                                branches=shared.total)
+    log(f'[reformer-train] f32 step, depth 2, B 1 {cfg_kw or ""}: loss card {l_card:.7f} cpu '
+        f'{l_cpu:.7f}; gradients worst {worst} {rel[worst]:.2e} of its largest entry (tol '
+        f'{TOL_GRAD}); CPU branches that differ from the card\'s (the card\'s are used): {flips}')
+    report[key] = dict(loss_card=l_card, loss_cpu=l_cpu, rel=rel,
+                       branches_differing=shared.differ, branches=shared.total)
     if rel[worst] > TOL_GRAD or abs(l_card - l_cpu) > 1e-5 * abs(l_cpu):
         raise AssertionError(f'card and CPU f32 Reformer gradients disagree: {worst} '
                              f'{rel[worst]}')
@@ -2512,6 +2578,305 @@ def hf_interop_phase(dev, report):
     log(f'[phase 10] seconds: {json.dumps(report["phase10_seconds"])}')
 
 
+# ---------------- C.1, the analysis modules and the download command (phase 11)
+# bf16 / f16 TF-XL logits against the port's f32 CPU logits, over their
+# largest entry: 16-bit operands in every product and layer norm of 2
+# layers.  Measured on an H100: bf16 1.14e-3 at head dim 128 (f16's 2^-11
+# rounding is 8x finer than bf16's 2^-8).  A control must land at least 4x
+# outside the limit: the f32 logits with every layer's attention output
+# dropped (its `o` projection zeroed), 0.154 of their max at head dim 128
+TOL_16_LOGITS = {torch.float16: 2e-3, torch.bfloat16: 1e-2}
+# PitchEmbedding, card vs CPU, over emb_in's largest entry: the same f32 SGD,
+# whose row gradients `index_add_` sums with atomics in another order
+TOL_W2V = 1e-4
+W2V_SONGS = 8                                    # rendered .mxl songs PitchEmbedding trains on
+TRACES = 3                                       # traced 22-11 steps, each must name K1 / K2 12x
+D128 = dict(d_model=1024, n_head=8, d_head=128, d_inner=4096)   # C.1's head dim 128
+
+
+def counted(fn):
+    """fn() with the K1-K4 counts set to 0 just before and read just after
+    -> (fn's result, counts)."""
+    fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(**fa.LAUNCHES, **ck.LAUNCHES)
+
+
+def expect(counts, **want):
+    """The counts, each absent name 0 -> raises unless they are `want`."""
+    full = dict(dict.fromkeys(counts, 0), **want)
+    if counts != full:
+        raise AssertionError(f'launch counts {counts}, expected {full}')
+
+
+def c1_checks(dev, report):
+    """Phase 11.1, ROADMAP C.1: a TF-XL at head dim 128 (d_model 1024, 8
+    heads) in f32 and bf16, one in float16 at the 22-11 widths, and a
+    Reformer with local_chunk 128 (the LSH layer keeps chunk 64), depth 2:
+    each scores through `score_batch` on K1 / K3 (K1's FMA kernel at H 128
+    and in f16, K3's tiled kernel at chunk 128), held against the port's CPU
+    run in f32; a training step of the f32 head-dim-128 TF-XL and of the
+    Reformer (K2 / K4) against the CPU's gradients."""
+    rec = {}
+    tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
+    ikr = IkrMetric(tok, mode='ins-key')
+    ids, labels = score_inputs(1190, 2, 1024, SEED + 80, dev)
+    for name, kw in (('tfxl-d128-f32', dict(D128, dtype='float32')),
+                     ('tfxl-d128-bf16', dict(D128, dtype='bfloat16')),
+                     ('tfxl-fp16', dict(dtype='float16'))):
+        cfg = base_config(n_layer=2, **kw)
+        cpu = TransfoXL(dataclasses.replace(cfg, dtype='float32'), device='cpu')
+        flat = cpu.init_flat(SEED)
+        model, params = TransfoXL(cfg), params_from_jax(flat, dev)
+        mets, counts = counted(lambda: score_batch(model, params, ids, labels, ikr))
+        expect(counts, flash_rel_attn_fwd=cfg.n_layer)
+        ms = time_ms(lambda: score_batch(model, params, ids, labels, ikr), iters=3, warmup=1)
+        cpu_params = params_from_jax(flat, 'cpu')
+        loss = float(mets['loss'])
+        with torch.no_grad():
+            want = cpu.forward(cpu_params, ids.cpu())[0]
+            err = rel_max(model.forward(params, ids)[0], want)
+            control = None
+            if cfg.dtype == 'float32':
+                tol = TOL_F32_LOGITS
+            else:
+                tol = TOL_16_LOGITS[cfg.compute_dtype]
+                for layer in cpu_params['layers']:
+                    layer['attn']['o'].zero_()
+                control = rel_max(cpu.forward(cpu_params, ids.cpu())[0], want)
+        rec[name] = dict(counts=counts, score_ms=ms, loss=loss, logits_err=err, tol=tol,
+                         control_err=control)
+        log(f'[c1] {name}, depth 2, 2 x 1024: score_batch {ms:.2f} ms, loss {loss:.5f}; card vs '
+            f'CPU f32 logits {err:.2e} of their max (tol {tol}; attention dropped: {control}); '
+            f'counts {counts}')
+        if not (math.isfinite(loss) and err <= tol) or (control is not None and control <= 4 * tol):
+            raise AssertionError(f'C.1 {name}: card vs CPU logits {err}, control {control}')
+        del model, params, cpu, cpu_params
+    torch.cuda.empty_cache()
+    card_vs_cpu_grads(dev, report, key='c1_tfxl_d128_grads', share_branches=True, **D128)
+
+    # the Reformer: a step card vs CPU (loss, every gradient: the local
+    # layer's K3 / K4 tiled kernels at chunk 128, the LSH layer's at 64),
+    # then its scoring time
+    reformer_card_vs_cpu(dev, report, key='c1_reformer_chunk128', local_chunk=128)
+    cfg = reformer_config(dtype='float32', attn_layers=('local', 'lsh'), local_chunk=128)
+    model = Reformer(cfg)
+    params = params_from_jax(model.init_flat(SEED), dev)
+    rids, rlabels = score_inputs(cfg.vocab_size, 2, cfg.max_length, SEED + 81, dev)
+    rikr = IkrMetric(MusicTokenizer(pitch_kind='midi'))
+    rks = torch.ones(2, N_KEY, device=dev)
+    score = lambda: score_batch(model, params, rids, rlabels, rikr, rks)
+    mets, counts = counted(score)
+    expect(counts, chunked_window_attn_fwd=2)
+    ms = time_ms(score, iters=3, warmup=1)
+    rec['reformer-chunk128-f32'] = dict(counts=counts, score_ms=ms, loss=float(mets['loss']),
+                                        err=report['c1_reformer_chunk128']['rel'])
+    log(f'[c1] reformer-chunk128-f32, depth 2, 2 x 2048: score_batch {ms:.2f} ms, loss '
+        f'{float(mets["loss"]):.5f}; counts {counts}')
+    if not math.isfinite(float(mets['loss'])):
+        raise AssertionError(f'C.1 Reformer chunk 128: loss {mets}')
+    report['c1'] = rec
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def traced_presets(dev, report):
+    """Phase 11.2: a 22-11 `Trainer.train_step` at phase 3's shape (TF-XL
+    base, 21 x 1024, bf16) inside `device_trace`, 3 times, each after a
+    traced warm-up step, each trace naming K1's and K2's kernels 12 times in
+    the step it reads (`step_kernels`); `StepTimer` over 3 more steps; and one
+    22-04 step (Reformer base, bf16) at 2 x 2048: the presets launch K1-K4
+    at phases 3 and 6's counts."""
+    tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
+    cfg, B = base_config(dropout=0.1), 21
+    rows = SyntheticSongs(tok, B, SEED + 82)
+    trainer = tr.Trainer(TransfoXL(cfg), tok, rows, None, out_dir=os.path.join(RUN_DIR, 'trace'),
+                         args=train_args(seed=SEED))
+    params = params_from_jax(trainer.model.init_flat(SEED), dev)
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    state = trainer.opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(rows.batches(B, seed=1)).items()}
+    step = lambda: trainer.train_step(params, state, batch)
+    traces = []
+    step()                                                      # warm-up, untraced
+    for _ in range(TRACES):
+        t0 = time.perf_counter()
+        with device_trace(os.path.join(RUN_DIR, 'trace')) as path:
+            step()                            # absorbs the profiler's losses at the start
+            torch.cuda.synchronize()
+            time.sleep(0.02)                  # the idle gap `step_kernels` reads after
+            t1 = time.perf_counter()
+            (_, counts) = counted(step)
+            traced_ms = (time.perf_counter() - t1) * 1e3
+        expect(counts, flash_rel_attn_fwd=cfg.n_layer, flash_rel_attn_bwd=cfg.n_layer)
+        kernels = step_kernels(path)
+        traces.append(dict(
+            step_ms=traced_ms, seconds=time.perf_counter() - t0,   # with start, stop and export
+            kernels=sum(kernels.values()), kernel_names=len(kernels),
+            mib=os.path.getsize(path) / 2 ** 20,
+            named={k: sum(n for name, n in kernels.items() if k in name)
+                   for k in ('k1_tc', 'k2_dkdv_tc', 'k2_dq_tc')}))
+    timer = StepTimer()
+    for _ in range(3):
+        step()
+        torch.cuda.synchronize()
+        timer.mark(n_tokens=B * cfg.max_length)
+    timed = timer.summary()
+    top = [(name[:60], n) for name, n in sorted(kernels.items(), key=lambda kv: -kv[1])[:3]]
+    log(f'[trace] 22-11 train_step 21 x 1024 bf16 in device_trace (after a traced warm-up '
+        f'step), {TRACES} traces: step ms while traced '
+        f'{[round(t["step_ms"], 1) for t in traces]}, s with both steps and the trace written '
+        f'{[round(t["seconds"], 2) for t in traces]}; the step\'s kernels '
+        f'{[t["kernels"] for t in traces]} in {traces[-1]["kernel_names"]} names, '
+        f'{traces[-1]["mib"]:.1f} MiB each; K1 / K2 by '
+        f'name {[t["named"] for t in traces]}; most launched {top}; StepTimer over 3 steps: '
+        f'{timed["tokens_per_sec"]:.0f} tok/s, p50 {timed["p50_step_s"] * 1e3:.1f} ms')
+    if any(set(t['named'].values()) != {cfg.n_layer} for t in traces):
+        raise AssertionError(f'a trace names K1 / K2 other than {cfg.n_layer} times each: '
+                             f'{[t["named"] for t in traces]}')
+    report['trace'] = dict(counts=counts, traces=traces, step_timer=timed)
+    del trainer, params, state, batch
+    torch.cuda.empty_cache()
+
+    rcfg = reformer_config()
+    rtok = MusicTokenizer(pitch_kind='midi', model_max_length=rcfg.max_length)
+    rrows = SyntheticSongs(rtok, 2, SEED + 83, length=rcfg.max_length, insert_key=False)
+    trainer = tr.Trainer(Reformer(rcfg), rtok, rrows, None, out_dir=os.path.join(RUN_DIR, 'trace'),
+                         args=reformer_train_args(batch_size=2, seed=SEED))
+    params = params_from_jax(trainer.model.init_flat(SEED), dev)
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(rrows.batches(2, seed=1)).items()}
+    mets, counts = counted(lambda: trainer.train_step(params, trainer.opt.init(params), batch))
+    n = len(rcfg.attn_layers)
+    log(f'[trace] 22-04 train_step 2 x 2048 bf16: loss {float(mets["loss"]):.4f}, counts {counts}')
+    expect(counts, chunked_window_attn_fwd=n, chunked_window_attn_bwd=n)
+    report['trace']['reformer_counts'] = counts
+    del trainer, params, batch
+    torch.cuda.empty_cache()
+
+
+def analysis_checks(dev, report):
+    """Phase 11.3, A.8 over phase 8's run: its 22-04 train log summarized,
+    its generated songs through `MusicStats` / `MusicVisualize` (reports, no
+    plots), the data's own in-key ratio on the card against the CPU, the
+    rendered MusicXML songs to melody grids, and `PitchEmbedding` trained on
+    the card and on the CPU from one seed."""
+    root = os.path.join(RUN_DIR, 'cli')
+    rec = dict(summary=summarize_run(os.path.join(root, '22-04', 'train_log.jsonl')))
+    if rec['summary']['n_step'] != 58 // 32 or 'best_eval_loss' not in rec['summary']:
+        raise AssertionError(f'summarize_run of the 22-04 CLI run: {rec["summary"]}')
+    for gen, pk in (('gen-22-11', 'degree'), ('gen-22-04', 'midi')):
+        d = os.path.join(root, gen)
+        songs = []
+        for f in sorted(os.listdir(d)):
+            if f.endswith('.json'):
+                with open(os.path.join(d, f)) as fh:
+                    songs.append(dict(score=json.load(fh)['text']))
+        rep = MusicVisualize(songs, dataset_name=gen, pitch_kind=pk).report()
+        stats = [MusicStats(pitch_kind=pk).song_stats(x['score']) for x in songs]
+        rec[gen] = dict(report=rep, song_stats=stats)
+        if rep['n_song'] != len(songs) or not all(x['n_bar'] >= 1 for x in stats):
+            raise AssertionError(f'{gen}: {rep} {stats}')
+    log(f'[analysis] summarize_run 22-04: {json.dumps(rec["summary"])}; generated songs: '
+        + '; '.join(f'{g} {rec[g]["report"]["n_song"]} songs, tokens '
+                    f'{rec[g]["report"]["token_length"]}, bars {rec[g]["report"]["bar_count"]}'
+                    for g in ('gen-22-11', 'gen-22-04')))
+
+    tok = MusicTokenizer(pitch_kind='midi', model_max_length=2048)
+    ds = AugmentedDataset(SongDataset.load(os.path.join(root, 'dataset', 'train.npz')), tok,
+                          random_crop=False, dataset_split='test', seed=SEED)
+    batch = next(ds.batches(min(16, len(ds)), shuffle=False))
+    metric = IkrMetric(tok)
+    ikr = {}
+    for best in (False, True):
+        card = metric.ground_truth_ikr(torch.from_numpy(batch['input_ids']).to(dev),
+                                       torch.from_numpy(batch['key_scores']).to(dev), best)
+        cpu = metric.ground_truth_ikr(batch['input_ids'], batch['key_scores'], best)
+        ikr['best_key_only' if best else 'weighted'] = dict(card=card, cpu=cpu)
+        if not 0 < card <= 1 or abs(card - cpu) > 1e-6:
+            raise AssertionError(f'ground_truth_ikr card {card} cpu {cpu}')
+    rec['ground_truth_ikr'] = ikr
+    log(f'[analysis] ground_truth_ikr of {len(batch["input_ids"])} dataset songs: '
+        f'{json.dumps(ikr)}')
+
+    mxl = sorted(f for f in os.listdir(os.path.join(root, 'raw')) if f.endswith('.mxl'))
+    t0 = time.perf_counter()
+    grids = [MelodyGridExtractor()(os.path.join(root, 'raw', f)) for f in mxl[:W2V_SONGS]]
+    grid_s = time.perf_counter() - t0
+    runs = []
+    for device in (dev, torch.device('cpu')):
+        pe = PitchEmbedding(device=device, seed=SEED)
+        t0 = time.perf_counter()
+        pe(grids, epochs=2)                          # ends in a copy to the host
+        runs.append((pe, time.perf_counter() - t0))
+    (card, card_s), (cpu, cpu_s) = runs
+    err = float(np.abs(card.emb_in - cpu.emb_in).max() / np.abs(cpu.emb_in).max())
+    rec['pitch_embedding'] = dict(songs=len(grids), grid_ids=sum(map(len, grids)),
+                                  grid_seconds=grid_s, card_seconds=card_s, cpu_seconds=cpu_s,
+                                  losses_card=card.losses, losses_cpu=cpu.losses, emb_in_err=err)
+    log(f'[analysis] melody grids of {len(grids)} rendered .mxl songs: '
+        f'{sum(map(len, grids))} ids in {grid_s:.2f} s; PitchEmbedding 2 epochs: card '
+        f'{card_s:.2f} s, CPU {cpu_s:.2f} s, losses {card.losses} / {cpu.losses}, emb_in card '
+        f'vs CPU {err:.2e} of its max (tol {TOL_W2V})')
+    if err > TOL_W2V or not card.losses[-1] < card.losses[0]:
+        raise AssertionError(f'PitchEmbedding card vs CPU {err}, losses {card.losses}')
+    report['analysis'] = rec
+
+
+def download_checks(report):
+    """Phase 11.4, A.9 on the card's machine, offline: `download` lists the
+    registry; an artifact whose one part is a zip built here, served by a
+    `file://` URL, is fetched with its sha256 pin, extracted, and refused
+    under a wrong pin."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(['download'])
+    listed = out.getvalue().splitlines()
+    if rc != 0 or len(listed) != len(download.ARTIFACTS):
+        raise AssertionError(f'download listed {len(listed)} artifacts, exit {rc}')
+    root = os.path.join(RUN_DIR, 'download')
+    os.makedirs(root)
+    src = os.path.join(root, 'bundle.zip')
+    with zipfile.ZipFile(src, 'w') as zf:
+        zf.writestr('songs/a.json', json.dumps(dict(score='TimeSig_4/4 </s>')))
+    with open(src, 'rb') as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    url = pathlib.Path(src).as_uri()
+    reg = {'hf/local': download.Artifact(name='hf/local', urls=(url,), kind='hf',
+                                         sha256=(sha,))}
+    paths = download.PathRegistry(os.path.join(root, 'base'))
+    dest = download.download_artifact('hf/local', paths=paths, registry=reg)
+    if not os.path.exists(os.path.join(dest, 'songs', 'a.json')):
+        raise AssertionError(f'download_artifact extracted nothing into {dest}')
+    try:
+        download.fetch(url, os.path.join(root, 'bad.zip'), sha256='0' * 64)
+        raise AssertionError('a wrong sha256 pin was accepted')
+    except ValueError as e:
+        refused = str(e)
+    report['download'] = dict(listed=len(listed), dest=os.path.relpath(dest, root), sha256=sha)
+    log(f'[download] listed {len(listed)} artifacts; file:// artifact fetched with its sha256 '
+        f'pin into {os.path.relpath(dest, root)}; wrong pin refused: {refused[:60]}...')
+
+
+def analysis_phase(dev, report):
+    """Phase 11, each part timed."""
+    t0 = time.perf_counter()
+    seconds = {}
+    for name, fn in (('c1', lambda: c1_checks(dev, report)),
+                     ('traced presets', lambda: traced_presets(dev, report)),
+                     ('analysis', lambda: analysis_checks(dev, report)),
+                     ('download', lambda: download_checks(report))):
+        t1 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t1
+    report['phase11_seconds'] = dict(seconds, total=time.perf_counter() - t0)
+    log(f'[phase 11] seconds: {json.dumps(report["phase11_seconds"])}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -2560,6 +2925,13 @@ def main() -> int:
                 512, 10, True),
         k1_case(dev, 'hf-window-mem-f32', torch.float32, 2, 12, 1024, 512, 64, 1024, 512, 512,
                 11, False),
+        # C.1 (phase 11's shapes): head dim 128 (d_model 1024, 8 heads, 2 x
+        # 1024) on the FMA kernel's 32-row tiles, and f16 at the 22-11 widths
+        k1_case(dev, 'd128-bf16', torch.bfloat16, 2, 8, 1024, 0, 128, 1024, 0, 0, 12, True),
+        k1_case(dev, 'd128-f32', torch.float32, 2, 8, 1024, 0, 128, 1024, 0, 0, 13, True),
+        k1_case(dev, 'f16', torch.float16, 2, 12, 1024, 0, 64, 1024, 0, 0, 14, True),
+        k1_case(dev, 'd128-memory-window-f16', torch.float16, 2, 8, 1000, 512, 128, 96, 300,
+                512, 15, False),
     ]
     k2 = [
         k2_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 21, True),
@@ -2579,6 +2951,11 @@ def main() -> int:
                 29, False),
         k2_case(dev, 'hf-window-mem-f32', torch.float32, 2, 12, 1024, 512, 64, 1024, 512, 512,
                 30, False),
+        k2_case(dev, 'd128-bf16', torch.bfloat16, 2, 8, 1024, 0, 128, 1024, 0, 0, 31, True),
+        k2_case(dev, 'd128-f32', torch.float32, 2, 8, 1024, 0, 128, 1024, 0, 0, 32, True),
+        k2_case(dev, 'f16', torch.float16, 2, 12, 1024, 0, 64, 1024, 0, 0, 33, True),
+        k2_case(dev, 'd128-memory-window-f16', torch.float16, 2, 8, 1000, 512, 128, 96, 300,
+                512, 34, False),
     ]
     k1_ms = {c['case']: c.get('ms') for c in k1}
     k2_ms = {c['case']: c.get('ms') for c in k2}
@@ -2600,6 +2977,13 @@ def main() -> int:
         k3_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 37),
         k3_case(dev, 'd16-chunk32-padded-bf16', torch.bfloat16, 48, 512, 16, 32, True, 40, 38),
         k3_case(dev, 'd32-chunk32-padded-bf16', torch.bfloat16, 48, 512, 32, 32, True, 40, 39),
+        # C.1's tiled kernels: phase 11's local layer at chunk 128 (2 x 12
+        # heads), chunk 128 at D 128, the LSH shape in f16, chunk 16 padded
+        k3_case(dev, 'chunk128-f32', torch.float32, 24, 2048, 64, 128, False, 0, 131),
+        k3_case(dev, 'chunk128-bf16', torch.bfloat16, 24, 2048, 64, 128, False, 0, 132),
+        k3_case(dev, 'chunk128-d128-bf16', torch.bfloat16, 16, 2048, 128, 128, True, 40, 133),
+        k3_case(dev, 'lsh-f16', torch.float16, 48, 2048, 64, 64, True, 0, 134),
+        k3_case(dev, 'chunk16-padded-f32', torch.float32, 8, 480, 32, 16, True, 9, 135),
     ]
     k4 = [
         k4_case(dev, 'lsh-bf16', torch.bfloat16, 768, 2048, 64, 64, True, 0, 41),
@@ -2608,6 +2992,11 @@ def main() -> int:
         k4_case(dev, 'local-padded-f32', torch.float32, 96, 2048, 64, 64, False, 300, 44),
         k4_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 45),
         k4_case(dev, 'd16-chunk32-padded-bf16', torch.bfloat16, 48, 512, 16, 32, True, 40, 46),
+        k4_case(dev, 'chunk128-f32', torch.float32, 24, 2048, 64, 128, False, 0, 141),
+        k4_case(dev, 'chunk128-bf16', torch.bfloat16, 24, 2048, 64, 128, False, 0, 142),
+        k4_case(dev, 'chunk128-d128-bf16', torch.bfloat16, 16, 2048, 128, 128, True, 40, 143),
+        k4_case(dev, 'lsh-f16', torch.float16, 48, 2048, 64, 64, True, 0, 144),
+        k4_case(dev, 'chunk16-padded-f32', torch.float32, 8, 480, 32, 16, True, 9, 145),
     ]
     report.update(k3_cases=k3, k4_cases=k4)
 
@@ -2735,6 +3124,10 @@ def main() -> int:
     # 10. HF checkpoints of both families through the entry points, remat_attn
     # and remat, the 'bounded' and streamed LSH decode
     hf_interop_phase(dev, report)
+
+    # 11. C.1's widened kernels through the models, the presets traced, the
+    # analysis modules on phase 8's run, the download
+    analysis_phase(dev, report)
     report.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                   seconds=time.perf_counter() - t_start)
     shutil.rmtree(RUN_DIR, ignore_errors=True)

@@ -13,6 +13,7 @@ extractor, data pipeline, Trainer and generator:
                                           [--strategy sample --top-k 8] [--key CMajor]
                                           [--strategy beam --num-beams 4 [--num-beam-groups 2]]
                                           [--strategy contrastive --top-k 4 --penalty-alpha 0.6]
+    python -m musicnlp_tpu_torch download [NAME] [--base DIR] [--force]
 
 `extract` and `dataset` are host work and never touch the card (`extract
 --jobs N` extracts in N worker processes started by spawn).  `train` and
@@ -21,8 +22,10 @@ without it the command exits non-zero with the device resolver's error.  A
 learned tokenizer scheme (wordpiece, pairmerge) reads its trained table from
 `--tokenizer-path` and trains through the string pipeline
 (`StringAugmentedDataset`); `generate` rebuilds it from the run directory.
-`download` comes with a later slice.  Heavy imports stay inside each
-command, so `--help` is instant.
+`download` with no name lists the artifact registry; with a name it fetches
+and extracts that artifact (exit 1 with `error: ...` on stderr for an unknown
+name, a network failure or a checksum mismatch).  Heavy imports stay inside
+each command, so `--help` is instant.
 """
 from __future__ import annotations
 
@@ -190,6 +193,24 @@ def _cmd_generate(a) -> int:
     return 0
 
 
+def _cmd_download(a) -> int:
+    from musicnlp_tpu_torch.utils.download import (
+        EgressUnavailable, download_artifact, list_artifacts,
+    )
+    if not a.name:
+        print(list_artifacts())
+        return 0
+    from musicnlp_tpu_torch.utils.config import PathRegistry
+    paths = PathRegistry(a.base) if a.base else None
+    try:
+        dest = download_artifact(a.name, paths=paths, force=a.force)
+    except (LookupError, EgressUnavailable, ValueError) as e:
+        print(f'error: {e}', file=sys.stderr)
+        return 1
+    print(dest)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog='musicnlp_tpu_torch',
@@ -268,6 +289,17 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument('--n-bar', type=int, default=4, help='prompt bars when conditioning')
     g.add_argument('--device', default='cuda', help="'cuda' (default) or 'cpu'")
     g.set_defaults(fn=_cmd_generate)
+
+    dl = sub.add_parser(
+        'download',
+        help="fetch the reference's shipped artifacts (converted corpora, "
+             'processed datasets, trained tokenizer); egress-gated')
+    dl.add_argument('name', nargs='?',
+                    help="registry key (e.g. 'converted/POP909-MS'); omit to list all")
+    dl.add_argument('--base', help='override the path-registry base dir')
+    dl.add_argument('--force', action='store_true',
+                    help='re-download even if the zip exists')
+    dl.set_defaults(fn=_cmd_download)
     return p
 
 

@@ -46,11 +46,14 @@
 //
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "elem.cuh"
 #include "mma_bf16.cuh"
 #include "row_dot.cuh"
 
@@ -59,18 +62,7 @@ namespace {
 constexpr int NT = 256;          // threads: a 16 x 16 grid
 constexpr float kNegInf = -1e9f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_f(from_f<T>(x));
-}
+using namespace elem;
 
 template <int C, int D>
 constexpr size_t bwd_smem_bytes() {
@@ -480,6 +472,332 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace tc
 
+// ------------------------------------ any chunk, D 128 and f16: the tiled form
+// What the two kernels above do not take -- a chunk other than 32 or 64,
+// D = 128, f16 -- in two FMA kernels over 64-row tiles, as K2's f32 kernels
+// split the work (chunked_window_attn_fwd.cu's k3_tiled is the forward):
+//   k4_dq_tiled:   one block per (g, 64 query rows): walks the 64-key tiles
+//                  of the union of its rows' windows, keeps dq in registers;
+//   k4_dkdv_tiled: one block per (g, 64 key rows): walks the 64-row query
+//                  tiles whose windows hold its keys (the queries of chunks
+//                  j and j + 1 for a key of chunk j), keeps dk / dv in
+//                  registers.
+// Both recompute s and dp = dO . v as f32 FMA chains from shared memory, p =
+// exp(s - lse) for a key inside the query's window (0 outside it), ds = p
+// (dp - delta + dlse) scale, and round p and ds to the input dtype where they
+// enter a product.  Shared memory at D = 128: 150 KB / 167 KB.
+namespace tiled {
+
+constexpr int B = 64;              // rows per tile
+constexpr int R = B / 16;          // rows and columns per thread
+constexpr int PS = B + 1;          // P / dS row stride
+
+template <int D>
+constexpr size_t smem_bytes(int n_pds) {
+    // sQ, sDO, sK, sV [B][D+1]; n_pds tiles [B][PS] (dS, and P for dkdv);
+    // lse, delta, dlse [B] f32; qpos, kpos [B] int
+    return ((size_t)4 * B * (D + 1) + (size_t)n_pds * B * PS + 3 * B) * sizeof(float)
+        + 2 * B * sizeof(int);
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int T_) {
+    for (int e = threadIdx.x; e < B * D; e += NT) {
+        const int r = e / D, c = e % D, row = r0 + r;
+        dst[r * (D + 1) + c] = (row >= 0 && row < T_) ? to_f(src[(size_t)row * D + c]) : 0.f;
+    }
+}
+
+// query positions and the f32 row terms of query rows [q0, q0 + B)
+__device__ __forceinline__ void stage_rows(int* sQp, float* sL, float* sD, float* sDL,
+                                           const int* qpos, const float* lse,
+                                           const float* delta, const float* dlse, size_t base,
+                                           int q0, int T_) {
+    const int t = threadIdx.x;
+    if (t < B) {
+        const bool ok = q0 + t < T_;
+        sQp[t] = ok ? qpos[base + q0 + t] : INT_MIN;
+        sL[t] = ok ? lse[base + q0 + t] : 0.f;
+        sD[t] = ok ? delta[base + q0 + t] : 0.f;
+        sDL[t] = ok ? dlse[base + q0 + t] : 0.f;
+    }
+}
+
+// key positions of key rows [k0, k0 + B): chunk 0's look-back never visible
+__device__ __forceinline__ void stage_kpos(int* sKp, const int* kpos, size_t base, int k0,
+                                           int T_) {
+    const int t = threadIdx.x;
+    if (t < B) {
+        const int w = k0 + t;
+        sKp[t] = (w >= 0 && w < T_) ? kpos[base + w] : INT_MAX;
+    }
+}
+
+// query row r (chunk r / C) sees key rows [(r / C - 1) C, (r / C + 1) C)
+__device__ __forceinline__ bool in_window(int r, int w, int C) {
+    const int lo = (r / C - 1) * C;
+    return w >= lo && w < lo + 2 * C;
+}
+
+// s (unscaled) and dp = dO . v of thread (tx, ty): query rows ty + 16 i,
+// key rows tx + 16 j
+template <int D>
+__device__ __forceinline__ void scores(const float* sQ, const float* sDO, const float* sK,
+                                       const float* sV, int tx, int ty, float (&s)[R][R],
+                                       float (&dp)[R][R]) {
+    constexpr int DP = D + 1;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int h = 0; h < D; ++h) {
+        float a[R], o[R], b[R], vv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            a[i] = sQ[(ty + 16 * i) * DP + h];
+            o[i] = sDO[(ty + 16 * i) * DP + h];
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            b[j] = sK[(tx + 16 * j) * DP + h];
+            vv[j] = sV[(tx + 16 * j) * DP + h];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                s[i][j] = fmaf(a[i], b[j], s[i][j]);
+                dp[i][j] = fmaf(o[i], vv[j], dp[i][j]);
+            }
+    }
+}
+
+// p = exp(s - lse) of query row r and key row w (0 outside the window), the
+// masks and self_bias of the forward
+__device__ __forceinline__ float prob(float s, int r, int w, int qp, int kp, float lse_r,
+                                      int C, float scale, float self_bias) {
+    if (!in_window(r, w, C)) return 0.f;
+    float x = s * scale;
+    if (kp <= qp) {
+        if (kp == qp) x += self_bias;
+    } else {
+        x = kNegInf;
+    }
+    return expf(x - lse_r);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1)
+k4_dq_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ dout, const int* __restrict__ qpos,
+            const int* __restrict__ kpos, const float* __restrict__ lse,
+            const float* __restrict__ delta, const float* __restrict__ dlse,
+            T* __restrict__ dq, int T_, int C, float scale, float self_bias) {
+    constexpr int DP = D + 1;
+    constexpr int CD = D / 16;          // dq columns per thread
+    extern __shared__ float smem[];
+    float* sQ = smem;
+    float* sDO = sQ + B * DP;
+    float* sK = sDO + B * DP;
+    float* sV = sK + B * DP;
+    float* sDS = sV + B * DP;           // [B][PS]
+    float* sL = sDS + B * PS;
+    float* sD = sL + B;
+    float* sDL = sD + B;
+    int* sQp = (int*)(sDL + B);
+    int* sKp = sQp + B;
+
+    const int g = blockIdx.y;
+    const int q0 = blockIdx.x * B;
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    const size_t base = (size_t)g * T_;
+    const T* k_g = k + base * D;
+    const T* v_g = v + base * D;
+
+    stage<T, D>(sQ, q + base * D, q0, T_);
+    stage<T, D>(sDO, dout + base * D, q0, T_);
+    stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
+
+    float acc[R][CD];                   // query rows ty + 16 i, columns tx + 16 c
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+
+    const int q_last = min(q0 + B, T_) - 1;
+    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
+    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
+        __syncthreads();                                 // previous tile's reads done
+        stage<T, D>(sK, k_g, k0, T_);
+        stage<T, D>(sV, v_g, k0, T_);
+        stage_kpos(sKp, kpos, base, k0, T_);
+        __syncthreads();
+
+        float s[R][R], dp[R][R];
+        scores<D>(sQ, sDO, sK, sV, tx, ty, s, dp);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            const int qi = ty + 16 * i;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const int kj = tx + 16 * j;
+                const float p = prob(s[i][j], q0 + qi, k0 + kj, sQp[qi], sKp[kj], sL[qi], C,
+                                     scale, self_bias);
+                sDS[qi * PS + kj] = round_to<T>(p * (dp[i][j] - sD[qi] + sDL[qi]) * scale);
+            }
+        }
+        __syncthreads();
+
+#pragma unroll 4
+        for (int kx = 0; kx < B; ++kx) {
+            float kv[CD];
+#pragma unroll
+            for (int c = 0; c < CD; ++c) kv[c] = sK[kx * DP + tx + 16 * c];
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+                const float ds = sDS[(ty + 16 * i) * PS + kx];
+#pragma unroll
+                for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        const int r = q0 + ty + 16 * i;
+        if (r >= T_) continue;
+        T* o = dq + (base + r) * D;
+#pragma unroll
+        for (int c = 0; c < CD; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c]);
+    }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1)
+k4_dkdv_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const int* __restrict__ qpos,
+              const int* __restrict__ kpos, const float* __restrict__ lse,
+              const float* __restrict__ delta, const float* __restrict__ dlse,
+              float* __restrict__ dk, float* __restrict__ dv, int T_, int C, float scale,
+              float self_bias) {
+    constexpr int DP = D + 1;
+    constexpr int CD = D / 16;          // dk / dv columns per thread
+    extern __shared__ float smem[];
+    float* sK = smem;
+    float* sV = sK + B * DP;
+    float* sQ = sV + B * DP;
+    float* sDO = sQ + B * DP;
+    float* sP = sDO + B * DP;           // [B][PS]
+    float* sDS = sP + B * PS;           // [B][PS]
+    float* sL = sDS + B * PS;
+    float* sD = sL + B;
+    float* sDL = sD + B;
+    int* sQp = (int*)(sDL + B);
+    int* sKp = sQp + B;
+
+    const int g = blockIdx.y;
+    const int k0 = blockIdx.x * B;
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    const size_t base = (size_t)g * T_;
+    const T* q_g = q + base * D;
+    const T* do_g = dout + base * D;
+
+    stage<T, D>(sK, k + base * D, k0, T_);
+    stage<T, D>(sV, v + base * D, k0, T_);
+    stage_kpos(sKp, kpos, base, k0, T_);
+
+    float acc_k[R][CD], acc_v[R][CD];   // key rows ty + 16 i, columns tx + 16 c
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < CD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+    // the query rows whose windows hold a key of [k0, k_last]
+    const int k_last = min(k0 + B, T_) - 1;
+    const int r_lo = (k0 / C) * C, r_hi = min((k_last / C + 2) * C, T_);
+    for (int q0 = r_lo; q0 < r_hi; q0 += B) {
+        __syncthreads();                                 // previous tile's reads done
+        stage<T, D>(sQ, q_g, q0, T_);
+        stage<T, D>(sDO, do_g, q0, T_);
+        stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
+        __syncthreads();
+
+        float s[R][R], dp[R][R];
+        scores<D>(sQ, sDO, sK, sV, tx, ty, s, dp);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            const int qi = ty + 16 * i, r = q0 + qi;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const int kj = tx + 16 * j, w = k0 + kj;
+                const float p = (r < T_ && w < T_)
+                    ? prob(s[i][j], r, w, sQp[qi], sKp[kj], sL[qi], C, scale, self_bias) : 0.f;
+                sP[qi * PS + kj] = round_to<T>(p);
+                sDS[qi * PS + kj] = round_to<T>(p * (dp[i][j] - sD[qi] + sDL[qi]) * scale);
+            }
+        }
+        __syncthreads();
+
+#pragma unroll 4
+        for (int qx = 0; qx < B; ++qx) {
+            float o[CD], a[CD];
+#pragma unroll
+            for (int c = 0; c < CD; ++c) {
+                o[c] = sDO[qx * DP + tx + 16 * c];
+                a[c] = sQ[qx * DP + tx + 16 * c];
+            }
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+                const float p = sP[qx * PS + ty + 16 * i];
+                const float ds = sDS[qx * PS + ty + 16 * i];
+#pragma unroll
+                for (int c = 0; c < CD; ++c) {
+                    acc_v[i][c] = fmaf(p, o[c], acc_v[i][c]);
+                    acc_k[i][c] = fmaf(ds, a[c], acc_k[i][c]);
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        const int w = k0 + ty + 16 * i;
+        if (w >= T_) continue;
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+            dk[(base + w) * D + tx + 16 * c] = acc_k[i][c];
+            dv[(base + w) * D + tx + 16 * c] = acc_v[i][c];
+        }
+    }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const int* qpos, const int* kpos, const float* lse, const float* delta,
+                   const float* dlse, void* dq, float* dk, float* dv, int G, int T_, int C,
+                   float scale, float self_bias, cudaStream_t stream) {
+    const size_t smem_q = smem_bytes<D>(1), smem_kv = smem_bytes<D>(2);
+    auto kq = k4_dq_tiled<T, D>;
+    auto kv = k4_dkdv_tiled<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_q);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T_ + B - 1) / B, G);
+    const T *q_ = (const T*)q, *k_ = (const T*)k, *v_ = (const T*)v, *do_ = (const T*)dout;
+    kq<<<grid, NT, smem_q, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, (T*)dq, T_,
+                                     C, scale, self_bias);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kv<<<grid, NT, smem_kv, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, dk, dv, T_,
+                                      C, scale, self_bias);
+    return cudaGetLastError();
+}
+
+}  // namespace tiled
+
 template <typename T, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const int* qpos, const int* kpos, const float* lse, const float* delta,
@@ -537,30 +855,54 @@ cudaError_t run_c(int C, int D, const Args& a) {
     }
 }
 
+template <typename T>
+cudaError_t run_tiled(int C, int D, const Args& a) {
+    switch (D) {
+        case 16: return tiled::launch<T, 16>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
+                                             a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
+                                             a.scale, a.self_bias, a.st);
+        case 32: return tiled::launch<T, 32>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
+                                             a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
+                                             a.scale, a.self_bias, a.st);
+        case 64: return tiled::launch<T, 64>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
+                                             a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
+                                             a.scale, a.self_bias, a.st);
+        case 128: return tiled::launch<T, 128>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
+                                               a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
+                                               a.scale, a.self_bias, a.st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
-// q/k/v/dout [G, T, D] (dtype 0 = f32, 1 = bf16), qpos/kpos int32 [G, T],
-// lse/delta/dlse f32 [G, T]; dq [G, T, D] in the input dtype, dk/dv [G, T, D]
-// f32.  T % chunk == 0; chunk 32 or 64; D 16, 32 or 64.  f32 runs the FMA
-// kernel, bf16 the tensor-core one.  Launches on `stream`; returns
-// cudaGetLastError() of the launch.
+// q/k/v/dout [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32
+// [G, T], lse/delta/dlse f32 [G, T]; dq [G, T, D] in the input dtype, dk/dv
+// [G, T, D] f32.  T % chunk == 0; D 16, 32, 64 or 128.  Chunks 32 and 64 at
+// D <= 64 run the FMA kernel in f32 and the tensor-core one in bf16; every
+// other chunk, D 128 and f16 run the tiled kernels.  Launches on `stream`;
+// returns cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* qpos, const void* kpos,
                                        const void* lse, const void* delta, const void* dlse,
                                        void* dq, void* dk, void* dv, int G, int T, int D,
                                        int chunk, int dtype, float scale, float self_bias,
                                        void* stream) {
-    if (T % chunk) return (int)cudaErrorInvalidValue;
+    if (chunk <= 0 || T % chunk) return (int)cudaErrorInvalidValue;
     const Args a{q, k, v, dout, (const int*)qpos, (const int*)kpos, (const float*)lse,
                  (const float*)delta, (const float*)dlse, dq, (float*)dk, (float*)dv, G, T,
                  scale, self_bias, (cudaStream_t)stream};
-    if (dtype == 0) return (int)run_c<float>(chunk, D, a);
-    if (dtype == 1) return (int)run_c<__nv_bfloat16>(chunk, D, a);
+    const bool fixed = (chunk == 32 || chunk == 64) && D <= 64;
+    if (fixed && dtype == 0) return (int)run_c<float>(chunk, D, a);
+    if (fixed && dtype == 1) return (int)run_c<__nv_bfloat16>(chunk, D, a);
+    if (dtype == 0) return (int)run_tiled<float>(chunk, D, a);
+    if (dtype == 1) return (int)run_tiled<__nv_bfloat16>(chunk, D, a);
+    if (dtype == 2) return (int)run_tiled<__half>(chunk, D, a);
     return (int)cudaErrorInvalidValue;
 }
 
 // delta[r] = dout[r] . out[r] in f32 over rows [rows, D] of one dtype (0 =
-// f32, 1 = bf16): the input `delta` of chunked_window_attn_bwd, for its
+// f32, 1 = bf16, 2 = f16): the input `delta` of chunked_window_attn_bwd, for its
 // wrapper.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int chunked_window_attn_bwd_delta(const void* dout, const void* out, void* delta,
                                              long long rows, int D, int dtype, void* stream) {

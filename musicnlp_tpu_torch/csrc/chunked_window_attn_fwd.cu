@@ -55,12 +55,14 @@
 // 74 KB per block.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "elem.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -68,19 +70,7 @@ namespace {
 constexpr int NT = 256;          // threads: a 16 x 16 grid
 constexpr float kNegInf = -1e9f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-// p as the PV product sees it: rounded to v's dtype
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_f(from_f<T>(x));
-}
+using namespace elem;
 
 template <int C, int D>
 struct Fwd {
@@ -473,6 +463,214 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
 
 }  // namespace tc
 
+// ------------------------------------ any chunk, D 128 and f16: the tiled form
+// k3_tiled: what the two kernels above do not take -- a chunk other than 32
+// or 64, D = 128 (their [C, 2C] tiles would not fit in shared memory at C
+// 128), and f16 -- as flash attention over the windows.  One 256-thread
+// block per (g, 64 query rows), which may span several chunks (C < 64) or
+// part of one (C > 64), walks the 64-key tiles of the union of its rows'
+// windows with an online softmax; operands are f32 rows of stride D+1 in
+// shared memory and every product an f32 FMA, as in the f32 kernel.  A key
+// outside a row's window is no term of its softmax; a key inside it that the
+// query may not see (a later position, or chunk 0's zero look-back) scores
+// NEG_INF, as above.  p is rounded to v's dtype against the running max
+// before PV, as K1 does.  A row that sees only its own key keeps lse =
+// fl(s + self_bias) exactly: the other terms are exp(-1e9 - max) = 0 and l =
+// 1.  Shared memory at D = 128: 116 KB.
+namespace tiled {
+
+constexpr int B = 64;              // query rows per block, keys per tile
+constexpr int R = B / 16;          // rows and columns per thread
+constexpr int PS = B + 1;          // P row stride
+constexpr float kNone = -3e38f;    // running max before any key of the window
+
+template <int D>
+constexpr size_t smem_bytes() {
+    return ((size_t)3 * B * (D + 1) + (size_t)B * PS) * sizeof(float) + 2 * B * sizeof(int);
+}
+
+// rows [r0, r0 + B) of a [T_, D] matrix into f32 rows of stride D+1, zero
+// outside [0, T_)
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int T_) {
+    for (int e = threadIdx.x; e < B * D; e += NT) {
+        const int r = e / D, c = e % D, row = r0 + r;
+        dst[r * (D + 1) + c] = (row >= 0 && row < T_) ? to_f(src[(size_t)row * D + c]) : 0.f;
+    }
+}
+
+// query row r (chunk r / C) sees key rows [(r / C - 1) C, (r / C + 1) C)
+__device__ __forceinline__ bool in_window(int r, int w, int C) {
+    const int lo = (r / C - 1) * C;
+    return w >= lo && w < lo + 2 * C;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 2)
+k3_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+         const int* __restrict__ qpos, const int* __restrict__ kpos, T* __restrict__ out,
+         float* __restrict__ lse, int T_, int C, float scale, float self_bias) {
+    constexpr int DP = D + 1;
+    constexpr int CD = D / 16;          // context columns per thread
+    extern __shared__ float smem[];
+    float* sQ = smem;                   // [B][DP]
+    float* sK = sQ + B * DP;            // [B][DP]
+    float* sV = sK + B * DP;            // [B][DP]
+    float* sP = sV + B * DP;            // [B][PS]
+    int* sQp = (int*)(sP + B * PS);     // [B]
+    int* sKp = sQp + B;                 // [B]
+
+    const int g = blockIdx.y;
+    const int q0 = blockIdx.x * B;
+    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    const size_t base = (size_t)g * T_;
+    const T* k_g = k + base * D;
+    const T* v_g = v + base * D;
+
+    stage<T, D>(sQ, q + base * D, q0, T_);
+    if (tid < B) sQp[tid] = q0 + tid < T_ ? qpos[base + q0 + tid] : INT_MIN;
+
+    float m_i[R], l_i[R], acc[R][CD];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        m_i[i] = kNone;
+        l_i[i] = 0.f;
+#pragma unroll
+        for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+    }
+
+    // the union of the windows of rows [q0, q_last]
+    const int q_last = min(q0 + B, T_) - 1;
+    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
+    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
+        __syncthreads();                                 // previous tile's P / V reads done
+        stage<T, D>(sK, k_g, k0, T_);
+        stage<T, D>(sV, v_g, k0, T_);
+        if (tid < B) {
+            const int w = k0 + tid;
+            sKp[tid] = (w >= 0 && w < T_) ? kpos[base + w] : INT_MAX;  // look-back of chunk 0
+        }
+        __syncthreads();
+
+        // scores: query row ty + 16 i, key column tx + 16 j
+        float s[R][R];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < R; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+        for (int h = 0; h < D; ++h) {
+            float a[R], b[R];
+#pragma unroll
+            for (int i = 0; i < R; ++i) a[i] = sQ[(ty + 16 * i) * DP + h];
+#pragma unroll
+            for (int j = 0; j < R; ++j) b[j] = sK[(tx + 16 * j) * DP + h];
+#pragma unroll
+            for (int i = 0; i < R; ++i)
+#pragma unroll
+                for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        }
+
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            const int qi = ty + 16 * i, r = q0 + qi, qp = sQp[qi];
+            bool in[R];
+            float mx = kNone;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const int kp = sKp[tx + 16 * j];
+                float x = s[i][j] * scale;
+                if (kp <= qp) {
+                    if (kp == qp) x += self_bias;
+                } else {
+                    x = kNegInf;
+                }
+                s[i][j] = x;
+                in[j] = in_window(r, k0 + tx + 16 * j, C);
+                if (in[j]) mx = fmaxf(mx, x);
+            }
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m_i[i], mx);
+            const float alpha = expf(m_i[i] - m_new);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                const float p = in[j] ? expf(s[i][j] - m_new) : 0.f;
+                sum += p;
+                sP[qi * PS + tx + 16 * j] = round_to<T>(p);
+            }
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1)
+                sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            l_i[i] = l_i[i] * alpha + sum;
+            m_i[i] = m_new;
+#pragma unroll
+            for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
+        }
+        __syncthreads();
+
+#pragma unroll 4
+        for (int kx = 0; kx < B; ++kx) {
+            float vk[CD];
+#pragma unroll
+            for (int c = 0; c < CD; ++c) vk[c] = sV[kx * DP + tx + 16 * c];
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+                const float p = sP[(ty + 16 * i) * PS + kx];
+#pragma unroll
+                for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(p, vk[c], acc[i][c]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        const int r = q0 + ty + 16 * i;
+        if (r >= T_) continue;
+        const float l = fmaxf(l_i[i], 1e-30f);
+        T* o = out + (base + r) * D;
+#pragma unroll
+        for (int c = 0; c < CD; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] / l);
+        if (tx == 0) lse[base + r] = m_i[i] + logf(l);
+    }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
+                   const int* kpos, void* out, float* lse, int G, int T_, int C, float scale,
+                   float self_bias, cudaStream_t stream) {
+    const size_t smem = smem_bytes<D>();
+    auto kern = k3_tiled<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3((T_ + B - 1) / B, G), NT, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, qpos, kpos, (T*)out, lse, T_, C, scale,
+        self_bias);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* qpos,
+                     const int* kpos, void* out, float* lse, int G, int T_, int C,
+                     float scale, float self_bias, cudaStream_t st) {
+    switch (D) {
+        case 16: return launch<T, 16>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                      self_bias, st);
+        case 32: return launch<T, 32>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                      self_bias, st);
+        case 64: return launch<T, 64>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                      self_bias, st);
+        case 128: return launch<T, 128>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                        self_bias, st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace tiled
+
 template <typename T, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kpos, void* out, float* lse, int G, int T_, float scale,
@@ -522,9 +720,10 @@ cudaError_t launch_c(int C, int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q/k/v [G, T, D] (dtype 0 = f32, 1 = bf16), qpos/kpos int32 [G, T]; out
-// [G, T, D] in that dtype, lse [G, T] f32.  T % chunk == 0; chunk 32 or 64;
-// D 16, 32 or 64.  f32 runs the FMA kernel, bf16 the tensor-core one.
+// q/k/v [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32 [G, T];
+// out [G, T, D] in that dtype, lse [G, T] f32.  T % chunk == 0; D 16, 32, 64
+// or 128.  Chunks 32 and 64 at D <= 64 run the FMA kernel in f32 and the
+// tensor-core one in bf16; every other chunk, D 128 and f16 run k3_tiled.
 // Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void* v,
                                        const void* qpos, const void* kpos, void* out,
@@ -534,12 +733,22 @@ extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void*
     const int* qp = (const int*)qpos;
     const int* kp = (const int*)kpos;
     float* l = (float*)lse;
-    if (T % chunk) return (int)cudaErrorInvalidValue;
-    if (dtype == 0)
+    if (chunk <= 0 || T % chunk) return (int)cudaErrorInvalidValue;
+    const bool fixed = (chunk == 32 || chunk == 64) && D <= 64;
+    if (fixed && dtype == 0)
         return (int)launch_c<float>(chunk, D, q, k, v, qp, kp, out, l, G, T, scale, self_bias,
                                     st);
-    if (dtype == 1)
+    if (fixed && dtype == 1)
         return (int)launch_c<__nv_bfloat16>(chunk, D, q, k, v, qp, kp, out, l, G, T, scale,
+                                            self_bias, st);
+    if (dtype == 0)
+        return (int)tiled::launch_d<float>(D, q, k, v, qp, kp, out, l, G, T, chunk, scale,
+                                           self_bias, st);
+    if (dtype == 1)
+        return (int)tiled::launch_d<__nv_bfloat16>(D, q, k, v, qp, kp, out, l, G, T, chunk,
+                                                   scale, self_bias, st);
+    if (dtype == 2)
+        return (int)tiled::launch_d<__half>(D, q, k, v, qp, kp, out, l, G, T, chunk, scale,
                                             self_bias, st);
     return (int)cudaErrorInvalidValue;
 }

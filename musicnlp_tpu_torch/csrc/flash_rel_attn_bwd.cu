@@ -30,10 +30,12 @@
 // Tiles in the future, behind the window or inside the empty memory slots
 // are skipped, as in K1; ragged T and S are zero-filled and masked.
 //
-// f32 (k2_dkdv_kernel, k2_dq_kernel): operands sit in shared memory as f32
-// rows padded to H+1 floats; products are f32 FMAs (150 KB / 133 KB of
-// shared memory at H = 64, one 256-thread block per SM).  Kept as it is: the
-// f32 parity of the tests rests on it, and TF32 would break it.
+// FMA (k2_dkdv_kernel, k2_dq_kernel), for f32, for f16 and for every dtype
+// at H = 128: operands sit in shared memory as f32 rows padded to H+1
+// floats; products are f32 FMAs (150 KB / 133 KB of shared memory at H = 64,
+// one 256-thread block per SM; 32 x 32 tiles at H = 128, 124 KB / 120 KB).
+// The f32 parity of the tests rests on it, and TF32 would break it; f16 and
+// the 128-wide heads run on it until the tensor-core kernels take them.
 //
 // bf16 (k2_dkdv_tc, k2_dq_tc), the training path: every product (AC, BD, dP,
 // dV, dK, dRW, dRR, dG) is an mma.sync m16n8k16 (bf16 in, f32 accumulate) on
@@ -62,33 +64,24 @@
 //
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "elem.cuh"
 #include "mma_bf16.cuh"
 #include "row_dot.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per tile
+constexpr int BQ = 64;          // query rows per tile (the FMA kernels: fma_tile)
 constexpr int BK = 64;          // keys per tile
-constexpr int NG = BQ + BK - 1; // distance-table rows a tile pair touches
-constexpr int NT = 256;         // threads: a 16 x 16 grid, 4 x 4 scores each
-constexpr int RQ = BQ / 16;     // query rows per thread
-constexpr int CK = BK / 16;     // key columns per thread
-constexpr int PS = BK + 1;      // row stride of the P / dS tiles
+constexpr int NT = 256;         // FMA threads: a 16 x 16 grid, 4 x 4 or 2 x 2 scores each
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+using namespace elem;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_f(from_f<T>(x));
-}
+// the FMA kernels' square tile: 64 up to H = 64, 32 at H = 128, where five
+// 64-row f32 operands and the table rows would take 264 KB of shared memory
+template <int H> __host__ __device__ constexpr int fma_tile() { return H > 64 ? 32 : 64; }
 
 // rows [r0, r0 + n) of a [len, H] matrix into shared f32 rows of stride H+1,
 // zero outside [0, len)
@@ -100,12 +93,14 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n, i
     }
 }
 
-// the 4 x 4 scores s (unscaled) and dp = dO.v of thread (tx, ty): rows
-// ty + 16 i of the q tile, columns tx + 16 j of the key tile, G row 63 - qi + ki
-template <int H>
+// the B/16 x B/16 scores s (unscaled) and dp = dO.v of thread (tx, ty): rows
+// ty + 16 i of the q tile, columns tx + 16 j of the key tile, G row B-1 - qi + ki
+template <int H, int B>
 __device__ __forceinline__ void scores(const float* sQw, const float* sQr, const float* sDO,
                                        const float* sK, const float* sV, const float* sG,
-                                       int tx, int ty, float (&s)[RQ][CK], float (&dp)[RQ][CK]) {
+                                       int tx, int ty, float (&s)[B / 16][B / 16],
+                                       float (&dp)[B / 16][B / 16]) {
+    constexpr int BQ = B, RQ = B / 16, CK = B / 16;
     constexpr int HP = H + 1;
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
@@ -146,14 +141,16 @@ __device__ __forceinline__ bool visible(int q, int k, int T_, int S, int M, int 
 
 template <int H>
 constexpr size_t dkdv_smem_floats() {
-    // sK, sV, sQw, sQr, sDO [64][H+1]; sG [127][H+1]; sP, sDS [64][65]; lse, delta
-    return 5 * (size_t)BQ * (H + 1) + (size_t)NG * (H + 1) + 2 * (size_t)BQ * PS + 2 * BQ;
+    // sK, sV, sQw, sQr, sDO [B][H+1]; sG [2B-1][H+1]; sP, sDS [B][B+1]; lse, delta
+    constexpr size_t B = fma_tile<H>();
+    return 5 * B * (H + 1) + (2 * B - 1) * (H + 1) + 2 * B * (B + 1) + 2 * B;
 }
 
 template <int H>
 constexpr size_t dq_smem_floats() {
-    // sQw, sQr, sDO, sK, sV [64][H+1]; sG [127][H+1]; sDS [64][65]; lse, delta
-    return 5 * (size_t)BQ * (H + 1) + (size_t)NG * (H + 1) + (size_t)BQ * PS + 2 * BQ;
+    // sQw, sQr, sDO, sK, sV [B][H+1]; sG [2B-1][H+1]; sDS [B][B+1]; lse, delta
+    constexpr size_t B = fma_tile<H>();
+    return 5 * B * (H + 1) + (2 * B - 1) * (H + 1) + B * (B + 1) + 2 * B;
 }
 
 template <typename T, int H>
@@ -163,6 +160,8 @@ k2_dkdv_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __re
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ mv_ptr,
                int mv_const, int N, int T_, int S, int M, float scale, int window) {
+    constexpr int BQ = fma_tile<H>(), BK = BQ;    // shadow the tensor-core tiles
+    constexpr int NG = BQ + BK - 1, RQ = BQ / 16, CK = BK / 16, PS = BK + 1;
     constexpr int HP = H + 1;
     constexpr int CH = H / 16;          // dk / dv columns per thread
     extern __shared__ float smem[];
@@ -222,7 +221,7 @@ k2_dkdv_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __re
         __syncthreads();
 
         float s[RQ][CK], dp[RQ][CK];
-        scores<H>(sQw, sQr, sDO, sK, sV, sG, tx, ty, s, dp);
+        scores<H, BQ>(sQw, sQr, sDO, sK, sV, sG, tx, ty, s, dp);
 #pragma unroll
         for (int i = 0; i < RQ; ++i) {
             const int qi = ty + 16 * i;
@@ -281,6 +280,8 @@ k2_dq_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __rest
              T* __restrict__ drw, T* __restrict__ drr, float* __restrict__ dg,
              const int* __restrict__ mv_ptr, int mv_const, int N, int T_, int S, int M,
              float scale, int window) {
+    constexpr int BQ = fma_tile<H>(), BK = BQ;    // shadow the tensor-core tiles
+    constexpr int NG = BQ + BK - 1, RQ = BQ / 16, CK = BK / 16, PS = BK + 1;
     constexpr int HP = H + 1;
     constexpr int CH = H / 16;          // drw / drr columns per thread
     extern __shared__ float smem[];
@@ -329,7 +330,7 @@ k2_dq_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __rest
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
         const int k0 = kt * BK;
-        const int u_lo = T_ - q0 - BQ + k0;             // G row of (qi = 63, ki = 0)
+        const int u_lo = T_ - q0 - BQ + k0;             // G row of (qi = BQ-1, ki = 0)
         __syncthreads();                                 // previous tile's reads done
         stage<T, H>(sK, k_b, k0, BK, S);
         stage<T, H>(sV, v_b, k0, BK, S);
@@ -337,7 +338,7 @@ k2_dq_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __rest
         __syncthreads();
 
         float s[RQ][CK], dp[RQ][CK];
-        scores<H>(sQw, sQr, sDO, sK, sV, sG, tx, ty, s, dp);
+        scores<H, BQ>(sQw, sQr, sDO, sK, sV, sG, tx, ty, s, dp);
 #pragma unroll
         for (int i = 0; i < RQ; ++i) {
             const int qi = ty + 16 * i;
@@ -351,7 +352,7 @@ k2_dq_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __rest
         }
         __syncthreads();
 
-        // drw += ds k,  drr += ds G[63 - qi + ki]
+        // drw += ds k,  drr += ds G[BQ - 1 - qi + ki]
 #pragma unroll 4
         for (int kx = 0; kx < BK; ++kx) {
             float kv[CH];
@@ -370,7 +371,7 @@ k2_dq_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __rest
             }
         }
 
-        // dG row u_lo + r (r = 63 - qi + ki) += sum over its diagonal of ds rr[qi]
+        // dG row u_lo + r (r = BQ - 1 - qi + ki) += sum over its diagonal of ds rr[qi]
         for (int e = tid; e < NG * H; e += NT) {
             const int r = e / H, c = e % H, u = u_lo + r;
             if (u < 0 || u >= T_ + S) continue;
@@ -888,12 +889,13 @@ cudaError_t launch(const Args& a) {
     const T *rw = (const T*)a.rw, *rr = (const T*)a.rr, *k = (const T*)a.k, *v = (const T*)a.v,
             *g = (const T*)a.g, *dout = (const T*)a.dout;
     const float *lse = (const float*)a.lse, *delta = (const float*)a.delta;
-    kv<<<dim3((a.S + BK - 1) / BK, a.BN), NT, smem_kv, a.stream>>>(
+    constexpr int B = fma_tile<H>();
+    kv<<<dim3((a.S + B - 1) / B, a.BN), NT, smem_kv, a.stream>>>(
         rw, rr, k, v, g, dout, lse, delta, (float*)a.dk, (float*)a.dv, a.mv_ptr, a.mv_const,
         a.N, a.T, a.S, a.M, a.scale, a.window);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    kq<<<dim3((a.T + BQ - 1) / BQ, a.BN), NT, smem_q, a.stream>>>(
+    kq<<<dim3((a.T + B - 1) / B, a.BN), NT, smem_q, a.stream>>>(
         rw, rr, k, v, g, dout, lse, delta, (T*)a.drw, (T*)a.drr, (float*)a.dg, a.mv_ptr,
         a.mv_const, a.N, a.T, a.S, a.M, a.scale, a.window);
     return cudaGetLastError();
@@ -905,6 +907,7 @@ cudaError_t launch_h(int H, const Args& a) {
         case 16: return launch<T, 16>(a);
         case 32: return launch<T, 32>(a);
         case 64: return launch<T, 64>(a);
+        case 128: return launch<T, 128>(a);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -946,12 +949,13 @@ cudaError_t launch_tc_h(int H, const Args& a) {
 }  // namespace
 
 // rw/rr/dout [BN, T, H], k/v [BN, S, H], g [N, T+S, H] in one dtype (0 = f32,
-// 1 = bf16); lse/delta [BN, T] f32.  Writes drw/drr [BN, T, H] in that dtype,
-// dk/dv [BN, S, H] f32, and ADDS into dg [N, T+S, H] f32 (the caller zeroes
-// it).  mem_valid is read from the device int32 at mv_ptr, or is mv_const
-// when mv_ptr is null; window <= 0 is no window.  Launches both kernels on
-// `stream`; returns the first cudaGetLastError() that is not cudaSuccess.
-// f32 runs the FMA kernels, bf16 the tensor-core ones.
+// 1 = bf16, 2 = f16; H 16, 32, 64 or 128); lse/delta [BN, T] f32.  Writes
+// drw/drr [BN, T, H] in that dtype, dk/dv [BN, S, H] f32, and ADDS into dg
+// [N, T+S, H] f32 (the caller zeroes it).  mem_valid is read from the device
+// int32 at mv_ptr, or is mv_const when mv_ptr is null; window <= 0 is no
+// window.  Launches both kernels on `stream`; returns the first
+// cudaGetLastError() that is not cudaSuccess.  bf16 at H <= 64 runs the
+// tensor-core kernels, everything else the FMA ones.
 extern "C" int flash_rel_attn_bwd(const void* rw, const void* rr, const void* k, const void* v,
                                   const void* g, const void* dout, const void* lse,
                                   const void* delta, void* drw, void* drr, void* dk, void* dv,
@@ -961,12 +965,13 @@ extern "C" int flash_rel_attn_bwd(const void* rw, const void* rr, const void* k,
     Args a{rw, rr, k, v, g, dout, lse, delta, drw, drr, dk, dv, dg, (const int*)mv_ptr,
            mv_const, BN, N, T, S, M, scale, window, (cudaStream_t)stream};
     if (dtype == 0) return (int)launch_h<float>(H, a);
-    if (dtype == 1) return (int)launch_tc_h(H, a);
+    if (dtype == 1) return (int)(H <= 64 ? launch_tc_h(H, a) : launch_h<__nv_bfloat16>(H, a));
+    if (dtype == 2) return (int)launch_h<__half>(H, a);
     return (int)cudaErrorInvalidValue;
 }
 
 // delta[r] = dout[r] . out[r] in f32 over rows [rows, H] of one dtype (0 =
-// f32, 1 = bf16): the input `delta` of flash_rel_attn_bwd, for its wrapper.
+// f32, 1 = bf16, 2 = f16): the input `delta` of flash_rel_attn_bwd, for its wrapper.
 // Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_rel_attn_bwd_delta(const void* dout, const void* out, void* delta,
                                         long long rows, int H, int dtype, void* stream) {

@@ -25,11 +25,13 @@
 // shape (BN 96) 19.3 GFLOP and 66 MB bound it about equally (0.0196 / 0.0198
 // ms).
 //
-// f32 (flash_rel_attn_fwd_kernel): 256 threads, a 16 x 16 grid of 4 x 4
-// scores; K, V and the 127 table rows of a tile pair staged as f32 rows of
-// stride H+1; every product an f32 FMA from shared memory (shared-memory
-// wavefronts limit it).  Kept as it is: the f32 parity checks and the
-// card-vs-CPU f32 gradients rest on it.
+// FMA (flash_rel_attn_fwd_kernel), for f32, for f16 and for every dtype at
+// H = 128: 256 threads, a 16 x 16 grid of 4 x 4 scores on 64 x 64 tiles (2 x
+// 2 on 32 x 32 tiles at H = 128, 99 KB of shared memory); K, V and the 2B - 1
+// table rows of a tile pair staged as f32 rows of stride H+1; every product
+// an f32 FMA from shared memory (shared-memory wavefronts limit it).  The f32
+// parity checks and the card-vs-CPU f32 gradients rest on it; f16 and the
+// 128-wide heads run on it until the tensor-core kernel takes them.
 //
 // bf16 (k1_tc), the training and scoring path: four warps, warp w owns q
 // rows 16w..16w+15.  AC = Qw . K^T, BD and PV are mma.sync m16n8k16 (bf16 in,
@@ -54,41 +56,32 @@
 // warps' BD staging 21 KB -- 102 KB, two blocks (eight warps) per SM.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "elem.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
+constexpr int BQ = 64;          // query rows per block (the FMA kernel: fma_tile)
 constexpr int BK = 64;          // keys per tile
-constexpr int NT = 256;         // threads: a 16 x 16 grid, 4 x 4 scores each
-constexpr int RQ = BQ / 16;     // query rows per thread
-constexpr int CK = BK / 16;     // key columns per thread
+constexpr int NT = 256;         // FMA threads: a 16 x 16 grid, 4 x 4 or 2 x 2 scores each
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+using namespace elem;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-// p as the PV product sees it: rounded to v's dtype
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_f(from_f<T>(x));
-}
+// the FMA kernel's square tile: 64 up to H = 64, 32 at H = 128 (64-row f32
+// tiles of 128 values would leave one block per SM)
+template <int H> __host__ __device__ constexpr int fma_tile() { return H > 64 ? 32 : 64; }
 
 template <int H>
 constexpr size_t smem_floats() {
-    // sQw, sQr, sK, sV: [64][H+1] each; sG: [BQ+BK][H+1], reused as P [BQ][BK+1]
-    return 4 * (size_t)BQ * (H + 1)
-        + ((size_t)(BQ + BK) * (H + 1) > (size_t)BQ * (BK + 1)
-               ? (size_t)(BQ + BK) * (H + 1) : (size_t)BQ * (BK + 1));
+    // sQw, sQr, sK, sV: [B][H+1] each; sG: [2B][H+1], reused as P [B][B+1]
+    constexpr size_t B = fma_tile<H>();
+    return 4 * B * (H + 1) + (2 * B * (H + 1) > B * (B + 1) ? 2 * B * (H + 1) : B * (B + 1));
 }
 
 template <typename T, int H>
@@ -99,6 +92,8 @@ flash_rel_attn_fwd_kernel(const T* __restrict__ rw, const T* __restrict__ rr,
                           float* __restrict__ lse, const int* __restrict__ mv_ptr,
                           int mv_const, int N, int T_, int S, int M, float scale,
                           int window) {
+    constexpr int BQ = fma_tile<H>(), BK = BQ;    // shadow the tensor-core tiles
+    constexpr int RQ = BQ / 16, CK = BK / 16;
     constexpr int HP = H + 1;
     constexpr int CH = H / 16;          // context columns per thread
     constexpr int PS = BK + 1;          // P row stride
@@ -146,7 +141,7 @@ flash_rel_attn_fwd_kernel(const T* __restrict__ rw, const T* __restrict__ rr,
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
         const int k0 = kt * BK;
-        const int u_lo = T_ - q0 - BQ + k0;             // G row of (qi=63, ki=0)
+        const int u_lo = T_ - q0 - BQ + k0;             // G row of (qi=BQ-1, ki=0)
         __syncthreads();                                 // previous tile's P / V reads done
         for (int e = tid; e < BK * H; e += NT) {
             const int r = e / H, c = e % H, k = k0 + r;
@@ -159,7 +154,7 @@ flash_rel_attn_fwd_kernel(const T* __restrict__ rw, const T* __restrict__ rr,
         }
         __syncthreads();
 
-        // scores: row qi = ty + 16 i, column ki = tx + 16 j, G row 63 - qi + ki
+        // scores: row qi = ty + 16 i, column ki = tx + 16 j, G row BQ - 1 - qi + ki
         float s[RQ][CK];
 #pragma unroll
         for (int i = 0; i < RQ; ++i)
@@ -493,7 +488,7 @@ cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
                    const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
                    int BN, int N, int T_, int S, int M, float scale, int window,
                    cudaStream_t stream) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {    // the tensor-core kernel
+    if constexpr (std::is_same_v<T, __nv_bfloat16> && H <= 64) {    // the tensor-core kernel
         return tc::launch<H>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN, N, T_, S, M,
                              scale, window, stream);
     } else {
@@ -502,7 +497,8 @@ cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
         cudaError_t err = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
-        dim3 grid((T_ + BQ - 1) / BQ, BN);
+        constexpr int B = fma_tile<H>();
+        dim3 grid((T_ + B - 1) / B, BN);
         kern<<<grid, NT, smem, stream>>>(
             (const T*)rw, (const T*)rr, (const T*)k, (const T*)v, (const T*)g, (T*)out, lse,
             mv_ptr, mv_const, N, T_, S, M, scale, window);
@@ -522,17 +518,20 @@ cudaError_t launch_h(int H, const void* rw, const void* rr, const void* k, const
                                       BN, N, T_, S, M, scale, window, st);
         case 64: return launch<T, 64>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
                                       BN, N, T_, S, M, scale, window, st);
+        case 128: return launch<T, 128>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
+                                        BN, N, T_, S, M, scale, window, st);
         default: return cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// rw/rr [BN, T, H], k/v [BN, S, H], g [N, T+S, H] (dtype 0 = f32, 1 = bf16);
-// out [BN, T, H] in that dtype, lse [BN, T] f32.  mem_valid is read from the
-// device int32 at mv_ptr, or is mv_const when mv_ptr is null.  window <= 0 is
-// no window.  f32 runs the FMA kernel, bf16 the tensor-core one.  Launches on
-// `stream`; returns cudaGetLastError() of the launch.
+// rw/rr [BN, T, H], k/v [BN, S, H], g [N, T+S, H] (dtype 0 = f32, 1 = bf16,
+// 2 = f16; H 16, 32, 64 or 128); out [BN, T, H] in that dtype, lse [BN, T]
+// f32.  mem_valid is read from the device int32 at mv_ptr, or is mv_const
+// when mv_ptr is null.  window <= 0 is no window.  bf16 at H <= 64 runs the
+// tensor-core kernel, everything else the FMA kernel.  Launches on `stream`;
+// returns cudaGetLastError() of the launch.
 extern "C" int flash_rel_attn_fwd(const void* rw, const void* rr, const void* k,
                                   const void* v, const void* g, void* out, void* lse,
                                   const void* mv_ptr, int mv_const, int BN, int N,
@@ -547,5 +546,8 @@ extern "C" int flash_rel_attn_fwd(const void* rw, const void* rr, const void* k,
     if (dtype == 1)
         return (int)launch_h<__nv_bfloat16>(H, rw, rr, k, v, g, out, l, mv, mv_const, BN, N,
                                             T, S, M, scale, window, st);
+    if (dtype == 2)
+        return (int)launch_h<__half>(H, rw, rr, k, v, g, out, l, mv, mv_const, BN, N, T, S, M,
+                                     scale, window, st);
     return (int)cudaErrorInvalidValue;
 }

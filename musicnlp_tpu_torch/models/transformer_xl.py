@@ -14,9 +14,12 @@ attention layer of `forward` runs through kernels K1 (forward) and K2
 versions).  Like the TPU kernels, they have no key-padding mask and no
 attention-probability dropout, so a forward with `attn_mask` or with
 `dropatt > 0` runs every layer through the plain `ops/attention.rel_attn`,
-as the JAX model does.  With `remat_attn` each layer's fused attention is
-recomputed in the backward (`ops/layers.remat`).  Dropout draws come from an
-explicit `torch.Generator`.  HF `TransfoXLLMHeadModel` checkpoints come in
+as the JAX model does.  Every other forward launches K1 / K2, in f32, bf16
+or f16, at any head dim up to 128 (`fused_rel_attn` zero-pads one outside
+16 / 32 / 64 / 128; a wider head raises on the card).  With `remat_attn`
+each layer's fused attention is recomputed in the backward
+(`ops/layers.remat`).  Dropout draws come from an explicit
+`torch.Generator`.  HF `TransfoXLLMHeadModel` checkpoints come in
 through `utils/hf_import.from_hf_transfo_xl` (the adaptive head, HF's
 `same_length` window as `attn_window`).
 """

@@ -3,7 +3,8 @@
 Counterpart of `musicnlp_tpu/ops/chunked_attention.py`.  Both run their
 window attention through `chunked_window_attn` (K3 forward, K4 backward; on
 CPU tensors the plain versions), so no [n, c, 2c] score tensor reaches device
-memory on the card.
+memory on the card.  A head dim outside the kernels' 16 / 32 / 64 / 128 runs
+zero-padded to the next of them (`_window_attn`).
 
 LSH attention hashes shared query-keys by an argmax over random rotations
 (`lsh_rotations`: JAX's own draws, reproduced in numpy), sorts each hash
@@ -21,8 +22,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from musicnlp_tpu_torch.ops.chunked_attention_kernel import NEG_INF, chunked_window_attn
+from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
+    NEG_INF, chunked_window_attn, kernel_head_dim,
+)
 from musicnlp_tpu_torch.utils import jax_rng
 
 __all__ = ['local_attention', 'lsh_attention', 'lsh_rotations', 'lsh_buckets', 'NEG_INF',
@@ -90,6 +94,18 @@ class _UnpermuteRounds(torch.autograd.Function):
         return _take_rows(g, idx), None, None
 
 
+def _window_attn(q, k, v, qpos, kpos, *, chunk: int, scale: float, self_bias: float = 0.0):
+    """`chunked_window_attn` at the head dim K3 / K4 run: zero columns add
+    nothing to a score, and the context's padded columns are dropped."""
+    D = q.shape[-1]
+    pad = kernel_head_dim(D) - D
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    ctx, lse = chunked_window_attn(q, k, v, qpos, kpos, chunk=chunk, scale=scale,
+                                   self_bias=self_bias)
+    return (ctx[..., :D] if pad else ctx), lse
+
+
 def _heads(x: torch.Tensor) -> torch.Tensor:
     """[B, H, T, D] -> dense [B*H, T, D] rows."""
     B, H, T, D = x.shape
@@ -113,8 +129,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, chunk:
         kpos = kp1.repeat_interleave(H, dim=0).to(torch.int32).contiguous()
     else:
         kpos = qpos
-    ctx, _ = chunked_window_attn(_heads(q), _heads(k), _heads(v), qpos, kpos, chunk=chunk,
-                                 scale=1.0 / (D ** 0.5))
+    ctx, _ = _window_attn(_heads(q), _heads(k), _heads(v), qpos, kpos, chunk=chunk,
+                          scale=1.0 / (D ** 0.5))
     return ctx.reshape(B, H, T, D)
 
 
@@ -159,7 +175,7 @@ def lsh_attention(qk: torch.Tensor, v: torch.Tensor, *, chunk: int, n_hashes: in
         kpos = kpos.reshape(G * R, T)
     else:
         kpos = qpos
-    out_s, lse = chunked_window_attn(
+    out_s, lse = _window_attn(
         qk_s.reshape(G * R, T, D).contiguous(), k_s.reshape(G * R, T, D).contiguous(),
         v_s.reshape(G * R, T, D).contiguous(), qpos, kpos, chunk=chunk, scale=1.0,
         self_bias=SELF_BIAS)

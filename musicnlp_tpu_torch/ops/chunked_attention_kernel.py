@@ -25,14 +25,22 @@ query; pad queries keep their positions.
   * `ChunkedWindowAttn` is the autograd Function (K3 forward, K4 backward);
     `chunked_window_attn` applies it with the JAX package's signature.  Both
     outputs carry gradients: the LSH round combine differentiates lse.
+  * The kernels take any chunk that divides T and head dims 16, 32, 64 and
+    128 (`SUPPORTED_HEAD_DIMS`) in f32, bf16 and f16, which covers every call
+    the JAX `_kernel_ok` sends to its TPU kernel (chunk and head dim
+    multiples of 8) once `ops/chunked_attention` zero-pads a head dim up to
+    the next of them; a head dim above 128 raises on the card.
 
 Bound on the H100 (SXM, 700 W): at the 22-04 LSH shape (G = 32*12*2 = 768,
 T 2048, D 64, c 64, bf16) K3 moves ~0.82 GB (q, k, v, positions in; ctx and
 lse out: 0.25 ms at 3.35 TB/s) for ~52 GFLOP (0.05 ms at 989 TFLOP/s), and
-K4 ~1.8 GB (0.55 ms): both are bound by bytes.  Both run bf16 inputs on the
-tensor cores (mma.sync over runs of consecutive chunks, each chunk loaded
-once per run; `k3_tc`, `k4_tc`) and f32 inputs on f32 FMAs; `chip_smoke.py`
-measures both against that bound.
+K4 ~1.8 GB (0.55 ms): both are bound by bytes.  At chunks 32 and 64 and
+head dims up to 64 both run bf16 inputs on the tensor cores (mma.sync over
+runs of consecutive chunks, each chunk loaded once per run; `k3_tc`,
+`k4_tc`) and f32 inputs on f32 FMAs; every other chunk, head dim 128 and f16
+run the tiled f32-FMA kernels (`k3_tiled`, `k4_dq_tiled` /
+`k4_dkdv_tiled`: flash attention over 64-row tiles of the windows).
+`chip_smoke.py` measures them against that bound.
 """
 from __future__ import annotations
 
@@ -43,20 +51,26 @@ import torch
 
 __all__ = ['chunked_window_attn', 'chunked_window_attn_fwd', 'chunked_window_attn_fwd_plain',
            'chunked_window_attn_bwd', 'chunked_window_attn_bwd_plain', 'ChunkedWindowAttn',
-           'visible_pairs', 'LAUNCHES', 'NEG_INF', 'SUPPORTED_CHUNKS', 'SUPPORTED_HEAD_DIMS']
+           'kernel_head_dim', 'visible_pairs', 'LAUNCHES', 'NEG_INF', 'SUPPORTED_HEAD_DIMS']
 
 LAUNCHES = {'chunked_window_attn_fwd': 0, 'chunked_window_attn_bwd': 0}
 NEG_INF = -1e9
-SUPPORTED_CHUNKS = (32, 64)
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _NO_LOOKBACK = torch.iinfo(torch.int32).max
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
 _DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
+
+
+def kernel_head_dim(d_head: int) -> int:
+    """The head dim the kernels run `d_head` at: the smallest of
+    `SUPPORTED_HEAD_DIMS` that holds it (the rest zero-padded), or d_head
+    itself above 128 (the launch check then raises)."""
+    return next((h for h in SUPPORTED_HEAD_DIMS if h >= d_head), d_head)
 
 
 # ------------------------------------------------------------- plain versions
@@ -151,20 +165,20 @@ def _check(q, k, v, qpos, kpos, chunk: int):
         raise ValueError(f'T = {T} is not a multiple of the chunk {chunk}')
 
 
-def _cuda_args(name: str, floats, ints, chunk: int):
+def _cuda_args(name: str, floats, ints):
     """Checks CUDA inputs for a launch -> (device, dtype code)."""
     dev = floats[0].device
     if dev.type != 'cuda' or any(t.device != dev for t in floats + ints):
         raise ValueError(f'{name}: all inputs on one CUDA device, or all on CPU')
     dtype = floats[0].dtype
     if dtype not in _DTYPE_CODE or any(t.dtype != dtype for t in floats):
-        raise TypeError(f'{name} takes float32 or bfloat16 inputs of one dtype, got '
+        raise TypeError(f'{name} takes float32, bfloat16 or float16 inputs of one dtype, got '
                         f'{[t.dtype for t in floats]}')
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f'{name} takes int32 positions')
-    if floats[0].shape[-1] not in SUPPORTED_HEAD_DIMS or chunk not in SUPPORTED_CHUNKS:
-        raise ValueError(f'{name} takes head dims {SUPPORTED_HEAD_DIMS} and chunks '
-                         f'{SUPPORTED_CHUNKS}, got D {floats[0].shape[-1]}, chunk {chunk}')
+    if floats[0].shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f'{name} takes head dims {SUPPORTED_HEAD_DIMS}, got '
+                         f'{floats[0].shape[-1]}')
     if not all(t.is_contiguous() for t in floats + ints):
         raise ValueError(f'{name} takes contiguous inputs')
     return dev, _DTYPE_CODE[dtype]
@@ -182,7 +196,7 @@ def chunked_window_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if all(t.device.type == 'cpu' for t in (q, k, v, qpos, kpos)):
         return chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, chunk=chunk, scale=scale,
                                              self_bias=self_bias)
-    dev, code = _cuda_args('K3', (q, k, v), (qpos, kpos), chunk)
+    dev, code = _cuda_args('K3', (q, k, v), (qpos, kpos))
     G, T, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(G, T, dtype=torch.float32, device=dev)
@@ -216,7 +230,7 @@ def chunked_window_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if all(t.device.type == 'cpu' for t in tensors):
         return chunked_window_attn_bwd_plain(q, k, v, qpos, kpos, out, d_out, lse, d_lse,
                                              chunk=chunk, scale=scale, self_bias=self_bias)
-    dev, code = _cuda_args('K4', (q, k, v, out, d_out), (qpos, kpos), chunk)
+    dev, code = _cuda_args('K4', (q, k, v, out, d_out), (qpos, kpos))
     if any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
            for t in (lse, d_lse)):
         raise ValueError('K4 takes lse and d_lse as contiguous f32 on the inputs\' device')
@@ -274,3 +288,4 @@ def chunked_window_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q/k/v: [G, T, D]; qpos/kpos: int32 [G, T] (kpos = T for padding).
     Returns (ctx [G, T, D], lse f32 [G, T])."""
     return ChunkedWindowAttn.apply(q, k, v, qpos, kpos, chunk, float(scale), float(self_bias))
+

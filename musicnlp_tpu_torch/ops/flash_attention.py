@@ -15,6 +15,11 @@ backward `_make_bwd_fused` (reached through `_flash_bwd`) with
   * `FlashRelAttn` is the autograd Function: K1 forward, K2 backward.
   * `fused_rel_attn` is the drop-in for `ops.attention.rel_attn` around it:
     projections, the distance table, output projection, residual, layer norm.
+  * The kernels take head dims 16, 32, 64 and 128 (`SUPPORTED_HEAD_DIMS`) in
+    f32, bf16 and f16.  `fused_rel_attn` zero-pads any other head dim up to
+    128 to the next of them (`kernel_head_dim`; the scale stays the layer's),
+    so every layer the JAX model's `_flash_ok` sends to its TPU kernel
+    launches K1 / K2 here; a head dim above 128 raises on the card.
 
 Bound on the H100 (SXM, 700 W): at the TF-XL base scoring shape (B*N = 96,
 T = S = 1024, H = 64, bf16, causal) K1 must move ~66 MB (inputs read once,
@@ -22,10 +27,11 @@ ctx and lse written once: 0.0198 ms at 3.35 TB/s) and do ~19.3 GFLOP (three
 H-long products per visible (q, k) pair: AC, BD and PV; 0.0196 ms at 989
 TFLOP/s), so bytes and tensor-core operations bound it about equally.  K2
 does 8 H-long products per visible pair, so operations bound it (see its
-source).  Both kernels run bf16 inputs on the tensor cores (mma.sync, bf16
-shared tiles, cp.async; `k1_tc`, `k2_dkdv_tc` / `k2_dq_tc`) and f32 inputs
-on f32 FMAs, which the f32 parity checks rest on; the dtype picks the
-kernel inside each C entry point.
+source).  Both kernels run bf16 inputs at H <= 64 on the tensor cores
+(mma.sync, bf16 shared tiles, cp.async; `k1_tc`, `k2_dkdv_tc` / `k2_dq_tc`)
+and everything else -- f32, which the f32 parity checks rest on, f16, and H
+128 in any dtype -- on f32 FMAs; dtype and H pick the kernel inside each C
+entry point.
 
 The distance table g_tab [N, T+S, H] stays a plain matmul outside the kernels
 (as on the TPU): row u holds W_r^T R(clip((M+T-1) - u, 0, clamp_len)), so the
@@ -39,17 +45,18 @@ import ctypes
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from musicnlp_tpu_torch.ops.attention import NEG_INF, project_qkv
 from musicnlp_tpu_torch.ops.layers import Params, dropout, layer_norm, sinusoid_pos_emb
 
 __all__ = ['flash_rel_attn_fwd', 'flash_rel_attn_fwd_plain', 'flash_rel_attn_bwd',
            'flash_rel_attn_bwd_plain', 'FlashRelAttn', 'fused_rel_attn', 'distance_table',
-           'LAUNCHES', 'SUPPORTED_HEAD_DIMS']
+           'kernel_head_dim', 'LAUNCHES', 'SUPPORTED_HEAD_DIMS']
 
 LAUNCHES = {'flash_rel_attn_fwd': 0, 'flash_rel_attn_bwd': 0}
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                            ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
@@ -58,6 +65,13 @@ _DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctyp
                                            ctypes.c_void_p]
 
 MemValid = Union[int, torch.Tensor]
+
+
+def kernel_head_dim(d_head: int) -> int:
+    """The head dim the kernels run `d_head` at: the smallest of
+    `SUPPORTED_HEAD_DIMS` that holds it (the rest zero-padded), or d_head
+    itself above 128 (the launch check then raises)."""
+    return next((h for h in SUPPORTED_HEAD_DIMS if h >= d_head), d_head)
 
 
 def _key_mask(T: int, S: int, M: int, mem_valid: MemValid, window: int, device):
@@ -157,7 +171,7 @@ def _launch_args(name: str, tensors, mem_valid: MemValid):
         raise ValueError(f'{name}: all inputs on one CUDA device, or all on CPU')
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_CODE or any(t.dtype != dtype for t in tensors):
-        raise TypeError(f'{name} takes float32 or bfloat16 inputs of one dtype, got '
+        raise TypeError(f'{name} takes float32, bfloat16 or float16 inputs of one dtype, got '
                         f'{[t.dtype for t in tensors]}')
     H = tensors[0].shape[-1]
     if H not in SUPPORTED_HEAD_DIMS:
@@ -296,7 +310,9 @@ def fused_rel_attn(
     """Drop-in fused replacement for ops.attention.rel_attn, differentiable
     through K1 / K2.  Like the TPU kernels it has no attention-probability
     dropout and no key padding mask (the JAX model sends those cases to the
-    plain `rel_attn`)."""
+    plain `rel_attn`).  A head dim outside `SUPPORTED_HEAD_DIMS` runs
+    zero-padded to `kernel_head_dim`: the padded columns add nothing to a
+    score, their context columns are dropped, and their gradients are zero."""
     dtype = x.dtype
     B, T, d_model = x.shape
     n_head, d_head = p['r_w_bias'].shape
@@ -323,8 +339,13 @@ def fused_rel_attn(
     k3 = k.transpose(1, 2).reshape(BN, S, d_head).contiguous()
     v3 = v.transpose(1, 2).reshape(BN, S, d_head).contiguous()
     g_tab = distance_table(p['r'], T, S, M, clamp_len, dtype)
+    pad = kernel_head_dim(d_head) - d_head
+    if pad:
+        rw3, rr3, k3, v3, g_tab = (F.pad(t, (0, pad)) for t in (rw3, rr3, k3, v3, g_tab))
 
     ctx3 = FlashRelAttn.apply(rw3, rr3, k3, v3, g_tab, mem_valid, M, scale, int(window or 0))
+    if pad:
+        ctx3 = ctx3[..., :d_head]
     ctx = ctx3.reshape(B, n_head, T, d_head).transpose(1, 2).reshape(B, T, -1)
     out = (ctx @ p['o'].to(dtype).reshape(-1, d_model)).to(dtype)
     out = dropout(out, dropout_rate, generator, deterministic)

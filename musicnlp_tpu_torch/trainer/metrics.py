@@ -45,6 +45,11 @@ class IkrMetric:
         ids = torch.clamp(labels[:, 2], 0, len(self.id2key_ordinal) - 1).long()
         return torch.clamp(table[ids], min=0)
 
+    def key_ordinals_from_labels(self, labels) -> np.ndarray:
+        """int32 [B] numpy: `key_ordinals` under the JAX package's name and
+        types (numpy or tensor labels in, numpy out)."""
+        return self.key_ordinals(_t(labels)).cpu().numpy().astype(np.int32)
+
     def on_device(self, preds: torch.Tensor, labels: torch.Tensor,
                   key_scores: Optional[torch.Tensor] = None) -> torch.Tensor:
         """IKR as a 0-d tensor on the inputs' device (no host sync)."""
@@ -65,6 +70,17 @@ class IkrMetric:
         preds, labels = _t(preds), _t(labels)
         ks = None if key_scores is None else _t(key_scores).float()
         return float(self.on_device(preds, labels.to(preds.device), ks))
+
+    def ground_truth_ikr(self, ids, key_scores, best_key_only: bool = False) -> float:
+        """IKR of the data itself (reference metrics.py:207-247 sanity anchor,
+        ~0.95 on POP909): ids [B, T], key_scores [B, 24]; with best_key_only
+        each song takes its highest-scored key alone."""
+        ids = _t(ids)
+        ks = _t(key_scores).float().to(ids.device)
+        if best_key_only:
+            ks = torch.nn.functional.one_hot(ks.argmax(dim=1), ks.shape[1]).float()
+        return float(ikr_from_ids(ids, ks, torch.as_tensor(self.id_pitch_class, device=ids.device),
+                                  torch.as_tensor(self.key_inkey_mask, device=ids.device)))
 
 
 class ComputeMetrics:

@@ -1,10 +1,17 @@
-"""K1-K6 on the card against their plain versions, and the tiled CE's card
-path (bf16 tiles on the tensor cores) against the dense CE (needs an NVIDIA
-GPU and nvcc).
+"""K1-K6 on the card against their plain versions (K1-K4 also at head dim
+128, in f16 and, for K3 / K4, at chunks other than 32 / 64: ROADMAP C.1),
+the tiled CE's card path (bf16 tiles on the tensor cores) against the dense
+CE, C.1's three model configurations launching K1-K4, a `device_trace` that
+names K1 / K2, and `PitchEmbedding` on the card against the CPU (needs an
+NVIDIA GPU and nvcc).
 
 Run on a GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`;
 elsewhere these tests skip.  `chip_smoke.py` holds both kernels against the
 plain versions at the model's real shapes."""
+import dataclasses
+import time
+
+import numpy as np
 import pytest
 import torch
 
@@ -16,7 +23,10 @@ from musicnlp_tpu_torch.ops.flash_attention import (
     LAUNCHES, FlashRelAttn, distance_table, flash_rel_attn_bwd, flash_rel_attn_bwd_plain,
     flash_rel_attn_fwd, flash_rel_attn_fwd_plain,
 )
+from musicnlp_tpu_torch.preprocess.melody_grid import GridVocab
 from musicnlp_tpu_torch.tools import vpu_roofline as vr
+from musicnlp_tpu_torch.trainer.melody_w2v import PitchEmbedding
+from musicnlp_tpu_torch.utils.profiling import device_trace, step_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -39,9 +49,16 @@ def _inputs(dev, dtype, BN, N, T, M, H, clamp, seed=0):
             distance_table(Wr, T, S, M, clamp, dtype))
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+# output tolerance of the 16-bit dtypes: the output's rounding (bf16 2^-8,
+# f16 2^-11 relative), and p rounded before PV
+TOL16 = {torch.bfloat16: 2e-2, torch.float16: 5e-3}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('H,T,M,mv,window,clamp', [
     (64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17),
+    (128, 96, 64, 17, 40, 33),
 ])
 def test_k1_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
     rw, rr, k, v, g = _inputs(dev, dtype, 6, 3, T, M, H, clamp)
@@ -50,28 +67,30 @@ def test_k1_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
     ref, ref_lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, M=M, scale=H ** -0.5,
                                             window=window)
     torch.cuda.synchronize()
-    tol = 2e-5 if dtype == torch.float32 else 2e-2      # bf16 output rounding
+    tol = 2e-5 if dtype == torch.float32 else TOL16[dtype]
     torch.testing.assert_close(ctx.float(), ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
 
 
-# H, T, M, mem_valid, window, clamp; the last: a ragged T with memory, a
-# window and mem_valid < M (every edge of the bf16 kernels' skew windows)
+# H, T, M, mem_valid, window, clamp; the fourth: a ragged T with memory, a
+# window and mem_valid < M (every edge of the bf16 kernels' skew windows);
+# the last two: the FMA kernels' 32-row tiles at H 128
 CASES = [(64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17),
-         (64, 200, 100, 37, 150, 64)]
+         (64, 200, 100, 37, 150, 64), (128, 96, 64, 17, 40, 33), (128, 200, 100, 37, 150, 64)]
 
 
 def _rel_err(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('H,T,M,mv,window,clamp', CASES)
 def test_k2_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
     """Every K2 output against the plain backward on the same inputs, error
     relative to the output's largest entry: f32 sums in other orders (dG by
-    atomics, in an order that changes from run to run) -> 1e-5; bf16 also
-    rounds p and ds, and a rounding that flips moves one ulp -> 2e-2."""
+    atomics, in an order that changes from run to run) -> 1e-5; bf16 / f16
+    also round p and ds, and a rounding that flips moves one ulp -> 2e-2 /
+    5e-3."""
     rw, rr, k, v, g = _inputs(dev, dtype, 6, 3, T, M, H, clamp)
     mvt = torch.tensor(mv, dtype=torch.int32, device=dev)
     scale = H ** -0.5
@@ -84,7 +103,7 @@ def test_k2_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
                                     window=window)
     torch.cuda.synchronize()
     assert LAUNCHES['flash_rel_attn_bwd'] == before + 1
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    tol = 1e-5 if dtype == torch.float32 else TOL16[dtype]
     for name, a, b in zip(('drw', 'drr', 'dk', 'dv', 'dG'), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
@@ -147,15 +166,21 @@ CHUNKED = [   # G, T, D, chunk, perm, pads, scale, self_bias
     # several runs of consecutive chunks per row (the bf16 kernel's blocks),
     # the last a run of one chunk
     (2, 1088, 64, 64, False, 0, 0.125, 0.0), (2, 2176, 16, 32, True, 11, 1.0, -1e5),
+    # the tiled kernels: chunk 128 (a 64-row tile inside one chunk), D 128,
+    # chunk 16 and 8 (a tile over several chunks), a ragged last tile
+    (3, 512, 64, 128, True, 7, 1.0, -1e5), (2, 384, 128, 128, False, 0, 0.088, 0.0),
+    (2, 256, 128, 64, True, 3, 1.0, -1e5), (3, 160, 32, 16, True, 9, 1.0, -1e5),
+    (2, 200, 16, 8, False, 4, 0.25, 0.0),
 ]
 
 
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('G,T,D,chunk,perm,pads,scale,self_bias', CHUNKED)
 def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_bias):
     """K3 (ctx, lse) and K4 (dq, dk, dv with a nonzero lse cotangent) against
-    their plain versions: f32 sums in other orders -> 1e-5; bf16 rounds p and
-    ds, and a rounding that flips moves one ulp -> 2e-2 of each output's max."""
+    their plain versions: f32 sums in other orders -> 1e-5; bf16 / f16 round
+    p and ds, and a rounding that flips moves one ulp -> 2e-2 / 5e-3 of each
+    output's max."""
     q, k, v, qpos, kpos = _chunked_inputs(dev, dtype, G, T, D, perm, pads)
     kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
     before = dict(ck.LAUNCHES)
@@ -168,7 +193,7 @@ def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_b
     want = ck.chunked_window_attn_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {n: before[n] + 1 for n in before}
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    tol = 1e-5 if dtype == torch.float32 else TOL16[dtype]
     assert _rel_err(out, ref) <= tol and float((lse - ref_lse).abs().max()) <= 1e-3
     for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
@@ -270,3 +295,95 @@ def test_tiled_ce_matches_dense_on_card(dev, dtype):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for a, e in zip(grads, ref_grads):
         assert float((a.float() - e.float()).abs().max() / e.float().abs().max()) < tol
+
+
+def _c1_model(name):
+    """(card model, CPU model): C.1's three configurations at a small size."""
+    if name == 'tfxl-d128':
+        cfg = TransfoXLConfig.from_size('debug', vocab_size=422, d_model=256, n_head=2,
+                                        d_head=128, n_layer=2, dtype='float32')
+        return TransfoXL(cfg), TransfoXL(cfg, device='cpu')
+    if name == 'tfxl-fp16':
+        cfg = TransfoXLConfig.from_size('debug', vocab_size=422, n_layer=2, dtype='float16')
+        return TransfoXL(cfg), TransfoXL(dataclasses.replace(cfg, dtype='float32'), device='cpu')
+    cfg = ReformerConfig.from_size('debug-large', vocab_size=422, dtype='float32',
+                                   attn_layers=('local', 'local'), local_chunk=128)
+    return Reformer(cfg), Reformer(cfg, device='cpu')
+
+
+@pytest.mark.parametrize('name', ['tfxl-d128', 'tfxl-fp16', 'reformer-chunk128'])
+def test_c1_shapes_launch_the_kernels_on_the_card(dev, name):
+    """C.1: a head dim 128, float16, and a Reformer chunk of 128 launch K1 /
+    K2 or K3 / K4 once per layer, forward and backward, and the logits equal
+    the CPU's f32 logits: 1e-4 of the max in f32, 2e-2 in f16 (FP16_REL of
+    tests/test_torch_dispatch.py)."""
+    model, cpu = _c1_model(name)
+    params, cpu_params = model.init(seed=0), cpu.init(seed=0)
+    T = 512 if name.startswith('reformer') else 64
+    ids = torch.randint(0, 422, (2, T), generator=torch.Generator().manual_seed(0))
+    leaf = params['embed']['weight'].requires_grad_(True)
+    LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    ck.LAUNCHES.update(chunked_window_attn_fwd=0, chunked_window_attn_bwd=0)
+    loss, _ = model.loss(params, ids.to(dev), ids.to(dev))
+    (grad,) = torch.autograd.grad(loss, [leaf])
+    torch.cuda.synchronize()
+    launched = (*LAUNCHES.values(), *ck.LAUNCHES.values())
+    assert launched == ((0, 0, 2, 2) if name.startswith('reformer') else (2, 2, 0, 0))
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+    with torch.no_grad():
+        got = model.forward(params, ids.to(dev))
+        want = cpu.forward(cpu_params, ids)
+    got, want = (x[0] if isinstance(x, tuple) else x for x in (got, want))
+    tol = 2e-2 if name == 'tfxl-fp16' else 1e-4
+    assert _rel_err(got.cpu(), want) <= tol
+
+
+def test_launch_checks_refuse_what_the_kernels_do_not_take(dev):
+    """Called directly, the kernel wrappers raise for a head dim above 128
+    and a dtype other than f32 / bf16 / f16."""
+    rw, rr, k, v, g = _inputs(dev, torch.float32, 2, 1, 64, 0, 256, 64)
+    with pytest.raises(ValueError, match='head dims'):
+        flash_rel_attn_fwd(rw, rr, k, v, g, 0, M=0, scale=0.1)
+    f64 = [t.double() for t in _inputs(dev, torch.float32, 2, 1, 64, 0, 64, 64)]
+    with pytest.raises(TypeError, match='float16'):
+        flash_rel_attn_fwd(*f64, 0, M=0, scale=0.1)
+    q, k, v, qpos, kpos = _chunked_inputs(dev, torch.float32, 2, 256, 256, False, 0)
+    with pytest.raises(ValueError, match='head dims'):
+        ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, chunk=128, scale=0.1)
+
+
+def test_device_trace_names_k1_and_k2(dev, tmp_path):
+    """A bf16 TF-XL step (d_head 64) inside `device_trace`, after a warm-up
+    step, a synchronise and a pause: the Chrome trace names k1_tc,
+    k2_dkdv_tc and k2_dq_tc once per layer in the step `step_kernels` reads."""
+    cfg = TransfoXLConfig.from_size('debug', vocab_size=422, d_model=128, n_head=2, d_head=64,
+                                    n_layer=2)
+    model = TransfoXL(cfg)
+    params = model.init(seed=0)
+    leaf = params['layers'][0]['attn']['qkv'].requires_grad_(True)
+    ids = torch.randint(0, 422, (2, 64), device=dev)
+
+    def step():
+        loss, _ = model.loss(params, ids, ids)
+        torch.autograd.grad(loss, [leaf])
+    with device_trace(str(tmp_path)) as path:
+        step()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        step()
+    kernels = step_kernels(path)
+    for name in ('k1_tc', 'k2_dkdv_tc', 'k2_dq_tc'):
+        assert sum(n for k, n in kernels.items() if name in k) == cfg.n_layer, (name, kernels)
+
+
+def test_pitch_embedding_on_the_card_matches_the_cpu(dev):
+    """The same seed on the card and the CPU: emb_in within 1e-4 of its max
+    (`index_add_` sums the row gradients in another order on the card)."""
+    rng = np.random.default_rng(0)
+    songs = [rng.integers(GridVocab.N_SPECIAL + 40, GridVocab.N_SPECIAL + 90, 400).tolist()
+             for _ in range(6)]
+    card = PitchEmbedding(vector_size=32, window=5, seed=3)
+    cpu = PitchEmbedding(vector_size=32, window=5, seed=3, device='cpu')
+    got, want = card(songs, epochs=2, batch_size=1024), cpu(songs, epochs=2, batch_size=1024)
+    assert float(np.abs(got - want).max()) <= 1e-4 * float(np.abs(want).max())
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-5)

@@ -18,8 +18,10 @@ from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
 from musicnlp_tpu_torch.ops.flash_attention import flash_rel_attn_fwd
 from musicnlp_tpu_torch.ops.roofline_kernels import mask_chain, muladd_chain
 from musicnlp_tpu_torch.trainer.eval import MusicGenerator, load_trained
+from musicnlp_tpu_torch.trainer.melody_w2v import PitchEmbedding
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax, save_meta
 from musicnlp_tpu_torch.utils.hf_import import to_hf_reformer
+from musicnlp_tpu_torch.utils.profiling import device_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,7 +34,8 @@ def test_no_jax_in_sys_modules():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split('.')[0] in ('jax', 'jaxlib', 'musicnlp_tpu', 'transformers'))
+                     if m.split('.')[0] in ('jax', 'jaxlib', 'musicnlp_tpu', 'transformers',
+                                            'matplotlib'))
         print(len(names), bad)
         assert not bad, bad
         assert len(names) >= 30, names
@@ -41,11 +44,30 @@ def test_no_jax_in_sys_modules():
                     'native', 'preprocess.music_extractor', 'preprocess.fast_extractor',
                     'preprocess.warning_logger', 'utils.config', 'utils.music_fs',
                     'trainer.wordpiece_tokenizer', 'trainer.pair_merge_tokenizer',
-                    'native._py_wordpiece', 'utils.hf_import'):
+                    'native._py_wordpiece', 'utils.hf_import', '_sample_scores',
+                    'utils.seq_metrics', 'postprocess', 'postprocess.music_stats',
+                    'postprocess.music_visualize', 'postprocess.train_plot',
+                    'utils.profiling', 'preprocess.melody_grid', 'trainer.melody_w2v',
+                    'utils.download'):
             assert pkg.__name__ + '.' + sub in names, sub
     ''')
     # a PATH without nvcc: importing the kernel modules builds nothing
     env = dict(os.environ, PATH='/usr/bin:/bin', PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_postprocess_imports_no_matplotlib():
+    """matplotlib is imported inside the plotting functions only."""
+    code = textwrap.dedent('''
+        import sys
+        import musicnlp_tpu_torch.postprocess
+        from musicnlp_tpu_torch.postprocess import MusicVisualize
+        MusicVisualize([]).stats()
+        assert not [m for m in sys.modules if m.split('.')[0] == 'matplotlib']
+    ''')
+    env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -82,6 +104,12 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match='CUDA'):
         load_trained(str(reformer_run))
     assert Reformer(rcfg, device='cpu').device.type == 'cpu'
+    with pytest.raises(RuntimeError, match='CUDA'):
+        PitchEmbedding()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        with device_trace(str(tmp_path / 'trace')):
+            pass
+    assert PitchEmbedding(device='cpu').device.type == 'cpu'
 
 
 def test_k1_wrapper_refuses_other_devices():

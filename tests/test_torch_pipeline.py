@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from musicnlp_tpu import _sample_scores as samples
 from musicnlp_tpu.io import parse_file as j_parse_file
 from musicnlp_tpu.io.midi import write_midi as j_write_midi
 from musicnlp_tpu.io.musicxml import write_musicxml as j_write_musicxml
@@ -23,6 +22,7 @@ from musicnlp_tpu.preprocess.music_converter import MusicConverter as JConverter
 from musicnlp_tpu.preprocess.music_export import MusicExport, json2dataset as j_json2dataset
 from musicnlp_tpu.trainer import eval as jeval
 from musicnlp_tpu.vocab import MusicTokenizer as JTokenizer
+from musicnlp_tpu_torch import _sample_scores as samples
 from musicnlp_tpu_torch.io import parse_file
 from musicnlp_tpu_torch.io.midi import write_midi
 from musicnlp_tpu_torch.io.musicxml import write_musicxml
