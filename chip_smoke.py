@@ -14,8 +14,12 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device and build: the card's name and power limit, `nvcc` of every
      kernel source in `musicnlp_tpu_torch/csrc/`, all started together; the
      tensor-core instructions (HMMA / HGMMA) in the SASS of each K1-K4
-     kernel -- the bf16 kernels must have some, the FMA ones (f32, f16,
-     head dim 128, K3 / K4's tiled kernels) none;
+     kernel -- the tensor-core kernels must have some (K1 / K3: bf16 at
+     head dims <= 64; K2 / K4: every bf16 and f16 function, at every head
+     dim and chunk), the FMA ones (f32; K1's f16 and head dim 128; k3_tiled)
+     none; each tensor-core K2 / K4 kernel's registers, local (spill)
+     bytes, shared memory and blocks per SM at every head dim in bf16 and
+     f16, read from the loaded library (no spill allowed);
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
      a memory + window case, a head-dim-16 ragged case, the 22-12 shape
@@ -28,8 +32,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      a float mask; for K2 its backward, with the mask requiring grad); K2's
      achieved TFLOP/s (`k2_work`'s operations over its time); and the shapes
      ROADMAP C.1 widened the kernels to, at phase 11's shapes: head dim 128
-     (B 2 x 8 heads, T 1024) in bf16 and f32, f16 at the 22-11 widths, and
-     an f16 head-dim-128 memory + window case;
+     (B 2 x 8 heads, T 1024) in bf16 and f32, f16 at the 22-11 widths, an
+     f16 head-dim-128 memory + window case, and head dim 128 in bf16 at the
+     22-11 batch (B 21 x 6 heads, d_model 768);
   3. the training path, counts set to 0 before and read after:
      `Trainer.train` for one epoch of 6 steps of 21 x 1024 seeded synthetic
      songs (dropout 0.1, warmup-cosine AdamW, eval with a padded final batch,
@@ -54,7 +59,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s; and
      the tiled kernels C.1 added: chunk 128 at phase 11's local shape in
      f32 and bf16, chunk 128 / D 128 in bf16, the LSH shape in f16, chunk 16
-     padded);
+     padded in f32 and in f16);
      `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
      K4 launches per step), `load_trained` + `score_batch` on the
      run, step time, memory and a profile, a 15-step overfit; one f32 step
@@ -157,7 +162,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      `Trainer.train_step` (21 x 1024, bf16) inside `device_trace` after a
      traced warm-up step, 3 times, each Chrome trace naming k1_tc,
      k2_dkdv_tc and k2_dq_tc 12 times in the read step, `StepTimer` over 3
-     more steps, and one 22-04 step at 2 x 2048 (12 K3, 12 K4); on phase
+     more steps, and one 22-04 step at 2 x 2048 (12 K3, 12 K4); one bf16
+     step of the head-dim-128 TF-XL (depth 2, 2 x 1024) and one of the
+     chunk-128 Reformer (depth 2, 2 x 2048) traced the same way, naming
+     k2_dkdv_tc / k2_dq_tc, k4_dq_tc / k4_dkdv_tc (and k4_tc at the LSH
+     layer) and none of K2's FMA or K4's tiled FMA kernels; on phase
      8's run: `summarize_run` of its
      22-04 train log, `MusicVisualize` reports and `MusicStats` of its
      generated songs, `ground_truth_ikr` of its dataset on the card and the
@@ -173,6 +182,7 @@ Without CUDA, or without the package beside it, it fails before any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import hashlib
 import io
@@ -180,6 +190,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -192,7 +203,7 @@ import torch
 
 from musicnlp_tpu_torch import cli
 from musicnlp_tpu_torch.io import parse_file, read_midi
-from musicnlp_tpu_torch.kernels.build import build_all
+from musicnlp_tpu_torch.kernels.build import build_all, lib_path
 from musicnlp_tpu_torch.models import reformer as reformer_module
 from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
@@ -268,17 +279,25 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # version's f64 product and sum are exact, so it rounds once per pass, as
 # the FMA does)
 
-# the tensor-core kernels of K1-K4 (bf16, head dims to 64; K3 / K4 at
-# chunks 32 and 64) and their FMA kernels, by name in each library's SASS
+# the tensor-core kernels of K1-K4 and their FMA kernels, by name in each
+# library's SASS: K1 / K3 run bf16 at head dims to 64 (K3 at chunks 32 and
+# 64) on the tensor cores; K2 / K4 run every bf16 and f16 call there (K4's
+# k4_tc at chunks 32 / 64 and D <= 64, its tiled split k4_dq_tc / k4_dkdv_tc
+# elsewhere), each templated on the element type
 TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',),
               'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc'),
               'chunked_window_attn_fwd': ('k3_tc',),
-              'chunked_window_attn_bwd': ('k4_tc',)}
+              'chunked_window_attn_bwd': ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc')}
 FMA_KERNELS = {'flash_rel_attn_fwd': ('flash_rel_attn_fwd_kernel',),
                'flash_rel_attn_bwd': ('k2_dkdv_kernel', 'k2_dq_kernel'),
                'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel', 'k3_tiled'),
                'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel', 'k4_dq_tiled',
                                            'k4_dkdv_tiled')}
+# the libraries whose tensor-core kernels take both 16-bit types, and each
+# dtype's fragment of a mangled template name
+BOTH_16_BIT = ('flash_rel_attn_bwd', 'chunked_window_attn_bwd')
+DTYPE_MANGLED = {torch.bfloat16: '__nv_bfloat16', torch.float16: '6__half',
+                 torch.float32: 'If'}
 SASS_MMA = {}                                    # library -> {function: HMMA + HGMMA}, phase 1
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out')
@@ -355,10 +374,11 @@ def profile(fn) -> dict:
 
 
 def tensor_core_check(report):
-    """HMMA / HGMMA instructions in the SASS of every K1-K4 kernel: each bf16
-    tensor-core kernel must have some (an FMA-only build is not the
-    tensor-core design), the FMA kernels none (the f32 parity rests on f32
-    FMAs)."""
+    """HMMA / HGMMA instructions in the SASS of every K1-K4 kernel: each
+    tensor-core kernel must have some in every instantiation (an FMA-only
+    build is not the tensor-core design), and K2's / K4's must be
+    instantiated for bf16 and for f16; the FMA kernels none (the f32 parity
+    rests on f32 FMAs)."""
     for lib, tc_names in TC_KERNELS.items():
         SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
         for name in tc_names + FMA_KERNELS[lib]:
@@ -366,17 +386,94 @@ def tensor_core_check(report):
             if not fns or (name in tc_names and min(fns) == 0) or \
                     (name not in tc_names and any(fns)):
                 raise AssertionError(f'{lib}: tensor-core instructions of {name}: {counts}')
+            if name in tc_names and lib in BOTH_16_BIT and not all(
+                    any(name in f and DTYPE_MANGLED[d] in f for f in counts)
+                    for d in (torch.bfloat16, torch.float16)):
+                raise AssertionError(f'{lib}: {name} is not built for bf16 and f16: {counts}')
     log(f'[sass] HMMA/HGMMA per kernel function: {json.dumps(SASS_MMA)}')
     report['sass_tensor_core_instructions'] = dict(SASS_MMA)
 
 
-def mma_instructions(lib, tc, template_args):
+# (chunk, D) of K4's tensor-core kernels whose resources phase 1 reads: the
+# per-chunk kernel k4_tc and the tiled split
+K4_RESOURCE_SHAPES = ((32, 16), (32, 32), (64, 64), (16, 32), (128, 64), (128, 128))
+
+
+def ptxas_spills(log: str) -> dict:
+    """{mangled function: (spill store bytes, spill load bytes)} from the
+    `-Xptxas=-v` output of an nvcc build."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
+def kernel_resources(report, built):
+    """Registers, local bytes (stack), dynamic shared memory and resident
+    blocks per SM of each tensor-core K2 / K4 kernel at every head dim in
+    bf16 and f16 (K4 at `K4_RESOURCE_SHAPES`), as the loaded libraries
+    report them (`*_resources`: cudaFuncGetAttributes and the occupancy
+    query), and the spill bytes ptxas reported for every instantiation in
+    this run's build (`built`); raises if one spills or cannot run."""
+    out = (ctypes.c_int * 10)()
+    k2 = ctypes.CDLL(str(lib_path('flash_rel_attn_bwd')))
+    k2.flash_rel_attn_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    k4 = ctypes.CDLL(str(lib_path('chunked_window_attn_bwd')))
+    k4.chunked_window_attn_bwd_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    rows = []
+
+    def read(err, names, **shape):
+        if err:
+            raise AssertionError(f'resources of {names} at {shape}: CUDA error {err}')
+        for i, name in enumerate(names):
+            r = out[5 * i:5 * i + 5]
+            rows.append(dict(kernel=name, **shape, registers=r[0], local_bytes=r[1],
+                             smem_bytes=r[2], blocks_per_sm=r[3], threads=r[4]))
+    for code, dt in ((1, 'bf16'), (2, 'f16')):
+        for H in fa.SUPPORTED_HEAD_DIMS:
+            read(k2.flash_rel_attn_bwd_resources(H, code, out), ('k2_dkdv_tc', 'k2_dq_tc'),
+                 dtype=dt, H=H)
+        for chunk, D in K4_RESOURCE_SHAPES:
+            names = (('k4_tc',) if chunk in (32, 64) and D <= 64
+                     else ('k4_dq_tc', 'k4_dkdv_tc'))
+            read(k4.chunked_window_attn_bwd_resources(chunk, D, code, out), names, dtype=dt,
+                 chunk=chunk, D=D)
+    for r in rows:
+        log(f'[resources] {json.dumps(r)}')
+    spills = {}
+    for lib in BOTH_16_BIT:
+        if built[lib]['cached']:
+            log(f'[resources] {lib}: built before this run, ptxas spills not read')
+            continue
+        spills.update({f: sp for f, sp in ptxas_spills(built[lib]['ptxas']).items()
+                       if any(n in f for n in TC_KERNELS[lib])})
+    log(f'[resources] ptxas spill bytes (stores, loads) of {len(spills)} tensor-core K2 / K4 '
+        f'functions: {sorted(set(spills.values()))}')
+    report['k2_k4_tensor_core_resources'] = dict(rows=rows, spills=spills)
+    bad = [r for r in rows if r['blocks_per_sm'] < 1] + \
+        [f for f, sp in spills.items() if any(sp)]
+    if bad:
+        raise AssertionError(f'tensor-core K2 / K4 kernels that spill or cannot run: {bad}')
+
+
+def mma_instructions(lib, tc, template_args, dtype):
     """Tensor-core instructions of the kernels a call of `lib` runs -- its
     tensor-core kernels if `tc`, else its FMA ones -- at these template
-    arguments (a mangled-name fragment)."""
+    arguments (a mangled-name fragment) and this dtype."""
     names = TC_KERNELS[lib] if tc else FMA_KERNELS[lib]
     return sum(c for f, c in SASS_MMA[lib].items()
-               if template_args in f and any(n in f for n in names))
+               if template_args in f and DTYPE_MANGLED[dtype] in f and any(n in f for n in names))
+
+
+def bwd_tc(dtype) -> bool:
+    """Whether K2 / K4 run a call on their tensor-core kernels: every bf16
+    and f16 call, at each head dim and chunk; f32 runs the FMA kernels."""
+    return dtype != torch.float32
 
 
 # ------------------------------------------------------------------ K1 cases
@@ -435,7 +532,8 @@ def k1_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=err,
                lse_max_abs_err=lse_err, tol_ctx=tol['ctx'], tol_lse=tol['lse'],
                tensor_core_instructions=mma_instructions(
-                   'flash_rel_attn_fwd', dtype == torch.bfloat16 and H <= 64, f'Li{H}E'))
+                   'flash_rel_attn_fwd', dtype == torch.bfloat16 and H <= 64, f'Li{H}E',
+                   dtype))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=M, scale=scale,
                                                           window=window))
@@ -507,7 +605,7 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=max(errs.values()),
                abs_err=errs, rel_err=rel, tol_rel=TOL_K2[dtype],
                tensor_core_instructions=mma_instructions(
-                   'flash_rel_attn_bwd', dtype == torch.bfloat16 and H <= 64, f'Li{H}E'))
+                   'flash_rel_attn_bwd', bwd_tc(dtype), f'Li{H}E', dtype))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_bwd(*args, **kw))
         rec['plain_ms'] = time_ms(lambda: fa.flash_rel_attn_bwd_plain(*args, **kw), iters=3)
@@ -842,9 +940,9 @@ def chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed):
             + [p.to(torch.int32).contiguous() for p in (qpos, kpos)])
 
 
-def chunked_tc(dtype, chunk, D) -> bool:
-    """Whether K3 / K4 run this call on their tensor-core kernels (else the
-    f32 FMA kernel or the tiled ones)."""
+def k3_tc(dtype, chunk, D) -> bool:
+    """Whether K3 runs this call on its tensor-core kernel (else the f32 FMA
+    kernel or the tiled one)."""
     return dtype == torch.bfloat16 and chunk in (32, 64) and D <= 64
 
 
@@ -890,7 +988,7 @@ def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
                lsh=lsh, pads=pads, max_abs_err=err, lse_max_abs_err=lse_err,
                tol_ctx=tol['ctx'], tol_lse=tol['lse'],
                tensor_core_instructions=mma_instructions(
-                   'chunked_window_attn_fwd', chunked_tc(dtype, chunk, D), f'Li{D}E'))
+                   'chunked_window_attn_fwd', k3_tc(dtype, chunk, D), f'Li{D}E', dtype))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos,
                                                                        **kw), iters=3)
@@ -931,7 +1029,7 @@ def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
                lsh=lsh, pads=pads, max_abs_err=max(errs.values()), abs_err=errs, rel_err=rel,
                tol_rel=TOL_K4[dtype],
                tensor_core_instructions=mma_instructions(
-                   'chunked_window_attn_bwd', chunked_tc(dtype, chunk, D), f'Li{D}E'))
+                   'chunked_window_attn_bwd', bwd_tc(dtype), f'Li{D}E', dtype))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_bwd(*args, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_bwd_plain(*args, **kw), iters=3)
     ys = sdpa_window_yardstick(q, k, v, qpos, kpos, **kw)
@@ -2759,6 +2857,88 @@ def traced_presets(dev, report):
     torch.cuda.empty_cache()
 
 
+def traced_step(trace_dir, step):
+    """`step` traced after a traced warm-up of it (as `traced_presets` reads
+    a step) -> (counts of the read step, its kernels by name, its ms).  The
+    pause after the warm-up is longer than any idle gap inside a small step
+    (a 20 ms pause is not: a depth-2 step's host gaps reach past it)."""
+    with device_trace(trace_dir) as path:
+        step()                                # absorbs the profiler's losses at the start
+        torch.cuda.synchronize()
+        time.sleep(0.25)                      # the idle gap `step_kernels` reads after
+        t1 = time.perf_counter()
+        _, counts = counted(step)
+        ms = (time.perf_counter() - t1) * 1e3
+    return counts, step_kernels(path), ms
+
+
+def named(kernels, *names):
+    """Launches of the kernels whose names hold each of `names`."""
+    return {n: sum(c for k, c in kernels.items() if n in k) for n in names}
+
+
+def c1_traces(dev, report):
+    """Phase 11.2: one bf16 `Trainer.train_step` of a head-dim-128 TF-XL
+    (d_model 1024, 8 heads, depth 2, 2 x 1024) and one of a Reformer with
+    local_chunk 128 (local + LSH, depth 2, 2 x 2048), each in `device_trace`
+    after a traced warm-up: K2 runs on its tensor-core kernels at head dim
+    128 and K4 on its tensor-core tiled split at chunk 128 (and k4_tc at the
+    LSH layer's 64), by name in the trace, with none of K2's FMA or K4's
+    tiled FMA kernels; K1's FMA kernel and k3_tiled, which this slice leaves
+    as they are, stay."""
+    rec = {}
+    trace_dir = os.path.join(RUN_DIR, 'trace-c1')
+    tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
+    cfg = base_config(n_layer=2, dtype='bfloat16', **D128)
+    rows = SyntheticSongs(tok, 2, SEED + 84)
+    trainer = tr.Trainer(TransfoXL(cfg), tok, rows, None, out_dir=trace_dir,
+                         args=train_args(seed=SEED, batch_size=2))
+    params = params_from_jax(trainer.model.init_flat(SEED), dev)
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    state = trainer.opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(rows.batches(2, seed=1)).items()}
+    counts, kernels, ms = traced_step(trace_dir, lambda: trainer.train_step(params, state, batch))
+    expect(counts, flash_rel_attn_fwd=cfg.n_layer, flash_rel_attn_bwd=cfg.n_layer)
+    rec['tfxl-d128-bf16'] = dict(step_ms=ms, counts=counts, named=named(
+        kernels, 'k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_kernel', 'k2_dq_kernel',
+        'flash_rel_attn_fwd_kernel', 'k1_tc'))
+    want = dict(k2_dkdv_tc=cfg.n_layer, k2_dq_tc=cfg.n_layer, k2_dkdv_kernel=0, k2_dq_kernel=0,
+                flash_rel_attn_fwd_kernel=cfg.n_layer, k1_tc=0)
+    log(f'[trace] C.1 TF-XL d128 bf16 train_step, depth 2, 2 x 1024: {ms:.1f} ms while traced; '
+        f'kernels by name {rec["tfxl-d128-bf16"]["named"]}')
+    if rec['tfxl-d128-bf16']['named'] != want:
+        raise AssertionError(f'C.1 TF-XL d128 bf16 trace: {rec["tfxl-d128-bf16"]["named"]}, '
+                             f'expected {want}')
+    del trainer, params, state, batch
+
+    rcfg = reformer_config(attn_layers=('local', 'lsh'), local_chunk=128)
+    rtok = MusicTokenizer(pitch_kind='midi', model_max_length=rcfg.max_length)
+    rrows = SyntheticSongs(rtok, 2, SEED + 85, length=rcfg.max_length, insert_key=False)
+    trainer = tr.Trainer(Reformer(rcfg), rtok, rrows, None, out_dir=trace_dir,
+                         args=reformer_train_args(batch_size=2, seed=SEED))
+    params = params_from_jax(trainer.model.init_flat(SEED), dev)
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    state = trainer.opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(rrows.batches(2, seed=1)).items()}
+    counts, kernels, ms = traced_step(trace_dir, lambda: trainer.train_step(params, state, batch))
+    expect(counts, chunked_window_attn_fwd=2, chunked_window_attn_bwd=2)
+    rec['reformer-chunk128-bf16'] = dict(step_ms=ms, counts=counts, named=named(
+        kernels, 'k4_dq_tc', 'k4_dkdv_tc', 'k4_tc', 'k4_dq_tiled', 'k4_dkdv_tiled', 'k3_tiled',
+        'k3_tc'))
+    want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k4_dq_tiled=0, k4_dkdv_tiled=0, k3_tiled=1,
+                k3_tc=1)
+    log(f'[trace] C.1 Reformer local_chunk 128 bf16 train_step, depth 2, 2 x 2048: {ms:.1f} ms '
+        f'while traced; kernels by name {rec["reformer-chunk128-bf16"]["named"]}')
+    if rec['reformer-chunk128-bf16']['named'] != want:
+        raise AssertionError(f'C.1 Reformer chunk 128 bf16 trace: '
+                             f'{rec["reformer-chunk128-bf16"]["named"]}, expected {want}')
+    report['c1_traces'] = rec
+    del trainer, params, state, batch
+    torch.cuda.empty_cache()
+
+
 def analysis_checks(dev, report):
     """Phase 11.3, A.8 over phase 8's run: its 22-04 train log summarized,
     its generated songs through `MusicStats` / `MusicVisualize` (reports, no
@@ -2868,6 +3048,7 @@ def analysis_phase(dev, report):
     seconds = {}
     for name, fn in (('c1', lambda: c1_checks(dev, report)),
                      ('traced presets', lambda: traced_presets(dev, report)),
+                     ('traced C.1 steps', lambda: c1_traces(dev, report)),
                      ('analysis', lambda: analysis_checks(dev, report)),
                      ('download', lambda: download_checks(report))):
         t1 = time.perf_counter()
@@ -2900,6 +3081,7 @@ def main() -> int:
     log(f'[build] all kernels, in parallel: {build_s:.1f} s')
     report.update(card=card, build_seconds=build_s)
     tensor_core_check(report)
+    kernel_resources(report, built)
 
     # 2. K1 and K2 against their plain versions on the card
     k1 = [
@@ -2955,7 +3137,10 @@ def main() -> int:
         k2_case(dev, 'd128-f32', torch.float32, 2, 8, 1024, 0, 128, 1024, 0, 0, 32, True),
         k2_case(dev, 'f16', torch.float16, 2, 12, 1024, 0, 64, 1024, 0, 0, 33, True),
         k2_case(dev, 'd128-memory-window-f16', torch.float16, 2, 8, 1000, 512, 128, 96, 300,
-                512, 34, False),
+                512, 34, True),
+        # the 22-11 batch at d_model 768 with head dim 128 (B 21 x 6 heads)
+        k2_case(dev, 'd128-train-bf16', torch.bfloat16, 21, 6, 1024, 0, 128, 1024, 0, 0, 35,
+                True),
     ]
     k1_ms = {c['case']: c.get('ms') for c in k1}
     k2_ms = {c['case']: c.get('ms') for c in k2}
@@ -2997,6 +3182,8 @@ def main() -> int:
         k4_case(dev, 'chunk128-d128-bf16', torch.bfloat16, 16, 2048, 128, 128, True, 40, 143),
         k4_case(dev, 'lsh-f16', torch.float16, 48, 2048, 64, 64, True, 0, 144),
         k4_case(dev, 'chunk16-padded-f32', torch.float32, 8, 480, 32, 16, True, 9, 145),
+        # ragged 64-row tiles over several chunks on the tensor cores
+        k4_case(dev, 'chunk16-padded-f16', torch.float16, 8, 480, 32, 16, True, 9, 146),
     ]
     report.update(k3_cases=k3, k4_cases=k4)
 

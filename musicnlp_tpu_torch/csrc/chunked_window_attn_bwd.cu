@@ -29,19 +29,22 @@
 // of shared memory at C = D = 64, two blocks per SM).  Kept as it is: the
 // f32 parity of the tests rests on it.
 //
-// bf16 (k4_tc), the training path: one block of C / 16 warps per (g, run of
+// bf16 and f16 at chunks 32 / 64, D <= 64 (k4_tc, templated on the element
+// type), the training path: one block of C / 16 warps per (g, run of
 // RUN = 16 consecutive chunks).  It walks the run's chunks in order: the
 // tile (j+1, j) gives dk_j / dv_j and also dq_{j+1}, carried to the next
 // chunk, so a chunk costs two tiles, not three (plus one look-back tile per
 // run for the run's first dq).  Warp w owns query rows 16w.. for S, dP and
 // dq and key rows 16w.. for dk and dv.  S = Q K^T, dP = dO V^T, dq += dS K,
-// dv += P^T dO and dk += dS^T Q are mma.sync m16n8k16 products (bf16 in, f32
-// accumulate; mma_bf16.cuh); the masks, self_bias, the finite NEG_INF, the
-// lse cotangent and the exp stay f32 on the accumulator fragments, and p and
-// ds are rounded to bf16 where they enter a product, as on the TPU.  Q / dO
-// (3 slots) and K / V (2 slots) sit in shared memory as bf16 rows of stride
-// D+8; each chunk is loaded once per run by cp.async, the next chunk's while
-// the current one's tiles compute.  Shared memory ~111 KB at C = D = 64: two
+// dv += P^T dO and dk += dS^T Q are mma.sync m16n8k16 products (bf16 or f16
+// in, f32 accumulate; mma_bf16.cuh); the masks, self_bias, the finite
+// NEG_INF, the lse cotangent and the exp stay f32 on the accumulator
+// fragments, and p and ds are rounded to the input dtype where they enter a
+// product, as on the TPU.  f16 takes this kernel too, not the tiled one
+// below: it costs two tiles per chunk where the tiled split costs about
+// three.  Q / dO (3 slots) and K / V (2 slots) sit in shared memory as b16
+// rows of stride D+8; each chunk is loaded once per run by cp.async, the
+// next chunk's while the current one's tiles compute.  Shared memory ~111 KB at C = D = 64: two
 // blocks (eight warps) per SM.
 //
 #include <cuda_runtime.h>
@@ -51,10 +54,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "elem.cuh"
 #include "mma_bf16.cuh"
+#include "kernel_resources.cuh"
 #include "row_dot.cuh"
 
 namespace {
@@ -63,6 +65,7 @@ constexpr int NT = 256;          // threads: a 16 x 16 grid
 constexpr float kNegInf = -1e9f;
 
 using namespace elem;
+using kernel_resources::resources;
 
 template <int C, int D>
 constexpr size_t bwd_smem_bytes() {
@@ -238,38 +241,37 @@ chunked_window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// ------------------------------------------------- bf16 on the tensor cores
+// ------------------------------------------ bf16 and f16 on the tensor cores
 namespace tc {
 
-using bf16 = __nv_bfloat16;
 using namespace mma_bf16;
 
 constexpr int RUN = 16;                 // consecutive chunks per block
 
 template <int C, int D>
 constexpr size_t smem_bytes() {
-    // Q, dO [3 slots][C][D+8]; K, V [2 slots][C][D+8]; P, dS [C][C+8] bf16;
+    // Q, dO [3 slots][C][D+8]; K, V [2 slots][C][D+8]; P, dS [C][C+8] b16;
     // lse, delta, dlse, qpos [3][C]; kpos [2][C]
     return 2 * (10 * (size_t)C * (D + 8) + 2 * (size_t)C * (C + 8)) + 4 * (4 * 3 * C + 2 * C);
 }
 
-template <int C, int D>
+template <typename E, int C, int D>
 __global__ void __launch_bounds__(2 * C, 2)
-k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-      const bf16* __restrict__ dout, const int* __restrict__ qpos, const int* __restrict__ kpos,
+k4_tc(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+      const E* __restrict__ dout, const int* __restrict__ qpos, const int* __restrict__ kpos,
       const float* __restrict__ lse, const float* __restrict__ delta,
-      const float* __restrict__ dlse, bf16* __restrict__ dq, float* __restrict__ dk,
+      const float* __restrict__ dlse, E* __restrict__ dq, float* __restrict__ dk,
       float* __restrict__ dv, int T_, float scale, float self_bias) {
     constexpr int NT = 2 * C;           // C / 16 warps
     constexpr int DS = D + 8, PS = C + 8;
     constexpr int NB = C / 8;           // key columns: C tiles of 8
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [3][C][DS]: query chunk c in slot c % 3
-    bf16* sO = sQ + 3 * C * DS;                     // dO, the same slots
-    bf16* sK = sO + 3 * C * DS;                     // [2][C][DS]: key chunk c in slot c % 2
-    bf16* sV = sK + 2 * C * DS;
-    bf16* sP = sV + 2 * C * DS;                     // [C][PS]
-    bf16* sDS = sP + C * PS;
+    E* sQ = reinterpret_cast<E*>(smem_raw);         // [3][C][DS]: query chunk c in slot c % 3
+    E* sO = sQ + 3 * C * DS;                        // dO, the same slots
+    E* sK = sO + 3 * C * DS;                        // [2][C][DS]: key chunk c in slot c % 2
+    E* sV = sK + 2 * C * DS;
+    E* sP = sV + 2 * C * DS;                        // [C][PS]
+    E* sDS = sP + C * PS;
     float* sL = reinterpret_cast<float*>(sDS + C * PS);  // [3][C] each, per query slot
     float* sDe = sL + 3 * C;
     float* sDl = sDe + 3 * C;
@@ -309,10 +311,10 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
     // P^T dO and dk += dS^T Q (rows 16w.. of kc) if want_kv
     auto tile = [&](int qc, int kc, bool want_dq, bool want_kv) {
         const int qs = qc % 3, ks = kc % 2;
-        const bf16* tQ = sQ + qs * C * DS;
-        const bf16* tO = sO + qs * C * DS;
-        const bf16* tK = sK + ks * C * DS;
-        const bf16* tV = sV + ks * C * DS;
+        const E* tQ = sQ + qs * C * DS;
+        const E* tO = sO + qs * C * DS;
+        const E* tK = sK + ks * C * DS;
+        const E* tV = sV + ks * C * DS;
         // s = Q K^T, dp = dO V^T: query rows 16w + g (+8), key columns 8b + 2t (+1)
         float s[NB][4], dp[NB][4];
 #pragma unroll
@@ -329,10 +331,10 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
                 uint32_t bk[4], bv[4];
                 load_b(bk, tK, DS, 16 * np, 16 * kk, lane);
                 load_b(bv, tV, DS, 16 * np, 16 * kk, lane);
-                mma(s[2 * np], aq, bk[0], bk[1]);
-                mma(s[2 * np + 1], aq, bk[2], bk[3]);
-                mma(dp[2 * np], ao, bv[0], bv[1]);
-                mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+                mma<E>(s[2 * np], aq, bk[0], bk[1]);
+                mma<E>(s[2 * np + 1], aq, bk[2], bk[3]);
+                mma<E>(dp[2 * np], ao, bv[0], bv[1]);
+                mma<E>(dp[2 * np + 1], ao, bv[2], bv[3]);
             }
         }
 #pragma unroll
@@ -353,7 +355,7 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
                     }
                     const float p = expf(x - l);
                     const float ds = p * ((dp[b][2 * h + e] - de) + dl) * scale;
-                    s[b][2 * h + e] = p;          // rounded to bf16 by `pack`
+                    s[b][2 * h + e] = p;          // rounded to E by `pack`
                     dp[b][2 * h + e] = ds;
                 }
         }
@@ -361,13 +363,13 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
 #pragma unroll
             for (int kk = 0; kk < C / 16; ++kk) {
                 uint32_t a[4];
-                c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+                c_to_a<E>(a, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
                 for (int np = 0; np < D / 16; ++np) {
                     uint32_t bk[4];
                     load_bt(bk, tK, DS, 16 * np, 16 * kk, lane);
-                    mma(dqa[2 * np], a, bk[0], bk[1]);
-                    mma(dqa[2 * np + 1], a, bk[2], bk[3]);
+                    mma<E>(dqa[2 * np], a, bk[0], bk[1]);
+                    mma<E>(dqa[2 * np + 1], a, bk[2], bk[3]);
                 }
             }
         }
@@ -378,8 +380,8 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     const int o = (16 * w + gq + 8 * h) * PS + 8 * b + 2 * t;
-                    *reinterpret_cast<uint32_t*>(sP + o) = pack(s[b][2 * h], s[b][2 * h + 1]);
-                    *reinterpret_cast<uint32_t*>(sDS + o) = pack(dp[b][2 * h], dp[b][2 * h + 1]);
+                    *reinterpret_cast<uint32_t*>(sP + o) = pack<E>(s[b][2 * h], s[b][2 * h + 1]);
+                    *reinterpret_cast<uint32_t*>(sDS + o) = pack<E>(dp[b][2 * h], dp[b][2 * h + 1]);
                 }
             __syncthreads();
 #pragma unroll
@@ -392,16 +394,16 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
                     uint32_t bo[4], bq[4];
                     load_bt(bo, tO, DS, 16 * np, 16 * kq, lane);
                     load_bt(bq, tQ, DS, 16 * np, 16 * kq, lane);
-                    mma(dva[2 * np], ap, bo[0], bo[1]);
-                    mma(dva[2 * np + 1], ap, bo[2], bo[3]);
-                    mma(dka[2 * np], ad, bq[0], bq[1]);
-                    mma(dka[2 * np + 1], ad, bq[2], bq[3]);
+                    mma<E>(dva[2 * np], ap, bo[0], bo[1]);
+                    mma<E>(dva[2 * np + 1], ap, bo[2], bo[3]);
+                    mma<E>(dka[2 * np], ad, bq[0], bq[1]);
+                    mma<E>(dka[2 * np + 1], ad, bq[2], bq[3]);
                 }
             }
         }
     };
 
-    // rows 16w + g (+8) of chunk c: acc (zeroed after) into out, as bf16 or f32
+    // rows 16w + g (+8) of chunk c: acc (zeroed after) into out, as E or f32
     auto store = [&](float (&acc)[D / 8][4], int c, auto* out) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -410,7 +412,8 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
             for (int nb = 0; nb < D / 8; ++nb) {
                 const size_t o = row * D + 8 * nb + 2 * t;
                 if constexpr (sizeof(*out) == 2)
-                    *reinterpret_cast<uint32_t*>(out + o) = pack(acc[nb][2 * h], acc[nb][2 * h + 1]);
+                    *reinterpret_cast<uint32_t*>(out + o) =
+                        pack<E>(acc[nb][2 * h], acc[nb][2 * h + 1]);
                 else
                     *reinterpret_cast<float2*>(out + o) = make_float2(acc[nb][2 * h],
                                                                       acc[nb][2 * h + 1]);
@@ -454,38 +457,41 @@ k4_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
     cp_wait<0>();                       // no copy left in flight
 }
 
-template <int C, int D>
+template <typename E, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const int* qpos, const int* kpos, const float* lse, const float* delta,
                    const float* dlse, void* dq, float* dk, float* dv, int G, int T_,
                    float scale, float self_bias, cudaStream_t stream) {
     const size_t smem = smem_bytes<C, D>();
-    auto kern = k4_tc<C, D>;
+    auto kern = k4_tc<E, C, D>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kern<<<dim3((T_ / C + RUN - 1) / RUN, G), 2 * C, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, qpos, kpos, lse,
-        delta, dlse, (bf16*)dq, dk, dv, T_, scale, self_bias);
+        (const E*)q, (const E*)k, (const E*)v, (const E*)dout, qpos, kpos, lse, delta, dlse,
+        (E*)dq, dk, dv, T_, scale, self_bias);
     return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// ------------------------------------ any chunk, D 128 and f16: the tiled form
-// What the two kernels above do not take -- a chunk other than 32 or 64,
-// D = 128, f16 -- in two FMA kernels over 64-row tiles, as K2's f32 kernels
-// split the work (chunked_window_attn_fwd.cu's k3_tiled is the forward):
+// ------------------------------------------- any chunk and D 128: the tiled form
+// What the two kernels above do not take -- a chunk other than 32 or 64, or
+// D = 128 -- in two kernels over 64-row tiles, as K2's kernels split the
+// work (chunked_window_attn_fwd.cu's k3_tiled is the forward); f32 FMAs for
+// f32 (k4_dq_tiled, k4_dkdv_tiled), the tensor cores for bf16 and f16
+// (k4_dq_tc, k4_dkdv_tc, below):
 //   k4_dq_tiled:   one block per (g, 64 query rows): walks the 64-key tiles
 //                  of the union of its rows' windows, keeps dq in registers;
 //   k4_dkdv_tiled: one block per (g, 64 key rows): walks the 64-row query
 //                  tiles whose windows hold its keys (the queries of chunks
 //                  j and j + 1 for a key of chunk j), keeps dk / dv in
 //                  registers.
-// Both recompute s and dp = dO . v as f32 FMA chains from shared memory, p =
-// exp(s - lse) for a key inside the query's window (0 outside it), ds = p
-// (dp - delta + dlse) scale, and round p and ds to the input dtype where they
-// enter a product.  Shared memory at D = 128: 150 KB / 167 KB.
+// The FMA kernels recompute s and dp = dO . v as f32 FMA chains from shared
+// memory, p = exp(s - lse) for a key inside the query's window (0 outside
+// it), ds = p (dp - delta + dlse) scale, and round p and ds to the input
+// dtype where they enter a product.  Shared memory at D = 128: 150 KB / 167
+// KB.
 namespace tiled {
 
 constexpr int B = 64;              // rows per tile
@@ -772,6 +778,352 @@ k4_dkdv_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
 }
 
+// ---- the same split on the tensor cores, for bf16 and f16 (k4_dq_tc, k4_dkdv_tc)
+// S = Q K^T, dP = dO V^T, dq += dS K, dv += P^T dO and dk += dS^T Q are
+// mma.sync m16n8k16 products (mma_bf16.cuh); the window, the masks,
+// self_bias, kNegInf, the lse cotangent and expf stay f32 on the
+// accumulator fragments, as `prob` computes them above, and p and ds are
+// rounded to the input dtype where they enter a product.  Q, dO, K and V sit
+// in shared memory as b16 rows of stride D+8, loaded by cp.async with zero
+// fill; the next tile's operands load while the current tile computes.  A
+// tile's 64 rows are four 16-row groups; at D <= 64 a group is one warp,
+// at D = 128 two (eight warps per block), which split the group's 64 keys
+// for S and dP and the D columns of each accumulator in halves, so that a
+// lane holds at most 64 f32 of dk and dv.  Shared memory at D = 128: 112 KB
+// (dq, two blocks per SM) and 122 KB (dk / dv, one); at D = 64, 65 / 74 KB
+// (three blocks each).
+template <int D>
+struct Split {
+    static constexpr int SP = D > 64 ? 2 : 1;   // warps per 16-row group
+    static constexpr int NW = (B / 16) * SP;
+    static constexpr int NT = 32 * NW;
+    static constexpr int KW = B / SP;           // keys of a warp's S / dP
+    static constexpr int DW = D / SP;           // accumulator columns of a warp
+    static constexpr int DS = D + 8, PS = B + 8;
+};
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+    // Q, dO [B][DS]; 2 stages of K, V [B][DS]; dS [B][PS], all b16; lse,
+    // delta, dlse [B] f32; qpos [B], 2 stages of kpos [B] int
+    return 2 * (size_t)(6 * B * Split<D>::DS + B * Split<D>::PS) + 4 * (3 * B + B + 2 * B);
+}
+
+template <int D>
+constexpr size_t dkdv_tc_smem_bytes() {
+    // K, V [B][DS]; 2 stages of Q, dO [B][DS]; P, dS [B][PS], all b16; 2
+    // stages of lse, delta, dlse [B] f32 and qpos [B] int; kpos [B] int
+    return 2 * (size_t)(6 * B * Split<D>::DS + 2 * B * Split<D>::PS) + 4 * (2 * 4 * B + B);
+}
+
+// S and dP of group p's 16 rows of tA (Q) / tO (dO) over the warp's keys
+// [KW c, KW c + KW) of tK / tV (C tiles: key columns KW c + 8j .. +7)
+template <typename E, int D>
+__device__ __forceinline__ void qk_dov(float (&s)[Split<D>::KW / 8][4],
+                                       float (&dp)[Split<D>::KW / 8][4], const E* tQ,
+                                       const E* tO, const E* tK, const E* tV, int p, int c,
+                                       int lane) {
+    using mma_bf16::load_a;
+    using mma_bf16::load_b;
+    constexpr int DS = Split<D>::DS, KW = Split<D>::KW;
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t aq[4], ao[4];
+        load_a(aq, tQ, DS, 16 * p, 16 * kk, lane);
+        load_a(ao, tO, DS, 16 * p, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < KW / 16; ++np) {
+            uint32_t bk[4], bv[4];
+            load_b(bk, tK, DS, KW * c + 16 * np, 16 * kk, lane);
+            load_b(bv, tV, DS, KW * c + 16 * np, 16 * kk, lane);
+            mma_bf16::mma<E>(s[2 * np], aq, bk[0], bk[1]);
+            mma_bf16::mma<E>(s[2 * np + 1], aq, bk[2], bk[3]);
+            mma_bf16::mma<E>(dp[2 * np], ao, bv[0], bv[1]);
+            mma_bf16::mma<E>(dp[2 * np + 1], ao, bv[2], bv[3]);
+        }
+    }
+}
+
+// the warp's p or ds entries (rows 16p + g (+8), keys KW c + 8j + 2t (+1))
+// into the b16 tile dst [B][PS], rounded to E
+template <typename E, int D>
+__device__ __forceinline__ void put_tile(E* dst, const float (&x)[Split<D>::KW / 8][4], int p,
+                                         int c, int lane) {
+    constexpr int KW = Split<D>::KW, PS = Split<D>::PS;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint32_t*>(dst + (16 * p + g + 8 * h) * PS + KW * c + 8 * j + 2 * t) =
+                mma_bf16::pack<E>(x[j][2 * h], x[j][2 * h + 1]);
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(Split<D>::NT, Split<D>::SP == 1 ? 3 : 2)
+k4_dq_tc(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+         const E* __restrict__ dout, const int* __restrict__ qpos, const int* __restrict__ kpos,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         const float* __restrict__ dlse, E* __restrict__ dq, int T_, int C, float scale,
+         float self_bias) {
+    using namespace mma_bf16;
+    using SPL = Split<D>;
+    constexpr int DS = SPL::DS, PS = SPL::PS, KW = SPL::KW, DW = SPL::DW, SP = SPL::SP;
+    constexpr int STAGE = 2 * B * DS;               // K, V
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQ = reinterpret_cast<E*>(smem_raw);
+    E* sO = sQ + B * DS;
+    E* sKV = sO + B * DS;                           // stage b: K, V
+    E* sDS = sKV + 2 * STAGE;                       // [B][PS] (SP 2)
+    float* sL = reinterpret_cast<float*>(sDS + B * PS);
+    float* sD = sL + B;
+    float* sDL = sD + B;
+    int* sQp = reinterpret_cast<int*>(sDL + B);
+    int* sKp = sQp + B;                             // stage b: [B]
+
+    const int g = blockIdx.y;
+    const int q0 = blockIdx.x * B;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP;               // 16-row group, warp in the group
+    const int gq = lane >> 2, t = lane & 3;
+    const size_t base = (size_t)g * T_;
+    const E* k_g = k + base * D;
+    const E* v_g = v + base * D;
+
+    const int q_last = min(q0 + B, T_) - 1;
+    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
+    // K, V and the key positions of the tile at k0 into stage b (a key
+    // outside [0, T): INT_MAX, never visible)
+    auto load_k = [&](int k0, int b) {
+        E* st = sKV + b * STAGE;
+        mma_bf16::stage_rows<D>(st, k_g, k0, B, T_, tid, SPL::NT);
+        mma_bf16::stage_rows<D>(st + B * DS, v_g, k0, B, T_, tid, SPL::NT);
+        cp_commit();
+        stage_kpos(sKp + b * B, kpos, base, k0, T_);
+    };
+    mma_bf16::stage_rows<D>(sQ, q + base * D, q0, B, T_, tid, SPL::NT);
+    mma_bf16::stage_rows<D>(sO, dout + base * D, q0, B, T_, tid, SPL::NT);
+    stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
+    load_k(w_lo, 0);
+
+    float dqa[DW / 8][4] = {};          // query rows 16p + g (+8), columns DW c + 8n + 2t
+    for (int k0 = w_lo, it = 0; k0 < w_hi; k0 += B, ++it) {
+        const int b = it & 1;
+        cp_wait<0>();
+        __syncthreads();                // tile it landed; every warp is done with tile it - 1
+        if (k0 + B < w_hi) load_k(k0 + B, b ^ 1);
+        const E* tK = sKV + b * STAGE;
+        const E* tV = tK + B * DS;
+        const int* kp_t = sKp + b * B;
+
+        float s[KW / 8][4], dp[KW / 8][4];
+        qk_dov<E, D>(s, dp, sQ, sO, tK, tV, p, c, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int qi = 16 * p + gq + 8 * h;
+            const int qp = sQp[qi];
+            const float l = sL[qi], de = sD[qi], dl = sDL[qi];
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int kj = KW * c + 8 * j + 2 * t + e;
+                    const float pr = prob(s[j][2 * h + e], q0 + qi, k0 + kj, qp, kp_t[kj], l, C,
+                                          scale, self_bias);
+                    s[j][2 * h + e] = pr;
+                    dp[j][2 * h + e] = pr * (dp[j][2 * h + e] - de + dl) * scale;
+                }
+        }
+        if constexpr (SP == 1) {        // dq += dS K, dS from the accumulators
+#pragma unroll
+            for (int kk = 0; kk < B / 16; ++kk) {
+                uint32_t a[4];
+                c_to_a<E>(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+                for (int np = 0; np < D / 16; ++np) {
+                    uint32_t bk[4];
+                    load_bt(bk, tK, DS, 16 * np, 16 * kk, lane);
+                    mma<E>(dqa[2 * np], a, bk[0], bk[1]);
+                    mma<E>(dqa[2 * np + 1], a, bk[2], bk[3]);
+                }
+            }
+        } else {                        // the group's dS rows through shared memory
+            put_tile<E, D>(sDS, dp, p, c, lane);
+            __syncthreads();
+#pragma unroll
+            for (int kk = 0; kk < B / 16; ++kk) {
+                uint32_t a[4];
+                load_a(a, sDS, PS, 16 * p, 16 * kk, lane);
+#pragma unroll
+                for (int np = 0; np < DW / 16; ++np) {
+                    uint32_t bk[4];
+                    load_bt(bk, tK, DS, DW * c + 16 * np, 16 * kk, lane);
+                    mma<E>(dqa[2 * np], a, bk[0], bk[1]);
+                    mma<E>(dqa[2 * np + 1], a, bk[2], bk[3]);
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = q0 + 16 * p + gq + 8 * h;
+        if (r >= T_) continue;
+        E* o = dq + (base + r) * D + DW * c;
+#pragma unroll
+        for (int n = 0; n < DW / 8; ++n)
+            *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) =
+                pack<E>(dqa[n][2 * h], dqa[n][2 * h + 1]);
+    }
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(Split<D>::NT, Split<D>::SP == 1 ? 2 : 1)
+k4_dkdv_tc(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+           const E* __restrict__ dout, const int* __restrict__ qpos,
+           const int* __restrict__ kpos, const float* __restrict__ lse,
+           const float* __restrict__ delta, const float* __restrict__ dlse,
+           float* __restrict__ dk, float* __restrict__ dv, int T_, int C, float scale,
+           float self_bias) {
+    using namespace mma_bf16;
+    using SPL = Split<D>;
+    constexpr int DS = SPL::DS, PS = SPL::PS, KW = SPL::KW, DW = SPL::DW, SP = SPL::SP;
+    constexpr int STAGE = 2 * B * DS;               // Q, dO
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sK = reinterpret_cast<E*>(smem_raw);
+    E* sV = sK + B * DS;
+    E* sQO = sV + B * DS;                           // stage b: Q, dO
+    E* sP = sQO + 2 * STAGE;                        // [B][PS]
+    E* sDS = sP + B * PS;
+    float* sL = reinterpret_cast<float*>(sDS + B * PS);   // stage b: lse, delta, dlse [B]
+    int* sQp = reinterpret_cast<int*>(sL + 2 * 3 * B);    // stage b: [B]
+    int* sKp = sQp + 2 * B;
+
+    const int g = blockIdx.y;
+    const int k0 = blockIdx.x * B;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP;               // 16-row group, warp in the group
+    const int gq = lane >> 2, t = lane & 3;
+    const size_t base = (size_t)g * T_;
+    const E* q_g = q + base * D;
+    const E* do_g = dout + base * D;
+
+    // the query rows whose windows hold a key of [k0, k_last]
+    const int k_last = min(k0 + B, T_) - 1;
+    const int r_lo = (k0 / C) * C, r_hi = min((k_last / C + 2) * C, T_);
+    // Q, dO and the row terms of the query tile at q0 into stage b
+    auto load_q = [&](int q0, int b) {
+        E* st = sQO + b * STAGE;
+        mma_bf16::stage_rows<D>(st, q_g, q0, B, T_, tid, SPL::NT);
+        mma_bf16::stage_rows<D>(st + B * DS, do_g, q0, B, T_, tid, SPL::NT);
+        cp_commit();
+        float* sl = sL + b * 3 * B;
+        stage_rows(sQp + b * B, sl, sl + B, sl + 2 * B, qpos, lse, delta, dlse, base, q0, T_);
+    };
+    mma_bf16::stage_rows<D>(sK, k + base * D, k0, B, T_, tid, SPL::NT);
+    mma_bf16::stage_rows<D>(sV, v + base * D, k0, B, T_, tid, SPL::NT);
+    stage_kpos(sKp, kpos, base, k0, T_);
+    load_q(r_lo, 0);
+
+    // key rows 16p + g (+8), columns DW c + 8n + 2t
+    float dka[DW / 8][4] = {}, dva[DW / 8][4] = {};
+    for (int q0 = r_lo, it = 0; q0 < r_hi; q0 += B, ++it) {
+        const int b = it & 1;
+        cp_wait<0>();
+        __syncthreads();                // tile it landed; every warp is done with tile it - 1
+        if (q0 + B < r_hi) load_q(q0 + B, b ^ 1);
+        const E* tQ = sQO + b * STAGE;
+        const E* tO = tQ + B * DS;
+        const float* sl = sL + b * 3 * B;
+        const int* qp_t = sQp + b * B;
+
+        float s[KW / 8][4], dp[KW / 8][4];
+        qk_dov<E, D>(s, dp, tQ, tO, sK, sV, p, c, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int qi = 16 * p + gq + 8 * h, r = q0 + qi;
+            const int qp = qp_t[qi];
+            const float l = sl[qi], de = sl[B + qi], dl = sl[2 * B + qi];
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int kj = KW * c + 8 * j + 2 * t + e, wk = k0 + kj;
+                    const float pr = (r < T_ && wk < T_)
+                        ? prob(s[j][2 * h + e], r, wk, qp, sKp[kj], l, C, scale, self_bias)
+                        : 0.f;
+                    s[j][2 * h + e] = pr;
+                    dp[j][2 * h + e] = pr * (dp[j][2 * h + e] - de + dl) * scale;
+                }
+        }
+        put_tile<E, D>(sP, s, p, c, lane);
+        put_tile<E, D>(sDS, dp, p, c, lane);
+        __syncthreads();                // every warp's P / dS entries are written
+
+        // dv += P^T dO, dk += dS^T Q over the tile's 64 query rows
+#pragma unroll
+        for (int kq = 0; kq < B / 16; ++kq) {
+            uint32_t ap[4], ad[4];
+            load_at(ap, sP, PS, 16 * p, 16 * kq, lane);
+            load_at(ad, sDS, PS, 16 * p, 16 * kq, lane);
+#pragma unroll
+            for (int np = 0; np < DW / 16; ++np) {
+                uint32_t bo[4], bq[4];
+                load_bt(bo, tO, DS, DW * c + 16 * np, 16 * kq, lane);
+                load_bt(bq, tQ, DS, DW * c + 16 * np, 16 * kq, lane);
+                mma<E>(dva[2 * np], ap, bo[0], bo[1]);
+                mma<E>(dva[2 * np + 1], ap, bo[2], bo[3]);
+                mma<E>(dka[2 * np], ad, bq[0], bq[1]);
+                mma<E>(dka[2 * np + 1], ad, bq[2], bq[3]);
+            }
+        }
+    }
+    cp_wait<0>();                       // no copy left in flight
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int wk = k0 + 16 * p + gq + 8 * h;
+        if (wk >= T_) continue;
+        float* dk_r = dk + (base + wk) * D + DW * c;
+        float* dv_r = dv + (base + wk) * D + DW * c;
+#pragma unroll
+        for (int n = 0; n < DW / 8; ++n) {
+            *reinterpret_cast<float2*>(dk_r + 8 * n + 2 * t) =
+                make_float2(dka[n][2 * h], dka[n][2 * h + 1]);
+            *reinterpret_cast<float2*>(dv_r + 8 * n + 2 * t) =
+                make_float2(dva[n][2 * h], dva[n][2 * h + 1]);
+        }
+    }
+}
+
+template <typename E, int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* dout,
+                      const int* qpos, const int* kpos, const float* lse, const float* delta,
+                      const float* dlse, void* dq, float* dk, float* dv, int G, int T_, int C,
+                      float scale, float self_bias, cudaStream_t stream) {
+    const size_t smem_q = dq_tc_smem_bytes<D>(), smem_kv = dkdv_tc_smem_bytes<D>();
+    auto kq = k4_dq_tc<E, D>;
+    auto kv = k4_dkdv_tc<E, D>;
+    cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_q);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((T_ + B - 1) / B, G);
+    const E *q_ = (const E*)q, *k_ = (const E*)k, *v_ = (const E*)v, *do_ = (const E*)dout;
+    kq<<<grid, Split<D>::NT, smem_q, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse,
+                                               (E*)dq, T_, C, scale, self_bias);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kv<<<grid, Split<D>::NT, smem_kv, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse,
+                                                dk, dv, T_, C, scale, self_bias);
+    return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const int* qpos, const int* kpos, const float* lse, const float* delta,
@@ -828,9 +1180,10 @@ struct Args {
 
 template <typename T, int C, int D>
 cudaError_t run(const Args& a) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>)      // the tensor-core kernel
-        return tc::launch<C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
-                                a.dlse, a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias, a.st);
+    if constexpr (sizeof(T) == 2)                         // the tensor-core kernel
+        return tc::launch<T, C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
+                                   a.dlse, a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias,
+                                   a.st);
     else
         return launch<T, C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
                                a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias, a.st);
@@ -855,23 +1208,62 @@ cudaError_t run_c(int C, int D, const Args& a) {
     }
 }
 
+// the tiled split: f32 FMAs for T = float, the tensor cores for bf16 / f16
+template <typename T, int D>
+cudaError_t run_tiled_d(int C, const Args& a) {
+    if constexpr (sizeof(T) == 2)
+        return tiled::launch_tc<T, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
+                                      a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C, a.scale,
+                                      a.self_bias, a.st);
+    else
+        return tiled::launch<T, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
+                                   a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C, a.scale, a.self_bias,
+                                   a.st);
+}
+
 template <typename T>
 cudaError_t run_tiled(int C, int D, const Args& a) {
     switch (D) {
-        case 16: return tiled::launch<T, 16>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
-                                             a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
-                                             a.scale, a.self_bias, a.st);
-        case 32: return tiled::launch<T, 32>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
-                                             a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
-                                             a.scale, a.self_bias, a.st);
-        case 64: return tiled::launch<T, 64>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
-                                             a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
-                                             a.scale, a.self_bias, a.st);
-        case 128: return tiled::launch<T, 128>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse,
-                                               a.delta, a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C,
-                                               a.scale, a.self_bias, a.st);
+        case 16: return run_tiled_d<T, 16>(C, a);
+        case 32: return run_tiled_d<T, 32>(C, a);
+        case 64: return run_tiled_d<T, 64>(C, a);
+        case 128: return run_tiled_d<T, 128>(C, a);
         default: return cudaErrorInvalidValue;
     }
+}
+
+// the resources of the tensor-core kernels of a 16-bit call: k4_tc (out[0..4];
+// out[5..9] zero) or k4_dq_tc and k4_dkdv_tc
+template <typename E, int D>
+cudaError_t resources_d(int C, int* out) {
+    if constexpr (D <= 64) {
+        if (C == 32 || C == 64) {
+            for (int i = 5; i < 10; ++i) out[i] = 0;
+            if (C == 32) return resources(tc::k4_tc<E, 32, D>, tc::smem_bytes<32, D>(), 64, out);
+            return resources(tc::k4_tc<E, 64, D>, tc::smem_bytes<64, D>(), 128, out);
+        }
+    }
+    constexpr int NT = tiled::Split<D>::NT;
+    cudaError_t err = resources(tiled::k4_dq_tc<E, D>, tiled::dq_tc_smem_bytes<D>(), NT, out);
+    if (err != cudaSuccess) return err;
+    return resources(tiled::k4_dkdv_tc<E, D>, tiled::dkdv_tc_smem_bytes<D>(), NT, out + 5);
+}
+
+template <typename E>
+cudaError_t resources_c(int C, int D, int* out) {
+    switch (D) {
+        case 16: return resources_d<E, 16>(C, out);
+        case 32: return resources_d<E, 32>(C, out);
+        case 64: return resources_d<E, 64>(C, out);
+        case 128: return resources_d<E, 128>(C, out);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <typename T>
+cudaError_t route(int C, int D, const Args& a) {
+    // chunks 32 / 64 at D <= 64: the per-chunk kernels; the rest: the tiled split
+    return (C == 32 || C == 64) && D <= 64 ? run_c<T>(C, D, a) : run_tiled<T>(C, D, a);
 }
 
 }  // namespace
@@ -879,9 +1271,10 @@ cudaError_t run_tiled(int C, int D, const Args& a) {
 // q/k/v/dout [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32
 // [G, T], lse/delta/dlse f32 [G, T]; dq [G, T, D] in the input dtype, dk/dv
 // [G, T, D] f32.  T % chunk == 0; D 16, 32, 64 or 128.  Chunks 32 and 64 at
-// D <= 64 run the FMA kernel in f32 and the tensor-core one in bf16; every
-// other chunk, D 128 and f16 run the tiled kernels.  Launches on `stream`;
-// returns cudaGetLastError() of the launch.
+// D <= 64 run the per-chunk kernels (f32: the FMA kernel; bf16 and f16:
+// k4_tc); every other chunk and D 128 run the tiled split (f32:
+// k4_dq_tiled / k4_dkdv_tiled; bf16 and f16: k4_dq_tc / k4_dkdv_tc).
+// Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* qpos, const void* kpos,
                                        const void* lse, const void* delta, const void* dlse,
@@ -892,12 +1285,9 @@ extern "C" int chunked_window_attn_bwd(const void* q, const void* k, const void*
     const Args a{q, k, v, dout, (const int*)qpos, (const int*)kpos, (const float*)lse,
                  (const float*)delta, (const float*)dlse, dq, (float*)dk, (float*)dv, G, T,
                  scale, self_bias, (cudaStream_t)stream};
-    const bool fixed = (chunk == 32 || chunk == 64) && D <= 64;
-    if (fixed && dtype == 0) return (int)run_c<float>(chunk, D, a);
-    if (fixed && dtype == 1) return (int)run_c<__nv_bfloat16>(chunk, D, a);
-    if (dtype == 0) return (int)run_tiled<float>(chunk, D, a);
-    if (dtype == 1) return (int)run_tiled<__nv_bfloat16>(chunk, D, a);
-    if (dtype == 2) return (int)run_tiled<__half>(chunk, D, a);
+    if (dtype == 0) return (int)route<float>(chunk, D, a);
+    if (dtype == 1) return (int)route<__nv_bfloat16>(chunk, D, a);
+    if (dtype == 2) return (int)route<__half>(chunk, D, a);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -908,4 +1298,17 @@ extern "C" int chunked_window_attn_bwd_delta(const void* dout, const void* out, 
                                              long long rows, int D, int dtype, void* stream) {
     return (int)row_dot::launch(dout, out, (float*)delta, rows, D, dtype,
                                 (cudaStream_t)stream);
+}
+
+// The resources of the tensor-core kernels a bf16 (dtype 1) or f16 (2) call
+// at this chunk and D runs, as the loaded library reports them: out[0..4] =
+// registers, local (spill) bytes, dynamic shared bytes, resident blocks per
+// SM and threads per block of k4_tc (out[5..9] zero) or of k4_dq_tc, and
+// out[5..9] of k4_dkdv_tc.  Returns a cudaError_t (cudaErrorInvalidValue
+// for f32 or a D it does not take).
+extern "C" int chunked_window_attn_bwd_resources(int chunk, int D, int dtype, int* out) {
+    if (chunk <= 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return (int)resources_c<__nv_bfloat16>(chunk, D, out);
+    if (dtype == 2) return (int)resources_c<__half>(chunk, D, out);
+    return (int)cudaErrorInvalidValue;
 }

@@ -1,16 +1,21 @@
-"""K2's bf16 tile schedule (`csrc/flash_rel_attn_bwd.cu`, k2_dkdv_tc /
+"""K2's tensor-core tile schedule (`csrc/flash_rel_attn_bwd.cu`, k2_dkdv_tc /
 k2_dq_tc) emulated in plain torch and held against `flash_rel_attn_bwd_plain`.
 
 The card kernels cannot run here; this pins their index arithmetic on the
 CPU: the 128-row distance-table window Gwin from u_lo = T - q0 - 64 + k0,
-each warp's 80 columns [48 - 16w, 128 - 16w) of X = Qr . Gwin^T read at
-column 15 - qr + ki, the dSskew scatter dSskew[qi][63 - qi + ki] = ds,
-drr = dSskew . Gwin over each warp's band, the dG window dSskew^T . Qr kept
-as two 64-row halves that swap roles after each key tile (the finished half
-flushed, the other carried), the full-tile test that skips the per-pair
-mask, the three-slab ring that holds Gwin, and K1's tile ranges with
-memory, mem_valid and a window.  In f32 the emulation must equal the plain
-backward to rounding."""
+each warp's columns of X = Qr . Gwin^T read at column 15 - qr + kl, the
+dSskew scatter dSskew[qi][63 - qi + ki] = ds, drr = dSskew . Gwin over each
+16-row group's band, the dG window dSskew^T . Qr kept as two 64-row halves
+that swap roles after each key tile (the finished half flushed, the other
+carried), the full-tile test that skips the per-pair mask, the three-slab
+ring that holds Gwin, and K1's tile ranges with memory, mem_valid and a
+window.  At head dim 128 a 16-row group is two warps (`SP` = 2): warp c
+computes S and dP over keys [32c, 32c + 32) from X's columns [48 - 16p +
+32c, +48) and owns columns [64c, 64c + 64) of dk, dv, drw, drr and the dG
+window, with drw from the group's dS rows shared through its scratch.  In
+f32 the emulation must equal the plain backward to rounding; in bf16 and
+f16 p and ds round to the input dtype where they enter a product, as the
+kernels and the plain version round them."""
 import pytest
 import torch
 
@@ -20,7 +25,14 @@ from musicnlp_tpu_torch.ops.flash_attention import (
 
 BQ = BK = 64        # q rows / keys per tile
 GW = 128            # distance-table rows staged per tile pair
-NW = 4              # warps; warp w owns q rows 16w..16w+15
+NG = 4              # 16-row groups per tile: group p owns q rows (or keys) 16p..16p+15
+
+
+def _split(H):
+    """(warps per group, keys of a warp's S / dP, accumulator columns of a
+    warp) of the kernels at head dim H."""
+    sp = 2 if H > 64 else 1
+    return sp, BK // sp, H // sp
 
 
 def _rows(x, r0, n):
@@ -39,16 +51,25 @@ def _pad(x, n):
 
 def _tile(qw, qr, do, kt, vt, gwin, lse, dl, vis, scale, dtype):
     """p and ds [BN, 64, 64] of one tile pair, rounded to dtype as the
-    kernels round them; BD from each warp's X columns."""
-    s = qw @ kt.transpose(1, 2)
-    dp = do @ vt.transpose(1, 2)
-    bd = torch.empty_like(s)
+    kernels round them; S, dP and BD by warp (p, c) over its KW keys, BD
+    from the warp's XW = KW + 16 columns of X."""
+    sp, kw, _ = _split(qw.shape[-1])
+    xw = kw + 16
+    s = torch.empty(qw.shape[0], BQ, BK)
+    dp, bd = torch.empty_like(s), torch.empty_like(s)
     qr_ = torch.arange(16)[:, None]
-    ki = torch.arange(BK)[None, :]
-    for w in range(NW):
-        x = qr[:, 16 * w:16 * w + 16] @ gwin[:, 48 - 16 * w:128 - 16 * w].transpose(1, 2)
-        assert x.shape[-1] == 80 and int((15 - qr_ + ki).max()) < 80
-        bd[:, 16 * w:16 * w + 16] = x[:, qr_, 15 - qr_ + ki]
+    kl = torch.arange(kw)[None, :]
+    for g in range(NG):
+        rows = slice(16 * g, 16 * g + 16)
+        for c in range(sp):
+            keys = slice(kw * c, kw * c + kw)
+            r0 = 48 - 16 * g + kw * c
+            assert 0 <= r0 and r0 + xw <= GW and r0 % 16 == 0
+            s[:, rows, keys] = qw[:, rows] @ kt[:, keys].transpose(1, 2)
+            dp[:, rows, keys] = do[:, rows] @ vt[:, keys].transpose(1, 2)
+            x = qr[:, rows] @ gwin[:, r0:r0 + xw].transpose(1, 2)
+            assert int((15 - qr_ + kl).max()) < xw
+            bd[:, rows, keys] = x[:, qr_, 15 - qr_ + kl]
     p = torch.where(vis, torch.exp((s + bd) * scale - lse[..., None]), torch.zeros(()))
     ds = p * (dp - dl[..., None]) * scale
     return p.to(dtype).float(), ds.to(dtype).float()
@@ -83,7 +104,11 @@ def k2_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, window):
                       lse_p[:, qs], dl_p[:, qs], vis[qs, ks], scale, dtype)
         return gwin, qs, ks, p, ds
 
-    # dkdv: one block per key tile over the q tiles that see it
+    sp, _, hw = _split(H)
+    assert hw <= 64                  # a lane holds at most 64 f32 of one accumulator
+
+    # dkdv: one block per key tile over the q tiles that see it; warp (p, c)
+    # accumulates key rows 16p.. and columns [hw c, hw c + hw)
     dk, dv = torch.zeros(BN, Sp, H), torch.zeros(BN, Sp, H)
     for k0 in range(0, S, BK):
         k_last = min(k0 + BK, S) - 1
@@ -94,8 +119,14 @@ def k2_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, window):
             continue
         for q0 in range(q_lo // BQ * BQ, q_hi, BQ):
             _, qs, ks, p, ds = pair(q0, k0)
-            dv[:, ks] += p.transpose(1, 2) @ do[:, qs]
-            dk[:, ks] += ds.transpose(1, 2) @ qw[:, qs]
+            for g in range(NG):
+                kr = slice(k0 + 16 * g, k0 + 16 * g + 16)
+                for c in range(sp):
+                    cols = slice(hw * c, hw * c + hw)
+                    pt = p[:, :, 16 * g:16 * g + 16].transpose(1, 2)
+                    dst = ds[:, :, 16 * g:16 * g + 16].transpose(1, 2)
+                    dv[:, kr, cols] += pt @ do[:, qs, cols]
+                    dk[:, kr, cols] += dst @ qw[:, qs, cols]
 
     # dq: one block per q tile over K1's key tiles, dG in two swapping halves
     drw, drr = torch.zeros(BN, Tp, H), torch.zeros(BN, Tp, H)
@@ -114,26 +145,33 @@ def k2_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, window):
         k_lo = max(0, M - mem_valid)
         if window > 0:
             k_lo = max(k_lo, M + q0 - window + 1)
-        acc = [torch.zeros(BN, 64, H), torch.zeros(BN, 64, H)]   # warp pairs 0-1, 2-3
+        acc = [torch.zeros(BN, 64, H), torch.zeros(BN, 64, H)]   # group pairs 0-1, 2-3
         tiles = list(range(k_lo // BK, -(-k_hi // BK)))
         for it, kt in enumerate(tiles):
             k0 = kt * BK
             u_lo = T - q0 - BQ + k0
             gwin, qs, ks, _, ds = pair(q0, k0)
-            drw[:, qs] += ds @ kk[:, ks]
             dsk = torch.zeros(BN, BQ, GW)
             dsk[:, qi, 63 - qi + ki] = ds
             assert not dsk[:, :, 127].any()
-            for w in range(NW):
-                band = slice(48 - 16 * w, 128 - 16 * w)
-                rows = slice(16 * w, 16 * w + 16)
-                assert not dsk[:, rows][:, :, _outside(band)].any()   # the warp's band
-                drr[:, q0 + 16 * w:q0 + 16 * w + 16] += dsk[:, rows, band] @ gwin[:, band]
-            window_dg = dsk.transpose(1, 2) @ qr[:, qs]                # [BN, 128, H]
+            for g in range(NG):
+                band = slice(48 - 16 * g, 128 - 16 * g)
+                rows = slice(16 * g, 16 * g + 16)
+                out_rows = slice(q0 + 16 * g, q0 + 16 * g + 16)
+                assert not dsk[:, rows][:, :, _outside(band)].any()   # the group's band
+                for c in range(sp):
+                    cols = slice(hw * c, hw * c + hw)
+                    # drw from the group's dS rows (all 64 keys), drr over its band
+                    drw[:, out_rows, cols] += ds[:, rows] @ kk[:, ks, cols]
+                    drr[:, out_rows, cols] += dsk[:, rows, band] @ gwin[:, band, cols]
+            for c in range(sp):
+                cols = slice(hw * c, hw * c + hw)
+                window_dg = dsk.transpose(1, 2) @ qr[:, qs, cols]     # [BN, 128, hw]
+                for pr in range(2):
+                    half = (pr ^ it) & 1
+                    acc[pr][..., cols] += window_dg[:, 64 * half:64 * half + 64]
             for pr in range(2):
-                half = (pr ^ it) & 1
-                acc[pr] += window_dg[:, 64 * half:64 * half + 64]
-                if half == 0:
+                if (pr ^ it) & 1 == 0:
                     flush(acc[pr], u_lo)
                     acc[pr] = torch.zeros(BN, 64, H)
         if tiles:
@@ -176,6 +214,36 @@ def test_tile_schedule_matches_plain_backward(H, T, M, mv, window, clamp):
         assert a.shape == b.shape, name
         err = float((a - b).abs().max() / b.abs().max())
         assert err <= 1e-5, (name, err)
+
+
+# the largest error over each output's largest entry: f32 sums in another
+# order; in 16 bits a p or ds that lies within an ulp of a rounding boundary
+# may round the other way (one ulp of one term: 2^-8 bf16, 2^-11 f16)
+TOL_TILES = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+
+
+@pytest.mark.parametrize('H,T,M,mv,window,clamp,dtype', [
+    (128, 77, 0, 0, 0, 1024, torch.float32), (128, 333, 64, 17, 40, 1024, torch.float32),
+    (128, 200, 100, 37, 150, 17, torch.float32), (128, 150, 0, 0, 0, 1024, torch.bfloat16),
+    (128, 200, 100, 37, 150, 17, torch.float16), (64, 333, 128, 50, 200, 1024, torch.float16),
+    (16, 77, 30, 30, 0, 17, torch.float16), (32, 333, 0, 0, 0, 17, torch.bfloat16),
+])
+def test_tile_schedule_at_h128_and_in_16_bits_matches_plain_backward(H, T, M, mv, window, clamp,
+                                                                    dtype):
+    """The two-warp groups of head dim 128 and the rounding of p and ds to
+    bf16 / f16: every output of the emulated schedule against the plain
+    backward on the same inputs (`TOL_TILES`)."""
+    ins = [x.to(dtype) for x in _inputs(H, T, M, clamp, seed=2 * H + T + M)]
+    rw, rr, k, v, g, d_out = ins
+    scale = H ** -0.5
+    out, lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, M=M, scale=scale, window=window)
+    args = (rw, rr, k, v, g, out, d_out, lse, mv)
+    got = k2_tiles(*args, M=M, scale=scale, window=window)
+    want = flash_rel_attn_bwd_plain(*args, M=M, scale=scale, window=window)
+    for name, a, b in zip(('drw', 'drr', 'dk', 'dv', 'dG'), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert err <= TOL_TILES[dtype], (name, err)
 
 
 @pytest.mark.parametrize('T,M,mv,window', [(77, 0, 0, 0), (333, 64, 17, 40), (1024, 512, 300, 512)])
