@@ -14,12 +14,15 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device and build: the card's name and power limit, `nvcc` of every
      kernel source in `musicnlp_tpu_torch/csrc/`, all started together; the
      tensor-core instructions (HMMA / HGMMA) in the SASS of each K1-K4
-     kernel -- the tensor-core kernels must have some (K1 / K3: bf16 at
-     head dims <= 64; K2 / K4: every bf16 and f16 function, at every head
-     dim and chunk), the FMA ones (f32; K1's f16 and head dim 128; k3_tiled)
-     none; each tensor-core K2 / K4 kernel's registers, local (spill)
-     bytes, shared memory and blocks per SM at every head dim in bf16 and
-     f16, read from the loaded library (no spill allowed);
+     kernel -- the tensor-core kernels (every bf16 and f16 call of K1-K4,
+     at every head dim and chunk: k1_tc, k2_dkdv_tc / k2_dq_tc, k3_tc /
+     k3_union_tc, k4_tc / k4_dq_tc / k4_dkdv_tc) must have some in their
+     bf16 and their f16 instantiation, the FMA ones (f32 only: K1's and
+     K3's per-chunk kernel, k3_tiled, K2's and K4's) none and no 16-bit
+     instantiation; each tensor-core K1-K4 kernel's registers, local
+     (spill) bytes, shared memory and blocks per SM at every head dim (K3 /
+     K4 at chunks 16-128, D 16-128) in bf16 and f16, read from the loaded
+     library (no spill allowed);
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
      a memory + window case, a head-dim-16 ragged case, the 22-12 shape
@@ -34,7 +37,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      ROADMAP C.1 widened the kernels to, at phase 11's shapes: head dim 128
      (B 2 x 8 heads, T 1024) in bf16 and f32, f16 at the 22-11 widths, an
      f16 head-dim-128 memory + window case, and head dim 128 in bf16 at the
-     22-11 batch (B 21 x 6 heads, d_model 768);
+     22-11 batch (B 21 x 6 heads, d_model 768) for K1 and for K2;
   3. the training path, counts set to 0 before and read after:
      `Trainer.train` for one epoch of 6 steps of 21 x 1024 seeded synthetic
      songs (dropout 0.1, warmup-cosine AdamW, eval with a padded final batch,
@@ -57,9 +60,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      and f32, padded cases, a D 32 / chunk 32 single-block case, bf16
      D 16 and D 32 / chunk 32 padded cases; times of each kernel, its plain version and an
      SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s; and
-     the tiled kernels C.1 added: chunk 128 at phase 11's local shape in
-     f32 and bf16, chunk 128 / D 128 in bf16, the LSH shape in f16, chunk 16
-     padded in f32 and in f16);
+     the shapes C.1 added: chunk 128 at phase 11's local shape in f32
+     (k3_tiled) and bf16 (k3_union_tc), chunk 128 / D 128 in bf16, the LSH
+     shape in f16 (k3_tc), chunk 16 padded in f32 and in f16);
      `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
      K4 launches per step), `load_trained` + `score_batch` on the
      run, step time, memory and a profile, a 15-step overfit; one f32 step
@@ -153,9 +156,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
  11. C.1, A.8 and A.9, counts (K1-K4) set to 0 before each path and read
      after: a TF-XL at head dim 128 (d_model 1024, 8 heads) in f32 and
      bf16 and one in float16 (22-11 widths), depth 2, `score_batch` 2 x
-     1024 (2 K1 each: the FMA kernel), logits against the port's f32 CPU
-     run (f32: 1e-4 of their max; bf16 / f16 at `TOL_16_LOGITS`, which a
-     control with the attention dropped must exceed 4 times), an f32
+     1024 (2 K1 each: the FMA kernel in f32, k1_tc in 16 bits), logits
+     against the port's f32 CPU run (f32: 1e-4 of their max; bf16 / f16 at
+     `TOL_16_LOGITS`, which a control with the attention dropped must
+     exceed 4 times), an f32
      head-dim-128 step card vs CPU (K1 / K2); a Reformer with local_chunk
      128, depth 2: an f32 step card vs CPU (K3 / K4: the tiled kernels in
      the local layer) and `score_batch` 2 x 2048 (2 K3); one 22-11
@@ -165,10 +169,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      more steps, and one 22-04 step at 2 x 2048 (12 K3, 12 K4); one bf16
      step of the head-dim-128 TF-XL (depth 2, 2 x 1024) and one of the
      chunk-128 Reformer (depth 2, 2 x 2048) traced the same way, naming
-     k2_dkdv_tc / k2_dq_tc, k4_dq_tc / k4_dkdv_tc (and k4_tc at the LSH
-     layer) and none of K2's FMA or K4's tiled FMA kernels; on phase
-     8's run: `summarize_run` of its
-     22-04 train log, `MusicVisualize` reports and `MusicStats` of its
+     k1_tc and k2_dkdv_tc / k2_dq_tc once per layer, k3_union_tc /
+     k4_dq_tc / k4_dkdv_tc at the local layer and k3_tc / k4_tc at the LSH
+     layer, and none of K1-K4's FMA kernels (K1's, k3_tiled, K2's, K4's);
+     on phase 8's run: `summarize_run` of its 22-04 train log, `MusicVisualize` reports and `MusicStats` of its
      generated songs, `ground_truth_ikr` of its dataset on the card and the
      CPU, melody grids of 8 rendered .mxl songs and `PitchEmbedding` trained
      on them on the card and on the CPU from one seed (emb_in within 1e-4
@@ -280,22 +284,23 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # the FMA does)
 
 # the tensor-core kernels of K1-K4 and their FMA kernels, by name in each
-# library's SASS: K1 / K3 run bf16 at head dims to 64 (K3 at chunks 32 and
-# 64) on the tensor cores; K2 / K4 run every bf16 and f16 call there (K4's
-# k4_tc at chunks 32 / 64 and D <= 64, its tiled split k4_dq_tc / k4_dkdv_tc
-# elsewhere), each templated on the element type
+# library's SASS: K1-K4 run every bf16 and f16 call on the tensor cores (K1 /
+# K2 at every head dim; K3 / K4 at chunks 32 / 64 and D <= 64 on k3_tc /
+# k4_tc, elsewhere on their tiled walks k3_union_tc / k4_dq_tc + k4_dkdv_tc),
+# each templated on the element type; the FMA kernels run f32 alone
 TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',),
               'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc'),
-              'chunked_window_attn_fwd': ('k3_tc',),
+              'chunked_window_attn_fwd': ('k3_tc', 'k3_union_tc'),
               'chunked_window_attn_bwd': ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc')}
 FMA_KERNELS = {'flash_rel_attn_fwd': ('flash_rel_attn_fwd_kernel',),
                'flash_rel_attn_bwd': ('k2_dkdv_kernel', 'k2_dq_kernel'),
                'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel', 'k3_tiled'),
                'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel', 'k4_dq_tiled',
                                            'k4_dkdv_tiled')}
-# the libraries whose tensor-core kernels take both 16-bit types, and each
-# dtype's fragment of a mangled template name
-BOTH_16_BIT = ('flash_rel_attn_bwd', 'chunked_window_attn_bwd')
+# the libraries whose tensor-core kernels take both 16-bit types (all four),
+# and each dtype's fragment of a mangled template name
+BOTH_16_BIT = ('flash_rel_attn_fwd', 'flash_rel_attn_bwd', 'chunked_window_attn_fwd',
+               'chunked_window_attn_bwd')
 DTYPE_MANGLED = {torch.bfloat16: '__nv_bfloat16', torch.float16: '6__half',
                  torch.float32: 'If'}
 SASS_MMA = {}                                    # library -> {function: HMMA + HGMMA}, phase 1
@@ -323,6 +328,11 @@ TOL_F32_LOGITS, TOL_LSE = 1e-4, 1e-5
 # on an H100 (PERF.md); the bound is twice that, and the remat on / off gap
 # and the off / off spread are each held to it
 TOL_W_R = 1e-2
+# the pause between a traced warm-up step and the traced step `step_kernels`
+# reads after it: longer than any idle gap inside either step under the
+# profiler (20 ms was not: a depth-2 step's host gaps, and once a 22-11
+# warm-up step's, reached past it, and the read took in the warm-up's kernels)
+TRACE_PAUSE_S = 0.25
 
 
 def log(msg: str):
@@ -376,9 +386,9 @@ def profile(fn) -> dict:
 def tensor_core_check(report):
     """HMMA / HGMMA instructions in the SASS of every K1-K4 kernel: each
     tensor-core kernel must have some in every instantiation (an FMA-only
-    build is not the tensor-core design), and K2's / K4's must be
-    instantiated for bf16 and for f16; the FMA kernels none (the f32 parity
-    rests on f32 FMAs)."""
+    build is not the tensor-core design) and be instantiated for bf16 and for
+    f16; the FMA kernels none (the f32 parity rests on f32 FMAs), and they
+    are built for f32 alone (no 16-bit call reaches them)."""
     for lib, tc_names in TC_KERNELS.items():
         SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
         for name in tc_names + FMA_KERNELS[lib]:
@@ -390,13 +400,18 @@ def tensor_core_check(report):
                     any(name in f and DTYPE_MANGLED[d] in f for f in counts)
                     for d in (torch.bfloat16, torch.float16)):
                 raise AssertionError(f'{lib}: {name} is not built for bf16 and f16: {counts}')
+            if name not in tc_names and any(
+                    name in f and DTYPE_MANGLED[d] in f for f in counts
+                    for d in (torch.bfloat16, torch.float16)):
+                raise AssertionError(f'{lib}: the FMA kernel {name} is built for a 16-bit '
+                                     f'type: {counts}')
     log(f'[sass] HMMA/HGMMA per kernel function: {json.dumps(SASS_MMA)}')
     report['sass_tensor_core_instructions'] = dict(SASS_MMA)
 
 
-# (chunk, D) of K4's tensor-core kernels whose resources phase 1 reads: the
-# per-chunk kernel k4_tc and the tiled split
-K4_RESOURCE_SHAPES = ((32, 16), (32, 32), (64, 64), (16, 32), (128, 64), (128, 128))
+# (chunk, D) of K3's and K4's tensor-core kernels whose resources phase 1
+# reads: the per-chunk kernels k3_tc / k4_tc and the tiled walks
+CHUNK_RESOURCE_SHAPES = ((32, 16), (32, 32), (64, 64), (16, 32), (128, 64), (128, 128))
 
 
 def ptxas_spills(log: str) -> dict:
@@ -415,16 +430,19 @@ def ptxas_spills(log: str) -> dict:
 
 def kernel_resources(report, built):
     """Registers, local bytes (stack), dynamic shared memory and resident
-    blocks per SM of each tensor-core K2 / K4 kernel at every head dim in
-    bf16 and f16 (K4 at `K4_RESOURCE_SHAPES`), as the loaded libraries
+    blocks per SM of each tensor-core K1-K4 kernel at every head dim in bf16
+    and f16 (K3 / K4 at `CHUNK_RESOURCE_SHAPES`), as the loaded libraries
     report them (`*_resources`: cudaFuncGetAttributes and the occupancy
     query), and the spill bytes ptxas reported for every instantiation in
     this run's build (`built`); raises if one spills or cannot run."""
     out = (ctypes.c_int * 10)()
-    k2 = ctypes.CDLL(str(lib_path('flash_rel_attn_bwd')))
-    k2.flash_rel_attn_bwd_resources.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    k4 = ctypes.CDLL(str(lib_path('chunked_window_attn_bwd')))
-    k4.chunked_window_attn_bwd_resources.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    libs = {}
+    for name in TC_KERNELS:
+        libs[name] = ctypes.CDLL(str(lib_path(name)))
+        fn = getattr(libs[name], f'{name}_resources')
+        fn.argtypes = [ctypes.c_int] * (2 if name.startswith('flash') else 3) + [ctypes.c_void_p]
+    k1, k2 = libs['flash_rel_attn_fwd'], libs['flash_rel_attn_bwd']
+    k3, k4 = libs['chunked_window_attn_fwd'], libs['chunked_window_attn_bwd']
     rows = []
 
     def read(err, names, **shape):
@@ -436,12 +454,15 @@ def kernel_resources(report, built):
                              smem_bytes=r[2], blocks_per_sm=r[3], threads=r[4]))
     for code, dt in ((1, 'bf16'), (2, 'f16')):
         for H in fa.SUPPORTED_HEAD_DIMS:
+            read(k1.flash_rel_attn_fwd_resources(H, code, out), ('k1_tc',), dtype=dt, H=H)
             read(k2.flash_rel_attn_bwd_resources(H, code, out), ('k2_dkdv_tc', 'k2_dq_tc'),
                  dtype=dt, H=H)
-        for chunk, D in K4_RESOURCE_SHAPES:
-            names = (('k4_tc',) if chunk in (32, 64) and D <= 64
-                     else ('k4_dq_tc', 'k4_dkdv_tc'))
-            read(k4.chunked_window_attn_bwd_resources(chunk, D, code, out), names, dtype=dt,
+        for chunk, D in CHUNK_RESOURCE_SHAPES:
+            per_chunk = chunk in (32, 64) and D <= 64
+            read(k3.chunked_window_attn_fwd_resources(chunk, D, code, out),
+                 ('k3_tc',) if per_chunk else ('k3_union_tc',), dtype=dt, chunk=chunk, D=D)
+            read(k4.chunked_window_attn_bwd_resources(chunk, D, code, out),
+                 ('k4_tc',) if per_chunk else ('k4_dq_tc', 'k4_dkdv_tc'), dtype=dt,
                  chunk=chunk, D=D)
     for r in rows:
         log(f'[resources] {json.dumps(r)}')
@@ -452,13 +473,13 @@ def kernel_resources(report, built):
             continue
         spills.update({f: sp for f, sp in ptxas_spills(built[lib]['ptxas']).items()
                        if any(n in f for n in TC_KERNELS[lib])})
-    log(f'[resources] ptxas spill bytes (stores, loads) of {len(spills)} tensor-core K2 / K4 '
+    log(f'[resources] ptxas spill bytes (stores, loads) of {len(spills)} tensor-core K1-K4 '
         f'functions: {sorted(set(spills.values()))}')
-    report['k2_k4_tensor_core_resources'] = dict(rows=rows, spills=spills)
+    report['tensor_core_resources'] = dict(rows=rows, spills=spills)
     bad = [r for r in rows if r['blocks_per_sm'] < 1] + \
         [f for f, sp in spills.items() if any(sp)]
     if bad:
-        raise AssertionError(f'tensor-core K2 / K4 kernels that spill or cannot run: {bad}')
+        raise AssertionError(f'tensor-core K1-K4 kernels that spill or cannot run: {bad}')
 
 
 def mma_instructions(lib, tc, template_args, dtype):
@@ -470,9 +491,9 @@ def mma_instructions(lib, tc, template_args, dtype):
                if template_args in f and DTYPE_MANGLED[dtype] in f and any(n in f for n in names))
 
 
-def bwd_tc(dtype) -> bool:
-    """Whether K2 / K4 run a call on their tensor-core kernels: every bf16
-    and f16 call, at each head dim and chunk; f32 runs the FMA kernels."""
+def tensor_cores(dtype) -> bool:
+    """Whether K1-K4 run a call on their tensor-core kernels: every bf16 and
+    f16 call, at each head dim and chunk; f32 runs the FMA kernels."""
     return dtype != torch.float32
 
 
@@ -532,8 +553,7 @@ def k1_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=err,
                lse_max_abs_err=lse_err, tol_ctx=tol['ctx'], tol_lse=tol['lse'],
                tensor_core_instructions=mma_instructions(
-                   'flash_rel_attn_fwd', dtype == torch.bfloat16 and H <= 64, f'Li{H}E',
-                   dtype))
+                   'flash_rel_attn_fwd', tensor_cores(dtype), f'Li{H}E', dtype))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=M, scale=scale,
                                                           window=window))
@@ -605,7 +625,7 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=max(errs.values()),
                abs_err=errs, rel_err=rel, tol_rel=TOL_K2[dtype],
                tensor_core_instructions=mma_instructions(
-                   'flash_rel_attn_bwd', bwd_tc(dtype), f'Li{H}E', dtype))
+                   'flash_rel_attn_bwd', tensor_cores(dtype), f'Li{H}E', dtype))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_bwd(*args, **kw))
         rec['plain_ms'] = time_ms(lambda: fa.flash_rel_attn_bwd_plain(*args, **kw), iters=3)
@@ -940,12 +960,6 @@ def chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed):
             + [p.to(torch.int32).contiguous() for p in (qpos, kpos)])
 
 
-def k3_tc(dtype, chunk, D) -> bool:
-    """Whether K3 runs this call on its tensor-core kernel (else the f32 FMA
-    kernel or the tiled one)."""
-    return dtype == torch.bfloat16 and chunk in (32, 64) and D <= 64
-
-
 def chunked_flops(qpos, kpos, chunk, D, products):
     """Operations of a call: `products` D-long products per (query, key)
     pair that these positions make visible."""
@@ -988,7 +1002,7 @@ def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
                lsh=lsh, pads=pads, max_abs_err=err, lse_max_abs_err=lse_err,
                tol_ctx=tol['ctx'], tol_lse=tol['lse'],
                tensor_core_instructions=mma_instructions(
-                   'chunked_window_attn_fwd', k3_tc(dtype, chunk, D), f'Li{D}E', dtype))
+                   'chunked_window_attn_fwd', tensor_cores(dtype), f'Li{D}E', dtype))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos,
                                                                        **kw), iters=3)
@@ -1029,7 +1043,7 @@ def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
                lsh=lsh, pads=pads, max_abs_err=max(errs.values()), abs_err=errs, rel_err=rel,
                tol_rel=TOL_K4[dtype],
                tensor_core_instructions=mma_instructions(
-                   'chunked_window_attn_bwd', bwd_tc(dtype), f'Li{D}E', dtype))
+                   'chunked_window_attn_bwd', tensor_cores(dtype), f'Li{D}E', dtype))
     rec['ms'] = time_ms(lambda: ck.chunked_window_attn_bwd(*args, **kw))
     rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_bwd_plain(*args, **kw), iters=3)
     ys = sdpa_window_yardstick(q, k, v, qpos, kpos, **kw)
@@ -2713,9 +2727,9 @@ def c1_checks(dev, report):
     """Phase 11.1, ROADMAP C.1: a TF-XL at head dim 128 (d_model 1024, 8
     heads) in f32 and bf16, one in float16 at the 22-11 widths, and a
     Reformer with local_chunk 128 (the LSH layer keeps chunk 64), depth 2:
-    each scores through `score_batch` on K1 / K3 (K1's FMA kernel at H 128
-    and in f16, K3's tiled kernel at chunk 128), held against the port's CPU
-    run in f32; a training step of the f32 head-dim-128 TF-XL and of the
+    each scores through `score_batch` on K1 / K3 (f32 on K1's FMA kernel and
+    k3_tiled at chunk 128; bf16 and f16 on k1_tc), held against the port's
+    CPU run in f32; a training step of the f32 head-dim-128 TF-XL and of the
     Reformer (K2 / K4) against the CPU's gradients."""
     rec = {}
     tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
@@ -2805,7 +2819,7 @@ def traced_presets(dev, report):
         with device_trace(os.path.join(RUN_DIR, 'trace')) as path:
             step()                            # absorbs the profiler's losses at the start
             torch.cuda.synchronize()
-            time.sleep(0.02)                  # the idle gap `step_kernels` reads after
+            time.sleep(TRACE_PAUSE_S)         # the idle gap `step_kernels` reads after
             t1 = time.perf_counter()
             (_, counts) = counted(step)
             traced_ms = (time.perf_counter() - t1) * 1e3
@@ -2859,13 +2873,11 @@ def traced_presets(dev, report):
 
 def traced_step(trace_dir, step):
     """`step` traced after a traced warm-up of it (as `traced_presets` reads
-    a step) -> (counts of the read step, its kernels by name, its ms).  The
-    pause after the warm-up is longer than any idle gap inside a small step
-    (a 20 ms pause is not: a depth-2 step's host gaps reach past it)."""
+    a step) -> (counts of the read step, its kernels by name, its ms)."""
     with device_trace(trace_dir) as path:
         step()                                # absorbs the profiler's losses at the start
         torch.cuda.synchronize()
-        time.sleep(0.25)                      # the idle gap `step_kernels` reads after
+        time.sleep(TRACE_PAUSE_S)             # the idle gap `step_kernels` reads after
         t1 = time.perf_counter()
         _, counts = counted(step)
         ms = (time.perf_counter() - t1) * 1e3
@@ -2881,11 +2893,11 @@ def c1_traces(dev, report):
     """Phase 11.2: one bf16 `Trainer.train_step` of a head-dim-128 TF-XL
     (d_model 1024, 8 heads, depth 2, 2 x 1024) and one of a Reformer with
     local_chunk 128 (local + LSH, depth 2, 2 x 2048), each in `device_trace`
-    after a traced warm-up: K2 runs on its tensor-core kernels at head dim
-    128 and K4 on its tensor-core tiled split at chunk 128 (and k4_tc at the
-    LSH layer's 64), by name in the trace, with none of K2's FMA or K4's
-    tiled FMA kernels; K1's FMA kernel and k3_tiled, which this slice leaves
-    as they are, stay."""
+    after a traced warm-up: K1 and K2 run on their tensor-core kernels at
+    head dim 128 (k1_tc once per layer, k2_dkdv_tc / k2_dq_tc once per
+    layer), K3 on its tensor-core walk at chunk 128 and k3_tc at the LSH
+    layer's 64, K4 on its tensor-core tiled split (and k4_tc at 64), by name
+    in the trace, with none of K1's, K2's, K3's or K4's FMA kernels."""
     rec = {}
     trace_dir = os.path.join(RUN_DIR, 'trace-c1')
     tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
@@ -2904,7 +2916,7 @@ def c1_traces(dev, report):
         kernels, 'k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_kernel', 'k2_dq_kernel',
         'flash_rel_attn_fwd_kernel', 'k1_tc'))
     want = dict(k2_dkdv_tc=cfg.n_layer, k2_dq_tc=cfg.n_layer, k2_dkdv_kernel=0, k2_dq_kernel=0,
-                flash_rel_attn_fwd_kernel=cfg.n_layer, k1_tc=0)
+                flash_rel_attn_fwd_kernel=0, k1_tc=cfg.n_layer)
     log(f'[trace] C.1 TF-XL d128 bf16 train_step, depth 2, 2 x 1024: {ms:.1f} ms while traced; '
         f'kernels by name {rec["tfxl-d128-bf16"]["named"]}')
     if rec['tfxl-d128-bf16']['named'] != want:
@@ -2926,9 +2938,11 @@ def c1_traces(dev, report):
     expect(counts, chunked_window_attn_fwd=2, chunked_window_attn_bwd=2)
     rec['reformer-chunk128-bf16'] = dict(step_ms=ms, counts=counts, named=named(
         kernels, 'k4_dq_tc', 'k4_dkdv_tc', 'k4_tc', 'k4_dq_tiled', 'k4_dkdv_tiled', 'k3_tiled',
-        'k3_tc'))
-    want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k4_dq_tiled=0, k4_dkdv_tiled=0, k3_tiled=1,
-                k3_tc=1)
+        'k3_union_tc', 'k3_tc', 'chunked_window_attn_fwd_kernel',
+        'chunked_window_attn_bwd_kernel'))
+    want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k4_dq_tiled=0, k4_dkdv_tiled=0, k3_tiled=0,
+                k3_union_tc=1, k3_tc=1, chunked_window_attn_fwd_kernel=0,
+                chunked_window_attn_bwd_kernel=0)
     log(f'[trace] C.1 Reformer local_chunk 128 bf16 train_step, depth 2, 2 x 2048: {ms:.1f} ms '
         f'while traced; kernels by name {rec["reformer-chunk128-bf16"]["named"]}')
     if rec['reformer-chunk128-bf16']['named'] != want:
@@ -3108,12 +3122,17 @@ def main() -> int:
         k1_case(dev, 'hf-window-mem-f32', torch.float32, 2, 12, 1024, 512, 64, 1024, 512, 512,
                 11, False),
         # C.1 (phase 11's shapes): head dim 128 (d_model 1024, 8 heads, 2 x
-        # 1024) on the FMA kernel's 32-row tiles, and f16 at the 22-11 widths
+        # 1024; bf16 on k1_tc's two-warp groups, f32 on the FMA kernel's 32-row
+        # tiles), and f16 at the 22-11 widths
         k1_case(dev, 'd128-bf16', torch.bfloat16, 2, 8, 1024, 0, 128, 1024, 0, 0, 12, True),
         k1_case(dev, 'd128-f32', torch.float32, 2, 8, 1024, 0, 128, 1024, 0, 0, 13, True),
         k1_case(dev, 'f16', torch.float16, 2, 12, 1024, 0, 64, 1024, 0, 0, 14, True),
         k1_case(dev, 'd128-memory-window-f16', torch.float16, 2, 8, 1000, 512, 128, 96, 300,
                 512, 15, False),
+        # the 22-11 batch at d_model 768 with head dim 128 (B 21 x 6 heads), K2's
+        # d128-train-bf16 counterpart
+        k1_case(dev, 'd128-train-bf16', torch.bfloat16, 21, 6, 1024, 0, 128, 1024, 0, 0, 16,
+                True),
     ]
     k2 = [
         k2_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 21, True),
@@ -3162,8 +3181,9 @@ def main() -> int:
         k3_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 37),
         k3_case(dev, 'd16-chunk32-padded-bf16', torch.bfloat16, 48, 512, 16, 32, True, 40, 38),
         k3_case(dev, 'd32-chunk32-padded-bf16', torch.bfloat16, 48, 512, 32, 32, True, 40, 39),
-        # C.1's tiled kernels: phase 11's local layer at chunk 128 (2 x 12
-        # heads), chunk 128 at D 128, the LSH shape in f16, chunk 16 padded
+        # C.1's shapes: phase 11's local layer at chunk 128 (2 x 12 heads) on
+        # the tiled walk (f32 k3_tiled, bf16 k3_union_tc), chunk 128 at D 128,
+        # the LSH shape in f16 (k3_tc<__half>), chunk 16 padded
         k3_case(dev, 'chunk128-f32', torch.float32, 24, 2048, 64, 128, False, 0, 131),
         k3_case(dev, 'chunk128-bf16', torch.bfloat16, 24, 2048, 64, 128, False, 0, 132),
         k3_case(dev, 'chunk128-d128-bf16', torch.bfloat16, 16, 2048, 128, 128, True, 40, 133),

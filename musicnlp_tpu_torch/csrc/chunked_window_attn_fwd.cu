@@ -22,37 +22,46 @@
 // once, ctx and lse written once) for ~52 GFLOP: 0.246 ms at 3.35 TB/s
 // against 0.05 ms at 989 TFLOP/s -- bytes bound it (local, G 384: 0.123 ms).
 //
+// Routes (chosen inside the C entry point by dtype, chunk and D):
+//   f32, chunks 32 / 64 at D <= 64: chunked_window_attn_fwd_kernel (FMAs);
+//   f32, every other chunk and D 128: k3_tiled (FMAs);
+//   bf16 / f16, chunks 32 / 64 at D <= 64: k3_tc (tensor cores);
+//   bf16 / f16, every other chunk and D 128: k3_union_tc (tensor cores).
+//
 // f32 (chunked_window_attn_fwd_kernel): one 256-thread block per (g, chunk)
 // stages the query chunk and the 2C-key window as f32 rows of stride D+1,
 // computes the [C, 2C] scores with f32 FMAs, takes the row softmax with
 // 16-lane shuffles and runs PV from shared memory; every chunk's K and V is
 // read by two blocks.  Kept as it is: the f32 parity checks rest on it.
 //
-// bf16 (k3_tc), the training and scoring path: K4's run layout
-// (chunked_window_attn_bwd.cu).  One block of C / 16 warps per (g, run of
-// RUN = 16 consecutive chunks) walks its run in order and keeps the previous
-// chunk's K / V / kpos resident, so each chunk is loaded once per run, by
-// cp.async, while the chunk before it computes; only a run's first chunk
-// loads its look-back (chunk 0's is zeros with kpos INT_MAX: never
-// visible).  Warp w owns query rows 16w..16w+15.  S = Q . [K_{i-1}; K_i]^T
-// is 2C / 8 n-blocks of mma.sync m16n8k16 (bf16 in, f32 accumulate;
-// mma_bf16.cuh) in registers: the whole 2C-wide row fits, so no online
-// softmax.  The element chain runs on the accumulator fragments and is kept
-// lean: the positions are staged once per chunk (kpos read as int2 pairs,
-// qpos in registers), scale and self_bias are hoisted, the layers without a
-// self bias run an instance without its compare, row max and sum are quad
-// shuffles, p = exp2f((x - max) * log2(e)) with x and max in natural units
-// (so the masks, the max and lse are the f32 values of the reference), and
-// each output row takes one reciprocal.  P becomes bf16 A fragments by RNE
-// (c_to_a) for PV against V read by ldmatrix.trans.  One exception keeps
-// lse exact: a row that sees only its own key (the LSH layers' self bias,
-// -1e5, makes it the max) has lse = fl(s + self_bias), whose f32 steps are
-// 2^-7; a tensor-core sum of s, in another order than the f32 product of
-// the reference, can round it to a neighbouring step, so that one score is
-// recomputed as the sequential f32 FMA chain over d, the reference's order
-// (only warps that hold such a row take that branch).  Shared memory at
-// C = D = 64: K, V x 3 slots 54 KB, Q x 2 slots 18 KB, positions 1.3 KB --
-// 74 KB per block.
+// bf16 and f16 (k3_tc, templated on the element type E), the training and
+// scoring path: K4's run layout (chunked_window_attn_bwd.cu).  One block of
+// C / 16 warps per (g, run of RUN = 16 consecutive chunks) walks its run in
+// order and keeps the previous chunk's K / V / kpos resident, so each chunk
+// is loaded once per run, by cp.async, while the chunk before it computes;
+// only a run's first chunk loads its look-back (chunk 0's is zeros with kpos
+// INT_MAX: never visible).  Warp w owns query rows 16w..16w+15.  S = Q .
+// [K_{i-1}; K_i]^T is 2C / 8 n-blocks of mma.sync m16n8k16 (E in, f32
+// accumulate; mma_bf16.cuh) in registers: the whole 2C-wide row fits, so no
+// online softmax.  The element chain runs on the accumulator fragments and
+// is kept lean: the positions are staged once per chunk (kpos read as int2
+// pairs, qpos in registers), scale and self_bias are hoisted, the layers
+// without a self bias run an instance without its compare, row max and sum
+// are quad shuffles, p = exp2f((x - max) * log2(e)) with x and max in
+// natural units (so the masks, the max and lse are the f32 values of the
+// reference), and each output row takes one reciprocal.  P becomes E A
+// fragments by RNE (c_to_a) for PV against V read by ldmatrix.trans.  One
+// exception keeps lse exact: a row that sees only its own key (the LSH
+// layers' self bias, -1e5, makes it the max) has lse = fl(s + self_bias),
+// whose f32 steps are 2^-7; a tensor-core sum of s, in another order than
+// the f32 product of the reference, can round it to a neighbouring step, so
+// that one score is recomputed as the sequential f32 FMA chain over d, the
+// reference's order (self_score; only warps that hold such a row take that
+// branch).  Shared memory at C = D = 64: K, V x 3 slots 54 KB, Q x 2 slots
+// 18 KB, positions 1.3 KB -- 74 KB per block.
+//
+// The tiled walk (k3_tiled in f32, k3_union_tc in bf16 / f16) takes the
+// rest: see `namespace tiled` below.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -60,9 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "elem.cuh"
+#include "kernel_resources.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -71,6 +79,7 @@ constexpr int NT = 256;          // threads: a 16 x 16 grid
 constexpr float kNegInf = -1e9f;
 
 using namespace elem;
+using kernel_resources::resources;
 
 template <int C, int D>
 struct Fwd {
@@ -208,18 +217,47 @@ chunked_window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// ------------------------------------------------- bf16 on the tensor cores
+// ------------------------------------------- bf16 and f16 on the tensor cores
 namespace tc {
 
-using bf16 = __nv_bfloat16;
 using namespace mma_bf16;
 
 constexpr int RUN = 16;                 // consecutive chunks per block
 constexpr float kLog2e = 1.4426950408889634f;
 
+// fl(fl(q . k * scale) + self_bias) for the D-long E rows qr and kr (16-byte
+// aligned), q . k as the sequential f32 FMA chain over d: the reference's
+// order, which the lse of a row that sees only its own key keeps (see the
+// note at the top)
+template <typename E, int D>
+__device__ __forceinline__ float self_score(const E* qr, const E* kr, float scale,
+                                            float self_bias) {
+    const uint4* q4 = reinterpret_cast<const uint4*>(qr);
+    const uint4* k4 = reinterpret_cast<const uint4*>(kr);
+    uint4 qv[D / 8], kv[D / 8];          // every load issued before the chain
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+        qv[d] = q4[d];
+        kv[d] = k4[d];
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+        const uint32_t* a = reinterpret_cast<const uint32_t*>(&qv[d]);
+        const uint32_t* b = reinterpret_cast<const uint32_t*>(&kv[d]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float2 x = unpack<E>(a[j]), y = unpack<E>(b[j]);
+            acc = fmaf(x.x, y.x, acc);
+            acc = fmaf(x.y, y.y, acc);
+        }
+    }
+    return __fadd_rn(__fmul_rn(acc, scale), self_bias);
+}
+
 template <int C, int D>
 constexpr size_t smem_bytes() {
-    // K, V [3 slots][C][D+8] and Q [2 slots][C][D+8] bf16; kpos [3][C] and
+    // K, V [3 slots][C][D+8] and Q [2 slots][C][D+8] b16; kpos [3][C] and
     // qpos [2][C] int
     return 2 * (size_t)8 * C * (D + 8) + 4 * (size_t)5 * C;
 }
@@ -232,11 +270,11 @@ constexpr size_t smem_bytes() {
 // that sees only its own key recomputes that score from qrow (the warp's Q
 // rows) and kw (the key slots) as the sequential f32 FMA chain (see the note
 // at the top).
-template <int C, int D, bool BIAS>
+template <typename E, int C, int D, bool BIAS>
 __device__ __forceinline__ void window_softmax(float (&s)[C / 4][4], float (&mx)[2],
                                                float (&l)[2], const int* const (&kp)[2],
-                                               const int (&qp)[2], const bf16* qrow,
-                                               const bf16* const (&kw)[2], int gq, int t,
+                                               const int (&qp)[2], const E* qrow,
+                                               const E* const (&kw)[2], int gq, int t,
                                                float scale, float self_bias) {
     constexpr int NB = C / 4, HB = C / 8, DS = D + 8;
     auto kpos2 = [&](int b) {           // positions of window columns 8b + 2t, 8b + 2t + 1
@@ -285,28 +323,9 @@ __device__ __forceinline__ void window_softmax(float (&s)[C / 4][4], float (&mx)
                             c = 8 * b + 2 * t + (e & 1);
                 }
                 if (c < 0) continue;
-                const uint4* qr = reinterpret_cast<const uint4*>(qrow + (gq + 8 * h) * DS);
-                const uint4* kr =
-                    reinterpret_cast<const uint4*>((c < C ? kw[0] : kw[1]) + (c % C) * DS);
-                uint4 qv[D / 8], kv[D / 8];          // every load issued before the chain
-#pragma unroll
-                for (int d = 0; d < D / 8; ++d) {
-                    qv[d] = qr[d];
-                    kv[d] = kr[d];
-                }
-                float acc = 0.f;
-#pragma unroll
-                for (int d = 0; d < D / 8; ++d) {
-                    const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&qv[d]);
-                    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&kv[d]);
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        const float2 x = __bfloat1622float2(a[j]), y = __bfloat1622float2(b[j]);
-                        acc = fmaf(x.x, y.x, acc);
-                        acc = fmaf(x.y, y.y, acc);
-                    }
-                }
-                const float x = __fadd_rn(__fmul_rn(acc, scale), self_bias);
+                const float x = self_score<E, D>(qrow + (gq + 8 * h) * DS,
+                                                 (c < C ? kw[0] : kw[1]) + (c % C) * DS, scale,
+                                                 self_bias);
 #pragma unroll
                 for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -328,7 +347,7 @@ __device__ __forceinline__ void window_softmax(float (&s)[C / 4][4], float (&mx)
         for (int e = 0; e < 4; ++e) {
             const float p = exp2f((s[b][e] - mx[e >> 1]) * kLog2e);
             l[e >> 1] += p;
-            s[b][e] = p;                 // rounded to bf16 by c_to_a
+            s[b][e] = p;                 // rounded to E by c_to_a
         }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -339,19 +358,19 @@ __device__ __forceinline__ void window_softmax(float (&s)[C / 4][4], float (&mx)
 }
 
 // BIAS: the layer has a self bias (self_bias != 0: the LSH layers)
-template <int C, int D, bool BIAS>
+template <typename E, int C, int D, bool BIAS>
 __global__ void __launch_bounds__(2 * C, 2)
-k3_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-      const int* __restrict__ qpos, const int* __restrict__ kpos, bf16* __restrict__ out,
+k3_tc(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+      const int* __restrict__ qpos, const int* __restrict__ kpos, E* __restrict__ out,
       float* __restrict__ lse, int T_, float scale, float self_bias) {
     constexpr int NT = 2 * C;           // C / 16 warps
     constexpr int DS = D + 8;
     constexpr int NB = C / 4;           // window columns: 2C in n-blocks of 8
     constexpr int HB = C / 8;           // n-blocks per chunk of the window
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [3][C][DS]: key chunk c in slot (c + 3) % 3
-    bf16* sV = sK + 3 * C * DS;
-    bf16* sQ = sV + 3 * C * DS;                     // [2][C][DS]: query chunk c in slot c % 2
+    E* sK = reinterpret_cast<E*>(smem_raw);         // [3][C][DS]: key chunk c in slot (c + 3) % 3
+    E* sV = sK + 3 * C * DS;
+    E* sQ = sV + 3 * C * DS;                        // [2][C][DS]: query chunk c in slot c % 2
     int* sKp = reinterpret_cast<int*>(sQ + 2 * C * DS);   // [3][C], as K
     int* sQp = sKp + 3 * C;                         // [2][C], as Q
 
@@ -392,9 +411,9 @@ k3_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
             load_q(i + 1);
             cp_commit();
         }
-        const bf16* tQ = sQ + (i & 1) * C * DS;
-        const bf16* const kw[2] = {sK + kslot(i - 1) * C * DS, sK + kslot(i) * C * DS};
-        const bf16* const vw[2] = {sV + kslot(i - 1) * C * DS, sV + kslot(i) * C * DS};
+        const E* tQ = sQ + (i & 1) * C * DS;
+        const E* const kw[2] = {sK + kslot(i - 1) * C * DS, sK + kslot(i) * C * DS};
+        const E* const vw[2] = {sV + kslot(i - 1) * C * DS, sV + kslot(i) * C * DS};
         const int* const kp[2] = {sKp + kslot(i - 1) * C, sKp + kslot(i) * C};
         const int qp[2] = {sQp[(i & 1) * C + 16 * w + gq], sQp[(i & 1) * C + 16 * w + gq + 8]};
 
@@ -410,27 +429,27 @@ k3_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
                 for (int np = 0; np < C / 16; ++np) {
                     uint32_t b[4];
                     load_b(b, kw[hf], DS, 16 * np, 16 * kb, lane);
-                    mma(s[hf * HB + 2 * np], a, b[0], b[1]);
-                    mma(s[hf * HB + 2 * np + 1], a, b[2], b[3]);
+                    mma<E>(s[hf * HB + 2 * np], a, b[0], b[1]);
+                    mma<E>(s[hf * HB + 2 * np + 1], a, b[2], b[3]);
                 }
         }
         float mx[2], l[2];
-        window_softmax<C, D, BIAS>(s, mx, l, kp, qp, tQ + 16 * w * DS, kw, gq, t, scale,
-                                   self_bias);
+        window_softmax<E, C, D, BIAS>(s, mx, l, kp, qp, tQ + 16 * w * DS, kw, gq, t, scale,
+                                      self_bias);
 
         // ctx = P . [V_{i-1}; V_i]
         float o[D / 8][4] = {};
 #pragma unroll
         for (int kb = 0; kb < C / 8; ++kb) {
             uint32_t a[4];
-            c_to_a(a, s[2 * kb], s[2 * kb + 1]);
-            const bf16* vt = vw[kb / (C / 16)];
+            c_to_a<E>(a, s[2 * kb], s[2 * kb + 1]);
+            const E* vt = vw[kb / (C / 16)];
 #pragma unroll
             for (int np = 0; np < D / 16; ++np) {
                 uint32_t b[4];
                 load_bt(b, vt, DS, 16 * np, 16 * (kb % (C / 16)), lane);
-                mma(o[2 * np], a, b[0], b[1]);
-                mma(o[2 * np + 1], a, b[2], b[3]);
+                mma<E>(o[2 * np], a, b[0], b[1]);
+                mma<E>(o[2 * np + 1], a, b[2], b[3]);
             }
         }
 #pragma unroll
@@ -440,43 +459,44 @@ k3_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __rest
 #pragma unroll
             for (int nb = 0; nb < D / 8; ++nb)
                 *reinterpret_cast<uint32_t*>(out + row * D + 8 * nb + 2 * t) =
-                    pack(o[nb][2 * h] * inv, o[nb][2 * h + 1] * inv);
+                    pack<E>(o[nb][2 * h] * inv, o[nb][2 * h + 1] * inv);
             if (t == 0) lse[row] = mx[h] + logf(l[h]);
         }
     }
 }
 
-template <int C, int D>
+template <typename E, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kpos, void* out, float* lse, int G, int T_, float scale,
                    float self_bias, cudaStream_t stream) {
     const size_t smem = smem_bytes<C, D>();
-    auto kern = self_bias != 0.f ? k3_tc<C, D, true> : k3_tc<C, D, false>;
+    auto kern = self_bias != 0.f ? k3_tc<E, C, D, true> : k3_tc<E, C, D, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kern<<<dim3((T_ / C + RUN - 1) / RUN, G), 2 * C, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, qpos, kpos, (bf16*)out, lse, T_, scale,
-        self_bias);
+        (const E*)q, (const E*)k, (const E*)v, qpos, kpos, (E*)out, lse, T_, scale, self_bias);
     return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// ------------------------------------ any chunk, D 128 and f16: the tiled form
-// k3_tiled: what the two kernels above do not take -- a chunk other than 32
-// or 64, D = 128 (their [C, 2C] tiles would not fit in shared memory at C
-// 128), and f16 -- as flash attention over the windows.  One 256-thread
-// block per (g, 64 query rows), which may span several chunks (C < 64) or
-// part of one (C > 64), walks the 64-key tiles of the union of its rows'
-// windows with an online softmax; operands are f32 rows of stride D+1 in
-// shared memory and every product an f32 FMA, as in the f32 kernel.  A key
-// outside a row's window is no term of its softmax; a key inside it that the
-// query may not see (a later position, or chunk 0's zero look-back) scores
-// NEG_INF, as above.  p is rounded to v's dtype against the running max
-// before PV, as K1 does.  A row that sees only its own key keeps lse =
-// fl(s + self_bias) exactly: the other terms are exp(-1e9 - max) = 0 and l =
-// 1.  Shared memory at D = 128: 116 KB.
+// ---------------------------------------------- any chunk and D 128: the tiled form
+// What the per-chunk kernels above do not take -- a chunk other than 32 or
+// 64, or D = 128 (their [C, 2C] tiles would not fit in shared memory at C
+// 128) -- as flash attention over the windows.  One block per (g, 64 query
+// rows), which may span several chunks (C < 64) or part of one (C > 64),
+// walks the 64-key tiles of the union of its rows' windows, [(q0 / C - 1) C,
+// (q_last / C + 1) C), with an online softmax.  A key outside a row's window
+// is no term of its softmax; a key inside it that the query may not see (a
+// later position, or chunk 0's zero look-back) scores NEG_INF, as above.  p
+// is rounded to v's dtype against the running max before PV, as K1 does.
+// k3_tiled, for f32: 256 threads, operands as f32 rows of stride D+1 in
+// shared memory and every product an f32 FMA, as in the f32 kernel; a row
+// that sees only its own key keeps lse = fl(s + self_bias) exactly (its FMA
+// order is the reference's; the other terms are exp(-1e9 - max) = 0 and l =
+// 1).  Shared memory at D = 128: 116 KB.  k3_union_tc, for bf16 and f16, is
+// the same walk on the tensor cores (below).
 namespace tiled {
 
 constexpr int B = 64;              // query rows per block, keys per tile
@@ -652,21 +672,280 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* qpos,
-                     const int* kpos, void* out, float* lse, int G, int T_, int C,
-                     float scale, float self_bias, cudaStream_t st) {
-    switch (D) {
-        case 16: return launch<T, 16>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                      self_bias, st);
-        case 32: return launch<T, 32>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                      self_bias, st);
-        case 64: return launch<T, 64>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                      self_bias, st);
-        case 128: return launch<T, 128>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                        self_bias, st);
-        default: return cudaErrorInvalidValue;
+// ---- the same walk on the tensor cores, for bf16 and f16 (k3_union_tc)
+// S = Q K^T and PV are mma.sync m16n8k16 products (mma_bf16.cuh); the
+// window, the masks, self_bias and the online softmax stay f32 on the
+// accumulator fragments, with p rounded to E where it enters PV.  Q, K and V
+// sit in shared memory as b16 rows of stride D+8, loaded by cp.async with
+// zero fill; the next key tile loads while the current one computes.  A
+// tile's 64 rows are four 16-row groups; at D <= 64 a group is one warp, at
+// D = 128 two (eight warps per block), which split the group's 64 keys for S
+// and the D columns of ctx in halves, so that a lane holds 16 f32 of scores
+// and 32 of ctx; the pair takes its row max over both halves and its row
+// sums through shared memory and multiplies the group's P (b16 rows in
+// shared memory) into its columns, behind a named barrier, as K1 does at H
+// = 128.  A key outside a row's window scores -inf (no term; the running max
+// starts at the finite kNone, so a tile with none of a row's keys rescales
+// nothing); the mask and the self bias are K3's.  In a layer with a self
+// bias, the score of each row's own key (kpos == qpos, inside its window) is
+// recomputed as the sequential f32 FMA chain (self_score), so that a row
+// that sees only its own key keeps lse = fl(s + self_bias) exactly.  Shared
+// memory at D = 128: 97 KB (two blocks per SM); at D = 64, 47 KB.
+template <int D>
+struct Split {
+    static constexpr int SP = D > 64 ? 2 : 1;   // warps per 16-row group
+    static constexpr int NW = (B / 16) * SP;
+    static constexpr int NT = 32 * NW;
+    static constexpr int KW = B / SP;           // keys of a warp's S
+    static constexpr int DW = D / SP;           // ctx columns of a warp
+    static constexpr int DS = D + 8, PS2 = B + 8;
+};
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+    // Q [B][DS]; 2 stages of K, V [B][DS]; at SP 2 the groups' P [B][PS2],
+    // all b16; qpos [B], 2 stages of kpos [B] int; at SP 2 each warp's row
+    // max / sum [16] f32
+    using SPL = Split<D>;
+    return 2 * (size_t)(5 * B * SPL::DS + (SPL::SP > 1 ? B * SPL::PS2 : 0)) + 4 * (3 * B) +
+           (SPL::SP > 1 ? 4 * (size_t)SPL::NW * 16 : 0);
+}
+
+// BIAS: the layer has a self bias (self_bias != 0: the LSH layers)
+template <typename E, int D, bool BIAS>
+__global__ void __launch_bounds__(Split<D>::NT, Split<D>::SP == 1 ? 3 : 2)
+k3_union_tc(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+            const int* __restrict__ qpos, const int* __restrict__ kpos, E* __restrict__ out,
+            float* __restrict__ lse, int T_, int C, float scale, float self_bias) {
+    using namespace mma_bf16;
+    using SPL = Split<D>;
+    constexpr int DS = SPL::DS, PS2 = SPL::PS2, KW = SPL::KW, DW = SPL::DW, SP = SPL::SP;
+    constexpr int NT = SPL::NT, STAGE = 2 * B * DS;      // K, V
+    constexpr float kLog2e = 1.4426950408889634f;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQ = reinterpret_cast<E*>(smem_raw);
+    E* sKV = sQ + B * DS;                           // stage b: K, V
+    E* sP = sKV + 2 * STAGE;                        // [B][PS2] (SP 2)
+    int* sQp = reinterpret_cast<int*>(sP + (SP > 1 ? B * PS2 : 0));
+    int* sKp = sQp + B;                             // stage b: [B]
+    float* sRows = reinterpret_cast<float*>(sKp + 2 * B);   // [NW][16] (SP 2)
+
+    const int g = blockIdx.y;
+    const int q0 = blockIdx.x * B;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP;               // 16-row group, warp in the group
+    const int gq = lane >> 2, t = lane & 3;
+    const size_t base = (size_t)g * T_;
+    const E* k_g = k + base * D;
+    const E* v_g = v + base * D;
+    float* sRow = sRows + w * 16;
+    const float* mate = sRows + (w ^ (SP - 1)) * 16;
+
+    const int q_last = min(q0 + B, T_) - 1;
+    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
+    // K, V and the key positions of the tile at k0 into stage b (a key
+    // outside [0, T): zeros at INT_MAX, never visible)
+    auto load_k = [&](int k0, int b) {
+        E* st = sKV + b * STAGE;
+        stage_rows<D>(st, k_g, k0, B, T_, tid, NT);
+        stage_rows<D>(st + B * DS, v_g, k0, B, T_, tid, NT);
+        cp_commit();
+        if (tid < B) {
+            const int wk = k0 + tid;
+            sKp[b * B + tid] = (wk >= 0 && wk < T_) ? kpos[base + wk] : INT_MAX;
+        }
+    };
+    stage_rows<D>(sQ, q + base * D, q0, B, T_, tid, NT);
+    if (tid < B) sQp[tid] = q0 + tid < T_ ? qpos[base + q0 + tid] : INT_MIN;
+    load_k(w_lo, 0);
+
+    // rows 16p + gq (+8): first window key, positions (read once staged),
+    // running max / sums
+    int lo[2], qp[2] = {INT_MIN, INT_MIN};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lo[h] = ((q0 + 16 * p + gq + 8 * h) / C - 1) * C;
+    float m[2] = {kNone, kNone}, l[2] = {0.f, 0.f};
+    float o[DW / 8][4] = {};                        // ctx columns DW c + 8n + 2t
+    for (int k0 = w_lo, it = 0; k0 < w_hi; k0 += B, ++it) {
+        const int b = it & 1;
+        cp_wait<0>();
+        __syncthreads();                // tile it landed; every warp is done with tile it - 1
+        if (k0 + B < w_hi) load_k(k0 + B, b ^ 1);
+        if (it == 0) {
+            qp[0] = sQp[16 * p + gq];
+            qp[1] = sQp[16 * p + gq + 8];
+        }
+        const E* tK = sKV + b * STAGE;
+        const E* tV = tK + B * DS;
+        const int* kp_t = sKp + b * B;
+
+        // S = Q . K^T over the warp's keys: key columns KW c + 8j .. +7
+        float s[KW / 8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t a[4];
+            load_a(a, sQ, DS, 16 * p, 16 * kk, lane);
+#pragma unroll
+            for (int np = 0; np < KW / 16; ++np) {
+                uint32_t bk[4];
+                load_b(bk, tK, DS, KW * c + 16 * np, 16 * kk, lane);
+                mma<E>(s[2 * np], a, bk[0], bk[1]);
+                mma<E>(s[2 * np + 1], a, bk[2], bk[3]);
+            }
+        }
+        // the window, the masks and the self bias; own[h]: this lane's column
+        // holding row h's own key, if any
+        int own[2] = {-1, -1};
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1, kj = KW * c + 8 * j + 2 * t + (e & 1), wk = k0 + kj;
+                const int kpv = kp_t[kj];
+                float x = s[j][e] * scale;
+                if (BIAS && kpv == qp[h]) {
+                    x += self_bias;
+                    own[h] = kj;
+                }
+                if (kpv > qp[h]) x = kNegInf;
+                if (wk < lo[h] || wk >= lo[h] + 2 * C) {
+                    x = -INFINITY;
+                    if (BIAS && own[h] == kj) own[h] = -1;
+                }
+                s[j][e] = x;
+            }
+        if (BIAS && __any_sync(0xffffffffu, own[0] >= 0 || own[1] >= 0)) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                if (own[h] < 0) continue;
+                const float x = tc::self_score<E, D>(sQ + (16 * p + gq + 8 * h) * DS,
+                                                     tK + own[h] * DS, scale, self_bias);
+#pragma unroll
+                for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                    for (int e = 2 * h; e < 2 * h + 2; ++e)
+                        if (KW * c + 8 * j + 2 * t + (e & 1) == own[h]) s[j][e] = x;
+            }
+        }
+        // the online softmax on the fragments
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        }
+        if constexpr (SP > 1) {         // the max over both key halves
+            if (t == 0) {
+                sRow[gq] = mx[0];
+                sRow[gq + 8] = mx[1];
+            }
+            group_sync<SP>(p);
+            mx[0] = fmaxf(mx[0], mate[gq]);
+            mx[1] = fmaxf(mx[1], mate[gq + 8]);
+        }
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
+            m[h] = mx[h];
+            l[h] *= alpha[h];
+        }
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float pr = exp2f((s[j][e] - mx[e >> 1]) * kLog2e);
+                l[e >> 1] += pr;
+                s[j][e] = pr;           // rounded to E where it enters PV
+            }
+#pragma unroll
+        for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+
+        // o += P . V[:, DW c, + DW) over the tile's 64 keys
+        if constexpr (SP == 1) {        // P from the accumulators
+#pragma unroll
+            for (int kb = 0; kb < B / 16; ++kb) {
+                uint32_t a[4];
+                c_to_a<E>(a, s[2 * kb], s[2 * kb + 1]);
+#pragma unroll
+                for (int np = 0; np < D / 16; ++np) {
+                    uint32_t bv[4];
+                    load_bt(bv, tV, DS, 16 * np, 16 * kb, lane);
+                    mma<E>(o[2 * np], a, bv[0], bv[1]);
+                    mma<E>(o[2 * np + 1], a, bv[2], bv[3]);
+                }
+            }
+        } else {                        // the group's P rows through shared memory
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    *reinterpret_cast<uint32_t*>(sP + (16 * p + gq + 8 * h) * PS2 + KW * c +
+                                                 8 * j + 2 * t) =
+                        pack<E>(s[j][2 * h], s[j][2 * h + 1]);
+            group_sync<SP>(p);
+#pragma unroll
+            for (int kb = 0; kb < B / 16; ++kb) {
+                uint32_t a[4];
+                load_a(a, sP, PS2, 16 * p, 16 * kb, lane);
+#pragma unroll
+                for (int np = 0; np < DW / 16; ++np) {
+                    uint32_t bv[4];
+                    load_bt(bv, tV, DS, DW * c + 16 * np, 16 * kb, lane);
+                    mma<E>(o[2 * np], a, bv[0], bv[1]);
+                    mma<E>(o[2 * np + 1], a, bv[2], bv[3]);
+                }
+            }
+        }
     }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    if constexpr (SP > 1) {             // the sum over both key halves
+        if (t == 0) {                   // the mate has read the last max (it passed P's barrier)
+            sRow[gq] = l[0];
+            sRow[gq + 8] = l[1];
+        }
+        group_sync<SP>(p);
+        l[0] += mate[gq];
+        l[1] += mate[gq + 8];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = q0 + 16 * p + gq + 8 * h;
+        if (r >= T_) continue;
+        const float lc = fmaxf(l[h], 1e-30f), inv = 1.f / lc;
+        E* o_r = out + (base + r) * D + DW * c;
+#pragma unroll
+        for (int n = 0; n < DW / 8; ++n)
+            *reinterpret_cast<uint32_t*>(o_r + 8 * n + 2 * t) =
+                pack<E>(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+        if (c == 0 && t == 0) lse[base + r] = m[h] + logf(lc);
+    }
+}
+
+template <typename E, int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* qpos,
+                      const int* kpos, void* out, float* lse, int G, int T_, int C,
+                      float scale, float self_bias, cudaStream_t stream) {
+    const size_t smem = tc_smem_bytes<D>();
+    auto kern = self_bias != 0.f ? k3_union_tc<E, D, true> : k3_union_tc<E, D, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3((T_ + B - 1) / B, G), Split<D>::NT, smem, stream>>>(
+        (const E*)q, (const E*)k, (const E*)v, qpos, kpos, (E*)out, lse, T_, C, scale,
+        self_bias);
+    return cudaGetLastError();
 }
 
 }  // namespace tiled
@@ -675,8 +954,9 @@ template <typename T, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kpos, void* out, float* lse, int G, int T_, float scale,
                    float self_bias, cudaStream_t stream) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {    // the tensor-core kernel
-        return tc::launch<C, D>(q, k, v, qpos, kpos, out, lse, G, T_, scale, self_bias, stream);
+    if constexpr (sizeof(T) == 2) {                       // bf16, f16: the tensor-core kernel
+        return tc::launch<T, C, D>(q, k, v, qpos, kpos, out, lse, G, T_, scale, self_bias,
+                                   stream);
     } else {
         const size_t smem = Fwd<C, D>::smem_bytes();
         auto kern = chunked_window_attn_fwd_kernel<T, C, D>;
@@ -718,13 +998,79 @@ cudaError_t launch_c(int C, int D, const void* q, const void* k, const void* v,
     }
 }
 
+// the tiled walk at head dim D: f32 FMAs for T = float, the tensor cores for bf16 / f16
+template <typename T, int D>
+cudaError_t launch_tiled(const void* q, const void* k, const void* v, const int* qpos,
+                         const int* kpos, void* out, float* lse, int G, int T_, int C,
+                         float scale, float self_bias, cudaStream_t st) {
+    if constexpr (sizeof(T) == 2)
+        return tiled::launch_tc<T, D>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                      self_bias, st);
+    else
+        return tiled::launch<T, D>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale, self_bias,
+                                   st);
+}
+
+template <typename T>
+cudaError_t launch_tiled_d(int D, const void* q, const void* k, const void* v,
+                           const int* qpos, const int* kpos, void* out, float* lse, int G,
+                           int T_, int C, float scale, float self_bias, cudaStream_t st) {
+    switch (D) {
+        case 16: return launch_tiled<T, 16>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                            self_bias, st);
+        case 32: return launch_tiled<T, 32>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                            self_bias, st);
+        case 64: return launch_tiled<T, 64>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                            self_bias, st);
+        case 128: return launch_tiled<T, 128>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                              self_bias, st);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <typename T>
+cudaError_t route(int C, int D, const void* q, const void* k, const void* v, const int* qpos,
+                  const int* kpos, void* out, float* lse, int G, int T_, float scale,
+                  float self_bias, cudaStream_t st) {
+    // chunks 32 / 64 at D <= 64: the per-chunk kernels; the rest: the tiled walk
+    if ((C == 32 || C == 64) && D <= 64)
+        return launch_c<T>(C, D, q, k, v, qpos, kpos, out, lse, G, T_, scale, self_bias, st);
+    return launch_tiled_d<T>(D, q, k, v, qpos, kpos, out, lse, G, T_, C, scale, self_bias, st);
+}
+
+// the resources of the tensor-core kernel of a 16-bit call (its self-bias
+// instance): k3_tc at chunks 32 / 64 and D <= 64, else k3_union_tc
+template <typename E, int D>
+cudaError_t resources_d(int C, int* out) {
+    if constexpr (D <= 64) {
+        if (C == 32)
+            return resources(tc::k3_tc<E, 32, D, true>, tc::smem_bytes<32, D>(), 64, out);
+        if (C == 64)
+            return resources(tc::k3_tc<E, 64, D, true>, tc::smem_bytes<64, D>(), 128, out);
+    }
+    return resources(tiled::k3_union_tc<E, D, true>, tiled::tc_smem_bytes<D>(),
+                     tiled::Split<D>::NT, out);
+}
+
+template <typename E>
+cudaError_t resources_c(int C, int D, int* out) {
+    switch (D) {
+        case 16: return resources_d<E, 16>(C, out);
+        case 32: return resources_d<E, 32>(C, out);
+        case 64: return resources_d<E, 64>(C, out);
+        case 128: return resources_d<E, 128>(C, out);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // q/k/v [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32 [G, T];
 // out [G, T, D] in that dtype, lse [G, T] f32.  T % chunk == 0; D 16, 32, 64
-// or 128.  Chunks 32 and 64 at D <= 64 run the FMA kernel in f32 and the
-// tensor-core one in bf16; every other chunk, D 128 and f16 run k3_tiled.
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// or 128.  Chunks 32 and 64 at D <= 64 run the per-chunk kernels (f32: the
+// FMA kernel; bf16 and f16: k3_tc); every other chunk and D 128 run the tiled
+// walk (f32: k3_tiled; bf16 and f16: k3_union_tc).  Launches on `stream`;
+// returns cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void* v,
                                        const void* qpos, const void* kpos, void* out,
                                        void* lse, int G, int T, int D, int chunk, int dtype,
@@ -734,21 +1080,26 @@ extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void*
     const int* kp = (const int*)kpos;
     float* l = (float*)lse;
     if (chunk <= 0 || T % chunk) return (int)cudaErrorInvalidValue;
-    const bool fixed = (chunk == 32 || chunk == 64) && D <= 64;
-    if (fixed && dtype == 0)
-        return (int)launch_c<float>(chunk, D, q, k, v, qp, kp, out, l, G, T, scale, self_bias,
-                                    st);
-    if (fixed && dtype == 1)
-        return (int)launch_c<__nv_bfloat16>(chunk, D, q, k, v, qp, kp, out, l, G, T, scale,
-                                            self_bias, st);
     if (dtype == 0)
-        return (int)tiled::launch_d<float>(D, q, k, v, qp, kp, out, l, G, T, chunk, scale,
-                                           self_bias, st);
+        return (int)route<float>(chunk, D, q, k, v, qp, kp, out, l, G, T, scale, self_bias, st);
     if (dtype == 1)
-        return (int)tiled::launch_d<__nv_bfloat16>(D, q, k, v, qp, kp, out, l, G, T, chunk,
-                                                   scale, self_bias, st);
+        return (int)route<__nv_bfloat16>(chunk, D, q, k, v, qp, kp, out, l, G, T, scale,
+                                         self_bias, st);
     if (dtype == 2)
-        return (int)tiled::launch_d<__half>(D, q, k, v, qp, kp, out, l, G, T, chunk, scale,
-                                            self_bias, st);
+        return (int)route<__half>(chunk, D, q, k, v, qp, kp, out, l, G, T, scale, self_bias,
+                                  st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The resources of the tensor-core kernel a bf16 (dtype 1) or f16 (2) call at
+// this chunk and D runs, as the loaded library reports them: out[0..4] =
+// registers, local (spill) bytes, dynamic shared bytes, resident blocks per
+// SM and threads per block of k3_tc or k3_union_tc (the self-bias instance).
+// Returns a cudaError_t (cudaErrorInvalidValue for f32 or a D it does not
+// take).
+extern "C" int chunked_window_attn_fwd_resources(int chunk, int D, int dtype, int* out) {
+    if (chunk <= 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return (int)resources_c<__nv_bfloat16>(chunk, D, out);
+    if (dtype == 2) return (int)resources_c<__half>(chunk, D, out);
     return (int)cudaErrorInvalidValue;
 }

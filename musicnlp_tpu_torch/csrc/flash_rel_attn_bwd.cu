@@ -443,15 +443,6 @@ struct Split {
                   "group scratch");
 };
 
-// the warps of group `grp` wait for each other (a named barrier at SP 2)
-template <int SP>
-__device__ __forceinline__ void group_sync(int grp) {
-    if constexpr (SP == 1)
-        __syncwarp();
-    else
-        asm volatile("bar.sync %0, %1;\n" :: "r"(grp + 1), "n"(32 * SP) : "memory");
-}
-
 // The 128-row window sits in a ring of three 64-row slabs; `gs` holds the
 // slabs of window rows [0, 64) and [64, 128).  Rows r .. r+15 of the window
 // (indexed at run time, `gs` takes 16 bytes of stack: a select instead

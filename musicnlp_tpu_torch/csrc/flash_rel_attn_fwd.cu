@@ -25,43 +25,49 @@
 // shape (BN 96) 19.3 GFLOP and 66 MB bound it about equally (0.0196 / 0.0198
 // ms).
 //
-// FMA (flash_rel_attn_fwd_kernel), for f32, for f16 and for every dtype at
-// H = 128: 256 threads, a 16 x 16 grid of 4 x 4 scores on 64 x 64 tiles (2 x
-// 2 on 32 x 32 tiles at H = 128, 99 KB of shared memory); K, V and the 2B - 1
-// table rows of a tile pair staged as f32 rows of stride H+1; every product
-// an f32 FMA from shared memory (shared-memory wavefronts limit it).  The f32
-// parity checks and the card-vs-CPU f32 gradients rest on it; f16 and the
-// 128-wide heads run on it until the tensor-core kernel takes them.
+// FMA (flash_rel_attn_fwd_kernel), for f32 only: 256 threads, a 16 x 16 grid
+// of 4 x 4 scores on 64 x 64 tiles (2 x 2 on 32 x 32 tiles at H = 128, 99
+// KB of shared memory); K, V and the 2B - 1 table rows of a tile pair staged
+// as f32 rows of stride H+1; every product an f32 FMA from shared memory
+// (shared-memory wavefronts limit it).  The f32 parity checks and the
+// card-vs-CPU f32 gradients rest on it.
 //
-// bf16 (k1_tc), the training and scoring path: four warps, warp w owns q
-// rows 16w..16w+15.  AC = Qw . K^T, BD and PV are mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) on ldmatrix fragments (mma_bf16.cuh); the warp's Qw / Qr
-// fragments stay in registers for the whole key loop.  BD is K2's skew
-// (flash_rel_attn_bwd.cu): X = Qr . Gwin^T over the warp's 80 columns
-// [48 - 16w, 128 - 16w) of the 128-row table window from u_lo = T - q0 - 64 +
-// k0, staged as f32 in the warp's scratch and read back at column 15 - qr +
-// ki.  Consecutive key tiles' windows overlap by 64 rows, so the window is a
-// ring of three 64-row slabs and each key tile loads only its new slab.
-// K / V / the new slab of the next key tile are loaded by cp.async into a
-// second buffer while the current tile computes (one barrier per tile).  The
-// online softmax runs on the accumulator fragments: row max across the four
-// lanes of a quad by shuffles, each lane's partial row sum rescaled by alpha
-// and reduced once at the end, p = exp2f((x - m) * log2(e)) with x and m in
-// natural units (so max, masks and lse are exactly the f32 values of the
-// reference), p packed to bf16 A fragments by RNE (c_to_a) for PV against V
-// read by ldmatrix.trans.  Tile pairs that the TPU kernel calls `interior`
-// (every pair visible; here also every key inside [0, S)) skip the per-pair
-// mask.  The context is scaled by one reciprocal per row.  Shared memory at
-// H = 64: Qw, Qr 18 KB, K / V x 2 stages 36 KB, the table ring 27 KB, the
-// warps' BD staging 21 KB -- 102 KB, two blocks (eight warps) per SM.
+// bf16 and f16 (k1_tc, templated on the element type E), at every H: the
+// q tile's 64 rows are four 16-row groups; at H <= 64 a group is one warp,
+// at H = 128 two (eight warps per block, see Split).  AC = Qw . K^T, BD and
+// PV are mma.sync m16n8k16 (E in, f32 accumulate) on ldmatrix fragments
+// (mma_bf16.cuh); the group's Qw / Qr fragments stay in registers for the
+// whole key loop.  BD is K2's skew (flash_rel_attn_bwd.cu): X = Qr . Gwin^T
+// over the warp's XW = KW + 16 columns [48 - 16p + KW c, ...) of the
+// 128-row table window from u_lo = T - q0 - 64 + k0 (KW = 64 keys per warp,
+// or 32 at H = 128 where warp c takes keys [32c, 32c + 32)), staged as f32 in
+// the warp's scratch and read back at column 15 - qr + kl.  Consecutive key
+// tiles' windows overlap by 64 rows, so the window is a ring of three 64-row
+// slabs and each key tile loads only its new slab.  K / V / the new slab of
+// the next key tile are loaded by cp.async into a second buffer while the
+// current tile computes (one barrier per tile).  The online softmax runs on
+// the accumulator fragments: row max across the four lanes of a quad by
+// shuffles (at H = 128 then across the group's two warps through shared
+// memory), each lane's partial row sum rescaled by alpha and reduced once at
+// the end, p = exp2f((x - m) * log2(e)) with x and m in natural units (so
+// max, masks and lse are exactly the f32 values of the reference), p
+// rounded to E by RNE where it enters PV against V read by ldmatrix.trans
+// (at H <= 64 straight from the accumulators by c_to_a; at H = 128 the
+// group's two halves of P meet as b16 rows over its BD staging, behind a
+// named barrier, and warp c multiplies them into ctx columns [64c, 64c +
+// 64)).  Tile pairs that the TPU kernel calls `interior` (every pair
+// visible; here also every key inside [0, S)) skip the per-pair mask.  The
+// context is scaled by one reciprocal per row.  Shared memory at H = 64: Qw,
+// Qr 18 KB, K / V x 2 stages 36 KB, the table ring 27 KB, the warps' BD
+// staging 21 KB -- 102 KB, two blocks (eight warps) per SM; at H = 128: 35 +
+// 70 + 52 + 27 KB -- 180 KB, one block of eight warps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "elem.cuh"
+#include "kernel_resources.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -72,6 +78,7 @@ constexpr int NT = 256;         // FMA threads: a 16 x 16 grid, 4 x 4 or 2 x 2 s
 constexpr float kNegInf = -1e30f;
 
 using namespace elem;
+using kernel_resources::resources;
 
 // the FMA kernel's square tile: 64 up to H = 64, 32 at H = 128 (64-row f32
 // tiles of 128 values would leave one block per SM)
@@ -242,23 +249,43 @@ flash_rel_attn_fwd_kernel(const T* __restrict__ rw, const T* __restrict__ rr,
     }
 }
 
-// ------------------------------------------------- bf16 on the tensor cores
+// ------------------------------------------- bf16 and f16 on the tensor cores
 namespace tc {
 
-using bf16 = __nv_bfloat16;
 using namespace mma_bf16;
 
-constexpr int NW = 4;            // warps; warp w owns q rows 16w..16w+15 of the tile
-constexpr int NTC = 32 * NW;
-constexpr int XW = 80;           // BD columns warp w needs: window rows [48 - 16w, 128 - 16w)
-constexpr int XS = XW + 4;       // f32 row stride of a warp's BD staging
+constexpr int NG = BQ / 16;      // 16-row groups of a q tile
 constexpr float kLog2e = 1.4426950408889634f;
+
+// A group of warps owns 16 q rows.  At H <= 64 it is one warp.  At H = 128
+// it is two: warp c computes AC and BD over keys [32c, 32c + 32) of the key
+// tile and owns ctx columns [64c, 64c + 64), so that a lane holds 64 f32 of
+// ctx and 16 of scores beside its Qw / Qr fragments (one warp would hold 64
+// + 32 + 64: over two blocks' budget, and the row's sums need both halves
+// anyway).  The pair shares its row max, its halves of P (b16) and, at the
+// end, its row sums through shared memory behind a named barrier.
+template <int H>
+struct Split {
+    static constexpr int SP = H > 64 ? 2 : 1;   // warps per 16-row group
+    static constexpr int NW = NG * SP;          // warps per block
+    static constexpr int NT = 32 * NW;
+    static constexpr int KW = BK / SP;          // keys of a warp's scores
+    static constexpr int HW = H / SP;           // ctx columns of a warp
+    static constexpr int XW = KW + 16;          // BD columns a warp needs
+    static constexpr int XS = XW + 4;           // f32 row stride of a warp's BD staging
+    static constexpr int PS = BK + 8;           // b16 row stride of a group's P (SP 2)
+    static_assert(SP == 1 || 16 * PS * 2 <= SP * 16 * XS * 4, "P fits the group's staging");
+};
 
 template <int H>
 constexpr size_t smem_bytes() {
     // Qw, Qr; 2 stages of K, V; the table ring (3 slabs of 64 rows), all
-    // [.][H+8] bf16; each warp's BD staging [16][XS] f32
-    return 2 * (size_t)(2 * BQ + 2 * 2 * BK + 3 * 64) * (H + 8) + (size_t)NW * 16 * XS * 4;
+    // [.][H+8] b16; each warp's BD staging [16][XS] f32 (at SP 2 the group's
+    // P rows overwrite it once its BD is read); at SP 2 each warp's row max /
+    // sum [16] f32
+    using SPL = Split<H>;
+    return 2 * (size_t)(2 * BQ + 2 * 2 * BK + 3 * 64) * (H + 8) +
+           (size_t)SPL::NW * 16 * SPL::XS * 4 + (SPL::SP > 1 ? (size_t)SPL::NW * 16 * 4 : 0);
 }
 
 // every pair of the tile pair (q0, k0) is visible: the TPU kernel's
@@ -269,25 +296,31 @@ __device__ __forceinline__ bool interior(int q0, int k0, int S, int M, int mv, i
 }
 
 // One key tile of the online softmax on the warp's fragments.  s holds AC
-// (rows gq, gq + 8 of the warp: e >> 1; key columns 8j + 2t + (e & 1)) and
-// becomes p; BD comes from the warp's staging sXw.  m: the rows' running
-// max, l: this lane's partial row sums, o: the context accumulators, all
-// rescaled by alpha.  MASK: the per-pair mask (a tile pair that is not
-// interior); q is the query of row gq.
+// (rows gq, gq + 8 of the group: e >> 1; key columns kc + 8j + 2t + (e & 1)
+// of the tile's keys, kc = KW c) and becomes p; BD comes from the warp's
+// staging sXw.  m: the rows' running max, l: this lane's partial row sums
+// over its keys, o: its ctx accumulators, all rescaled by alpha.  At SP 2
+// the group's two warps take the max of both halves through sRow (their
+// [16] f32 row slots; `mate` is the other warp's).  MASK: the per-pair mask
+// (a tile pair that is not interior); q is the query of row gq.
 template <bool MASK, int H>
-__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&o)[H / 8][4],
-                                             float (&m)[2], float (&l)[2], const float* sXw,
-                                             int q, int k0, int gq, int t, int S, int M, int mv,
-                                             float scale, int window) {
+__device__ __forceinline__ void softmax_tile(float (&s)[Split<H>::KW / 8][4],
+                                             float (&o)[Split<H>::HW / 8][4], float (&m)[2],
+                                             float (&l)[2], const float* sXw, float* sRow,
+                                             const float* mate, int grp, int q, int kc, int gq,
+                                             int t, int S, int M, int mv, float scale,
+                                             int window) {
+    using SPL = Split<H>;
+    constexpr int KW = SPL::KW, XS = SPL::XS;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < KW / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int h = e >> 1, qr = gq + 8 * h, ki = 8 * j + 2 * t + (e & 1);
             float x = (s[j][e] + sXw[qr * XS + 15 - qr + ki]) * scale;
             if (MASK) {
-                const int k = k0 + ki, d = M + q + 8 * h - k;
+                const int k = kc + ki, d = M + q + 8 * h - k;
                 if (!(d >= 0 && k < S && k >= M - mv && (window <= 0 || d < window)))
                     x = kNegInf;
             }
@@ -299,50 +332,71 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&o)[H / 8]
     for (int h = 0; h < 2; ++h) {
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if constexpr (SPL::SP > 1) {        // the max over both key halves
+        if (t == 0) {
+            sRow[gq] = mx[0];
+            sRow[gq + 8] = mx[1];
+        }
+        group_sync<SPL::SP>(grp);
+        mx[0] = fmaxf(mx[0], mate[gq]);
+        mx[1] = fmaxf(mx[1], mate[gq + 8]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
         alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
         m[h] = mx[h];
         l[h] *= alpha[h];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < KW / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const float p = exp2f((s[j][e] - mx[e >> 1]) * kLog2e);
             l[e >> 1] += p;
-            s[j][e] = p;                 // rounded to bf16 by c_to_a
+            s[j][e] = p;                 // rounded to E where it enters PV
         }
 #pragma unroll
-    for (int n = 0; n < H / 8; ++n)
+    for (int n = 0; n < SPL::HW / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 }
 
-template <int H>
-__global__ void __launch_bounds__(NTC, 2)
-k1_tc(const bf16* __restrict__ rw, const bf16* __restrict__ rr, const bf16* __restrict__ kk,
-      const bf16* __restrict__ vv, const bf16* __restrict__ g, bf16* __restrict__ out,
+template <typename E, int H>
+__global__ void __launch_bounds__(Split<H>::NT, Split<H>::SP == 1 ? 2 : 1)
+k1_tc(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
+      const E* __restrict__ vv, const E* __restrict__ g, E* __restrict__ out,
       float* __restrict__ lse, const int* __restrict__ mv_ptr, int mv_const, int N, int T_,
       int S, int M, float scale, int window) {
+    using SPL = Split<H>;
+    constexpr int SP = SPL::SP, KW = SPL::KW, HW = SPL::HW, XW = SPL::XW, XS = SPL::XS;
+    constexpr int NT = SPL::NT, PS = SPL::PS;
     constexpr int HS = H + 8;
     constexpr int KH = H / 16;                      // k-blocks of the score products
     constexpr int STAGE = 2 * BK * HS;              // K, V
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sQw = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sQr = sQw + BQ * HS;
-    bf16* sKV = sQr + BQ * HS;                      // stage b: K, V
-    bf16* sGr = sKV + 2 * STAGE;                    // ring of 3 slabs [64][HS]
+    E* sQw = reinterpret_cast<E*>(smem_raw);
+    E* sQr = sQw + BQ * HS;
+    E* sKV = sQr + BQ * HS;                         // stage b: K, V
+    E* sGr = sKV + 2 * STAGE;                       // ring of 3 slabs [64][HS]
+    float* sX = reinterpret_cast<float*>(sGr + 3 * 64 * HS);   // [NW][16][XS]
+    float* sRows = sX + SPL::NW * 16 * XS;                      // [NW][16] (SP 2)
 
     const int bn = blockIdx.y;
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
     const int head = bn % N;
     const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP;               // 16-row group, warp in the group
     const int gq = lane >> 2, t = lane & 3;
     const int mv = mv_ptr ? *mv_ptr : mv_const;
-    float* sXw = reinterpret_cast<float*>(sGr + 3 * 64 * HS) + w * 16 * XS;
+    float* sXw = sX + w * 16 * XS;
+    E* sPg = reinterpret_cast<E*>(sX + p * SP * 16 * XS);      // the group's P [16][PS] (SP 2)
+    float* sRow = sRows + w * 16;
+    const float* mate = sRows + (w ^ (SP - 1)) * 16;
 
-    const bf16* k_b = kk + (size_t)bn * S * H;
-    const bf16* v_b = vv + (size_t)bn * S * H;
-    const bf16* g_h = g + (size_t)head * (T_ + S) * H;
+    const E* k_b = kk + (size_t)bn * S * H;
+    const E* v_b = vv + (size_t)bn * S * H;
+    const E* g_h = g + (size_t)head * (T_ + S) * H;
 
     // keys any row of this tile can see
     const int q_last = min(q0 + BQ, T_) - 1;
@@ -356,27 +410,27 @@ k1_tc(const bf16* __restrict__ rw, const bf16* __restrict__ rr, const bf16* __re
     auto slab = [&](int s, int it) { return sGr + ((it + s) % 3) * 64 * HS; };
     auto load_k = [&](int kt, bool first) {          // K, V, the new table slab(s) of tile kt
         const int k0 = kt * BK, it = kt - kt_begin, u_lo = T_ - q0 - BQ + k0;
-        bf16* st = sKV + (it & 1) * STAGE;
-        stage_rows<H>(st, k_b, k0, BK, S, tid, NTC);
-        stage_rows<H>(st + BK * HS, v_b, k0, BK, S, tid, NTC);
-        if (first) stage_rows<H>(slab(0, it), g_h, u_lo, 64, T_ + S, tid, NTC);
-        stage_rows<H>(slab(1, it), g_h, u_lo + 64, 64, T_ + S, tid, NTC);
+        E* st = sKV + (it & 1) * STAGE;
+        stage_rows<H>(st, k_b, k0, BK, S, tid, NT);
+        stage_rows<H>(st + BK * HS, v_b, k0, BK, S, tid, NT);
+        if (first) stage_rows<H>(slab(0, it), g_h, u_lo, 64, T_ + S, tid, NT);
+        stage_rows<H>(slab(1, it), g_h, u_lo + 64, 64, T_ + S, tid, NT);
         cp_commit();
     };
 
-    float o[H / 8][4] = {};                         // ctx rows 16w + gq (+8), cols 8n + 2t
+    float o[HW / 8][4] = {};                        // ctx rows 16p + gq (+8), cols HW c + 8n + 2t
     float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-    uint32_t aw[KH][4], ar[KH][4];                  // the warp's Qw / Qr A fragments
+    uint32_t aw[KH][4], ar[KH][4];                  // the group's Qw / Qr A fragments
     if (kt_begin < kt_end) {
-        stage_rows<H>(sQw, rw + (size_t)bn * T_ * H, q0, BQ, T_, tid, NTC);
-        stage_rows<H>(sQr, rr + (size_t)bn * T_ * H, q0, BQ, T_, tid, NTC);
+        stage_rows<H>(sQw, rw + (size_t)bn * T_ * H, q0, BQ, T_, tid, NT);
+        stage_rows<H>(sQr, rr + (size_t)bn * T_ * H, q0, BQ, T_, tid, NT);
         load_k(kt_begin, true);
         cp_wait<0>();
         __syncthreads();
 #pragma unroll
         for (int kb = 0; kb < KH; ++kb) {
-            load_a(aw[kb], sQw, HS, 16 * w, 16 * kb, lane);
-            load_a(ar[kb], sQr, HS, 16 * w, 16 * kb, lane);
+            load_a(aw[kb], sQw, HS, 16 * p, 16 * kb, lane);
+            load_a(ar[kb], sQr, HS, 16 * p, 16 * kb, lane);
         }
     }
     for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -384,60 +438,84 @@ k1_tc(const bf16* __restrict__ rw, const bf16* __restrict__ rr, const bf16* __re
         cp_wait<0>();
         __syncthreads();                 // tile kt landed; every warp is done with tile kt - 1
         if (kt + 1 < kt_end) load_k(kt + 1, false);
-        const bf16* sK = sKV + (it & 1) * STAGE;
-        const bf16* sV = sK + BK * HS;
+        const E* sK = sKV + (it & 1) * STAGE;
+        const E* sV = sK + BK * HS;
 
-        // X = Qr . Gwin[48 - 16w, 128 - 16w)^T into the warp's staging: BD[qr][ki]
-        // is X[qr][15 - qr + ki]
+        // X = Qr[16p, 16p + 16) . Gwin[48 - 16p + KW c, + XW)^T into the warp's
+        // staging: BD[qr][KW c + kl] is X[qr][15 - qr + kl]
 #pragma unroll
         for (int np = 0; np < XW / 16; ++np) {
-            const int r0 = 48 - 16 * w + 16 * np;   // window row; never crosses a slab
-            const bf16* gr = slab(r0 >> 6, it) + (r0 & 63) * HS;
+            const int r0 = 48 - 16 * p + KW * c + 16 * np;   // window row; never crosses a slab
+            const E* gr = slab(r0 >> 6, it) + (r0 & 63) * HS;
             float x[2][4] = {};
 #pragma unroll
             for (int kb = 0; kb < KH; ++kb) {
                 uint32_t b[4];
                 load_b(b, gr, HS, 0, 16 * kb, lane);
-                mma(x[0], ar[kb], b[0], b[1]);
-                mma(x[1], ar[kb], b[2], b[3]);
+                mma<E>(x[0], ar[kb], b[0], b[1]);
+                mma<E>(x[1], ar[kb], b[2], b[3]);
             }
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-                const int c = 16 * np + 8 * h + 2 * t;
-                *reinterpret_cast<float2*>(sXw + gq * XS + c) = make_float2(x[h][0], x[h][1]);
-                *reinterpret_cast<float2*>(sXw + (gq + 8) * XS + c) =
+                const int col = 16 * np + 8 * h + 2 * t;
+                *reinterpret_cast<float2*>(sXw + gq * XS + col) = make_float2(x[h][0], x[h][1]);
+                *reinterpret_cast<float2*>(sXw + (gq + 8) * XS + col) =
                     make_float2(x[h][2], x[h][3]);
             }
         }
-        // AC = Qw . K^T: key columns 8j .. 8j+7
-        float s[8][4] = {};
+        // AC = Qw . K^T over the warp's keys: key columns KW c + 8j .. +7
+        float s[KW / 8][4] = {};
 #pragma unroll
         for (int kb = 0; kb < KH; ++kb)
 #pragma unroll
-            for (int np = 0; np < 4; ++np) {
+            for (int np = 0; np < KW / 16; ++np) {
                 uint32_t b[4];
-                load_b(b, sK, HS, 16 * np, 16 * kb, lane);
-                mma(s[2 * np], aw[kb], b[0], b[1]);
-                mma(s[2 * np + 1], aw[kb], b[2], b[3]);
+                load_b(b, sK, HS, KW * c + 16 * np, 16 * kb, lane);
+                mma<E>(s[2 * np], aw[kb], b[0], b[1]);
+                mma<E>(s[2 * np + 1], aw[kb], b[2], b[3]);
             }
         __syncwarp();                    // the warp's BD staging is written
-        const int q = q0 + 16 * w + gq;
+        const int q = q0 + 16 * p + gq;
         if (interior(q0, k0, S, M, mv, window))
-            softmax_tile<false, H>(s, o, m_r, l_r, sXw, q, k0, gq, t, S, M, mv, scale, window);
+            softmax_tile<false, H>(s, o, m_r, l_r, sXw, sRow, mate, p, q, k0 + KW * c, gq, t,
+                                   S, M, mv, scale, window);
         else
-            softmax_tile<true, H>(s, o, m_r, l_r, sXw, q, k0, gq, t, S, M, mv, scale, window);
+            softmax_tile<true, H>(s, o, m_r, l_r, sXw, sRow, mate, p, q, k0 + KW * c, gq, t,
+                                  S, M, mv, scale, window);
 
-        // o += P . V over the tile's 64 keys
+        // o += P . V[:, HW c, + HW) over the tile's 64 keys
+        if constexpr (SP == 1) {         // P from the accumulators
 #pragma unroll
-        for (int kb = 0; kb < BK / 16; ++kb) {
-            uint32_t a[4];
-            c_to_a(a, s[2 * kb], s[2 * kb + 1]);
+            for (int kb = 0; kb < BK / 16; ++kb) {
+                uint32_t a[4];
+                c_to_a<E>(a, s[2 * kb], s[2 * kb + 1]);
 #pragma unroll
-            for (int np = 0; np < H / 16; ++np) {
-                uint32_t b[4];
-                load_bt(b, sV, HS, 16 * np, 16 * kb, lane);
-                mma(o[2 * np], a, b[0], b[1]);
-                mma(o[2 * np + 1], a, b[2], b[3]);
+                for (int np = 0; np < H / 16; ++np) {
+                    uint32_t b[4];
+                    load_bt(b, sV, HS, 16 * np, 16 * kb, lane);
+                    mma<E>(o[2 * np], a, b[0], b[1]);
+                    mma<E>(o[2 * np + 1], a, b[2], b[3]);
+                }
+            }
+        } else {                         // the group's P rows over its staging (BD is read)
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    *reinterpret_cast<uint32_t*>(sPg + (gq + 8 * h) * PS + KW * c + 8 * j +
+                                                 2 * t) = pack<E>(s[j][2 * h], s[j][2 * h + 1]);
+            group_sync<SP>(p);
+#pragma unroll
+            for (int kb = 0; kb < BK / 16; ++kb) {
+                uint32_t a[4];
+                load_a(a, sPg, PS, 0, 16 * kb, lane);
+#pragma unroll
+                for (int np = 0; np < HW / 16; ++np) {
+                    uint32_t b[4];
+                    load_bt(b, sV, HS, HW * c + 16 * np, 16 * kb, lane);
+                    mma<E>(o[2 * np], a, b[0], b[1]);
+                    mma<E>(o[2 * np + 1], a, b[2], b[3]);
+                }
             }
         }
     }
@@ -448,36 +526,45 @@ k1_tc(const bf16* __restrict__ rw, const bf16* __restrict__ rr, const bf16* __re
         float l = l_r[h];
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
-        l_row[h] = fmaxf(l, 1e-30f);
+        l_row[h] = l;
+    }
+    if constexpr (SP > 1) {              // the sum over both key halves
+        if (t == 0) {                    // the mate has read this tile's max (it passed P's barrier)
+            sRow[gq] = l_row[0];
+            sRow[gq + 8] = l_row[1];
+        }
+        group_sync<SP>(p);
+        l_row[0] += mate[gq];
+        l_row[1] += mate[gq + 8];
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-        const int q = q0 + 16 * w + gq + 8 * h;
+        const int q = q0 + 16 * p + gq + 8 * h;
         if (q >= T_) continue;
-        const float inv = 1.f / l_row[h];
-        bf16* o_r = out + ((size_t)bn * T_ + q) * H;
+        const float lc = fmaxf(l_row[h], 1e-30f), inv = 1.f / lc;
+        E* o_r = out + ((size_t)bn * T_ + q) * H + HW * c;
 #pragma unroll
-        for (int n = 0; n < H / 8; ++n)
+        for (int n = 0; n < HW / 8; ++n)
             *reinterpret_cast<uint32_t*>(o_r + 8 * n + 2 * t) =
-                pack(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
-        if (t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(l_row[h]);
+                pack<E>(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+        if (c == 0 && t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(lc);
     }
 }
 
-template <int H>
+template <typename E, int H>
 cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
                    const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
                    int BN, int N, int T_, int S, int M, float scale, int window,
                    cudaStream_t stream) {
     const size_t smem = smem_bytes<H>();
-    auto kern = k1_tc<H>;
+    auto kern = k1_tc<E, H>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((T_ + BQ - 1) / BQ, BN);
-    kern<<<grid, NTC, smem, stream>>>(
-        (const bf16*)rw, (const bf16*)rr, (const bf16*)k, (const bf16*)v, (const bf16*)g,
-        (bf16*)out, lse, mv_ptr, mv_const, N, T_, S, M, scale, window);
+    kern<<<grid, Split<H>::NT, smem, stream>>>(
+        (const E*)rw, (const E*)rr, (const E*)k, (const E*)v, (const E*)g, (E*)out, lse,
+        mv_ptr, mv_const, N, T_, S, M, scale, window);
     return cudaGetLastError();
 }
 
@@ -488,9 +575,9 @@ cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
                    const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
                    int BN, int N, int T_, int S, int M, float scale, int window,
                    cudaStream_t stream) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16> && H <= 64) {    // the tensor-core kernel
-        return tc::launch<H>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN, N, T_, S, M,
-                             scale, window, stream);
+    if constexpr (sizeof(T) == 2) {                  // bf16, f16: the tensor-core kernel
+        return tc::launch<T, H>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN, N, T_, S, M,
+                                scale, window, stream);
     } else {
         const size_t smem = smem_floats<H>() * sizeof(float);
         auto kern = flash_rel_attn_fwd_kernel<T, H>;
@@ -524,14 +611,30 @@ cudaError_t launch_h(int H, const void* rw, const void* rr, const void* k, const
     }
 }
 
+template <typename E, int H>
+cudaError_t resources_h(int* out) {
+    return resources(tc::k1_tc<E, H>, tc::smem_bytes<H>(), tc::Split<H>::NT, out);
+}
+
+template <typename E>
+cudaError_t resources_e(int H, int* out) {
+    switch (H) {
+        case 16: return resources_h<E, 16>(out);
+        case 32: return resources_h<E, 32>(out);
+        case 64: return resources_h<E, 64>(out);
+        case 128: return resources_h<E, 128>(out);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // rw/rr [BN, T, H], k/v [BN, S, H], g [N, T+S, H] (dtype 0 = f32, 1 = bf16,
 // 2 = f16; H 16, 32, 64 or 128); out [BN, T, H] in that dtype, lse [BN, T]
 // f32.  mem_valid is read from the device int32 at mv_ptr, or is mv_const
-// when mv_ptr is null.  window <= 0 is no window.  bf16 at H <= 64 runs the
-// tensor-core kernel, everything else the FMA kernel.  Launches on `stream`;
-// returns cudaGetLastError() of the launch.
+// when mv_ptr is null.  window <= 0 is no window.  bf16 and f16 run the
+// tensor-core kernel (k1_tc) at every H, f32 the FMA kernel.  Launches on
+// `stream`; returns cudaGetLastError() of the launch.
 extern "C" int flash_rel_attn_fwd(const void* rw, const void* rr, const void* k,
                                   const void* v, const void* g, void* out, void* lse,
                                   const void* mv_ptr, int mv_const, int BN, int N,
@@ -549,5 +652,16 @@ extern "C" int flash_rel_attn_fwd(const void* rw, const void* rr, const void* k,
     if (dtype == 2)
         return (int)launch_h<__half>(H, rw, rr, k, v, g, out, l, mv, mv_const, BN, N, T, S, M,
                                      scale, window, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The resources of the tensor-core kernel a bf16 (dtype 1) or f16 (2) call
+// at head dim H runs, as the loaded library reports them: out[0..4] =
+// registers, local (spill) bytes, dynamic shared bytes, resident blocks per
+// SM and threads per block of k1_tc.  Returns a cudaError_t
+// (cudaErrorInvalidValue for f32 or another H).
+extern "C" int flash_rel_attn_fwd_resources(int H, int dtype, int* out) {
+    if (dtype == 1) return (int)resources_e<__nv_bfloat16>(H, out);
+    if (dtype == 2) return (int)resources_e<__half>(H, out);
     return (int)cudaErrorInvalidValue;
 }

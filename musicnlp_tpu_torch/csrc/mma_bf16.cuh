@@ -1,7 +1,8 @@
 // Tensor-core helpers for the 16-bit kernels of the port (sm_80+ PTX, built
-// for sm_90a): ldmatrix, mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate)
-// and cp.async with zero fill.  Included by the tensor-core kernels of K1-K4
-// (flash_rel_attn_fwd.cu, flash_rel_attn_bwd.cu, chunked_window_attn_fwd.cu,
+// for sm_90a): ldmatrix, mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate),
+// cp.async with zero fill and the named barrier of a 16-row group of warps.
+// Included by the tensor-core kernels of K1-K4 (flash_rel_attn_fwd.cu,
+// flash_rel_attn_bwd.cu, chunked_window_attn_fwd.cu,
 // chunked_window_attn_bwd.cu).  The element type E (__nv_bfloat16 by
 // default, or __half) picks the product's input type and the rounding of
 // `pack` / `c_to_a`; ldmatrix and cp.async move b16 and take either.
@@ -121,6 +122,25 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
     a[1] = pack<E>(c0[2], c0[3]);
     a[2] = pack<E>(c1[0], c1[1]);
     a[3] = pack<E>(c1[2], c1[3]);
+}
+
+// two E values (low half first) as f32
+template <typename E = __nv_bfloat16>
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+    if constexpr (std::is_same_v<E, __half>)
+        return __half22float2(*reinterpret_cast<const __half2*>(&v));
+    else
+        return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// the SP warps of 16-row group `grp` wait for each other: __syncwarp for one
+// warp, else the named barrier 1 + grp (0 is __syncthreads')
+template <int SP>
+__device__ __forceinline__ void group_sync(int grp) {
+    if constexpr (SP == 1)
+        __syncwarp();
+    else
+        asm volatile("bar.sync %0, %1;\n" :: "r"(grp + 1), "n"(32 * SP) : "memory");
 }
 
 // 16 bytes global -> shared; zero fill when !valid (src-size 0: nothing read)

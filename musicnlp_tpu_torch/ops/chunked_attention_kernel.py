@@ -34,14 +34,14 @@ query; pad queries keep their positions.
 Bound on the H100 (SXM, 700 W): at the 22-04 LSH shape (G = 32*12*2 = 768,
 T 2048, D 64, c 64, bf16) K3 moves ~0.82 GB (q, k, v, positions in; ctx and
 lse out: 0.25 ms at 3.35 TB/s) for ~52 GFLOP (0.05 ms at 989 TFLOP/s), and
-K4 ~1.8 GB (0.55 ms): both are bound by bytes.  At chunks 32 and 64 and
-head dims up to 64, K3 runs bf16 inputs and K4 bf16 and f16 inputs on the
-tensor cores (mma.sync over runs of consecutive chunks, each chunk loaded
-once per run; `k3_tc`, `k4_tc`), and both run f32 inputs on f32 FMAs.  Every
-other chunk and head dim 128 run over 64-row tiles of the windows: K3 on
-f32 FMAs (`k3_tiled`, also for f16), K4 on the tensor cores in bf16 and f16
-(`k4_dq_tc` / `k4_dkdv_tc`) and on f32 FMAs in f32 (`k4_dq_tiled` /
-`k4_dkdv_tiled`).  `chip_smoke.py` measures them against that bound.
+K4 ~1.8 GB (0.55 ms): both are bound by bytes.  K3 and K4 run every bf16
+and f16 call on the tensor cores: at chunks 32 and 64 and head dims up to
+64 over runs of consecutive chunks, each chunk loaded once per run (mma.sync;
+`k3_tc`, `k4_tc`); every other chunk and head dim 128 over 64-row tiles of
+the windows (`k3_union_tc`; `k4_dq_tc` / `k4_dkdv_tc`).  f32 inputs run the
+f32 FMA kernels of the same two layouts (the per-chunk kernels, `k3_tiled`,
+`k4_dq_tiled` / `k4_dkdv_tiled`), which the f32 parity checks rest on.
+`chip_smoke.py` measures them against that bound.
 """
 from __future__ import annotations
 

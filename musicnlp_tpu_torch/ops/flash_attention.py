@@ -27,12 +27,11 @@ ctx and lse written once: 0.0198 ms at 3.35 TB/s) and do ~19.3 GFLOP (three
 H-long products per visible (q, k) pair: AC, BD and PV; 0.0196 ms at 989
 TFLOP/s), so bytes and tensor-core operations bound it about equally.  K2
 does 8 H-long products per visible pair, so operations bound it (see its
-source).  K1 runs bf16 inputs at H <= 64 on the tensor cores (mma.sync,
-16-bit shared tiles, cp.async; `k1_tc`) and f16 and H 128 on f32 FMAs; K2
-runs every bf16 and f16 call on the tensor cores (`k2_dkdv_tc` /
+source).  K1 and K2 run every bf16 and f16 call on the tensor cores
+(mma.sync, 16-bit shared tiles, cp.async; `k1_tc`, `k2_dkdv_tc` /
 `k2_dq_tc`, at H 128 with two warps per 16-row group).  f32, which the f32
-parity checks rest on, runs the FMA kernels of both; dtype and H pick the
-kernel inside each C entry point.
+parity checks rest on, runs the FMA kernels of both; dtype picks the kernel
+inside each C entry point.
 
 The distance table g_tab [N, T+S, H] stays a plain matmul outside the kernels
 (as on the TPU): row u holds W_r^T R(clip((M+T-1) - u, 0, clamp_len)), so the

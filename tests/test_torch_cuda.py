@@ -1,6 +1,6 @@
 """K1-K6 on the card against their plain versions (K1-K4 also at head dim
 128, in f16 and, for K3 / K4, at chunks other than 32 / 64: ROADMAP C.1;
-K2 / K4 run every bf16 and f16 call on their tensor-core kernels),
+K1-K4 run every bf16 and f16 call on their tensor-core kernels),
 the tiled CE's card path (bf16 tiles on the tensor cores) against the dense
 CE, C.1's three model configurations launching K1-K4, a `device_trace` that
 names K1 / K2, and `PitchEmbedding` on the card against the CPU (needs an
@@ -56,11 +56,18 @@ TOL16 = {torch.bfloat16: 2e-2, torch.float16: 5e-3}
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
+# H, T, M, mem_valid, window, clamp; the fourth: a ragged T with memory, a
+# window and mem_valid < M (every edge of the tensor-core kernels' skew
+# windows); the last three: H 128 (f32: the FMA kernels' 32-row tiles; bf16
+# / f16: the tensor-core kernels' two-warp groups), the last over six
+# ragged q and key tiles with a window and no memory
+CASES = [(64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17),
+         (64, 200, 100, 37, 150, 64), (128, 96, 64, 17, 40, 33), (128, 200, 100, 37, 150, 64),
+         (128, 333, 0, 0, 150, 1024)]
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('H,T,M,mv,window,clamp', [
-    (64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17),
-    (128, 96, 64, 17, 40, 33),
-])
+@pytest.mark.parametrize('H,T,M,mv,window,clamp', CASES)
 def test_k1_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
     rw, rr, k, v, g = _inputs(dev, dtype, 6, 3, T, M, H, clamp)
     mvt = torch.tensor(mv, dtype=torch.int32, device=dev)
@@ -73,14 +80,6 @@ def test_k1_matches_plain(dev, dtype, H, T, M, mv, window, clamp):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
 
 
-# H, T, M, mem_valid, window, clamp; the fourth: a ragged T with memory, a
-# window and mem_valid < M (every edge of the tensor-core kernels' skew
-# windows); the last three: H 128 (f32: the FMA kernels' 32-row tiles; bf16
-# / f16: the tensor-core kernels' two-warp groups), the last over six
-# ragged q and key tiles with a window and no memory
-CASES = [(64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17),
-         (64, 200, 100, 37, 150, 64), (128, 96, 64, 17, 40, 33), (128, 200, 100, 37, 150, 64),
-         (128, 333, 0, 0, 150, 1024)]
 
 
 def _rel_err(got, want):
@@ -211,31 +210,28 @@ def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_b
 @pytest.mark.parametrize('name,kernels', [
     ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc')),
     ('chunked_window_attn_bwd', ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc')),
-    ('flash_rel_attn_fwd', ('k1_tc',)), ('chunked_window_attn_fwd', ('k3_tc',)),
+    ('flash_rel_attn_fwd', ('k1_tc',)), ('chunked_window_attn_fwd', ('k3_tc', 'k3_union_tc')),
 ])
 def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
-    """The tensor-core kernels of K2 and K4 (every bf16 and f16 call: K2 at
-    head dims 16-128, K4's k4_tc and its tiled split k4_dq_tc / k4_dkdv_tc),
-    and the bf16 ones of the forward kernels K1 and K3, hold tensor-core
+    """The tensor-core kernels of K1-K4 (every bf16 and f16 call: K1 / K2 at
+    head dims 16-128, K3's k3_tc and its tiled walk k3_union_tc, K4's k4_tc
+    and its tiled split k4_dq_tc / k4_dkdv_tc) hold tensor-core
     instructions (HMMA for mma.sync, HGMMA for wgmma) in `cuobjdump -sass` of
-    the built library, in every instantiation; K2's and K4's are built for
-    both bf16 and f16 and K2's at head dim 128; the FMA kernels keep their
-    FMA code (TF32 would break the f32 parity), and in the backward
-    libraries the attention's FMA kernels are built for f32 alone."""
+    the built library, in every instantiation, and are built for both bf16
+    and f16 (K1's and K2's at head dim 128); the FMA kernels keep their FMA
+    code (TF32 would break the f32 parity) and are built for f32 alone."""
     counts = vr.tensor_core_counts(name)
     for kern in kernels:
         fns = [c for f, c in counts.items() if kern in f]
         assert fns and all(c > 0 for c in fns), (kern, counts)
-        if name.endswith('_bwd'):
-            for part in ('__nv_bfloat16', '6__half'):
-                assert any(kern in f and part in f for f in counts), (kern, part, counts)
-    if name == 'flash_rel_attn_bwd':
+        for part in ('__nv_bfloat16', '6__half'):
+            assert any(kern in f and part in f for f in counts), (kern, part, counts)
+    if name.startswith('flash_rel_attn'):
         assert all(any(k in f and 'Li128E' in f for f in counts) for k in kernels), counts
     fma = {f: c for f, c in counts.items() if '_tc' not in f}
     assert fma and not any(fma.values()), counts
-    if name.endswith('_bwd'):                  # row_dot (delta) takes every dtype
-        assert not any('__nv_bfloat16' in f or '__half' in f for f in fma if 'row_dot' not in f), \
-            fma
+    # row_dot (delta, in the backward libraries) takes every dtype
+    assert not any('__nv_bfloat16' in f or '__half' in f for f in fma if 'row_dot' not in f), fma
 
 
 def test_reformer_forward_and_backward_launch_once_per_layer(dev):

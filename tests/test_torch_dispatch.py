@@ -141,8 +141,8 @@ def test_odd_head_dim_tfxl_runs_padded_and_matches_jax(calls):
 
 
 def test_fp16_tfxl_runs_the_kernels(calls):
-    """float16 goes through FlashRelAttn in f16 (K1 / K2's FMA kernels on
-    the card) and stays near the f32 model's logits."""
+    """float16 goes through FlashRelAttn in f16 (K1 / K2's tensor-core
+    kernels on the card) and stays near the f32 model's logits."""
     cfg = TransfoXLConfig(vocab_size=V, **dict(TFXL_128, d_model=64, d_head=32,
                                                dtype='float16'))
     f16 = TransfoXL(cfg, device='cpu')

@@ -1,4 +1,4 @@
-"""The bf16 forward kernels' tile schedules emulated in plain torch and held
+"""The 16-bit forward kernels' tile schedules emulated in plain torch and held
 against the plain versions: K1's `k1_tc` (`csrc/flash_rel_attn_fwd.cu`)
 against `flash_rel_attn_fwd_plain`, K3's `k3_tc`
 (`csrc/chunked_window_attn_fwd.cu`) against `chunked_window_attn_fwd_plain`.
@@ -18,11 +18,30 @@ slots and loaded once per run, each run's look-back, chunk 0's zero
 look-back with position INT32_MAX, pad keys at position T, a fully masked
 pad row (the window's uniform average), and the rows whose max is their own
 biased key, whose score the kernel recomputes.  In f32 the emulations must
-equal the plain versions to 1e-5."""
+equal the plain versions to 1e-5.
+
+At head dim 128 (`k1_tc`'s split) a 16-row group is two warps: warp c takes
+keys [32c, 32c + 32) of the tile (BD from X's columns [48 - 16p + 32c, +48)),
+the pair takes the row max over both halves, and warp c multiplies the
+group's whole P into ctx columns [64c, 64c + 64); the row sums add at the
+end.  K3's tiled walk on the tensor cores (`k3_union_tc`): a block of 64
+query rows walks the 64-key tiles of the union of its rows' windows,
+[(q0 / C - 1) C, (q_last / C + 1) C), keys outside a row's window score -inf
+(no term), the online softmax starts from a finite running max, at D 128 the
+same key / column split, and with a self bias each row's own key is
+rescored as the sequential f32 FMA chain; chunks 8 / 16 / 48 / 128, D 128,
+LSH-permuted and padded positions, ragged last tiles, once against the
+Pallas forward in interpret mode.  p rounds to bf16 or f16 where it enters
+PV."""
 import math
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+
+from musicnlp_tpu.ops.pallas.chunked_attention_kernel import (
+    chunked_window_attn as pallas_chunked_window_attn)
 
 from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
     NEG_INF as NEG_INF_K3, chunked_window_attn_fwd_plain,
@@ -37,6 +56,8 @@ XW = 80             # K1: BD columns per warp
 NEG_INF_K1 = -1e30
 RUN = 16            # K3: consecutive chunks per block
 INT32_MAX = torch.iinfo(torch.int32).max
+INT32_MIN = torch.iinfo(torch.int32).min
+K_NONE = -3e38      # K3's tiled walk: the running max before any key of the window
 LOG2E = math.log2(math.e)
 
 
@@ -80,12 +101,23 @@ def k1_slab(s, it):
     return (it + s) % 3
 
 
+def k1_split(H):
+    """(warps per 16-row group, keys of a warp, ctx columns of a warp) of
+    `k1_tc` at head dim H."""
+    sp = 2 if H > 64 else 1
+    return sp, BK // sp, H // sp
+
+
 def k1_tiles(rw, rr, k, v, g, mem_valid, *, M, scale, window):
     """The schedule of `k1_tc` in torch -> (ctx, lse) as
     `flash_rel_attn_fwd_plain` returns them (p rounded to the inputs' dtype
-    per key tile, where the kernel rounds it)."""
+    per key tile, where the kernel rounds it).  Group p's warp c scores keys
+    [KW c, KW c + KW) from its XW = KW + 16 columns of X and owns ctx
+    columns [HW c, HW c + HW); its partial row sums add at the end."""
     BN, T, H = rw.shape
     S, N = k.shape[1], g.shape[0]
+    sp, kw, hw = k1_split(H)
+    xw = kw + 16
     dtype = rw.dtype
     n_qt = -(-T // BQ)
     qw, qr = _rows(rw.float(), 0, n_qt * BQ), _rows(rr.float(), 0, n_qt * BQ)
@@ -96,12 +128,12 @@ def k1_tiles(rw, rr, k, v, g, mem_valid, *, M, scale, window):
     ctx = torch.zeros(BN, n_qt * BQ, H)
     lse = torch.zeros(BN, n_qt * BQ)
     qr_ = torch.arange(16)[:, None]
-    ki = torch.arange(BK)[None, :]
+    kl = torch.arange(kw)[None, :]
     for b in range(n_qt):
         q0 = (n_qt - 1 - b) * BQ                                       # longest rows first
         rows = slice(q0, q0 + BQ)
         m = torch.full((BN, BQ), NEG_INF_K1)
-        l = torch.zeros(BN, BQ)
+        l = torch.zeros(sp, BN, BQ)                                    # each warp's own keys
         o = torch.zeros(BN, BQ, H)
         tiles = k1_key_tiles(q0, T, S, M, mem_valid, window)
         ring = [None] * 3
@@ -120,23 +152,31 @@ def k1_tiles(rw, rr, k, v, g, mem_valid, *, M, scale, window):
                 load(kt + 1, False)                # in flight while this tile computes
             gwin = torch.cat([ring[k1_slab(0, it)], ring[k1_slab(1, it)]], dim=1)
             assert torch.equal(gwin, _rows(gb, u_lo, 128))
-            ac = qw[:, rows] @ _rows(kf, k0, BK).transpose(1, 2)
-            bd = torch.empty_like(ac)
-            for w in range(NW):
-                x = qr[:, q0 + 16 * w:q0 + 16 * w + 16] @ \
-                    gwin[:, 48 - 16 * w:128 - 16 * w].transpose(1, 2)
-                assert x.shape[-1] == XW
-                bd[:, 16 * w:16 * w + 16] = x[:, qr_, 15 - qr_ + ki]
-            x = (ac + bd) * scale
+            kt_rows = _rows(kf, k0, BK)
+            x = torch.empty(BN, BQ, BK)
+            for p in range(NW):
+                qs = slice(q0 + 16 * p, q0 + 16 * p + 16)
+                for c in range(sp):
+                    r0 = 48 - 16 * p + kw * c
+                    xs = qr[:, qs] @ gwin[:, r0:r0 + xw].transpose(1, 2)   # the warp's staging
+                    ac = qw[:, qs] @ kt_rows[:, kw * c:kw * c + kw].transpose(1, 2)
+                    x[:, 16 * p:16 * p + 16, kw * c:kw * c + kw] = ac + xs[:, qr_, 15 - qr_ + kl]
+            x = x * scale
             if not k1_interior(q0, k0, S, M, mem_valid, window):
                 x = torch.where(vis[rows, k0:k0 + BK], x, torch.full_like(x, NEG_INF_K1))
-            mx = torch.maximum(m, x.amax(-1))
+            mx = m
+            for c in range(sp):                    # each warp's max, then the pair's
+                mx = torch.maximum(mx, x[..., kw * c:kw * c + kw].amax(-1))
             alpha = torch.exp2((m - mx) * LOG2E)
             p = torch.exp2((x - mx[..., None]) * LOG2E)
-            l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + p.to(dtype).float() @ _rows(vf, k0, BK)
+            P = p.to(dtype).float()
+            vt = _rows(vf, k0, BK)
+            for c in range(sp):
+                l[c] = l[c] * alpha + p[..., kw * c:kw * c + kw].sum(-1)
+                cols = slice(hw * c, hw * c + hw)
+                o[..., cols] = o[..., cols] * alpha[..., None] + P @ vt[..., cols]
             m = mx
-        lc = l.clamp(min=1e-30)
+        lc = l.sum(0).clamp(min=1e-30)
         ctx[:, rows] = o * (1 / lc)[..., None]
         lse[:, rows] = m + torch.log(lc)
     return ctx[:, :T].to(dtype), lse[:, :T]
@@ -156,6 +196,8 @@ K1_CASES = [   # H, T, M, mem_valid, window, clamp
     (16, 77, 0, 0, 0, 1024), (32, 333, 0, 0, 0, 17), (64, 77, 30, 30, 0, 17),
     (16, 333, 64, 17, 40, 1024), (32, 200, 100, 37, 150, 17), (64, 333, 128, 50, 200, 1024),
     (64, 256, 128, 128, 0, 1024),
+    # head dim 128: two warps per 16-row group
+    (128, 77, 0, 0, 0, 1024), (128, 333, 64, 17, 40, 1024), (128, 200, 100, 37, 150, 17),
 ]
 
 
@@ -173,7 +215,8 @@ def test_k1_tile_schedule_matches_plain(H, T, M, mv, window, clamp):
 
 
 @pytest.mark.parametrize('H,T,M,mv,window,clamp', [(16, 333, 64, 17, 40, 1024),
-                                                   (64, 256, 128, 128, 0, 1024)])
+                                                   (64, 256, 128, 128, 0, 1024),
+                                                   (128, 256, 128, 128, 0, 1024)])
 def test_k1_tile_schedule_rounds_p_per_tile(H, T, M, mv, window, clamp):
     """bf16 inputs: p rounded to bf16 per key tile against the running max
     (the kernel) stays within the card's K1 tolerances of the plain version,
@@ -185,6 +228,44 @@ def test_k1_tile_schedule_rounds_p_per_tile(H, T, M, mv, window, clamp):
     assert ctx.dtype == ref.dtype == torch.bfloat16
     assert float((ctx.float() - ref.float()).abs().max()) <= 2e-2
     assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize('H,T,M,mv,window,clamp', [(32, 333, 64, 17, 40, 1024),
+                                                   (64, 256, 128, 128, 0, 1024),
+                                                   (128, 200, 100, 37, 150, 17)])
+def test_k1_tile_schedule_rounds_p_to_f16(H, T, M, mv, window, clamp):
+    """f16 inputs (the kernel instantiated on __half): p rounded to f16 per
+    key tile stays within the card's f16 K1 limits of the plain version:
+    ctx 5e-3, lse 1e-3."""
+    rw, rr, k, v, g = _k1_inputs(H, T, M, clamp, seed=8, dtype=torch.float16)
+    kw = dict(M=M, scale=H ** -0.5, window=window)
+    ctx, lse = k1_tiles(rw, rr, k, v, g, mv, **kw)
+    ref, ref_lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, **kw)
+    assert ctx.dtype == ref.dtype == torch.float16
+    assert float((ctx.float() - ref.float()).abs().max()) <= 5e-3
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+def test_k1_split_bd_windows_cover_every_pair():
+    """At head dim 128 warp c of group p reads table window rows 63 - qi + ki
+    for its keys ki in [32c, 32c + 32), all inside its 48 columns [48 - 16p
+    + 32c, +48) at column 15 - qr + kl; the two warps' keys tile the 64 keys
+    and their ctx columns the 128 columns, once each."""
+    sp, kw, hw = k1_split(128)
+    assert (sp, kw, hw) == (2, 32, 64)
+    seen_k, seen_h = torch.zeros(BK, dtype=torch.int32), torch.zeros(128, dtype=torch.int32)
+    for c in range(sp):
+        seen_k[kw * c:kw * c + kw] += 1
+        seen_h[hw * c:hw * c + hw] += 1
+        kl = torch.arange(kw)[None, :]
+        for p in range(NW):
+            qr = torch.arange(16)[:, None]
+            r = 63 - (16 * p + qr) + kw * c + kl
+            r0 = 48 - 16 * p + kw * c
+            assert int(r.min()) >= r0 and int(r.max()) < r0 + kw + 16
+            assert torch.equal(r - r0, 15 - qr + kl)
+            assert 0 <= r0 and r0 + kw + 16 <= 128
+    assert bool((seen_k == 1).all()) and bool((seen_h == 1).all())
 
 
 def test_k1_bd_window_covers_every_pair():
@@ -399,3 +480,180 @@ def test_k3_recomputed_rows_see_only_their_own_key():
     assert fixed and bool((lse[only_self] < -5e4).all())
     per_window = only_self.reshape(G, T // C, C).sum(-1)
     assert int(per_window.max()) <= 1
+
+
+# ------------------------------------------------------- K3's tiled walk, tensor cores
+def k3_chain(qr, kr):
+    """q . k of rows qr, kr [n, D] as the sequential f32 FMA chain over d
+    (each product exact in f64, one rounding to f32 per step)."""
+    acc = torch.zeros(qr.shape[0], dtype=torch.float32)
+    for d in range(qr.shape[1]):
+        acc = (acc.double() + qr[:, d].double() * kr[:, d].double()).float()
+    return acc
+
+
+def k3_union_key_tiles(q0, T, C):
+    """First keys of the 64-key tiles the block of rows [q0, q0 + 64) walks:
+    the union of its rows' windows, [(q0 / C - 1) C, (q_last / C + 1) C)."""
+    q_last = min(q0 + BQ, T) - 1
+    return list(range((q0 // C - 1) * C, (q_last // C + 1) * C, BK))
+
+
+def k3_union_tiles(q, k, v, qpos, kpos, *, chunk, scale, self_bias):
+    """The schedule of `k3_union_tc` in torch -> (ctx, lse, own): a block per
+    64 query rows walks the 64-key tiles of the union of its rows' windows;
+    at D 128 warp c of a 16-row group scores keys [32c, 32c + 32) and owns
+    ctx columns [64c, 64c + 64).  `own` lists the (g, row) whose own key's
+    score was recomputed as the f32 chain (with a self bias)."""
+    G, T, D = q.shape
+    C, dtype = chunk, q.dtype
+    sp = 2 if D > 64 else 1
+    kw, dw = BK // sp, D // sp
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ctx, lse, own = torch.zeros(G, T, D), torch.zeros(G, T), []
+    for q0 in range(0, T, BQ):
+        qt, qp = _rows(qf, q0, BQ), _rows(qpos, q0, BQ, fill=INT32_MIN)
+        r = torch.arange(q0, q0 + BQ)
+        lo = (torch.div(r, C, rounding_mode='floor') - 1) * C          # first window key
+        m = torch.full((G, BQ), K_NONE)
+        l = torch.zeros(sp, G, BQ)
+        o = torch.zeros(G, BQ, D)
+        for k0 in k3_union_key_tiles(q0, T, C):
+            kt, vt = _rows(kf, k0, BK), _rows(vf, k0, BK)
+            kp = _rows(kpos, k0, BK, fill=INT32_MAX)[:, None, :]
+            wk = torch.arange(k0, k0 + BK)
+            s = torch.empty(G, BQ, BK)
+            for c in range(sp):
+                s[..., kw * c:kw * c + kw] = qt @ kt[:, kw * c:kw * c + kw].transpose(1, 2)
+            x = s * scale
+            mine = kp == qp[..., None]
+            if self_bias:
+                x = torch.where(mine, x + self_bias, x)
+            x = torch.where(kp > qp[..., None], torch.full_like(x, NEG_INF_K3), x)
+            inside = (wk[None, :] >= lo[:, None]) & (wk[None, :] < lo[:, None] + 2 * C)
+            x = torch.where(inside, x, torch.full_like(x, -math.inf))
+            if self_bias:            # the own key's score as the sequential f32 chain
+                hit = torch.nonzero(mine & inside)
+                gi, ri, ki = hit.unbind(1)
+                x[gi, ri, ki] = ((k3_chain(qt[gi, ri], kt[gi, ki]) * scale).float()
+                                 + self_bias).float()
+                own += [(int(a), q0 + int(b)) for a, b in zip(gi, ri)]
+            mx = m
+            for c in range(sp):      # each warp's max, then the pair's
+                mx = torch.maximum(mx, x[..., kw * c:kw * c + kw].amax(-1))
+            alpha = torch.exp2((m - mx) * LOG2E)
+            p = torch.exp2((x - mx[..., None]) * LOG2E)
+            P = p.to(dtype).float()
+            for c in range(sp):
+                l[c] = l[c] * alpha + p[..., kw * c:kw * c + kw].sum(-1)
+                cols = slice(dw * c, dw * c + dw)
+                o[..., cols] = o[..., cols] * alpha[..., None] + P @ vt[..., cols]
+            m = mx
+        lc = l.sum(0).clamp(min=1e-30)
+        n = min(BQ, T - q0)
+        ctx[:, q0:q0 + n] = (o * (1 / lc)[..., None])[:, :n]
+        lse[:, q0:q0 + n] = (m + torch.log(lc))[:, :n]
+    return ctx.to(dtype), lse, own
+
+
+def _lse16_close(a, b):
+    """lse of a 16-bit call: 1e-3 (the card's K3 limit), or one f32 step of
+    the value where that is coarser (rows at ~self_bias = -1e5, whose own
+    score the CPU's f32 matmul sums in another order than the chain)."""
+    return bool(((a - b).abs() <= torch.clamp(b.abs() * 2.0 ** -23, min=1e-3)).all())
+
+
+K3_UNION_CASES = [   # G, T, D, chunk, perm, pads, scale, self_bias, dtype
+    (2, 480, 32, 16, True, 9, 1.0, -1e5, torch.float32),        # ragged last tile
+    (2, 480, 32, 16, True, 9, 1.0, -1e5, torch.float16),
+    (2, 384, 64, 128, False, 0, 0.125, 0.0, torch.bfloat16),    # a tile inside one chunk
+    (2, 384, 128, 128, True, 40, 1.0, -1e5, torch.float32),     # two warps per group
+    (2, 256, 128, 128, True, 40, 1.0, -1e5, torch.bfloat16),
+    (1, 320, 128, 64, False, 30, 0.09, 0.0, torch.float16),     # chunk 64 at D 128
+    (2, 240, 16, 8, True, 0, 1.0, -1e5, torch.float16),         # chunk 8, 8 chunks per tile
+    (2, 288, 64, 48, False, 17, 0.125, 0.0, torch.bfloat16),    # tiles across chunk edges
+    (2, 288, 64, 48, True, 17, 1.0, -1e5, torch.float32),
+]
+K3_CTX_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+
+
+def _k3_union_inputs(G, T, D, perm, pads, seed, dtype):
+    q, k, v, qpos, kpos = _k3_inputs(G, T, D, perm, pads, seed)
+    return q.to(dtype), k.to(dtype), v.to(dtype), qpos, kpos
+
+
+@pytest.mark.parametrize('G,T,D,chunk,perm,pads,scale,self_bias,dtype', K3_UNION_CASES)
+def test_k3_union_walk_matches_plain(G, T, D, chunk, perm, pads, scale, self_bias, dtype):
+    """ctx and lse of the emulated walk against the plain forward: f32 to
+    1e-5 of ctx's largest entry and lse to 1e-5 of each value; bf16 / f16
+    (p rounded per key tile against the running max) at the card's limits:
+    ctx 2e-2 / 5e-3 (absolute, as chip_smoke's TOL_K3), lse 1e-3."""
+    q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, perm, pads, G + T + D + chunk, dtype)
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    ctx, lse, _ = k3_union_tiles(q, k, v, qpos, kpos, **kw)
+    ref, ref_lse = chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    assert ctx.shape == ref.shape and ctx.dtype == ref.dtype and lse.shape == ref_lse.shape
+    err = (ctx.float() - ref.float()).abs().max()
+    if dtype == torch.float32:
+        assert float(err / ref.abs().max()) <= K3_CTX_TOL[dtype]
+        assert _lse_close(lse, ref_lse)
+    else:
+        assert float(err) <= K3_CTX_TOL[dtype]
+        assert _lse16_close(lse, ref_lse)
+
+
+@pytest.mark.parametrize('T,chunk', [(480, 16), (384, 128), (240, 8), (288, 48), (64, 64)])
+def test_k3_union_walk_covers_each_window_once(T, chunk):
+    """Each row's 2C window keys lie in exactly one of its block's key tiles,
+    and no tile of the walk lies wholly outside every window of the block:
+    a bound off by one tile either loses keys or walks a dead tile."""
+    C = chunk
+    for q0 in range(0, T, BQ):
+        q_last = min(q0 + BQ, T) - 1
+        tiles = k3_union_key_tiles(q0, T, C)
+        lo = torch.div(torch.arange(q0, q_last + 1), C, rounding_mode='floor') * C - C
+        for r, lo_r in zip(range(q0, q_last + 1), lo.tolist()):
+            hits = torch.zeros(2 * C, dtype=torch.int32)
+            for k0 in tiles:
+                a, b = max(k0, lo_r), min(k0 + BK, lo_r + 2 * C)
+                hits[a - lo_r:max(a, b) - lo_r] += 1
+            assert bool((hits == 1).all()), (r, tiles)
+        for k0 in tiles:
+            assert bool(((lo < k0 + BK) & (lo + 2 * C > k0)).any()), (q0, k0)
+
+
+@pytest.mark.parametrize('D,chunk,dtype', [(64, 16, torch.float32), (128, 128, torch.bfloat16),
+                                           (32, 48, torch.float16)])
+def test_k3_union_rescores_own_keys(D, chunk, dtype):
+    """With the LSH self bias every row's own key (inside its window) is
+    rescored once over the walk, and a row that sees only its own key keeps
+    lse = fl(fl(chain(q, k) * scale) + self_bias) exactly: its other terms
+    are exp(-1e9 - max) = 0, so l = 1 and lse is the rescored max."""
+    G, T = 2, 6 * max(chunk, 64)
+    q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, True, 0, 19, dtype)
+    _, lse, own = k3_union_tiles(q, k, v, qpos, kpos, chunk=chunk, scale=1.0, self_bias=-1e5)
+    assert sorted(own) == [(g, r) for g in range(G) for r in range(T)]
+    qp = qpos.reshape(G, T // chunk, chunk)
+    kwin = torch.cat([torch.full_like(qp[:, :1], INT32_MAX), qp[:, :-1]], 1)
+    window = torch.cat([kwin, qp], -1)
+    only_self = ((window[..., None, :] <= qp[..., :, None]).sum(-1) == 1).reshape(G, T)
+    g_i, r_i = torch.nonzero(only_self).unbind(1)
+    assert len(g_i) > 0
+    want = (k3_chain(q[g_i, r_i].float(), k[g_i, r_i].float()) + -1e5).float()
+    assert torch.equal(lse[g_i, r_i], want)
+
+
+def test_k3_union_walk_matches_the_pallas_forward():
+    """At one small case (chunk 16, two 64-row tiles, LSH-permuted and
+    padded positions, f32) the emulated walk gives the Pallas kernel's ctx
+    and lse in interpret mode (the tolerance of tests/test_torch_chunked.py's
+    K3 check: the TPU kernel sums in another order)."""
+    G, T, D, chunk, scale, self_bias = 2, 128, 16, 16, 1.0, -1e5
+    q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, True, 24, 5, torch.float32)
+    want, want_lse = pallas_chunked_window_attn(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, qpos, kpos)), chunk=chunk, scale=scale,
+        self_bias=self_bias, interpret=True, form='windows')
+    got, got_lse, _ = k3_union_tiles(q, k, v, qpos, kpos, chunk=chunk, scale=scale,
+                                     self_bias=self_bias)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=2e-4, atol=2e-4)
