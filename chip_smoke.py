@@ -14,15 +14,18 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
   1. device and build: the card's name and power limit, `nvcc` of every
      kernel source in `musicnlp_tpu_torch/csrc/`, all started together; the
      tensor-core instructions (HMMA / HGMMA) in the SASS of each K1-K4
-     kernel -- the tensor-core kernels (every bf16 and f16 call of K1-K4,
-     at every head dim and chunk: k1_tc, k2_dkdv_tc / k2_dq_tc, k3_tc /
-     k3_union_tc, k4_tc / k4_dq_tc / k4_dkdv_tc) must have some in their
-     bf16 and their f16 instantiation, the FMA ones (f32 only: K1's and
-     K3's per-chunk kernel, k3_tiled, K2's and K4's) none and no 16-bit
-     instantiation; each tensor-core K1-K4 kernel's registers, local
-     (spill) bytes, shared memory and blocks per SM at every head dim (K3 /
-     K4 at chunks 16-128, D 16-128) in bf16 and f16, read from the loaded
-     library (no spill allowed);
+     kernel -- the tensor-core kernels (every bf16 and f16 call of K1-K4
+     up to head dim 128: k1_tc, k2_dkdv_tc / k2_dq_tc, k3_tc / k3_union_tc,
+     k4_tc / k4_dq_tc / k4_dkdv_tc; and the slab kernels, every f32 call of
+     K1 / K2 and every call above 128: k1_slab, k2_dkdv_slab / k2_dq_slab,
+     k3_slab, k4_dq_slab / k4_dkdv_slab, f32 in 3xTF32) must have some in
+     their bf16 and their f16 instantiation (the slab kernels also in f32),
+     the FMA ones (f32 K3 / K4 up to 128: the per-chunk kernels, k3_tiled,
+     K4's tiled split) none and no 16-bit instantiation; each tensor-core
+     K1-K4 kernel's registers, local (spill) bytes, shared memory and
+     blocks per SM at every head dim (K3 / K4 at chunks 16-128, D 16-128,
+     and D 256) in f32 (the slab kernels), bf16 and f16, read from the
+     loaded library (no spill allowed);
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
      a memory + window case, a head-dim-16 ragged case, the 22-12 shape
@@ -37,7 +40,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      ROADMAP C.1 widened the kernels to, at phase 11's shapes: head dim 128
      (B 2 x 8 heads, T 1024) in bf16 and f32, f16 at the 22-11 widths, an
      f16 head-dim-128 memory + window case, and head dim 128 in bf16 at the
-     22-11 batch (B 21 x 6 heads, d_model 768) for K1 and for K2;
+     22-11 batch (B 21 x 6 heads, d_model 768) for K1 and for K2; and ROADMAP
+     C.2's head dims above 128 on the slab kernels: 256 (B 2 x 4 heads) in
+     bf16, f16 and f32, an f32 memory + window case, and 384 in bf16; the
+     f32 cases' bounds at the FMA peak and at the 3xTF32 rate (495 / 3
+     TFLOP/s) side by side;
   3. the training path, counts set to 0 before and read after:
      `Trainer.train` for one epoch of 6 steps of 21 x 1024 seeded synthetic
      songs (dropout 0.1, warmup-cosine AdamW, eval with a padded final batch,
@@ -62,7 +69,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s; and
      the shapes C.1 added: chunk 128 at phase 11's local shape in f32
      (k3_tiled) and bf16 (k3_union_tc), chunk 128 / D 128 in bf16, the LSH
-     shape in f16 (k3_tc), chunk 16 padded in f32 and in f16);
+     shape in f16 (k3_tc), chunk 16 padded in f32 and in f16; C.2's head dim
+     256 on the slab walks: the LSH shape at G 48 with pads in bf16, f16 and
+     f32, and a local bf16 case);
      `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
      K4 launches per step), `load_trained` + `score_batch` on the
      run, step time, memory and a profile, a 15-step overfit; one f32 step
@@ -103,7 +112,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      penalty_alpha 0) equal to greedy (128 tokens); then `train --recipe
      22-04 --epochs 1` (1 step of 32 x 2048; 12 K3 + 12 K4 per step) ->
      `generate` (4 songs, top_p 0.9) -> beam (4 beams) and contrastive
-     search (top_k 4, penalty_alpha 0.6), 2 songs each at max_length 1024
+     search (top_k 4, penalty_alpha 0.6), 2 songs each at max_length 512
      (half the model's 2048, to bound the phase's time), every file
      re-read, no K3 / K4 launch, and the same exact checks; wall time per
      command, the epochs' tokens/s, decode tok/s (with phase 4's request
@@ -156,13 +165,19 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
  11. C.1, A.8 and A.9, counts (K1-K4) set to 0 before each path and read
      after: a TF-XL at head dim 128 (d_model 1024, 8 heads) in f32 and
      bf16 and one in float16 (22-11 widths), depth 2, `score_batch` 2 x
-     1024 (2 K1 each: the FMA kernel in f32, k1_tc in 16 bits), logits
+     1024 (2 K1 each: k1_slab in f32, k1_tc in 16 bits), logits
      against the port's f32 CPU run (f32: 1e-4 of their max; bf16 / f16 at
      `TOL_16_LOGITS`, which a control with the attention dropped must
      exceed 4 times), an f32
      head-dim-128 step card vs CPU (K1 / K2); a Reformer with local_chunk
      128, depth 2: an f32 step card vs CPU (K3 / K4: the tiled kernels in
-     the local layer) and `score_batch` 2 x 2048 (2 K3); one 22-11
+     the local layer) and `score_batch` 2 x 2048 (2 K3); C.2, depth 2: TF-XLs
+     at head dim 256 (d_model 1024, 4 heads) in f32 and bf16 and at 192
+     (d_model 768, 4 heads, zero-padded to 256) in f32 and f16 score 2 x
+     1024 on K1's slab kernel against the CPU as above, an f32 step of each
+     card vs CPU (K1 / K2), an f32 Reformer step at head dim 256 (12 heads,
+     local + LSH) card vs CPU (K3 / K4) and its bf16 `score_batch` 2 x 2048
+     (2 K3); one 22-11
      `Trainer.train_step` (21 x 1024, bf16) inside `device_trace` after a
      traced warm-up step, 3 times, each Chrome trace naming k1_tc,
      k2_dkdv_tc and k2_dq_tc 12 times in the read step, `StepTimer` over 3
@@ -171,7 +186,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      chunk-128 Reformer (depth 2, 2 x 2048) traced the same way, naming
      k1_tc and k2_dkdv_tc / k2_dq_tc once per layer, k3_union_tc /
      k4_dq_tc / k4_dkdv_tc at the local layer and k3_tc / k4_tc at the LSH
-     layer, and none of K1-K4's FMA kernels (K1's, k3_tiled, K2's, K4's);
+     layer, and none of K3 / K4's FMA kernels or of the slab kernels;
      on phase 8's run: `summarize_run` of its 22-04 train log, `MusicVisualize` reports and `MusicStats` of its
      generated songs, `ground_truth_ikr` of its dataset on the card and the
      CPU, melody grids of 8 rendered .mxl songs and `PitchEmbedding` trained
@@ -245,6 +260,7 @@ HBM_BYTES_PER_S = 3.35e12                        # H100 SXM (NVIDIA data sheet)
 # dense bf16 / f16 tensor-core and f32 rates: the bound of an f16 or bf16
 # call is its tensor-core time even where an FMA kernel runs it
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+TF32X3_FLOPS = 495e12 / 3                        # f32 as 3xTF32 on the tensor cores
 SEED = 0
 K1_REPLACES = 'musicnlp_tpu/ops/pallas/flash_attention.py:115 (_make_fwd, via _fwd_call :354)'
 K2_REPLACES = ('musicnlp_tpu/ops/pallas/flash_attention.py:194 (_make_bwd_fused, via '
@@ -284,16 +300,24 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # the FMA does)
 
 # the tensor-core kernels of K1-K4 and their FMA kernels, by name in each
-# library's SASS: K1-K4 run every bf16 and f16 call on the tensor cores (K1 /
-# K2 at every head dim; K3 / K4 at chunks 32 / 64 and D <= 64 on k3_tc /
-# k4_tc, elsewhere on their tiled walks k3_union_tc / k4_dq_tc + k4_dkdv_tc),
-# each templated on the element type; the FMA kernels run f32 alone
-TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',),
-              'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc'),
-              'chunked_window_attn_fwd': ('k3_tc', 'k3_union_tc'),
-              'chunked_window_attn_bwd': ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc')}
-FMA_KERNELS = {'flash_rel_attn_fwd': ('flash_rel_attn_fwd_kernel',),
-               'flash_rel_attn_bwd': ('k2_dkdv_kernel', 'k2_dq_kernel'),
+# library's SASS: K1 / K2 run every call on the tensor cores (bf16 and f16 up
+# to head dim 128 on k1_tc / k2_*_tc, f32 at every head dim and 16 bits
+# above 128 on the slab kernels, f32 in 3xTF32); K3 / K4 run every bf16 and
+# f16 call up to D 128 on the tensor cores (chunks 32 / 64 and D <= 64 on
+# k3_tc / k4_tc, elsewhere on their tiled walks k3_union_tc / k4_dq_tc +
+# k4_dkdv_tc), every call above D 128 on the slab kernels, and f32 up to D
+# 128 on the FMA kernels, which are built for f32 alone
+SLAB_KERNELS = {'flash_rel_attn_fwd': ('k1_slab',),
+                'flash_rel_attn_bwd': ('k2_dkdv_slab', 'k2_dq_slab'),
+                'chunked_window_attn_fwd': ('k3_slab',),
+                'chunked_window_attn_bwd': ('k4_dq_slab', 'k4_dkdv_slab')}
+TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',) + SLAB_KERNELS['flash_rel_attn_fwd'],
+              'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc') + SLAB_KERNELS['flash_rel_attn_bwd'],
+              'chunked_window_attn_fwd': ('k3_tc', 'k3_union_tc')
+              + SLAB_KERNELS['chunked_window_attn_fwd'],
+              'chunked_window_attn_bwd': ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc')
+              + SLAB_KERNELS['chunked_window_attn_bwd']}
+FMA_KERNELS = {'flash_rel_attn_fwd': (), 'flash_rel_attn_bwd': (),
                'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel', 'k3_tiled'),
                'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel', 'k4_dq_tiled',
                                            'k4_dkdv_tiled')}
@@ -307,7 +331,9 @@ SASS_MMA = {}                                    # library -> {function: HMMA + 
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build', 'chip_smoke_runs')
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'chiprun_out')
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests', 'goldens')
-SEARCH_LEN = 1024                                # beam / contrastive generation length (tokens)
+# beam / contrastive generation length (tokens); 512 keeps the whole run
+# well inside its 1,200 s limit (these host-paced searches spread most)
+SEARCH_LEN = 512
 EXACT_LEN = 128                                  # the exact search checks' length (tokens)
 # the shipped 262,144-unit WordPiece table (degree pitches) and the tile of its tiled CE
 TABLE_262K = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'artifacts',
@@ -386,9 +412,11 @@ def profile(fn) -> dict:
 def tensor_core_check(report):
     """HMMA / HGMMA instructions in the SASS of every K1-K4 kernel: each
     tensor-core kernel must have some in every instantiation (an FMA-only
-    build is not the tensor-core design) and be instantiated for bf16 and for
-    f16; the FMA kernels none (the f32 parity rests on f32 FMAs), and they
-    are built for f32 alone (no 16-bit call reaches them)."""
+    build is not the tensor-core design; the f32 slab kernels' 3xTF32 is
+    HMMA too) and be instantiated for bf16 and for f16; the slab kernels
+    also for f32; the FMA kernels none (K3 / K4's f32 parity up to D 128
+    rests on f32 FMAs), and they are built for f32 alone (no 16-bit call
+    reaches them)."""
     for lib, tc_names in TC_KERNELS.items():
         SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
         for name in tc_names + FMA_KERNELS[lib]:
@@ -396,10 +424,11 @@ def tensor_core_check(report):
             if not fns or (name in tc_names and min(fns) == 0) or \
                     (name not in tc_names and any(fns)):
                 raise AssertionError(f'{lib}: tensor-core instructions of {name}: {counts}')
+            dtypes = (torch.bfloat16, torch.float16) + \
+                ((torch.float32,) if name in SLAB_KERNELS[lib] else ())
             if name in tc_names and lib in BOTH_16_BIT and not all(
-                    any(name in f and DTYPE_MANGLED[d] in f for f in counts)
-                    for d in (torch.bfloat16, torch.float16)):
-                raise AssertionError(f'{lib}: {name} is not built for bf16 and f16: {counts}')
+                    any(name in f and DTYPE_MANGLED[d] in f for f in counts) for d in dtypes):
+                raise AssertionError(f'{lib}: {name} is not built for {dtypes}: {counts}')
             if name not in tc_names and any(
                     name in f and DTYPE_MANGLED[d] in f for f in counts
                     for d in (torch.bfloat16, torch.float16)):
@@ -411,7 +440,11 @@ def tensor_core_check(report):
 
 # (chunk, D) of K3's and K4's tensor-core kernels whose resources phase 1
 # reads: the per-chunk kernels k3_tc / k4_tc and the tiled walks
-CHUNK_RESOURCE_SHAPES = ((32, 16), (32, 32), (64, 64), (16, 32), (128, 64), (128, 128))
+CHUNK_RESOURCE_SHAPES = ((32, 16), (32, 32), (64, 64), (16, 32), (128, 64), (128, 128),
+                         (64, 256))
+# head dims above 128 whose slab kernels phase 1 reads (one instantiation
+# each per dtype: the slab width is 64 at every multiple of 128)
+WIDE_HEAD_DIMS = (256,)
 
 
 def ptxas_spills(log: str) -> dict:
@@ -452,18 +485,24 @@ def kernel_resources(report, built):
             r = out[5 * i:5 * i + 5]
             rows.append(dict(kernel=name, **shape, registers=r[0], local_bytes=r[1],
                              smem_bytes=r[2], blocks_per_sm=r[3], threads=r[4]))
-    for code, dt in ((1, 'bf16'), (2, 'f16')):
-        for H in fa.SUPPORTED_HEAD_DIMS:
-            read(k1.flash_rel_attn_fwd_resources(H, code, out), ('k1_tc',), dtype=dt, H=H)
-            read(k2.flash_rel_attn_bwd_resources(H, code, out), ('k2_dkdv_tc', 'k2_dq_tc'),
+    for code, dt in ((0, 'f32'), (1, 'bf16'), (2, 'f16')):
+        for H in fa.SMALL_HEAD_DIMS + WIDE_HEAD_DIMS:
+            slab = code == 0 or H > 128
+            read(k1.flash_rel_attn_fwd_resources(H, code, out),
+                 ('k1_slab',) if slab else ('k1_tc',), dtype=dt, H=H)
+            read(k2.flash_rel_attn_bwd_resources(H, code, out),
+                 ('k2_dkdv_slab', 'k2_dq_slab') if slab else ('k2_dkdv_tc', 'k2_dq_tc'),
                  dtype=dt, H=H)
         for chunk, D in CHUNK_RESOURCE_SHAPES:
+            if code == 0 and D <= 128:           # f32 up to D 128: the FMA kernels
+                continue
             per_chunk = chunk in (32, 64) and D <= 64
             read(k3.chunked_window_attn_fwd_resources(chunk, D, code, out),
-                 ('k3_tc',) if per_chunk else ('k3_union_tc',), dtype=dt, chunk=chunk, D=D)
+                 ('k3_slab',) if D > 128 else ('k3_tc',) if per_chunk else ('k3_union_tc',),
+                 dtype=dt, chunk=chunk, D=D)
             read(k4.chunked_window_attn_bwd_resources(chunk, D, code, out),
-                 ('k4_tc',) if per_chunk else ('k4_dq_tc', 'k4_dkdv_tc'), dtype=dt,
-                 chunk=chunk, D=D)
+                 ('k4_dq_slab', 'k4_dkdv_slab') if D > 128 else ('k4_tc',) if per_chunk
+                 else ('k4_dq_tc', 'k4_dkdv_tc'), dtype=dt, chunk=chunk, D=D)
     for r in rows:
         log(f'[resources] {json.dumps(r)}')
     spills = {}
@@ -482,19 +521,42 @@ def kernel_resources(report, built):
         raise AssertionError(f'tensor-core K1-K4 kernels that spill or cannot run: {bad}')
 
 
-def mma_instructions(lib, tc, template_args, dtype):
-    """Tensor-core instructions of the kernels a call of `lib` runs -- its
-    tensor-core kernels if `tc`, else its FMA ones -- at these template
-    arguments (a mangled-name fragment) and this dtype."""
-    names = TC_KERNELS[lib] if tc else FMA_KERNELS[lib]
+def mma_instructions(lib, dtype, D):
+    """Tensor-core instructions of the kernels a call of `lib` at this dtype
+    and head dim runs (`route_kernels`)."""
+    names, frag = route_kernels(lib, dtype, D)
     return sum(c for f, c in SASS_MMA[lib].items()
-               if template_args in f and DTYPE_MANGLED[dtype] in f and any(n in f for n in names))
+               if frag in f and DTYPE_MANGLED[dtype] in f and any(n in f for n in names))
 
 
-def tensor_cores(dtype) -> bool:
-    """Whether K1-K4 run a call on their tensor-core kernels: every bf16 and
-    f16 call, at each head dim and chunk; f32 runs the FMA kernels."""
-    return dtype != torch.float32
+def route_kernels(lib, dtype, D):
+    """(kernel names, a mangled template-argument fragment) of the kernels a
+    call of `lib` at this dtype and head dim runs: the slab kernels above D
+    128 and for every f32 call of K1 / K2 (slab width min(D, 64)); the FMA
+    kernels for f32 K3 / K4 up to D 128; else the 16-bit tensor-core ones."""
+    flash = lib.startswith('flash')
+    if D > 128 or (flash and dtype == torch.float32):
+        return SLAB_KERNELS[lib], f'Li{min(D, 64)}E' if flash else ''
+    if dtype == torch.float32:
+        return FMA_KERNELS[lib], f'Li{D}E'
+    return tuple(n for n in TC_KERNELS[lib] if n not in SLAB_KERNELS[lib]), f'Li{D}E'
+
+
+def bounds(flops, nbytes, dtype) -> dict:
+    """The least time of a call that does `flops` operations and moves
+    `nbytes`: the larger of its operations at the dtype's peak and its bytes
+    at the memory rate.  An f32 call also gets its bound at the 3xTF32 rate
+    (495 / 3 TFLOP/s: three TF32 products per f32 product), the rate its
+    tensor-core kernels (K1 / K2 at every head dim, K3 / K4 above 128) can
+    reach, beside the FMA-peak bound of `bound_ms`."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(bound_ms=max(t_ops, t_bytes),
+               bound_by='operations' if t_ops >= t_bytes else 'bytes')
+    if dtype == torch.float32:
+        t_tf32 = flops / TF32X3_FLOPS * 1e3
+        out.update(bound_3xtf32_ms=max(t_tf32, t_bytes),
+                   bound_3xtf32_by='operations' if t_tf32 >= t_bytes else 'bytes')
+    return out
 
 
 # ------------------------------------------------------------------ K1 cases
@@ -552,8 +614,7 @@ def k1_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], BN=B * N, T=T, S=S, M=M, H=H,
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=err,
                lse_max_abs_err=lse_err, tol_ctx=tol['ctx'], tol_lse=tol['lse'],
-               tensor_core_instructions=mma_instructions(
-                   'flash_rel_attn_fwd', tensor_cores(dtype), f'Li{H}E', dtype))
+               tensor_core_instructions=mma_instructions('flash_rel_attn_fwd', dtype, H))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=M, scale=scale,
                                                           window=window))
@@ -562,10 +623,7 @@ def k1_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
         rec['library_ms'] = time_ms(sdpa_yardstick(rw, rr, k, v, g, T, S, M, mem_valid,
                                                    window, scale))
         flops, nbytes = k1_work(rw, k, g, T, S, M, mem_valid, window, dtype)
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                   bound_by='operations' if t_ops >= t_bytes else 'bytes')
+        rec.update(flops=flops, bytes=nbytes, **bounds(flops, nbytes, dtype))
     fa.LAUNCHES['flash_rel_attn_fwd'] = saved    # comparison launches do not count
     log(f'[k1] {json.dumps(rec)}')
     if not (math.isfinite(err) and err <= tol['ctx'] and lse_err <= tol['lse']):
@@ -624,18 +682,14 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], BN=B * N, T=T, S=S, M=M, H=H,
                clamp=clamp, mem_valid=mem_valid, window=window, max_abs_err=max(errs.values()),
                abs_err=errs, rel_err=rel, tol_rel=TOL_K2[dtype],
-               tensor_core_instructions=mma_instructions(
-                   'flash_rel_attn_bwd', tensor_cores(dtype), f'Li{H}E', dtype))
+               tensor_core_instructions=mma_instructions('flash_rel_attn_bwd', dtype, H))
     if timed:
         rec['ms'] = time_ms(lambda: fa.flash_rel_attn_bwd(*args, **kw))
         rec['plain_ms'] = time_ms(lambda: fa.flash_rel_attn_bwd_plain(*args, **kw), iters=3)
         rec['library_ms'] = time_ms(sdpa_bwd_yardstick(rw, rr, k, v, g, d_out, T, S, M,
                                                        mem_valid, window, scale))
         flops, nbytes = k2_work(rw, k, g, T, S, M, mem_valid, window)
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                   bound_by='operations' if t_ops >= t_bytes else 'bytes',
+        rec.update(flops=flops, bytes=nbytes, **bounds(flops, nbytes, dtype),
                    tflops=flops / rec['ms'] / 1e9)
     fa.LAUNCHES.update(saved)                    # comparison launches do not count
     log(f'[k2] {json.dumps(rec)}')
@@ -986,7 +1040,7 @@ def sdpa_window_yardstick(q, k, v, qpos, kpos, chunk, scale, self_bias):
     return fn
 
 
-def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
+def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed, timed=True):
     q, k, v, qpos, kpos = chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed)
     scale, self_bias = (1.0, ca.SELF_BIAS) if lsh else (D ** -0.5, 0.0)
     kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
@@ -1001,18 +1055,16 @@ def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
                lsh=lsh, pads=pads, max_abs_err=err, lse_max_abs_err=lse_err,
                tol_ctx=tol['ctx'], tol_lse=tol['lse'],
-               tensor_core_instructions=mma_instructions(
-                   'chunked_window_attn_fwd', tensor_cores(dtype), f'Li{D}E', dtype))
-    rec['ms'] = time_ms(lambda: ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw))
-    rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos,
-                                                                       **kw), iters=3)
-    rec['library_ms'] = time_ms(sdpa_window_yardstick(q, k, v, qpos, kpos, **kw))
-    e = q.element_size()
-    # q, k, v and both positions read once; ctx and lse written once
-    flops, nbytes = chunked_flops(qpos, kpos, chunk, D, 2), (4 * e * D + 3 * 4) * G * T
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-               bound_by='operations' if t_ops >= t_bytes else 'bytes')
+               tensor_core_instructions=mma_instructions('chunked_window_attn_fwd', dtype, D))
+    if timed:
+        rec['ms'] = time_ms(lambda: ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw))
+        rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos,
+                                                                           **kw), iters=3)
+        rec['library_ms'] = time_ms(sdpa_window_yardstick(q, k, v, qpos, kpos, **kw))
+        e = q.element_size()
+        # q, k, v and both positions read once; ctx and lse written once
+        flops, nbytes = chunked_flops(qpos, kpos, chunk, D, 2), (4 * e * D + 3 * 4) * G * T
+        rec.update(flops=flops, bytes=nbytes, **bounds(flops, nbytes, dtype))
     ck.LAUNCHES.update(saved)                    # comparison launches do not count
     log(f'[k3] {json.dumps(rec)}')
     torch.cuda.empty_cache()
@@ -1022,7 +1074,7 @@ def k3_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     return rec
 
 
-def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
+def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed, timed=True):
     q, k, v, qpos, kpos = chunked_inputs(dev, dtype, G, T, D, lsh, pads, seed)
     scale, self_bias = (1.0, ca.SELF_BIAS) if lsh else (D ** -0.5, 0.0)
     kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
@@ -1042,25 +1094,25 @@ def k4_case(dev, name, dtype, G, T, D, chunk, lsh, pads, seed):
     rec = dict(case=name, dtype=str(dtype).split('.')[-1], G=G, T=T, D=D, chunk=chunk,
                lsh=lsh, pads=pads, max_abs_err=max(errs.values()), abs_err=errs, rel_err=rel,
                tol_rel=TOL_K4[dtype],
-               tensor_core_instructions=mma_instructions(
-                   'chunked_window_attn_bwd', tensor_cores(dtype), f'Li{D}E', dtype))
-    rec['ms'] = time_ms(lambda: ck.chunked_window_attn_bwd(*args, **kw))
-    rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_bwd_plain(*args, **kw), iters=3)
-    ys = sdpa_window_yardstick(q, k, v, qpos, kpos, **kw)
-    ins = [t.detach().requires_grad_(True) for t in ys.args[:3]]
-    y = torch.nn.functional.scaled_dot_product_attention(*ins, attn_mask=ys.args[3], scale=scale)
-    d_y = d_out.reshape(y.shape)
-    rec['library_ms'] = time_ms(lambda: torch.autograd.grad(y, ins, d_y, retain_graph=True))
-    del ys, ins, y
-    e = q.element_size()
-    # q, k, v, out, dO (input dtype), positions, lse, dlse read once; dq in
-    # the input dtype, dk and dv in f32 written once
-    flops = chunked_flops(qpos, kpos, chunk, D, 5)
-    nbytes = (6 * e * D + 4 * 4 + 2 * 4 * D) * G * T
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-               bound_by='operations' if t_ops >= t_bytes else 'bytes',
-               tflops=flops / rec['ms'] / 1e9)
+               tensor_core_instructions=mma_instructions('chunked_window_attn_bwd', dtype, D))
+    if timed:
+        rec['ms'] = time_ms(lambda: ck.chunked_window_attn_bwd(*args, **kw))
+        rec['plain_ms'] = time_ms(lambda: ck.chunked_window_attn_bwd_plain(*args, **kw),
+                                  iters=3)
+        ys = sdpa_window_yardstick(q, k, v, qpos, kpos, **kw)
+        ins = [t.detach().requires_grad_(True) for t in ys.args[:3]]
+        y = torch.nn.functional.scaled_dot_product_attention(*ins, attn_mask=ys.args[3],
+                                                             scale=scale)
+        d_y = d_out.reshape(y.shape)
+        rec['library_ms'] = time_ms(lambda: torch.autograd.grad(y, ins, d_y, retain_graph=True))
+        del ys, ins, y
+        e = q.element_size()
+        # q, k, v, out, dO (input dtype), positions, lse, dlse read once; dq in
+        # the input dtype, dk and dv in f32 written once
+        flops = chunked_flops(qpos, kpos, chunk, D, 5)
+        nbytes = (6 * e * D + 4 * 4 + 2 * 4 * D) * G * T
+        rec.update(flops=flops, bytes=nbytes, **bounds(flops, nbytes, dtype),
+                   tflops=flops / rec['ms'] / 1e9)
     ck.LAUNCHES.update(saved)                    # comparison launches do not count
     log(f'[k4] {json.dumps(rec)}')
     torch.cuda.empty_cache()
@@ -2704,6 +2756,8 @@ TOL_W2V = 1e-4
 W2V_SONGS = 8                                    # rendered .mxl songs PitchEmbedding trains on
 TRACES = 3                                       # traced 22-11 steps, each must name K1 / K2 12x
 D128 = dict(d_model=1024, n_head=8, d_head=128, d_inner=4096)   # C.1's head dim 128
+D256 = dict(d_model=1024, n_head=4, d_head=256, d_inner=4096)   # C.2's: four slabs of 64
+D192 = dict(d_model=768, n_head=4, d_head=192)                  # C.2's, padded to 256
 
 
 def counted(fn):
@@ -2723,49 +2777,161 @@ def expect(counts, **want):
         raise AssertionError(f'launch counts {counts}, expected {full}')
 
 
+def logits_vs_cpu(cfg, card_fwd, cpu_fwd, cpu_params, o_leaves):
+    """card_fwd() against cpu_fwd(cpu_params), the port's CPU run in f32,
+    over the CPU logits' largest entry -> (err, tol, control): f32 at
+    TOL_F32_LOGITS; 16 bits at TOL_16_LOGITS, with a control (the CPU run
+    with every attention output projection in `o_leaves` zeroed) that must
+    miss by more than 4x the limit."""
+    with torch.no_grad():
+        got = card_fwd()                              # first: SharedBranches records it
+        want = cpu_fwd(cpu_params)
+        err = rel_max(got, want)
+        if cfg.dtype == 'float32':
+            return err, TOL_F32_LOGITS, None
+        for o in o_leaves:
+            o.zero_()
+        return err, TOL_16_LOGITS[cfg.compute_dtype], rel_max(cpu_fwd(cpu_params), want)
+
+
+def hold_scores(tag, name, desc, score, ms, counts, err, tol, control):
+    """Log a score_batch run held against the CPU -> its record; raises on a
+    non-finite loss, err over tol, or a control within 4x tol."""
+    loss = float(score['loss'])
+    log(f'[{tag}] {name}, depth 2, {desc}: score_batch {ms:.2f} ms, loss {loss:.5f}; card vs '
+        f'CPU f32 logits {err:.2e} of their max (tol {tol}; attention dropped: {control}); '
+        f'counts {counts}')
+    if not (math.isfinite(loss) and err <= tol) or (control is not None and control <= 4 * tol):
+        raise AssertionError(f'{tag} {name}: card vs CPU logits {err}, control {control}')
+    return dict(counts=counts, score_ms=ms, loss=loss, logits_err=err, tol=tol,
+                control_err=control)
+
+
+def tfxl_score_vs_cpu(dev, tag, name, kw):
+    """A depth-2 TF-XL at the 22-11 widths changed by `kw` scores 2 x 1024
+    ids through `score_batch` on K1 (each layer once, counted), held against
+    the port's CPU run in f32 (`logits_vs_cpu`)."""
+    tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
+    ikr = IkrMetric(tok, mode='ins-key')
+    ids, labels = score_inputs(1190, 2, 1024, SEED + 80, dev)
+    cfg = base_config(n_layer=2, **kw)
+    cpu = TransfoXL(dataclasses.replace(cfg, dtype='float32'), device='cpu')
+    flat = cpu.init_flat(SEED)
+    model, params = TransfoXL(cfg), params_from_jax(flat, dev)
+    mets, counts = counted(lambda: score_batch(model, params, ids, labels, ikr))
+    expect(counts, flash_rel_attn_fwd=cfg.n_layer)
+    ms = time_ms(lambda: score_batch(model, params, ids, labels, ikr), iters=3, warmup=1)
+    cpu_params = params_from_jax(flat, 'cpu')
+    held = logits_vs_cpu(cfg, lambda: model.forward(params, ids)[0],
+                         lambda p: cpu.forward(p, ids.cpu())[0], cpu_params,
+                         [layer['attn']['o'] for layer in cpu_params['layers']])
+    return hold_scores(tag, name, '2 x 1024', mets, ms, counts, *held)
+
+
+def reformer_score_vs_cpu(dev, tag, name, **cfg_kw):
+    """A depth-2 Reformer base (one local and one LSH layer; `cfg_kw` changes
+    the configuration) scores 2 x 2048 ids through `score_batch` on K3 (each
+    layer once, counted), held against the port's CPU run in f32
+    (`logits_vs_cpu`), the CPU on the card's LSH buckets and relu branches
+    (`SharedBranches`: 16-bit hidden states may hash a near-tie elsewhere)."""
+    cfg = reformer_config(attn_layers=('local', 'lsh'), **cfg_kw)
+    cpu = Reformer(dataclasses.replace(cfg, dtype='float32'), device='cpu')
+    flat = cpu.init_flat(SEED)
+    model, params = Reformer(cfg), params_from_jax(flat, dev)
+    ids, labels = score_inputs(cfg.vocab_size, 2, cfg.max_length, SEED + 82, dev)
+    ikr = IkrMetric(MusicTokenizer(pitch_kind='midi'))
+    score = lambda: score_batch(model, params, ids, labels, ikr, torch.ones(2, N_KEY, device=dev))
+    mets, counts = counted(score)
+    expect(counts, chunked_window_attn_fwd=len(cfg.attn_layers))
+    ms = time_ms(score, iters=3, warmup=1)
+    cpu_params = params_from_jax(flat, 'cpu')
+
+    first = {}                                        # the branches the CPU itself would take
+
+    def cpu_fwd(p):
+        shared.replay()                               # the card's branches, for each CPU run
+        logits = cpu.forward(p, ids.cpu())
+        first.setdefault('branches_differing', dict(shared.differ))
+        first.setdefault('branches', dict(shared.total))
+        return logits
+    with SharedBranches() as shared:
+        held = logits_vs_cpu(cfg, lambda: model.forward(params, ids), cpu_fwd, cpu_params,
+                             [layer['attn']['o'] for layer in cpu_params['layers']])
+    return dict(hold_scores(tag, name, f'2 x {cfg.max_length}, CPU on the card\'s branches '
+                            f'({first["branches_differing"]} of {first["branches"]} its own '
+                            f'differ)', mets, ms, counts, *held), **first)
+
+
+def reformer_16bit_step(dev, **cfg_kw):
+    """A bf16 training step (loss and every gradient) of a depth-2 Reformer
+    base (one local and one LSH layer; `cfg_kw` changes the configuration),
+    B 2, T 2048, dropout 0: each layer launches K3 and K4 once (counted),
+    and the loss and gradients are finite.  Its f32 twin is held against
+    the CPU's gradients (`reformer_card_vs_cpu`); this runs the 16-bit K4
+    inside a model step."""
+    cfg = reformer_config(attn_layers=('local', 'lsh'), dropout=0.0, **cfg_kw)
+    model = Reformer(cfg)
+    params = params_from_jax(model.init_flat(SEED), dev)
+    leaves = flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    ids, labels = score_inputs(cfg.vocab_size, 2, cfg.max_length, SEED + 84, dev)
+
+    def step():
+        loss, _ = model.loss(params, ids, labels)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+    (loss, grads), counts = counted(step)
+    expect(counts, chunked_window_attn_fwd=2, chunked_window_attn_bwd=2)
+    loss = float(loss.detach())
+    finite = math.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f'[c2] reformer {cfg.dtype} step {cfg_kw}, depth 2, 2 x {cfg.max_length}: loss '
+        f'{loss:.5f}, every gradient finite: {finite}; counts {counts}')
+    if not finite:
+        raise AssertionError(f'C.2 Reformer {cfg.dtype} step: a loss or gradient is not finite')
+    return dict(counts=counts, loss=loss)
+
+
+def c2_checks(dev, report):
+    """Phase 11.1b, ROADMAP C.2: head dims above 128, which the TPU kernels
+    take padded to lanes of 128.  TF-XLs at head dim 256 (d_model 1024, 4
+    heads) and 192 (d_model 768, 4 heads, zero-padded to 256 at the layer's
+    scale) and a Reformer at head dim 256 (12 heads), depth 2: the TF-XLs
+    score through K1's slab kernel in f32 and in 16 bits, held against the
+    CPU's f32 logits; a training step of each f32 TF-XL (K1 + K2) and of the
+    f32 Reformer (K3 + K4, local and LSH layers) against the CPU's loss and
+    gradients; then the Reformer scores in bf16 on K3 (counted), held
+    against the CPU's f32 logits as the TF-XLs are, and takes a bf16 step
+    (K3 + K4, counted)."""
+    rec = {}
+    for name, kw in (('tfxl-d256-f32', dict(D256, dtype='float32')),
+                     ('tfxl-d256-bf16', dict(D256, dtype='bfloat16')),
+                     ('tfxl-d192-f32', dict(D192, dtype='float32')),
+                     ('tfxl-d192-f16', dict(D192, dtype='float16'))):
+        rec[name] = tfxl_score_vs_cpu(dev, 'c2', name, kw)
+    torch.cuda.empty_cache()
+    card_vs_cpu_grads(dev, report, key='c2_tfxl_d256_grads', share_branches=True, **D256)
+    card_vs_cpu_grads(dev, report, key='c2_tfxl_d192_grads', share_branches=True, **D192)
+    reformer_card_vs_cpu(dev, report, key='c2_reformer_d256', d_head=256)
+    rec['reformer-d256-bf16'] = reformer_score_vs_cpu(dev, 'c2', 'reformer-d256-bf16',
+                                                      d_head=256)
+    rec['reformer-d256-bf16-step'] = reformer_16bit_step(dev, d_head=256)
+    report['c2'] = rec
+    torch.cuda.empty_cache()
+
+
 def c1_checks(dev, report):
     """Phase 11.1, ROADMAP C.1: a TF-XL at head dim 128 (d_model 1024, 8
     heads) in f32 and bf16, one in float16 at the 22-11 widths, and a
     Reformer with local_chunk 128 (the LSH layer keeps chunk 64), depth 2:
-    each scores through `score_batch` on K1 / K3 (f32 on K1's FMA kernel and
+    each scores through `score_batch` on K1 / K3 (f32 on k1_slab and
     k3_tiled at chunk 128; bf16 and f16 on k1_tc), held against the port's
     CPU run in f32; a training step of the f32 head-dim-128 TF-XL and of the
     Reformer (K2 / K4) against the CPU's gradients."""
     rec = {}
-    tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
-    ikr = IkrMetric(tok, mode='ins-key')
-    ids, labels = score_inputs(1190, 2, 1024, SEED + 80, dev)
     for name, kw in (('tfxl-d128-f32', dict(D128, dtype='float32')),
                      ('tfxl-d128-bf16', dict(D128, dtype='bfloat16')),
                      ('tfxl-fp16', dict(dtype='float16'))):
-        cfg = base_config(n_layer=2, **kw)
-        cpu = TransfoXL(dataclasses.replace(cfg, dtype='float32'), device='cpu')
-        flat = cpu.init_flat(SEED)
-        model, params = TransfoXL(cfg), params_from_jax(flat, dev)
-        mets, counts = counted(lambda: score_batch(model, params, ids, labels, ikr))
-        expect(counts, flash_rel_attn_fwd=cfg.n_layer)
-        ms = time_ms(lambda: score_batch(model, params, ids, labels, ikr), iters=3, warmup=1)
-        cpu_params = params_from_jax(flat, 'cpu')
-        loss = float(mets['loss'])
-        with torch.no_grad():
-            want = cpu.forward(cpu_params, ids.cpu())[0]
-            err = rel_max(model.forward(params, ids)[0], want)
-            control = None
-            if cfg.dtype == 'float32':
-                tol = TOL_F32_LOGITS
-            else:
-                tol = TOL_16_LOGITS[cfg.compute_dtype]
-                for layer in cpu_params['layers']:
-                    layer['attn']['o'].zero_()
-                control = rel_max(cpu.forward(cpu_params, ids.cpu())[0], want)
-        rec[name] = dict(counts=counts, score_ms=ms, loss=loss, logits_err=err, tol=tol,
-                         control_err=control)
-        log(f'[c1] {name}, depth 2, 2 x 1024: score_batch {ms:.2f} ms, loss {loss:.5f}; card vs '
-            f'CPU f32 logits {err:.2e} of their max (tol {tol}; attention dropped: {control}); '
-            f'counts {counts}')
-        if not (math.isfinite(loss) and err <= tol) or (control is not None and control <= 4 * tol):
-            raise AssertionError(f'C.1 {name}: card vs CPU logits {err}, control {control}')
-        del model, params, cpu, cpu_params
+        rec[name] = tfxl_score_vs_cpu(dev, 'c1', name, kw)
     torch.cuda.empty_cache()
     card_vs_cpu_grads(dev, report, key='c1_tfxl_d128_grads', share_branches=True, **D128)
 
@@ -2897,7 +3063,8 @@ def c1_traces(dev, report):
     head dim 128 (k1_tc once per layer, k2_dkdv_tc / k2_dq_tc once per
     layer), K3 on its tensor-core walk at chunk 128 and k3_tc at the LSH
     layer's 64, K4 on its tensor-core tiled split (and k4_tc at 64), by name
-    in the trace, with none of K1's, K2's, K3's or K4's FMA kernels."""
+    in the trace, with none of K3's or K4's FMA kernels and none of the slab
+    kernels (f32 and head dims above 128 only)."""
     rec = {}
     trace_dir = os.path.join(RUN_DIR, 'trace-c1')
     tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
@@ -2913,10 +3080,9 @@ def c1_traces(dev, report):
     counts, kernels, ms = traced_step(trace_dir, lambda: trainer.train_step(params, state, batch))
     expect(counts, flash_rel_attn_fwd=cfg.n_layer, flash_rel_attn_bwd=cfg.n_layer)
     rec['tfxl-d128-bf16'] = dict(step_ms=ms, counts=counts, named=named(
-        kernels, 'k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_kernel', 'k2_dq_kernel',
-        'flash_rel_attn_fwd_kernel', 'k1_tc'))
-    want = dict(k2_dkdv_tc=cfg.n_layer, k2_dq_tc=cfg.n_layer, k2_dkdv_kernel=0, k2_dq_kernel=0,
-                flash_rel_attn_fwd_kernel=0, k1_tc=cfg.n_layer)
+        kernels, 'k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_slab', 'k2_dq_slab', 'k1_slab', 'k1_tc'))
+    want = dict(k2_dkdv_tc=cfg.n_layer, k2_dq_tc=cfg.n_layer, k2_dkdv_slab=0, k2_dq_slab=0,
+                k1_slab=0, k1_tc=cfg.n_layer)
     log(f'[trace] C.1 TF-XL d128 bf16 train_step, depth 2, 2 x 1024: {ms:.1f} ms while traced; '
         f'kernels by name {rec["tfxl-d128-bf16"]["named"]}')
     if rec['tfxl-d128-bf16']['named'] != want:
@@ -2939,10 +3105,10 @@ def c1_traces(dev, report):
     rec['reformer-chunk128-bf16'] = dict(step_ms=ms, counts=counts, named=named(
         kernels, 'k4_dq_tc', 'k4_dkdv_tc', 'k4_tc', 'k4_dq_tiled', 'k4_dkdv_tiled', 'k3_tiled',
         'k3_union_tc', 'k3_tc', 'chunked_window_attn_fwd_kernel',
-        'chunked_window_attn_bwd_kernel'))
+        'chunked_window_attn_bwd_kernel', 'k3_slab', 'k4_dq_slab', 'k4_dkdv_slab'))
     want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k4_dq_tiled=0, k4_dkdv_tiled=0, k3_tiled=0,
                 k3_union_tc=1, k3_tc=1, chunked_window_attn_fwd_kernel=0,
-                chunked_window_attn_bwd_kernel=0)
+                chunked_window_attn_bwd_kernel=0, k3_slab=0, k4_dq_slab=0, k4_dkdv_slab=0)
     log(f'[trace] C.1 Reformer local_chunk 128 bf16 train_step, depth 2, 2 x 2048: {ms:.1f} ms '
         f'while traced; kernels by name {rec["reformer-chunk128-bf16"]["named"]}')
     if rec['reformer-chunk128-bf16']['named'] != want:
@@ -3061,6 +3227,7 @@ def analysis_phase(dev, report):
     t0 = time.perf_counter()
     seconds = {}
     for name, fn in (('c1', lambda: c1_checks(dev, report)),
+                     ('c2', lambda: c2_checks(dev, report)),
                      ('traced presets', lambda: traced_presets(dev, report)),
                      ('traced C.1 steps', lambda: c1_traces(dev, report)),
                      ('analysis', lambda: analysis_checks(dev, report)),
@@ -3122,8 +3289,8 @@ def main() -> int:
         k1_case(dev, 'hf-window-mem-f32', torch.float32, 2, 12, 1024, 512, 64, 1024, 512, 512,
                 11, False),
         # C.1 (phase 11's shapes): head dim 128 (d_model 1024, 8 heads, 2 x
-        # 1024; bf16 on k1_tc's two-warp groups, f32 on the FMA kernel's 32-row
-        # tiles), and f16 at the 22-11 widths
+        # 1024; bf16 on k1_tc's two-warp groups, f32 on the slab kernel's two
+        # slabs of 64), and f16 at the 22-11 widths
         k1_case(dev, 'd128-bf16', torch.bfloat16, 2, 8, 1024, 0, 128, 1024, 0, 0, 12, True),
         k1_case(dev, 'd128-f32', torch.float32, 2, 8, 1024, 0, 128, 1024, 0, 0, 13, True),
         k1_case(dev, 'f16', torch.float16, 2, 12, 1024, 0, 64, 1024, 0, 0, 14, True),
@@ -3133,6 +3300,14 @@ def main() -> int:
         # d128-train-bf16 counterpart
         k1_case(dev, 'd128-train-bf16', torch.bfloat16, 21, 6, 1024, 0, 128, 1024, 0, 0, 16,
                 True),
+        # C.2 (phase 11's head dim 256: d_model 1024, 4 heads, 2 x 1024): the
+        # slab kernel in every dtype, and once at 384 (six slabs of 64)
+        k1_case(dev, 'd256-bf16', torch.bfloat16, 2, 4, 1024, 0, 256, 1024, 0, 0, 17, True),
+        k1_case(dev, 'd256-f16', torch.float16, 2, 4, 1024, 0, 256, 1024, 0, 0, 18, True),
+        k1_case(dev, 'd256-f32', torch.float32, 2, 4, 1024, 0, 256, 1024, 0, 0, 19, True),
+        k1_case(dev, 'd256-memory-window-f32', torch.float32, 2, 4, 1000, 512, 256, 96, 300,
+                512, 20, False),
+        k1_case(dev, 'd384-bf16', torch.bfloat16, 2, 4, 1024, 0, 384, 1024, 0, 0, 21, True),
     ]
     k2 = [
         k2_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 21, True),
@@ -3160,6 +3335,13 @@ def main() -> int:
         # the 22-11 batch at d_model 768 with head dim 128 (B 21 x 6 heads)
         k2_case(dev, 'd128-train-bf16', torch.bfloat16, 21, 6, 1024, 0, 128, 1024, 0, 0, 35,
                 True),
+        # C.2: head dim 256 in every dtype, and once at 384
+        k2_case(dev, 'd256-bf16', torch.bfloat16, 2, 4, 1024, 0, 256, 1024, 0, 0, 36, True),
+        k2_case(dev, 'd256-f16', torch.float16, 2, 4, 1024, 0, 256, 1024, 0, 0, 37, True),
+        k2_case(dev, 'd256-f32', torch.float32, 2, 4, 1024, 0, 256, 1024, 0, 0, 38, True),
+        k2_case(dev, 'd256-memory-window-f32', torch.float32, 2, 4, 1000, 512, 256, 96, 300,
+                512, 39, False),
+        k2_case(dev, 'd384-bf16', torch.bfloat16, 2, 4, 1024, 0, 384, 1024, 0, 0, 40, True),
     ]
     k1_ms = {c['case']: c.get('ms') for c in k1}
     k2_ms = {c['case']: c.get('ms') for c in k2}
@@ -3189,6 +3371,12 @@ def main() -> int:
         k3_case(dev, 'chunk128-d128-bf16', torch.bfloat16, 16, 2048, 128, 128, True, 40, 133),
         k3_case(dev, 'lsh-f16', torch.float16, 48, 2048, 64, 64, True, 0, 134),
         k3_case(dev, 'chunk16-padded-f32', torch.float32, 8, 480, 32, 16, True, 9, 135),
+        # C.2: head dim 256 (phase 11's Reformer: 12 heads; the LSH layer's
+        # two hashes) on the slab walk in every dtype, LSH with pads and local
+        k3_case(dev, 'd256-lsh-bf16', torch.bfloat16, 48, 2048, 256, 64, True, 40, 136),
+        k3_case(dev, 'd256-lsh-f16', torch.float16, 48, 2048, 256, 64, True, 40, 137),
+        k3_case(dev, 'd256-lsh-f32', torch.float32, 48, 2048, 256, 64, True, 40, 138),
+        k3_case(dev, 'd256-local-bf16', torch.bfloat16, 24, 2048, 256, 64, False, 0, 139),
     ]
     k4 = [
         k4_case(dev, 'lsh-bf16', torch.bfloat16, 768, 2048, 64, 64, True, 0, 41),
@@ -3204,6 +3392,10 @@ def main() -> int:
         k4_case(dev, 'chunk16-padded-f32', torch.float32, 8, 480, 32, 16, True, 9, 145),
         # ragged 64-row tiles over several chunks on the tensor cores
         k4_case(dev, 'chunk16-padded-f16', torch.float16, 8, 480, 32, 16, True, 9, 146),
+        k4_case(dev, 'd256-lsh-bf16', torch.bfloat16, 48, 2048, 256, 64, True, 40, 147),
+        k4_case(dev, 'd256-lsh-f16', torch.float16, 48, 2048, 256, 64, True, 40, 148),
+        k4_case(dev, 'd256-lsh-f32', torch.float32, 48, 2048, 256, 64, True, 40, 149),
+        k4_case(dev, 'd256-local-bf16', torch.bfloat16, 24, 2048, 256, 64, False, 0, 150),
     ]
     report.update(k3_cases=k3, k4_cases=k4)
 

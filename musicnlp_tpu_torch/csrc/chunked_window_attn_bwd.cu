@@ -58,6 +58,7 @@
 #include "mma_bf16.cuh"
 #include "kernel_resources.cuh"
 #include "row_dot.cuh"
+#include "slab_mma.cuh"
 
 namespace {
 
@@ -1150,6 +1151,332 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace tiled
 
+// ------------------------------------------- head dims above 128: the slab split
+// Every call at a head dim H above 128 (a multiple of 128), in f32, bf16
+// and f16: the tiled split above (k4_dq_slab per 64 query rows over the key
+// tiles of their windows; k4_dkdv_slab per 64 keys over the query tiles
+// that see them) at one warp per 16-row group, over slabs of the head dim.
+// H = 64 ns; a block of four warps per (g, tile, output slab z) writes
+// columns [64 z, 64 z + 64) of dq (dq) or of dk and dv (dkdv).  Per tile
+// pair it loops over the ns slabs (`pair_scores`): each slab of Q, dO, K and
+// V is staged by cp.async and S = Q . K^T, dP = dO . V^T are added into the
+// warp's fragments, so both are sums over the whole head dim before p and
+// ds exist; slab z is staged last and stays for the output products.  Each
+// output slab's block recomputes S and dP.  p and ds are `prob`'s, with the
+// own key of a row in a layer with a self bias rescored by slab_mma.cuh's
+// self_score (the sequential f32 FMA chain over all H, as k3_slab does), so
+// p = exp(s - lse) is exactly 1 where a row sees only its own key.  The
+// products are slab_mma.cuh's: bf16 / f16 mma.sync, f32 3xTF32.  Shared
+// memory 37 / 55 KB (16 bits), 69 / 103 KB (f32), dq / dkdv.
+namespace slabs {
+
+using namespace slab;
+using tiled::B;
+using tiled::in_window;
+using tiled::prob;
+using tiled::stage_kpos;
+using tiled::stage_rows;
+
+constexpr int W = 64;            // slab width
+constexpr int NT = 32 * (B / 16);
+
+template <typename E>
+struct Lay {
+    static constexpr int RS = W + PAD<E>, PS = B + PAD<E>;
+    // Q, dO, K, V [B][RS]; n_pds tiles [B][PS] (P and dS for dkdv); lse,
+    // delta, dlse [B] f32; qpos, kpos [B] int
+    static constexpr size_t bytes(int n_pds) {
+        return (size_t)(4 * B * RS + n_pds * B * PS) * sizeof(E) + 3 * B * 4 + 2 * B * 4;
+    }
+};
+
+// S = Q . K^T and dP = dO . V^T of the tile pair (q0, k0) over the ns slabs
+// of the head dim, slab z last
+template <typename E>
+__device__ __forceinline__ void pair_scores(float (&s)[B / 8][4], float (&dp)[B / 8][4], E* sQ,
+                                            E* sO, E* sK, E* sV, const E* q_g, const E* do_g,
+                                            const E* k_g, const E* v_g, int q0, int k0, int T_,
+                                            int H, int ns, int z, int tid, int p, int lane) {
+    constexpr int RS = Lay<E>::RS;
+#pragma unroll
+    for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int i = 0; i < ns; ++i) {
+        const int c0 = W * ((z + 1 + i) % ns);
+        __syncthreads();                 // every warp is done with the staged tiles
+        stage<W>(sQ, q_g, q0, B, T_, H, c0, tid, NT);
+        stage<W>(sO, do_g, q0, B, T_, H, c0, tid, NT);
+        stage<W>(sK, k_g, k0, B, T_, H, c0, tid, NT);
+        stage<W>(sV, v_g, k0, B, T_, H, c0, tid, NT);
+        mma_bf16::cp_commit();
+        mma_bf16::cp_wait<0>();
+        __syncthreads();
+        slab_product<E, W>(s, sQ, 16 * p, sK, 0, RS, lane);
+        slab_product<E, W>(dp, sO, 16 * p, sV, 0, RS, lane);
+    }
+}
+
+// p and ds of the warp's entries in place of s and dp (`prob`, with the own
+// key rescored by self_score in a layer with a self bias: a row holds at
+// most one own key per tile, patched after the tile's p); q rows q0 + 16p +
+// g (+8), keys k0 + 8j + 2t (+1); the row terms from sQp / sL / sD / sDL
+template <typename E, bool BIAS>
+__device__ __forceinline__ void p_ds(float (&s)[B / 8][4], float (&dp)[B / 8][4],
+                                     const int* sQp, const int* sKp, const float* sL,
+                                     const float* sD, const float* sDL, const E* q_g,
+                                     const E* k_g, int q0, int k0, int T_, int H, int C,
+                                     float scale, float self_bias, int p, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    int own[2] = {-1, -1};               // the lane's column of row h's own key
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int qi = 16 * p + g + 8 * h, r = q0 + qi;
+        const int qp = sQp[qi];
+        const float l = sL[qi];
+#pragma unroll
+        for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int kj = 8 * j + 2 * t + e, wk = k0 + kj;
+                const bool live = r < T_ && wk < T_;
+                if (BIAS && live && sKp[kj] == qp && in_window(r, wk, C)) own[h] = kj;
+                s[j][2 * h + e] =
+                    live ? prob(s[j][2 * h + e], r, wk, qp, sKp[kj], l, C, scale, self_bias) : 0.f;
+            }
+    }
+    if (BIAS && __any_sync(0xffffffffu, own[0] >= 0 || own[1] >= 0)) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            if (own[h] < 0) continue;
+            const int r = q0 + 16 * p + g + 8 * h;
+            const float pr = expf(self_score<E>(q_g + (size_t)r * H, k_g + (size_t)(k0 + own[h]) * H,
+                                                H, scale, self_bias) - sL[16 * p + g + 8 * h]);
+#pragma unroll
+            for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    if (8 * j + 2 * t + e == own[h]) s[j][2 * h + e] = pr;
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int qi = 16 * p + g + 8 * h;
+        const float de = sD[qi], dl = sDL[qi];
+#pragma unroll
+        for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                dp[j][2 * h + e] = s[j][2 * h + e] * (dp[j][2 * h + e] - de + dl) * scale;
+    }
+}
+
+template <typename E, bool BIAS>
+__global__ void __launch_bounds__(NT, 2)
+k4_dq_slab(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+           const E* __restrict__ dout, const int* __restrict__ qpos,
+           const int* __restrict__ kpos, const float* __restrict__ lse,
+           const float* __restrict__ delta, const float* __restrict__ dlse,
+           E* __restrict__ dq, int T_, int C, float scale, float self_bias, int ns) {
+    constexpr int RS = Lay<E>::RS, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQ = reinterpret_cast<E*>(smem_raw);
+    E* sO = sQ + B * RS;
+    E* sK = sO + B * RS;
+    E* sV = sK + B * RS;
+    float* sL = reinterpret_cast<float*>(sV + B * RS);
+    float* sD = sL + B;
+    float* sDL = sD + B;
+    int* sQp = reinterpret_cast<int*>(sDL + B);
+    int* sKp = sQp + B;
+
+    const int g = blockIdx.y, z = blockIdx.z;
+    const int q0 = blockIdx.x * B;
+    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const size_t base = (size_t)g * T_;
+    const E *q_g = q + base * H, *k_g = k + base * H, *v_g = v + base * H;
+    const E* do_g = dout + base * H;
+    stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
+
+    const int q_last = min(q0 + B, T_) - 1;
+    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
+    float dqa[W / 8][4] = {};            // query rows 16p + g (+8), columns 8n + 2t of slab z
+    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
+        float s[B / 8][4], dp[B / 8][4];
+        pair_scores<E>(s, dp, sQ, sO, sK, sV, q_g, do_g, k_g, v_g, q0, k0, T_, H, ns, z, tid,
+                       p, lane);
+        // the tile's key positions (the previous tile's were read before
+        // pair_scores' first barrier)
+        stage_kpos(sKp, kpos, base, k0, T_);
+        __syncthreads();
+        p_ds<E, BIAS>(s, dp, sQp, sKp, sL, sD, sDL, q_g, k_g, q0, k0, T_, H, C, scale,
+                      self_bias, p, lane);
+        // dq += dS . K[:, W z..], dS from the accumulators (the tile's
+        // products summed apart, then added rounded to nearest)
+#pragma unroll
+        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
+            float t[2 * CH][4] = {};
+#pragma unroll
+            for (int kb = 0; kb < B / K8; ++kb) {
+                FragA<E> a;
+                acc_a<E>(a, dp, kb, lane);
+#pragma unroll
+                for (int j = 0; j < CH && c + j < W / 16; ++j) {
+                    FragB<E> b[2];
+                    load_bt(b, sK, RS, 16 * (c + j), K8 * kb, lane);
+                    mma(t[2 * j], a, b[0]);
+                    mma(t[2 * j + 1], a, b[1]);
+                }
+            }
+            add_pass(dqa, t, c);
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = q0 + 16 * p + gq + 8 * h;
+        if (r >= T_) continue;
+        E* o = dq + (base + r) * H + W * z;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) put2<E>(o + 8 * n + 2 * t, dqa[n][2 * h], dqa[n][2 * h + 1]);
+    }
+}
+
+template <typename E, bool BIAS>
+__global__ void __launch_bounds__(NT, 2)
+k4_dkdv_slab(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+             const E* __restrict__ dout, const int* __restrict__ qpos,
+             const int* __restrict__ kpos, const float* __restrict__ lse,
+             const float* __restrict__ delta, const float* __restrict__ dlse,
+             float* __restrict__ dk, float* __restrict__ dv, int T_, int C, float scale,
+             float self_bias, int ns) {
+    using L = Lay<E>;
+    constexpr int RS = L::RS, PS = L::PS, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQ = reinterpret_cast<E*>(smem_raw);
+    E* sO = sQ + B * RS;
+    E* sK = sO + B * RS;
+    E* sV = sK + B * RS;
+    E* sP = sV + B * RS;
+    E* sDS = sP + B * PS;
+    float* sL = reinterpret_cast<float*>(sDS + B * PS);
+    float* sD = sL + B;
+    float* sDL = sD + B;
+    int* sQp = reinterpret_cast<int*>(sDL + B);
+    int* sKp = sQp + B;
+
+    const int g = blockIdx.y, z = blockIdx.z;
+    const int k0 = blockIdx.x * B;
+    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const size_t base = (size_t)g * T_;
+    const E *q_g = q + base * H, *k_g = k + base * H, *v_g = v + base * H;
+    const E* do_g = dout + base * H;
+    stage_kpos(sKp, kpos, base, k0, T_);
+
+    // the query rows whose windows hold a key of [k0, k_last]
+    const int k_last = min(k0 + B, T_) - 1;
+    const int r_lo = (k0 / C) * C, r_hi = min((k_last / C + 2) * C, T_);
+    float dka[W / 8][4] = {}, dva[W / 8][4] = {};   // key rows 16p + g (+8), cols 8n + 2t
+    for (int q0 = r_lo; q0 < r_hi; q0 += B) {
+        float s[B / 8][4], dp[B / 8][4];
+        pair_scores<E>(s, dp, sQ, sO, sK, sV, q_g, do_g, k_g, v_g, q0, k0, T_, H, ns, z, tid,
+                       p, lane);
+        // the q tile's row terms (the previous tile's were read before
+        // pair_scores' first barrier)
+        stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
+        __syncthreads();
+        p_ds<E, BIAS>(s, dp, sQp, sKp, sL, sD, sDL, q_g, k_g, q0, k0, T_, H, C, scale,
+                      self_bias, p, lane);
+#pragma unroll
+        for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int o = (16 * p + gq + 8 * h) * PS + 8 * j + 2 * t;
+                put2<E>(sP + o, s[j][2 * h], s[j][2 * h + 1]);
+                put2<E>(sDS + o, dp[j][2 * h], dp[j][2 * h + 1]);
+            }
+        __syncthreads();                 // every warp's P / dS rows are written
+
+        // dv += P^T dO[:, W z..], dk += dS^T Q[:, W z..] over the tile's 64
+        // query rows (summed apart, then added rounded to nearest)
+#pragma unroll
+        for (int c = 0; c < W / 16; ++c) {               // one n-pair per pass
+            float tv[2][4] = {}, tk[2][4] = {};
+#pragma unroll 1
+            for (int kq = 0; kq < B / K8; ++kq) {
+                FragA<E> ap, ad;
+                load_at(ap, sP, PS, 16 * p, K8 * kq, lane);
+                load_at(ad, sDS, PS, 16 * p, K8 * kq, lane);
+                FragB<E> bo[2], bq[2];
+                load_bt(bo, sO, RS, 16 * c, K8 * kq, lane);
+                load_bt(bq, sQ, RS, 16 * c, K8 * kq, lane);
+                mma(tv[0], ap, bo[0]);
+                mma(tv[1], ap, bo[1]);
+                mma(tk[0], ad, bq[0]);
+                mma(tk[1], ad, bq[1]);
+            }
+            add_pass(dva, tv, c);
+            add_pass(dka, tk, c);
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int wk = k0 + 16 * p + gq + 8 * h;
+        if (wk >= T_) continue;
+        float* dk_r = dk + (base + wk) * H + W * z;
+        float* dv_r = dv + (base + wk) * H + W * z;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) {
+            put2<float>(dk_r + 8 * n + 2 * t, dka[n][2 * h], dka[n][2 * h + 1]);
+            put2<float>(dv_r + 8 * n + 2 * t, dva[n][2 * h], dva[n][2 * h + 1]);
+        }
+    }
+}
+
+template <typename E, bool BIAS>
+cudaError_t launch_b(const void* q, const void* k, const void* v, const void* dout,
+                     const int* qpos, const int* kpos, const float* lse, const float* delta,
+                     const float* dlse, void* dq, float* dk, float* dv, int G, int T_, int C,
+                     int H, float scale, float self_bias, cudaStream_t stream) {
+    const size_t smem_q = Lay<E>::bytes(0), smem_kv = Lay<E>::bytes(2);
+    auto kq = k4_dq_slab<E, BIAS>;
+    auto kv = k4_dkdv_slab<E, BIAS>;
+    cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_q);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    const int ns = H / W;
+    const dim3 grid((T_ + B - 1) / B, G, ns);
+    const E *q_ = (const E*)q, *k_ = (const E*)k, *v_ = (const E*)v, *do_ = (const E*)dout;
+    kq<<<grid, NT, smem_q, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, (E*)dq, T_,
+                                     C, scale, self_bias, ns);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kv<<<grid, NT, smem_kv, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, dk, dv, T_,
+                                      C, scale, self_bias, ns);
+    return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const int* qpos, const int* kpos, const float* lse, const float* delta,
+                   const float* dlse, void* dq, float* dk, float* dv, int G, int T_, int C,
+                   int H, float scale, float self_bias, cudaStream_t stream) {
+    if (self_bias != 0.f)
+        return launch_b<E, true>(q, k, v, dout, qpos, kpos, lse, delta, dlse, dq, dk, dv, G,
+                                 T_, C, H, scale, self_bias, stream);
+    return launch_b<E, false>(q, k, v, dout, qpos, kpos, lse, delta, dlse, dq, dk, dv, G, T_,
+                              C, H, scale, self_bias, stream);
+}
+
+}  // namespace slabs
+
 template <typename T, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const int* qpos, const int* kpos, const float* lse, const float* delta,
@@ -1249,8 +1576,19 @@ cudaError_t resources_d(int C, int* out) {
     return resources(tiled::k4_dkdv_tc<E, D>, tiled::dkdv_tc_smem_bytes<D>(), NT, out + 5);
 }
 
+// the resources of k4_dq_slab and k4_dkdv_slab (their self-bias instances),
+// which run D above 128
+template <typename E>
+cudaError_t resources_slab(int* out) {
+    using L = slabs::Lay<E>;
+    cudaError_t err = resources(slabs::k4_dq_slab<E, true>, L::bytes(0), slabs::NT, out);
+    if (err != cudaSuccess) return err;
+    return resources(slabs::k4_dkdv_slab<E, true>, L::bytes(2), slabs::NT, out + 5);
+}
+
 template <typename E>
 cudaError_t resources_c(int C, int D, int* out) {
+    if (D > 128 && D % 128 == 0) return resources_slab<E>(out);
     switch (D) {
         case 16: return resources_d<E, 16>(C, out);
         case 32: return resources_d<E, 32>(C, out);
@@ -1262,7 +1600,11 @@ cudaError_t resources_c(int C, int D, int* out) {
 
 template <typename T>
 cudaError_t route(int C, int D, const Args& a) {
-    // chunks 32 / 64 at D <= 64: the per-chunk kernels; the rest: the tiled split
+    // D above 128: the slab split; chunks 32 / 64 at D <= 64: the per-chunk
+    // kernels; the rest: the tiled split
+    if (D > 128 && D % 128 == 0)
+        return slabs::launch<T>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
+                                a.dq, a.dk, a.dv, a.G, a.T, C, D, a.scale, a.self_bias, a.st);
     return (C == 32 || C == 64) && D <= 64 ? run_c<T>(C, D, a) : run_tiled<T>(C, D, a);
 }
 
@@ -1270,10 +1612,11 @@ cudaError_t route(int C, int D, const Args& a) {
 
 // q/k/v/dout [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32
 // [G, T], lse/delta/dlse f32 [G, T]; dq [G, T, D] in the input dtype, dk/dv
-// [G, T, D] f32.  T % chunk == 0; D 16, 32, 64 or 128.  Chunks 32 and 64 at
-// D <= 64 run the per-chunk kernels (f32: the FMA kernel; bf16 and f16:
-// k4_tc); every other chunk and D 128 run the tiled split (f32:
-// k4_dq_tiled / k4_dkdv_tiled; bf16 and f16: k4_dq_tc / k4_dkdv_tc).
+// [G, T, D] f32.  T % chunk == 0; D 16, 32, 64, 128 or a multiple of 128.
+// Chunks 32 and 64 at D <= 64 run the per-chunk kernels (f32: the FMA
+// kernel; bf16 and f16: k4_tc); every other chunk and D 128 run the tiled
+// split (f32: k4_dq_tiled / k4_dkdv_tiled; bf16 and f16: k4_dq_tc /
+// k4_dkdv_tc); D above 128 runs k4_dq_slab / k4_dkdv_slab.
 // Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* qpos, const void* kpos,
@@ -1304,10 +1647,14 @@ extern "C" int chunked_window_attn_bwd_delta(const void* dout, const void* out, 
 // at this chunk and D runs, as the loaded library reports them: out[0..4] =
 // registers, local (spill) bytes, dynamic shared bytes, resident blocks per
 // SM and threads per block of k4_tc (out[5..9] zero) or of k4_dq_tc, and
-// out[5..9] of k4_dkdv_tc.  Returns a cudaError_t (cudaErrorInvalidValue
-// for f32 or a D it does not take).
+// out[5..9] of k4_dkdv_tc, or (D above 128, every dtype 0-2) of
+// k4_dq_slab / k4_dkdv_slab.  Returns a cudaError_t
+// (cudaErrorInvalidValue for f32 up to D 128 or a D it does not take).
 extern "C" int chunked_window_attn_bwd_resources(int chunk, int D, int dtype, int* out) {
     if (chunk <= 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)                // f32 has tensor-core kernels above D 128 only
+        return D > 128 && D % 128 == 0 ? (int)resources_slab<float>(out)
+                                       : (int)cudaErrorInvalidValue;
     if (dtype == 1) return (int)resources_c<__nv_bfloat16>(chunk, D, out);
     if (dtype == 2) return (int)resources_c<__half>(chunk, D, out);
     return (int)cudaErrorInvalidValue;

@@ -26,7 +26,8 @@
 //   f32, chunks 32 / 64 at D <= 64: chunked_window_attn_fwd_kernel (FMAs);
 //   f32, every other chunk and D 128: k3_tiled (FMAs);
 //   bf16 / f16, chunks 32 / 64 at D <= 64: k3_tc (tensor cores);
-//   bf16 / f16, every other chunk and D 128: k3_union_tc (tensor cores).
+//   bf16 / f16, every other chunk and D 128: k3_union_tc (tensor cores);
+//   every dtype, D above 128: k3_slab (tensor cores; f32 in 3xTF32).
 //
 // f32 (chunked_window_attn_fwd_kernel): one 256-thread block per (g, chunk)
 // stages the query chunk and the 2C-key window as f32 rows of stride D+1,
@@ -72,6 +73,7 @@
 #include "elem.cuh"
 #include "kernel_resources.cuh"
 #include "mma_bf16.cuh"
+#include "slab_mma.cuh"
 
 namespace {
 
@@ -950,6 +952,207 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* qp
 
 }  // namespace tiled
 
+// ------------------------------------------- head dims above 128: k3_slab
+// Every call at a head dim H above 128 (a multiple of 128), in f32, bf16
+// and f16: k3_union_tc's walk over the 64-key tiles of the union of a 64-row
+// block's windows, at one warp per 16-row group, over slabs of the head
+// dim.  H = 64 ns; a block of four warps per (g, 64 rows, output slab z)
+// writes ctx columns [64 z, 64 z + 64).  Per key tile it loops over the ns
+// slabs: slab hs of Q and K is staged by cp.async and Q . K^T added into the
+// warp's score fragments, so the scores are sums over the whole head dim
+// before the online softmax; V's slab z is staged with the last slab.  Each
+// output slab's block recomputes the scores.  The window, the masks, the
+// self bias and the online softmax are k3_union_tc's; in a layer with a
+// self bias each row's own key is rescored by slab_mma.cuh's self_score, the
+// sequential f32 FMA chain over all H of the rows in device memory (never a
+// sum of per-slab partials), so a row that sees only its own key keeps lse
+// = fl(s + self_bias) exactly.  The products are slab_mma.cuh's: bf16 /
+// f16 mma.sync, f32 3xTF32.  Shared memory 27 KB (16 bits) / 51 KB (f32).
+namespace slabs {
+
+using namespace slab;
+using tiled::B;
+using tiled::kNone;
+
+constexpr int W = 64;            // slab width
+constexpr int NT = 32 * (B / 16);
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename E>
+constexpr size_t smem_bytes() {
+    // Q, K, V [B][W + PAD]; qpos, kpos [B] int
+    return (size_t)3 * B * (W + PAD<E>) * sizeof(E) + 2 * B * sizeof(int);
+}
+
+template <typename E, bool BIAS>
+__global__ void __launch_bounds__(NT, 2)
+k3_slab(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+        const int* __restrict__ qpos, const int* __restrict__ kpos, E* __restrict__ out,
+        float* __restrict__ lse, int T_, int C, float scale, float self_bias, int ns) {
+    constexpr int RS = W + PAD<E>, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQ = reinterpret_cast<E*>(smem_raw);
+    E* sK = sQ + B * RS;
+    E* sV = sK + B * RS;
+    int* sQp = reinterpret_cast<int*>(sV + B * RS);
+    int* sKp = sQp + B;
+
+    const int g = blockIdx.y, z = blockIdx.z;
+    const int q0 = blockIdx.x * B;
+    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const size_t base = (size_t)g * T_;
+    const E* q_g = q + base * H;
+    const E* k_g = k + base * H;
+    const E* v_g = v + base * H;
+
+    const int q_last = min(q0 + B, T_) - 1;
+    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
+    if (tid < B) sQp[tid] = q0 + tid < T_ ? qpos[base + q0 + tid] : INT_MIN;
+
+    // rows 16p + gq (+8): first window key, positions, running max / sums
+    int lo[2], qp[2] = {INT_MIN, INT_MIN};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lo[h] = ((q0 + 16 * p + gq + 8 * h) / C - 1) * C;
+    float m[2] = {kNone, kNone}, l[2] = {0.f, 0.f};
+    float o[W / 8][4] = {};                         // ctx columns 8n + 2t of slab z
+    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
+        float s[B / 8][4] = {};
+        for (int hs = 0; hs < ns; ++hs) {
+            const int c0 = W * hs;
+            __syncthreads();             // every warp is done with the staged tiles
+            if (ns > 1 || k0 == w_lo) stage<W>(sQ, q_g, q0, B, T_, H, c0, tid, NT);
+            stage<W>(sK, k_g, k0, B, T_, H, c0, tid, NT);
+            if (hs == ns - 1) stage<W>(sV, v_g, k0, B, T_, H, W * z, tid, NT);
+            mma_bf16::cp_commit();
+            if (hs == 0 && tid < B) {    // a key outside [0, T): INT_MAX, never visible
+                const int wk = k0 + tid;
+                sKp[tid] = (wk >= 0 && wk < T_) ? kpos[base + wk] : INT_MAX;
+            }
+            mma_bf16::cp_wait<0>();
+            __syncthreads();
+            slab_product<E, W>(s, sQ, 16 * p, sK, 0, RS, lane);
+        }
+        if (k0 == w_lo) {
+            qp[0] = sQp[16 * p + gq];
+            qp[1] = sQp[16 * p + gq + 8];
+        }
+        // the window, the masks and the self bias (k3_union_tc's); own[h]:
+        // this lane's column holding row h's own key, if any
+        int own[2] = {-1, -1};
+#pragma unroll
+        for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1, kj = 8 * j + 2 * t + (e & 1), wk = k0 + kj;
+                const int kpv = sKp[kj];
+                float x = s[j][e] * scale;
+                if (BIAS && kpv == qp[h]) {
+                    x += self_bias;
+                    own[h] = kj;
+                }
+                if (kpv > qp[h]) x = kNegInf;
+                if (wk < lo[h] || wk >= lo[h] + 2 * C) {
+                    x = -INFINITY;
+                    if (BIAS && own[h] == kj) own[h] = -1;
+                }
+                s[j][e] = x;
+            }
+        if (BIAS && __any_sync(0xffffffffu, own[0] >= 0 || own[1] >= 0)) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                if (own[h] < 0) continue;
+                const int r = q0 + 16 * p + gq + 8 * h;
+                const float x = self_score<E>(q_g + (size_t)r * H, k_g + (size_t)(k0 + own[h]) * H,
+                                              H, scale, self_bias);
+#pragma unroll
+                for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+                    for (int e = 2 * h; e < 2 * h + 2; ++e)
+                        if (8 * j + 2 * t + (e & 1) == own[h]) s[j][e] = x;
+            }
+        }
+        // the online softmax on the fragments
+        float mx[2] = {m[0], m[1]}, alpha[2];
+#pragma unroll
+        for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
+            m[h] = mx[h];
+            l[h] *= alpha[h];
+        }
+#pragma unroll
+        for (int j = 0; j < B / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float pr = exp2f((s[j][e] - mx[e >> 1]) * kLog2e);
+                l[e >> 1] += pr;
+                s[j][e] = pr;            // rounded to E where it enters PV (16 bits)
+            }
+        // o = o alpha + P . V[:, W z, + W) over the tile's 64 keys (the
+        // tile's products summed apart, then added rounded to nearest)
+#pragma unroll
+        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
+            float pv[2 * CH][4] = {};
+#pragma unroll
+            for (int kb = 0; kb < B / K8; ++kb) {
+                FragA<E> a;
+                acc_a<E>(a, s, kb, lane);
+#pragma unroll
+                for (int j = 0; j < CH; ++j) {
+                    FragB<E> b[2];
+                    load_bt(b, sV, RS, 16 * (c + j), K8 * kb, lane);
+                    mma(pv[2 * j], a, b[0]);
+                    mma(pv[2 * j + 1], a, b[1]);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 2 * CH; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    o[2 * c + j][e] = fmaf(o[2 * c + j][e], alpha[e >> 1], pv[j][e]);
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int r = q0 + 16 * p + gq + 8 * h;
+        if (r >= T_) continue;
+        const float lc = fmaxf(l[h], 1e-30f), inv = 1.f / lc;
+        E* o_r = out + (base + r) * H + W * z;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) put2<E>(o_r + 8 * n + 2 * t, o[n][2 * h] * inv,
+                                                 o[n][2 * h + 1] * inv);
+        if (z == 0 && t == 0) lse[base + r] = m[h] + logf(lc);
+    }
+}
+
+template <typename E>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
+                   const int* kpos, void* out, float* lse, int G, int T_, int C, int H,
+                   float scale, float self_bias, cudaStream_t stream) {
+    const size_t smem = smem_bytes<E>();
+    auto kern = self_bias != 0.f ? k3_slab<E, true> : k3_slab<E, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int ns = H / W;
+    kern<<<dim3((T_ + B - 1) / B, G, ns), NT, smem, stream>>>(
+        (const E*)q, (const E*)k, (const E*)v, qpos, kpos, (E*)out, lse, T_, C, scale,
+        self_bias, ns);
+    return cudaGetLastError();
+}
+
+}  // namespace slabs
+
 template <typename T, int C, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kpos, void* out, float* lse, int G, int T_, float scale,
@@ -1032,7 +1235,11 @@ template <typename T>
 cudaError_t route(int C, int D, const void* q, const void* k, const void* v, const int* qpos,
                   const int* kpos, void* out, float* lse, int G, int T_, float scale,
                   float self_bias, cudaStream_t st) {
-    // chunks 32 / 64 at D <= 64: the per-chunk kernels; the rest: the tiled walk
+    // chunks 32 / 64 at D <= 64: the per-chunk kernels; D above 128: the slab
+    // walk; the rest: the tiled walk
+    if (D > 128 && D % 128 == 0)
+        return slabs::launch<T>(q, k, v, qpos, kpos, out, lse, G, T_, C, D, scale, self_bias,
+                                st);
     if ((C == 32 || C == 64) && D <= 64)
         return launch_c<T>(C, D, q, k, v, qpos, kpos, out, lse, G, T_, scale, self_bias, st);
     return launch_tiled_d<T>(D, q, k, v, qpos, kpos, out, lse, G, T_, C, scale, self_bias, st);
@@ -1052,8 +1259,15 @@ cudaError_t resources_d(int C, int* out) {
                      tiled::Split<D>::NT, out);
 }
 
+// the resources of k3_slab (its self-bias instance), which runs D above 128
+template <typename E>
+cudaError_t resources_slab(int* out) {
+    return resources(slabs::k3_slab<E, true>, slabs::smem_bytes<E>(), slabs::NT, out);
+}
+
 template <typename E>
 cudaError_t resources_c(int C, int D, int* out) {
+    if (D > 128 && D % 128 == 0) return resources_slab<E>(out);
     switch (D) {
         case 16: return resources_d<E, 16>(C, out);
         case 32: return resources_d<E, 32>(C, out);
@@ -1066,11 +1280,12 @@ cudaError_t resources_c(int C, int D, int* out) {
 }  // namespace
 
 // q/k/v [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32 [G, T];
-// out [G, T, D] in that dtype, lse [G, T] f32.  T % chunk == 0; D 16, 32, 64
-// or 128.  Chunks 32 and 64 at D <= 64 run the per-chunk kernels (f32: the
-// FMA kernel; bf16 and f16: k3_tc); every other chunk and D 128 run the tiled
-// walk (f32: k3_tiled; bf16 and f16: k3_union_tc).  Launches on `stream`;
-// returns cudaGetLastError() of the launch.
+// out [G, T, D] in that dtype, lse [G, T] f32.  T % chunk == 0; D 16, 32, 64,
+// 128 or a multiple of 128.  Chunks 32 and 64 at D <= 64 run the per-chunk
+// kernels (f32: the FMA kernel; bf16 and f16: k3_tc); every other chunk and
+// D 128 run the tiled walk (f32: k3_tiled; bf16 and f16: k3_union_tc); D
+// above 128 runs k3_slab.  Launches on `stream`; returns cudaGetLastError()
+// of the launch.
 extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void* v,
                                        const void* qpos, const void* kpos, void* out,
                                        void* lse, int G, int T, int D, int chunk, int dtype,
@@ -1094,11 +1309,14 @@ extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void*
 // The resources of the tensor-core kernel a bf16 (dtype 1) or f16 (2) call at
 // this chunk and D runs, as the loaded library reports them: out[0..4] =
 // registers, local (spill) bytes, dynamic shared bytes, resident blocks per
-// SM and threads per block of k3_tc or k3_union_tc (the self-bias instance).
-// Returns a cudaError_t (cudaErrorInvalidValue for f32 or a D it does not
-// take).
+// SM and threads per block of k3_tc, k3_union_tc or (D above 128, every
+// dtype 0-2) k3_slab, the self-bias instance.  Returns a cudaError_t
+// (cudaErrorInvalidValue for f32 up to D 128 or a D it does not take).
 extern "C" int chunked_window_attn_fwd_resources(int chunk, int D, int dtype, int* out) {
     if (chunk <= 0) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)                // f32 has a tensor-core kernel above D 128 only
+        return D > 128 && D % 128 == 0 ? (int)resources_slab<float>(out)
+                                       : (int)cudaErrorInvalidValue;
     if (dtype == 1) return (int)resources_c<__nv_bfloat16>(chunk, D, out);
     if (dtype == 2) return (int)resources_c<__half>(chunk, D, out);
     return (int)cudaErrorInvalidValue;

@@ -18,7 +18,7 @@
 // the index 63 - qi + ki into the staged G rows (as in K1), and dW_r follows
 // from dG by autograd through the distance table outside the kernel.
 //
-// Two kernels, in every dtype.  The TPU grid runs in order and keeps
+// Two kernels per route.  The TPU grid runs in order and keeps
 // dk / dv resident across a (b*n) window; Hopper blocks run in no order, so
 // the work is split in two:
 //   dkdv: one block per (bn, 64-key tile); loops over the q tiles that see
@@ -30,14 +30,13 @@
 // Tiles in the future, behind the window or inside the empty memory slots
 // are skipped, as in K1; ragged T and S are zero-filled and masked.
 //
-// FMA (k2_dkdv_kernel, k2_dq_kernel), for f32: operands sit in shared
-// memory as f32 rows padded to H+1 floats; products are f32 FMAs (150 KB /
-// 133 KB of shared memory at H = 64, one 256-thread block per SM; 32 x 32
-// tiles at H = 128, 124 KB / 120 KB).  The f32 parity of the tests rests on
-// it, and TF32 would break it.
+// Routes, chosen inside the C entry point by dtype and H:
+//   bf16 / f16 up to H 128: k2_dkdv_tc / k2_dq_tc (below);
+//   f32 at every H, bf16 / f16 above 128: k2_dkdv_slab / k2_dq_slab (the
+//   slab kernels, after namespace tc), f32 products in 3xTF32.
 //
 // bf16 and f16 (k2_dkdv_tc, k2_dq_tc, templated on the element type), the
-// training path, at every H: every product (AC, BD, dP, dV, dK, dRW, dRR,
+// training path, at H <= 128: every product (AC, BD, dP, dV, dK, dRW, dRR,
 // dG) is an mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate) on ldmatrix
 // fragments (mma_bf16.cuh); p and ds are rounded to the input dtype where
 // they enter a product, which is where the TPU kernel rounds them.  A tile's
@@ -81,332 +80,19 @@
 #include "mma_bf16.cuh"
 #include "kernel_resources.cuh"
 #include "row_dot.cuh"
+#include "slab_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per tile (the FMA kernels: fma_tile)
+constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
-constexpr int NT = 256;         // FMA threads: a 16 x 16 grid, 4 x 4 or 2 x 2 scores each
 
 using namespace elem;
 using kernel_resources::resources;
 
-// the FMA kernels' square tile: 64 up to H = 64, 32 at H = 128, where five
-// 64-row f32 operands and the table rows would take 264 KB of shared memory
-template <int H> __host__ __device__ constexpr int fma_tile() { return H > 64 ? 32 : 64; }
-
-// rows [r0, r0 + n) of a [len, H] matrix into shared f32 rows of stride H+1,
-// zero outside [0, len)
-template <typename T, int H>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n, int len) {
-    for (int e = threadIdx.x; e < n * H; e += NT) {
-        const int r = e / H, c = e % H, row = r0 + r;
-        dst[r * (H + 1) + c] = (row >= 0 && row < len) ? to_f(src[(size_t)row * H + c]) : 0.f;
-    }
-}
-
-// the B/16 x B/16 scores s (unscaled) and dp = dO.v of thread (tx, ty): rows
-// ty + 16 i of the q tile, columns tx + 16 j of the key tile, G row B-1 - qi + ki
-template <int H, int B>
-__device__ __forceinline__ void scores(const float* sQw, const float* sQr, const float* sDO,
-                                       const float* sK, const float* sV, const float* sG,
-                                       int tx, int ty, float (&s)[B / 16][B / 16],
-                                       float (&dp)[B / 16][B / 16]) {
-    constexpr int BQ = B, RQ = B / 16, CK = B / 16;
-    constexpr int HP = H + 1;
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.f;
-    const int g_base = (BQ - 1) - ty + tx;
-#pragma unroll 4
-    for (int h = 0; h < H; ++h) {
-        float a[RQ], b[RQ], o[RQ], kv[CK], vv[CK], gv[RQ + CK - 1];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-            a[i] = sQw[(ty + 16 * i) * HP + h];
-            b[i] = sQr[(ty + 16 * i) * HP + h];
-            o[i] = sDO[(ty + 16 * i) * HP + h];
-        }
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-            kv[j] = sK[(tx + 16 * j) * HP + h];
-            vv[j] = sV[(tx + 16 * j) * HP + h];
-        }
-#pragma unroll
-        for (int dd = 0; dd < RQ + CK - 1; ++dd)
-            gv[dd] = sG[(g_base + 16 * (dd - (RQ - 1))) * HP + h];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-            for (int j = 0; j < CK; ++j) {
-                s[i][j] = fmaf(a[i], kv[j], fmaf(b[i], gv[j - i + RQ - 1], s[i][j]));
-                dp[i][j] = fmaf(o[i], vv[j], dp[i][j]);
-            }
-    }
-}
-
 __device__ __forceinline__ bool visible(int q, int k, int T_, int S, int M, int mv, int window) {
     const int d = M + q - k;
     return q < T_ && k < S && d >= 0 && k >= M - mv && (window <= 0 || d < window);
-}
-
-template <int H>
-constexpr size_t dkdv_smem_floats() {
-    // sK, sV, sQw, sQr, sDO [B][H+1]; sG [2B-1][H+1]; sP, sDS [B][B+1]; lse, delta
-    constexpr size_t B = fma_tile<H>();
-    return 5 * B * (H + 1) + (2 * B - 1) * (H + 1) + 2 * B * (B + 1) + 2 * B;
-}
-
-template <int H>
-constexpr size_t dq_smem_floats() {
-    // sQw, sQr, sDO, sK, sV [B][H+1]; sG [2B-1][H+1]; sDS [B][B+1]; lse, delta
-    constexpr size_t B = fma_tile<H>();
-    return 5 * B * (H + 1) + (2 * B - 1) * (H + 1) + B * (B + 1) + 2 * B;
-}
-
-template <typename T, int H>
-__global__ void __launch_bounds__(NT, 1)
-k2_dkdv_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __restrict__ kk,
-               const T* __restrict__ vv, const T* __restrict__ g, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ mv_ptr,
-               int mv_const, int N, int T_, int S, int M, float scale, int window) {
-    constexpr int BQ = fma_tile<H>(), BK = BQ;    // shadow the tensor-core tiles
-    constexpr int NG = BQ + BK - 1, RQ = BQ / 16, CK = BK / 16, PS = BK + 1;
-    constexpr int HP = H + 1;
-    constexpr int CH = H / 16;          // dk / dv columns per thread
-    extern __shared__ float smem[];
-    float* sK = smem;
-    float* sV = sK + BK * HP;
-    float* sQw = sV + BK * HP;
-    float* sQr = sQw + BQ * HP;
-    float* sDO = sQr + BQ * HP;
-    float* sG = sDO + BQ * HP;
-    float* sP = sG + NG * HP;
-    float* sDS = sP + BQ * PS;
-    float* sL = sDS + BQ * PS;
-    float* sD = sL + BQ;
-
-    const int bn = blockIdx.y;
-    const int k0 = blockIdx.x * BK;
-    const int head = bn % N;
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int mv = mv_ptr ? *mv_ptr : mv_const;
-
-    const T* rw_b = rw + (size_t)bn * T_ * H;
-    const T* rr_b = rr + (size_t)bn * T_ * H;
-    const T* do_b = dout + (size_t)bn * T_ * H;
-    const float* lse_b = lse + (size_t)bn * T_;
-    const float* dl_b = delta + (size_t)bn * T_;
-    const T* g_h = g + (size_t)head * (T_ + S) * H;
-
-    stage<T, H>(sK, kk + (size_t)bn * S * H, k0, BK, S);
-    stage<T, H>(sV, vv + (size_t)bn * S * H, k0, BK, S);
-
-    float acc_k[RQ][CH], acc_v[RQ][CH];     // key rows ty + 16 i, columns tx + 16 c
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int c = 0; c < CH; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-    // q tiles that see some key of this tile
-    const int k_last = min(k0 + BK, S) - 1;
-    const int q_lo = max(0, k0 - M);
-    int q_hi = T_;                                       // exclusive
-    if (window > 0) q_hi = min(q_hi, window + k_last - M);
-    const bool any = k_last >= M - mv && q_lo < q_hi;
-    const int qt_begin = q_lo / BQ, qt_end = any ? (q_hi + BQ - 1) / BQ : qt_begin;
-
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-        const int q0 = qt * BQ;
-        __syncthreads();                                 // previous tile's reads done
-        stage<T, H>(sQw, rw_b, q0, BQ, T_);
-        stage<T, H>(sQr, rr_b, q0, BQ, T_);
-        stage<T, H>(sDO, do_b, q0, BQ, T_);
-        stage<T, H>(sG, g_h, T_ - q0 - BQ + k0, NG, T_ + S);
-        if (tid < BQ) {
-            const int q = q0 + tid;
-            sL[tid] = q < T_ ? lse_b[q] : 0.f;
-            sD[tid] = q < T_ ? dl_b[q] : 0.f;
-        }
-        __syncthreads();
-
-        float s[RQ][CK], dp[RQ][CK];
-        scores<H, BQ>(sQw, sQr, sDO, sK, sV, sG, tx, ty, s, dp);
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-            const int qi = ty + 16 * i;
-#pragma unroll
-            for (int j = 0; j < CK; ++j) {
-                const int ki = tx + 16 * j;
-                const bool ok = visible(q0 + qi, k0 + ki, T_, S, M, mv, window);
-                const float p = ok ? expf(s[i][j] * scale - sL[qi]) : 0.f;
-                const float ds = p * (dp[i][j] - sD[qi]) * scale;
-                sP[qi * PS + ki] = round_to<T>(p);
-                sDS[qi * PS + ki] = round_to<T>(ds);
-            }
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int qx = 0; qx < BQ; ++qx) {
-            float o[CH], w[CH];
-#pragma unroll
-            for (int c = 0; c < CH; ++c) {
-                o[c] = sDO[qx * HP + tx + 16 * c];
-                w[c] = sQw[qx * HP + tx + 16 * c];
-            }
-#pragma unroll
-            for (int i = 0; i < RQ; ++i) {
-                const float p = sP[qx * PS + ty + 16 * i];
-                const float ds = sDS[qx * PS + ty + 16 * i];
-#pragma unroll
-                for (int c = 0; c < CH; ++c) {
-                    acc_v[i][c] = fmaf(p, o[c], acc_v[i][c]);
-                    acc_k[i][c] = fmaf(ds, w[c], acc_k[i][c]);
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-        const int k = k0 + ty + 16 * i;
-        if (k >= S) continue;
-        float* dk_r = dk + ((size_t)bn * S + k) * H;
-        float* dv_r = dv + ((size_t)bn * S + k) * H;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-            dk_r[tx + 16 * c] = acc_k[i][c];
-            dv_r[tx + 16 * c] = acc_v[i][c];
-        }
-    }
-}
-
-template <typename T, int H>
-__global__ void __launch_bounds__(NT, 1)
-k2_dq_kernel(const T* __restrict__ rw, const T* __restrict__ rr, const T* __restrict__ kk,
-             const T* __restrict__ vv, const T* __restrict__ g, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ drw, T* __restrict__ drr, float* __restrict__ dg,
-             const int* __restrict__ mv_ptr, int mv_const, int N, int T_, int S, int M,
-             float scale, int window) {
-    constexpr int BQ = fma_tile<H>(), BK = BQ;    // shadow the tensor-core tiles
-    constexpr int NG = BQ + BK - 1, RQ = BQ / 16, CK = BK / 16, PS = BK + 1;
-    constexpr int HP = H + 1;
-    constexpr int CH = H / 16;          // drw / drr columns per thread
-    extern __shared__ float smem[];
-    float* sQw = smem;
-    float* sQr = sQw + BQ * HP;
-    float* sDO = sQr + BQ * HP;
-    float* sK = sDO + BQ * HP;
-    float* sV = sK + BK * HP;
-    float* sG = sV + BK * HP;
-    float* sDS = sG + NG * HP;
-    float* sL = sDS + BQ * PS;
-    float* sD = sL + BQ;
-
-    const int bn = blockIdx.y;
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
-    const int head = bn % N;
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int mv = mv_ptr ? *mv_ptr : mv_const;
-
-    const T* k_b = kk + (size_t)bn * S * H;
-    const T* v_b = vv + (size_t)bn * S * H;
-    const T* g_h = g + (size_t)head * (T_ + S) * H;
-    float* dg_h = dg + (size_t)head * (T_ + S) * H;
-
-    stage<T, H>(sQw, rw + (size_t)bn * T_ * H, q0, BQ, T_);
-    stage<T, H>(sQr, rr + (size_t)bn * T_ * H, q0, BQ, T_);
-    stage<T, H>(sDO, dout + (size_t)bn * T_ * H, q0, BQ, T_);
-    if (tid < BQ) {
-        const int q = q0 + tid;
-        sL[tid] = q < T_ ? lse[(size_t)bn * T_ + q] : 0.f;
-        sD[tid] = q < T_ ? delta[(size_t)bn * T_ + q] : 0.f;
-    }
-
-    float acc_w[RQ][CH], acc_r[RQ][CH];     // q rows ty + 16 i, columns tx + 16 c
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int c = 0; c < CH; ++c) acc_w[i][c] = acc_r[i][c] = 0.f;
-
-    // keys any row of this tile can see (K1's range)
-    const int q_last = min(q0 + BQ, T_) - 1;
-    const int k_hi = min(S, M + q_last + 1);            // exclusive
-    int k_lo = max(0, M - mv);
-    if (window > 0) k_lo = max(k_lo, M + q0 - window + 1);
-    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * BK;
-        const int u_lo = T_ - q0 - BQ + k0;             // G row of (qi = BQ-1, ki = 0)
-        __syncthreads();                                 // previous tile's reads done
-        stage<T, H>(sK, k_b, k0, BK, S);
-        stage<T, H>(sV, v_b, k0, BK, S);
-        stage<T, H>(sG, g_h, u_lo, NG, T_ + S);
-        __syncthreads();
-
-        float s[RQ][CK], dp[RQ][CK];
-        scores<H, BQ>(sQw, sQr, sDO, sK, sV, sG, tx, ty, s, dp);
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-            const int qi = ty + 16 * i;
-#pragma unroll
-            for (int j = 0; j < CK; ++j) {
-                const int ki = tx + 16 * j;
-                const bool ok = visible(q0 + qi, k0 + ki, T_, S, M, mv, window);
-                const float p = ok ? expf(s[i][j] * scale - sL[qi]) : 0.f;
-                sDS[qi * PS + ki] = round_to<T>(p * (dp[i][j] - sD[qi]) * scale);
-            }
-        }
-        __syncthreads();
-
-        // drw += ds k,  drr += ds G[BQ - 1 - qi + ki]
-#pragma unroll 4
-        for (int kx = 0; kx < BK; ++kx) {
-            float kv[CH];
-#pragma unroll
-            for (int c = 0; c < CH; ++c) kv[c] = sK[kx * HP + tx + 16 * c];
-#pragma unroll
-            for (int i = 0; i < RQ; ++i) {
-                const int qi = ty + 16 * i;
-                const float ds = sDS[qi * PS + kx];
-                const float* grow = sG + (BQ - 1 - qi + kx) * HP + tx;
-#pragma unroll
-                for (int c = 0; c < CH; ++c) {
-                    acc_w[i][c] = fmaf(ds, kv[c], acc_w[i][c]);
-                    acc_r[i][c] = fmaf(ds, grow[16 * c], acc_r[i][c]);
-                }
-            }
-        }
-
-        // dG row u_lo + r (r = BQ - 1 - qi + ki) += sum over its diagonal of ds rr[qi]
-        for (int e = tid; e < NG * H; e += NT) {
-            const int r = e / H, c = e % H, u = u_lo + r;
-            if (u < 0 || u >= T_ + S) continue;
-            const int qi_lo = max(0, BQ - 1 - r), qi_hi = min(BQ - 1, BQ - 1 + BK - 1 - r);
-            float acc = 0.f;
-            for (int qi = qi_lo; qi <= qi_hi; ++qi)
-                acc = fmaf(sDS[qi * PS + r - (BQ - 1) + qi], sQr[qi * HP + c], acc);
-            if (acc != 0.f) atomicAdd(dg_h + (size_t)u * H + c, acc);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-        const int q = q0 + ty + 16 * i;
-        if (q >= T_) continue;
-        T* w_r = drw + ((size_t)bn * T_ + q) * H;
-        T* r_r = drr + ((size_t)bn * T_ + q) * H;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-            w_r[tx + 16 * c] = from_f<T>(acc_w[i][c]);
-            r_r[tx + 16 * c] = from_f<T>(acc_r[i][c]);
-        }
-    }
 }
 
 // ------------------------------------------ bf16 and f16 on the tensor cores
@@ -939,6 +625,401 @@ k2_dq_tc(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict
 
 }  // namespace tc
 
+// ------------------------------------------------- the slab kernels
+// Every f32 call, and a 16-bit call at a head dim above 128: k2_dkdv_slab
+// and k2_dq_slab, the split of the tensor-core kernels above at one warp per
+// 16-row group, over slabs of the head dim.  H = W ns (W = H up to 64 in
+// f32, else 64); a block of four warps owns one output slab z: columns [W
+// z, W z + W) of dk / dv (dkdv) or of drw, drr and dG (dq).  Per tile pair
+// it loops over the ns slabs (`pair_scores`): each slab of Qw, Qr, dO, K, V
+// and the 128-row table window is staged by cp.async and its products added
+// into the warp's S, dP and BD window fragments, so the contractions run
+// over the whole head dim before p and ds exist; slab z is staged last, so
+// its tiles stay for the output products.  Each output slab's block
+// recomputes S and dP (ns blocks per tile pair).  p, ds and the skew are
+// the tensor-core kernels' (p_ds; dSskew[qi][63 - qi + ki] = ds); dk / dv
+// accumulate over the q tiles in registers (P and dS rows shared through
+// shared memory), drw / drr over the key tiles, and each key tile's 127
+// rows of dG, computed per 16-row block, are added to device memory by
+// float2 atomics (no window halves carried: the slab kernels hold S, dP and
+// BD of a whole tile in registers).  The products are slab_mma.cuh's: bf16
+// / f16 mma.sync, f32 3xTF32, so f32 runs on the tensor cores at about f32
+// accuracy.  Shared memory in f32 at W 64: 153 KB (dkdv, BD staged over
+// the window) and 173 KB (dq), one block per SM; in 16 bits 102 / 101 KB,
+// two.
+namespace slabs {
+
+using namespace slab;
+
+constexpr int NW = BQ / 16;      // warps: one per 16-row group
+constexpr int NT = 32 * NW;
+constexpr int XW = BK + 16;      // BD window columns a warp reads
+constexpr int XS = XW + 4;       // f32 row stride of a warp's BD staging
+
+template <typename E, int W>
+struct Lay {
+    static constexpr int RS = W + PAD<E>;            // operand row stride
+    static constexpr int PS = BK + PAD<E>;           // P / dS row stride
+    static constexpr int DSS = 2 * BK + PAD<E>;      // dSskew row stride
+    static constexpr size_t T_BYTES = (size_t)BQ * RS * sizeof(E);   // one 64-row tile
+    static constexpr size_t G_BYTES = 2 * T_BYTES;                   // the 128-row window
+    static constexpr size_t X_BYTES = (size_t)NW * 16 * XS * 4;
+    static constexpr bool X_ON_G = G_BYTES >= X_BYTES;
+    // K, V, Qw, dO, Qr; the window (BD staged over it when it fits); P, dS
+    static constexpr size_t dkdv_bytes() {
+        return 5 * T_BYTES + G_BYTES + (X_ON_G ? 0 : X_BYTES) + (size_t)2 * BQ * PS * sizeof(E);
+    }
+    // Qw, Qr, dO, K, V; the window; BD staging; dSskew
+    static constexpr size_t dq_bytes() {
+        return 5 * T_BYTES + G_BYTES + X_BYTES + (size_t)BQ * DSS * sizeof(E);
+    }
+};
+
+__host__ __device__ constexpr int slab_width(int H) { return H < 64 ? H : 64; }
+
+// The staged tiles of a block: [64][RS] each, the window [128][RS]
+template <typename E>
+struct Tiles {
+    E *qw, *qr, *dO, *k, *v, *g;
+};
+
+// S = Qw . K^T, dP = dO . V^T over the tile's 64 keys and X = Qr . Gwin[48 -
+// 16p, + XW)^T of the tile pair (q0, k0), summed over the ns slabs of the
+// head dim, slab z last.  `q_once` / `k_once`: the q tile's (Qw, Qr, dO) /
+// the key tile's (K, V) single slab is staged already (ns = 1)
+template <typename E, int W>
+__device__ __forceinline__ void pair_scores(float (&s)[BK / 8][4], float (&dp)[BK / 8][4],
+                                            float (&x)[XW / 8][4], const Tiles<E>& sm,
+                                            const E* rw_b, const E* rr_b, const E* do_b,
+                                            const E* k_b, const E* v_b, const E* g_h, int q0,
+                                            int k0, int T_, int S, int H, int ns, int z,
+                                            bool q_once, bool k_once, int tid, int p, int lane) {
+    constexpr int RS = Lay<E, W>::RS;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < XW / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+    for (int i = 0; i < ns; ++i) {
+        const int c0 = W * ((z + 1 + i) % ns);
+        __syncthreads();                 // every warp is done with the staged tiles
+        if (!q_once) {
+            stage<W>(sm.qw, rw_b, q0, BQ, T_, H, c0, tid, NT);
+            stage<W>(sm.qr, rr_b, q0, BQ, T_, H, c0, tid, NT);
+            stage<W>(sm.dO, do_b, q0, BQ, T_, H, c0, tid, NT);
+        }
+        if (!k_once) {
+            stage<W>(sm.k, k_b, k0, BK, S, H, c0, tid, NT);
+            stage<W>(sm.v, v_b, k0, BK, S, H, c0, tid, NT);
+        }
+        stage<W>(sm.g, g_h, T_ - q0 - BQ + k0, 2 * BK, T_ + S, H, c0, tid, NT);
+        mma_bf16::cp_commit();
+        mma_bf16::cp_wait<0>();
+        __syncthreads();
+        slab_product<E, W>(s, sm.qw, 16 * p, sm.k, 0, RS, lane);
+        slab_product<E, W>(dp, sm.dO, 16 * p, sm.v, 0, RS, lane);
+        slab_product<E, W>(x, sm.qr, 16 * p, sm.g, 48 - 16 * p, RS, lane);
+    }
+}
+
+// X into the warp's staging sXw [16][XS], then p and ds in place of s and
+// dp (the tensor-core kernels' p_ds at one warp per group: BD[qr][kl] =
+// X[qr][15 - qr + kl]); l / dl: lse and delta of rows g, g + 8
+__device__ __forceinline__ void p_ds(float (&s)[BK / 8][4], float (&dp)[BK / 8][4],
+                                     const float (&x)[XW / 8][4], float* sXw, int q0, int k0,
+                                     int p, int lane, const float (&l)[2], const float (&dl)[2],
+                                     int T_, int S, int M, int mv, float scale, int window) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int n = 0; n < XW / 8; ++n) {
+        *reinterpret_cast<float2*>(sXw + g * XS + 8 * n + 2 * t) = make_float2(x[n][0], x[n][1]);
+        *reinterpret_cast<float2*>(sXw + (g + 8) * XS + 8 * n + 2 * t) =
+            make_float2(x[n][2], x[n][3]);
+    }
+    __syncwarp();
+    const bool full = tc::tile_full(q0, k0, T_, S, M, mv, window);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int qr = g + 8 * (e >> 1), kl = 8 * j + 2 * t + (e & 1);
+            const float bd = sXw[qr * XS + 15 - qr + kl];
+            const bool ok = full || visible(q0 + 16 * p + qr, k0 + kl, T_, S, M, mv, window);
+            const float pr = ok ? expf((s[j][e] + bd) * scale - l[e >> 1]) : 0.f;
+            dp[j][e] = pr * (dp[j][e] - dl[e >> 1]) * scale;
+            s[j][e] = pr;
+        }
+}
+
+template <typename E, int W>
+__global__ void __launch_bounds__(NT, 2)
+k2_dkdv_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
+             const E* __restrict__ vv, const E* __restrict__ g, const E* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ mv_ptr,
+             int mv_const, int N, int T_, int S, int M, float scale, int window, int ns) {
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, PS = L::PS, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    Tiles<E> sm;
+    sm.k = reinterpret_cast<E*>(smem_raw);
+    sm.v = sm.k + BK * RS;
+    sm.qw = sm.v + BK * RS;
+    sm.dO = sm.qw + BQ * RS;
+    sm.qr = sm.dO + BQ * RS;
+    sm.g = sm.qr + BQ * RS;
+    float* sX = reinterpret_cast<float*>(L::X_ON_G ? sm.g : sm.g + 2 * BK * RS);
+    E* sP = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(sm.g) + L::G_BYTES +
+                                 (L::X_ON_G ? 0 : L::X_BYTES));
+    E* sDS = sP + BQ * PS;
+
+    const int bn = blockIdx.y, z = blockIdx.z;
+    const int k0 = blockIdx.x * BK;
+    const int head = bn % N;
+    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const int mv = mv_ptr ? *mv_ptr : mv_const;
+    float* sXw = sX + p * 16 * XS;
+
+    const E* rw_b = rw + (size_t)bn * T_ * H;
+    const E* rr_b = rr + (size_t)bn * T_ * H;
+    const E* do_b = dout + (size_t)bn * T_ * H;
+    const E* k_b = kk + (size_t)bn * S * H;
+    const E* v_b = vv + (size_t)bn * S * H;
+    const float* lse_b = lse + (size_t)bn * T_;
+    const float* dl_b = delta + (size_t)bn * T_;
+    const E* g_h = g + (size_t)head * (T_ + S) * H;
+
+    // q tiles that see some key of this tile
+    const int k_last = min(k0 + BK, S) - 1;
+    const int q_lo = max(0, k0 - M);
+    int q_hi = T_;                                       // exclusive
+    if (window > 0) q_hi = min(q_hi, window + k_last - M);
+    const bool any = k_last >= M - mv && q_lo < q_hi;
+    const int qt_begin = q_lo / BQ, qt_end = any ? (q_hi + BQ - 1) / BQ : qt_begin;
+
+    float dka[W / 8][4] = {}, dva[W / 8][4] = {};   // key rows 16p + gq (+8), cols 8n + 2t
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+        const int q0 = qt * BQ;
+        float s[BK / 8][4], dp[BK / 8][4], x[XW / 8][4];
+        pair_scores<E, W>(s, dp, x, sm, rw_b, rr_b, do_b, k_b, v_b, g_h, q0, k0, T_, S, H, ns,
+                          z, false, ns == 1 && qt > qt_begin, tid, p, lane);
+        float l2[2], d2[2];
+        tc::row_stats(l2, d2, lse_b, dl_b, q0, p, lane, T_);
+        if constexpr (L::X_ON_G) __syncthreads();   // every warp's window reads are done
+        p_ds(s, dp, x, sXw, q0, k0, p, lane, l2, d2, T_, S, M, mv, scale, window);
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int o = (16 * p + gq + 8 * h) * PS + 8 * j + 2 * t;
+                put2<E>(sP + o, s[j][2 * h], s[j][2 * h + 1]);
+                put2<E>(sDS + o, dp[j][2 * h], dp[j][2 * h + 1]);
+            }
+        __syncthreads();                 // every warp's P / dS rows are written
+
+        // dv += P^T dO[:, W z..], dk += dS^T Qw[:, W z..] over the tile's 64 q
+        // rows (summed apart, then added rounded to nearest)
+#pragma unroll
+        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
+            float tv[2 * CH][4] = {}, tk[2 * CH][4] = {};
+#pragma unroll 1
+            for (int kq = 0; kq < BQ / K8; ++kq) {
+                FragA<E> ap, ad;
+                load_at(ap, sP, PS, 16 * p, K8 * kq, lane);
+                load_at(ad, sDS, PS, 16 * p, K8 * kq, lane);
+#pragma unroll
+                for (int j = 0; j < CH && c + j < W / 16; ++j) {
+                    FragB<E> bo[2], bq[2];
+                    load_bt(bo, sm.dO, RS, 16 * (c + j), K8 * kq, lane);
+                    load_bt(bq, sm.qw, RS, 16 * (c + j), K8 * kq, lane);
+                    mma(tv[2 * j], ap, bo[0]);
+                    mma(tv[2 * j + 1], ap, bo[1]);
+                    mma(tk[2 * j], ad, bq[0]);
+                    mma(tk[2 * j + 1], ad, bq[1]);
+                }
+            }
+            add_pass(dva, tv, c);
+            add_pass(dka, tk, c);
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int k = k0 + 16 * p + gq + 8 * h;
+        if (k >= S) continue;
+        float* dk_r = dk + ((size_t)bn * S + k) * H + W * z;
+        float* dv_r = dv + ((size_t)bn * S + k) * H + W * z;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) {
+            put2<float>(dk_r + 8 * n + 2 * t, dka[n][2 * h], dka[n][2 * h + 1]);
+            put2<float>(dv_r + 8 * n + 2 * t, dva[n][2 * h], dva[n][2 * h + 1]);
+        }
+    }
+}
+
+template <typename E, int W>
+__global__ void __launch_bounds__(NT, 2)
+k2_dq_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
+           const E* __restrict__ vv, const E* __restrict__ g, const E* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta, E* __restrict__ drw,
+           E* __restrict__ drr, float* __restrict__ dg, const int* __restrict__ mv_ptr,
+           int mv_const, int N, int T_, int S, int M, float scale, int window, int ns) {
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, DSS = L::DSS, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    Tiles<E> sm;
+    sm.qw = reinterpret_cast<E*>(smem_raw);
+    sm.qr = sm.qw + BQ * RS;
+    sm.dO = sm.qr + BQ * RS;
+    sm.k = sm.dO + BQ * RS;
+    sm.v = sm.k + BK * RS;
+    sm.g = sm.v + BK * RS;
+    float* sX = reinterpret_cast<float*>(sm.g + 2 * BK * RS);
+    E* sDsk = reinterpret_cast<E*>(sX + NW * 16 * XS);   // dSskew [64][DSS]
+
+    const int bn = blockIdx.y, z = blockIdx.z;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+    const int head = bn % N;
+    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const int mv = mv_ptr ? *mv_ptr : mv_const;
+    float* sXw = sX + p * 16 * XS;
+    E* dsk = sDsk + 16 * p * DSS;                   // the warp's rows of dSskew
+
+    const E* rw_b = rw + (size_t)bn * T_ * H;
+    const E* rr_b = rr + (size_t)bn * T_ * H;
+    const E* do_b = dout + (size_t)bn * T_ * H;
+    const E* k_b = kk + (size_t)bn * S * H;
+    const E* v_b = vv + (size_t)bn * S * H;
+    const E* g_h = g + (size_t)head * (T_ + S) * H;
+    float* dg_h = dg + (size_t)head * (T_ + S) * H + W * z;
+
+    // keys any row of this tile can see (K1's range)
+    const int q_last = min(q0 + BQ, T_) - 1;
+    const int k_hi = min(S, M + q_last + 1);            // exclusive
+    int k_lo = max(0, M - mv);
+    if (window > 0) k_lo = max(k_lo, M + q0 - window + 1);
+    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+
+    float l2[2], d2[2];
+    tc::row_stats(l2, d2, lse + (size_t)bn * T_, delta + (size_t)bn * T_, q0, p, lane, T_);
+    float dwa[W / 8][4] = {}, dra[W / 8][4] = {};   // q rows 16p + gq (+8), cols 8n + 2t
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int k0 = kt * BK, u_lo = T_ - q0 - BQ + k0;   // G row of window row 0
+        float s[BK / 8][4], dp[BK / 8][4], x[XW / 8][4];
+        pair_scores<E, W>(s, dp, x, sm, rw_b, rr_b, do_b, k_b, v_b, g_h, q0, k0, T_, S, H, ns,
+                          z, ns == 1 && kt > kt_begin, false, tid, p, lane);
+        p_ds(s, dp, x, sXw, q0, k0, p, lane, l2, d2, T_, S, M, mv, scale, window);
+
+        // drw += dS . K[:, W z..], dS from the accumulators (each tile's
+        // products summed apart, then added rounded to nearest, as drr's)
+#pragma unroll
+        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
+            float tw[2 * CH][4] = {};
+#pragma unroll
+            for (int kb = 0; kb < BK / K8; ++kb) {
+                FragA<E> a;
+                acc_a<E>(a, dp, kb, lane);
+#pragma unroll
+                for (int j = 0; j < CH && c + j < W / 16; ++j) {
+                    FragB<E> b[2];
+                    load_bt(b, sm.k, RS, 16 * (c + j), K8 * kb, lane);
+                    mma(tw[2 * j], a, b[0]);
+                    mma(tw[2 * j + 1], a, b[1]);
+                }
+            }
+            add_pass(dwa, tw, c);
+        }
+        // the warp's rows of dSskew: zero, then dSskew[qr][63 - 16p - qr + ki] = ds
+        for (int e = lane; e < 16 * 2 * BK / PAD<E>; e += 32)
+            *reinterpret_cast<uint4*>(dsk + (e / (2 * BK / PAD<E>)) * DSS +
+                                      (e % (2 * BK / PAD<E>)) * PAD<E>) = make_uint4(0, 0, 0, 0);
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int qr = gq + 8 * (e >> 1), ki = 8 * j + 2 * t + (e & 1);
+                dsk[qr * DSS + 63 - 16 * p - qr + ki] = from_f<E>(dp[j][e]);
+            }
+        __syncwarp();
+        // drr += dSskew . Gwin[:, W z..] over the warp's window rows [48 - 16p, 128 - 16p)
+#pragma unroll
+        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
+            float tr[2 * CH][4] = {};
+#pragma unroll 1
+            for (int kr = 0; kr < 80 / K8; ++kr) {
+                const int r0 = 48 - 16 * p + K8 * kr;
+                FragA<E> a;
+                load_a(a, sDsk, DSS, 16 * p, r0, lane);
+#pragma unroll
+                for (int j = 0; j < CH && c + j < W / 16; ++j) {
+                    FragB<E> b[2];
+                    load_bt(b, sm.g, RS, 16 * (c + j), r0, lane);
+                    mma(tr[2 * j], a, b[0]);
+                    mma(tr[2 * j + 1], a, b[1]);
+                }
+            }
+            add_pass(dra, tr, c);
+        }
+        __syncthreads();                 // every warp's dSskew rows are written
+
+        // dG window rows [32p, 32p + 32), columns W z.., += dSskew^T . Qr over
+        // the tile's q rows (window row r holds q rows [63 - r, 126 - r]),
+        // added to device memory block by block
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+            const int r0 = 32 * p + 16 * mb;
+            float ga[W / 8][4] = {};
+#pragma unroll 1
+            for (int kq = 0; kq < BQ / K8; ++kq) {
+                if (K8 * kq > 126 - r0 || K8 * kq + K8 - 1 < 48 - r0) continue;
+                FragA<E> a;
+                load_at(a, sDsk, DSS, r0, K8 * kq, lane);
+#pragma unroll
+                for (int np = 0; np < W / 16; ++np) {
+                    FragB<E> b[2];
+                    load_bt(b, sm.qr, RS, 16 * np, K8 * kq, lane);
+                    mma(ga[2 * np], a, b[0]);
+                    mma(ga[2 * np + 1], a, b[1]);
+                }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int u = u_lo + r0 + gq + 8 * h;
+                if (u < 0 || u >= T_ + S) continue;
+#pragma unroll
+                for (int n = 0; n < W / 8; ++n) {
+                    const float2 v = make_float2(ga[n][2 * h], ga[n][2 * h + 1]);
+                    if (v.x != 0.f || v.y != 0.f)
+                        atomicAdd(reinterpret_cast<float2*>(dg_h + (size_t)u * H + 8 * n + 2 * t), v);
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 16 * p + gq + 8 * h;
+        if (q >= T_) continue;
+        E* w_r = drw + ((size_t)bn * T_ + q) * H + W * z;
+        E* r_r = drr + ((size_t)bn * T_ + q) * H + W * z;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) {
+            put2<E>(w_r + 8 * n + 2 * t, dwa[n][2 * h], dwa[n][2 * h + 1]);
+            put2<E>(r_r + 8 * n + 2 * t, dra[n][2 * h], dra[n][2 * h + 1]);
+        }
+    }
+}
+
+}  // namespace slabs
+
 struct Args {
     const void *rw, *rr, *k, *v, *g, *dout, *lse, *delta;
     void *drw, *drr, *dk, *dv, *dg;
@@ -948,43 +1029,6 @@ struct Args {
     int window;
     cudaStream_t stream;
 };
-
-template <typename T, int H>
-cudaError_t launch(const Args& a) {
-    const size_t smem_kv = dkdv_smem_floats<H>() * sizeof(float);
-    const size_t smem_q = dq_smem_floats<H>() * sizeof(float);
-    auto kv = k2_dkdv_kernel<T, H>;
-    auto kq = k2_dq_kernel<T, H>;
-    cudaError_t err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem_kv);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
-    if (err != cudaSuccess) return err;
-    const T *rw = (const T*)a.rw, *rr = (const T*)a.rr, *k = (const T*)a.k, *v = (const T*)a.v,
-            *g = (const T*)a.g, *dout = (const T*)a.dout;
-    const float *lse = (const float*)a.lse, *delta = (const float*)a.delta;
-    constexpr int B = fma_tile<H>();
-    kv<<<dim3((a.S + B - 1) / B, a.BN), NT, smem_kv, a.stream>>>(
-        rw, rr, k, v, g, dout, lse, delta, (float*)a.dk, (float*)a.dv, a.mv_ptr, a.mv_const,
-        a.N, a.T, a.S, a.M, a.scale, a.window);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    kq<<<dim3((a.T + B - 1) / B, a.BN), NT, smem_q, a.stream>>>(
-        rw, rr, k, v, g, dout, lse, delta, (T*)a.drw, (T*)a.drr, (float*)a.dg, a.mv_ptr,
-        a.mv_const, a.N, a.T, a.S, a.M, a.scale, a.window);
-    return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_h(int H, const Args& a) {
-    switch (H) {
-        case 16: return launch<T, 16>(a);
-        case 32: return launch<T, 32>(a);
-        case 64: return launch<T, 64>(a);
-        case 128: return launch<T, 128>(a);
-        default: return cudaErrorInvalidValue;
-    }
-}
 
 template <typename E, int H>
 cudaError_t launch_tc(const Args& a) {
@@ -1011,6 +1055,56 @@ cudaError_t launch_tc(const Args& a) {
     return cudaGetLastError();
 }
 
+template <typename E, int W>
+cudaError_t launch_slab(const Args& a, int ns) {
+    using L = slabs::Lay<E, W>;
+    const size_t smem_kv = L::dkdv_bytes(), smem_q = L::dq_bytes();
+    auto kv = slabs::k2_dkdv_slab<E, W>;
+    auto kq = slabs::k2_dq_slab<E, W>;
+    cudaError_t err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+    if (err != cudaSuccess) return err;
+    const E *rw = (const E*)a.rw, *rr = (const E*)a.rr, *k = (const E*)a.k, *v = (const E*)a.v,
+            *g = (const E*)a.g, *dout = (const E*)a.dout;
+    const float *lse = (const float*)a.lse, *delta = (const float*)a.delta;
+    kv<<<dim3((a.S + BK - 1) / BK, a.BN, ns), slabs::NT, smem_kv, a.stream>>>(
+        rw, rr, k, v, g, dout, lse, delta, (float*)a.dk, (float*)a.dv, a.mv_ptr, a.mv_const,
+        a.N, a.T, a.S, a.M, a.scale, a.window, ns);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kq<<<dim3((a.T + BQ - 1) / BQ, a.BN, ns), slabs::NT, smem_q, a.stream>>>(
+        rw, rr, k, v, g, dout, lse, delta, (E*)a.drw, (E*)a.drr, (float*)a.dg, a.mv_ptr,
+        a.mv_const, a.N, a.T, a.S, a.M, a.scale, a.window, ns);
+    return cudaGetLastError();
+}
+
+// the head dims a call takes: 16, 32, 64 and 128, and every multiple of 128
+constexpr bool takes(int H) { return H == 16 || H == 32 || H == 64 || (H > 0 && H % 128 == 0); }
+
+// bf16 / f16: the tensor-core kernels up to H 128, the slab kernels above;
+// f32: the slab kernels at every H
+template <typename E>
+cudaError_t launch_h(int H, const Args& a) {
+    if (!takes(H)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(E) == 2) {
+        switch (H) {
+            case 16: return launch_tc<E, 16>(a);
+            case 32: return launch_tc<E, 32>(a);
+            case 64: return launch_tc<E, 64>(a);
+            case 128: return launch_tc<E, 128>(a);
+            default: return launch_slab<E, 64>(a, H / 64);
+        }
+    } else {
+        switch (slabs::slab_width(H)) {
+            case 16: return launch_slab<E, 16>(a, 1);
+            case 32: return launch_slab<E, 32>(a, 1);
+            default: return launch_slab<E, 64>(a, H / 64);
+        }
+    }
+}
+
 template <typename E, int H>
 cudaError_t resources_tc(int* out) {
     constexpr int NT = tc::Split<H>::NT;
@@ -1019,38 +1113,47 @@ cudaError_t resources_tc(int* out) {
     return resources(tc::k2_dq_tc<E, H>, tc::dq_smem_bytes<H>(), NT, out + 5);
 }
 
-template <typename E>
-cudaError_t resources_tc_h(int H, int* out) {
-    switch (H) {
-        case 16: return resources_tc<E, 16>(out);
-        case 32: return resources_tc<E, 32>(out);
-        case 64: return resources_tc<E, 64>(out);
-        case 128: return resources_tc<E, 128>(out);
-        default: return cudaErrorInvalidValue;
-    }
+template <typename E, int W>
+cudaError_t resources_slab(int* out) {
+    using L = slabs::Lay<E, W>;
+    cudaError_t err = resources(slabs::k2_dkdv_slab<E, W>, L::dkdv_bytes(), slabs::NT, out);
+    if (err != cudaSuccess) return err;
+    return resources(slabs::k2_dq_slab<E, W>, L::dq_bytes(), slabs::NT, out + 5);
 }
 
+// the kernels a call of this dtype and H runs
 template <typename E>
-cudaError_t launch_tc_h(int H, const Args& a) {
-    switch (H) {
-        case 16: return launch_tc<E, 16>(a);
-        case 32: return launch_tc<E, 32>(a);
-        case 64: return launch_tc<E, 64>(a);
-        case 128: return launch_tc<E, 128>(a);
-        default: return cudaErrorInvalidValue;
+cudaError_t resources_h(int H, int* out) {
+    if (!takes(H)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(E) == 2) {
+        switch (H) {
+            case 16: return resources_tc<E, 16>(out);
+            case 32: return resources_tc<E, 32>(out);
+            case 64: return resources_tc<E, 64>(out);
+            case 128: return resources_tc<E, 128>(out);
+            default: return resources_slab<E, 64>(out);
+        }
+    } else {
+        switch (slabs::slab_width(H)) {
+            case 16: return resources_slab<E, 16>(out);
+            case 32: return resources_slab<E, 32>(out);
+            default: return resources_slab<E, 64>(out);
+        }
     }
 }
 
 }  // namespace
 
 // rw/rr/dout [BN, T, H], k/v [BN, S, H], g [N, T+S, H] in one dtype (0 = f32,
-// 1 = bf16, 2 = f16; H 16, 32, 64 or 128); lse/delta [BN, T] f32.  Writes
+// 1 = bf16, 2 = f16; H 16, 32, 64, 128 or a multiple of 128); lse/delta
+// [BN, T] f32.  Writes
 // drw/drr [BN, T, H] in that dtype, dk/dv [BN, S, H] f32, and ADDS into dg
 // [N, T+S, H] f32 (the caller zeroes it).  mem_valid is read from the device
 // int32 at mv_ptr, or is mv_const when mv_ptr is null; window <= 0 is no
 // window.  Launches both kernels on `stream`; returns the first
-// cudaGetLastError() that is not cudaSuccess.  bf16 and f16 run the
-// tensor-core kernels (k2_dkdv_tc / k2_dq_tc) at every H, f32 the FMA ones.
+// cudaGetLastError() that is not cudaSuccess.  bf16 and f16 run k2_dkdv_tc
+// / k2_dq_tc up to H 128 and the slab kernels above; f32 runs the slab
+// kernels (3xTF32) at every H.
 extern "C" int flash_rel_attn_bwd(const void* rw, const void* rr, const void* k, const void* v,
                                   const void* g, const void* dout, const void* lse,
                                   const void* delta, void* drw, void* drr, void* dk, void* dv,
@@ -1060,8 +1163,8 @@ extern "C" int flash_rel_attn_bwd(const void* rw, const void* rr, const void* k,
     Args a{rw, rr, k, v, g, dout, lse, delta, drw, drr, dk, dv, dg, (const int*)mv_ptr,
            mv_const, BN, N, T, S, M, scale, window, (cudaStream_t)stream};
     if (dtype == 0) return (int)launch_h<float>(H, a);
-    if (dtype == 1) return (int)launch_tc_h<__nv_bfloat16>(H, a);
-    if (dtype == 2) return (int)launch_tc_h<__half>(H, a);
+    if (dtype == 1) return (int)launch_h<__nv_bfloat16>(H, a);
+    if (dtype == 2) return (int)launch_h<__half>(H, a);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1074,13 +1177,15 @@ extern "C" int flash_rel_attn_bwd_delta(const void* dout, const void* out, void*
                                 (cudaStream_t)stream);
 }
 
-// The resources of the tensor-core kernels a bf16 (dtype 1) or f16 (2) call
-// at head dim H runs, as the loaded library reports them: out[0..4] =
-// registers, local (spill) bytes, dynamic shared bytes, resident blocks per
-// SM and threads per block of k2_dkdv_tc, out[5..9] of k2_dq_tc.  Returns a
-// cudaError_t (cudaErrorInvalidValue for f32 or another H).
+// The resources of the kernels a call of this dtype (0 = f32, 1 = bf16, 2
+// = f16) at head dim H runs, as the loaded library reports them: out[0..4]
+// = registers, local (spill) bytes, dynamic shared bytes, resident blocks
+// per SM and threads per block of k2_dkdv_tc or k2_dkdv_slab, out[5..9] of
+// k2_dq_tc or k2_dq_slab.  Returns a cudaError_t (cudaErrorInvalidValue
+// for an H the kernels do not take).
 extern "C" int flash_rel_attn_bwd_resources(int H, int dtype, int* out) {
-    if (dtype == 1) return (int)resources_tc_h<__nv_bfloat16>(H, out);
-    if (dtype == 2) return (int)resources_tc_h<__half>(H, out);
+    if (dtype == 0) return (int)resources_h<float>(H, out);
+    if (dtype == 1) return (int)resources_h<__nv_bfloat16>(H, out);
+    if (dtype == 2) return (int)resources_h<__half>(H, out);
     return (int)cudaErrorInvalidValue;
 }

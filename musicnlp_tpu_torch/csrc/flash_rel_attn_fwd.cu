@@ -25,14 +25,12 @@
 // shape (BN 96) 19.3 GFLOP and 66 MB bound it about equally (0.0196 / 0.0198
 // ms).
 //
-// FMA (flash_rel_attn_fwd_kernel), for f32 only: 256 threads, a 16 x 16 grid
-// of 4 x 4 scores on 64 x 64 tiles (2 x 2 on 32 x 32 tiles at H = 128, 99
-// KB of shared memory); K, V and the 2B - 1 table rows of a tile pair staged
-// as f32 rows of stride H+1; every product an f32 FMA from shared memory
-// (shared-memory wavefronts limit it).  The f32 parity checks and the
-// card-vs-CPU f32 gradients rest on it.
+// Two kernels, chosen inside the C entry point by dtype and H:
+//   bf16 / f16 up to H 128: k1_tc (below);
+//   f32 at every H, bf16 / f16 above 128: k1_slab (the slab kernel, after
+//   namespace tc), whose f32 products are 3xTF32 on the tensor cores.
 //
-// bf16 and f16 (k1_tc, templated on the element type E), at every H: the
+// bf16 and f16 (k1_tc, templated on the element type E), at H <= 128: the
 // q tile's 64 rows are four 16-row groups; at H <= 64 a group is one warp,
 // at H = 128 two (eight warps per block, see Split).  AC = Qw . K^T, BD and
 // PV are mma.sync m16n8k16 (E in, f32 accumulate) on ldmatrix fragments
@@ -66,188 +64,17 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-#include "elem.cuh"
 #include "kernel_resources.cuh"
 #include "mma_bf16.cuh"
+#include "slab_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block (the FMA kernel: fma_tile)
+constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
-constexpr int NT = 256;         // FMA threads: a 16 x 16 grid, 4 x 4 or 2 x 2 scores each
 constexpr float kNegInf = -1e30f;
 
-using namespace elem;
 using kernel_resources::resources;
-
-// the FMA kernel's square tile: 64 up to H = 64, 32 at H = 128 (64-row f32
-// tiles of 128 values would leave one block per SM)
-template <int H> __host__ __device__ constexpr int fma_tile() { return H > 64 ? 32 : 64; }
-
-template <int H>
-constexpr size_t smem_floats() {
-    // sQw, sQr, sK, sV: [B][H+1] each; sG: [2B][H+1], reused as P [B][B+1]
-    constexpr size_t B = fma_tile<H>();
-    return 4 * B * (H + 1) + (2 * B * (H + 1) > B * (B + 1) ? 2 * B * (H + 1) : B * (B + 1));
-}
-
-template <typename T, int H>
-__global__ void __launch_bounds__(NT, 2)
-flash_rel_attn_fwd_kernel(const T* __restrict__ rw, const T* __restrict__ rr,
-                          const T* __restrict__ kk, const T* __restrict__ vv,
-                          const T* __restrict__ g, T* __restrict__ out,
-                          float* __restrict__ lse, const int* __restrict__ mv_ptr,
-                          int mv_const, int N, int T_, int S, int M, float scale,
-                          int window) {
-    constexpr int BQ = fma_tile<H>(), BK = BQ;    // shadow the tensor-core tiles
-    constexpr int RQ = BQ / 16, CK = BK / 16;
-    constexpr int HP = H + 1;
-    constexpr int CH = H / 16;          // context columns per thread
-    constexpr int PS = BK + 1;          // P row stride
-    extern __shared__ float smem[];
-    float* sQw = smem;
-    float* sQr = sQw + BQ * HP;
-    float* sK = sQr + BQ * HP;
-    float* sV = sK + BK * HP;
-    float* sG = sV + BK * HP;
-    float* sP = sG;                     // P overwrites G once the scores are done
-
-    const int bn = blockIdx.y;
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
-    const int head = bn % N;
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int mv = mv_ptr ? *mv_ptr : mv_const;
-
-    const T* rw_b = rw + (size_t)bn * T_ * H;
-    const T* rr_b = rr + (size_t)bn * T_ * H;
-    const T* k_b = kk + (size_t)bn * S * H;
-    const T* v_b = vv + (size_t)bn * S * H;
-    const T* g_h = g + (size_t)head * (T_ + S) * H;
-
-    for (int e = tid; e < BQ * H; e += NT) {
-        const int r = e / H, c = e % H, q = q0 + r;
-        sQw[r * HP + c] = q < T_ ? to_f(rw_b[(size_t)q * H + c]) : 0.f;
-        sQr[r * HP + c] = q < T_ ? to_f(rr_b[(size_t)q * H + c]) : 0.f;
-    }
-
-    float m_i[RQ], l_i[RQ], acc[RQ][CH];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-        m_i[i] = kNegInf;
-        l_i[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) acc[i][c] = 0.f;
-    }
-
-    // keys any row of this tile can see
-    const int q_last = min(q0 + BQ, T_) - 1;
-    const int k_hi = min(S, M + q_last + 1);            // exclusive
-    int k_lo = max(0, M - mv);
-    if (window > 0) k_lo = max(k_lo, M + q0 - window + 1);
-    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
-
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * BK;
-        const int u_lo = T_ - q0 - BQ + k0;             // G row of (qi=BQ-1, ki=0)
-        __syncthreads();                                 // previous tile's P / V reads done
-        for (int e = tid; e < BK * H; e += NT) {
-            const int r = e / H, c = e % H, k = k0 + r;
-            sK[r * HP + c] = k < S ? to_f(k_b[(size_t)k * H + c]) : 0.f;
-            sV[r * HP + c] = k < S ? to_f(v_b[(size_t)k * H + c]) : 0.f;
-        }
-        for (int e = tid; e < (BQ + BK - 1) * H; e += NT) {
-            const int r = e / H, c = e % H, u = u_lo + r;
-            sG[r * HP + c] = (u >= 0 && u < T_ + S) ? to_f(g_h[(size_t)u * H + c]) : 0.f;
-        }
-        __syncthreads();
-
-        // scores: row qi = ty + 16 i, column ki = tx + 16 j, G row BQ - 1 - qi + ki
-        float s[RQ][CK];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-            for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
-        const int g_base = (BQ - 1) - ty + tx;
-#pragma unroll 4
-        for (int h = 0; h < H; ++h) {
-            float a[RQ], b[RQ], kv[CK], gv[RQ + CK - 1];
-#pragma unroll
-            for (int i = 0; i < RQ; ++i) {
-                a[i] = sQw[(ty + 16 * i) * HP + h];
-                b[i] = sQr[(ty + 16 * i) * HP + h];
-            }
-#pragma unroll
-            for (int j = 0; j < CK; ++j) kv[j] = sK[(tx + 16 * j) * HP + h];
-#pragma unroll
-            for (int dd = 0; dd < RQ + CK - 1; ++dd)
-                gv[dd] = sG[(g_base + 16 * (dd - (RQ - 1))) * HP + h];
-#pragma unroll
-            for (int i = 0; i < RQ; ++i)
-#pragma unroll
-                for (int j = 0; j < CK; ++j)
-                    s[i][j] = fmaf(a[i], kv[j], fmaf(b[i], gv[j - i + RQ - 1], s[i][j]));
-        }
-        __syncthreads();                                 // all G reads done: P may overwrite it
-
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-            const int q = q0 + ty + 16 * i;
-            float mx = kNegInf;
-#pragma unroll
-            for (int j = 0; j < CK; ++j) {
-                const int k = k0 + tx + 16 * j;
-                const int d = M + q - k;
-                const bool ok = d >= 0 && k < S && k >= M - mv && (window <= 0 || d < window);
-                s[i][j] = ok ? s[i][j] * scale : kNegInf;
-                mx = fmaxf(mx, s[i][j]);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m_i[i], mx);
-            const float alpha = expf(m_i[i] - m_new);
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < CK; ++j) {
-                const float p = expf(s[i][j] - m_new);
-                sum += p;
-                sP[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(p);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            l_i[i] = l_i[i] * alpha + sum;
-            m_i[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < CH; ++c) acc[i][c] *= alpha;
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int kx = 0; kx < BK; ++kx) {
-            float vk[CH];
-#pragma unroll
-            for (int c = 0; c < CH; ++c) vk[c] = sV[kx * HP + tx + 16 * c];
-#pragma unroll
-            for (int i = 0; i < RQ; ++i) {
-                const float p = sP[(ty + 16 * i) * PS + kx];
-#pragma unroll
-                for (int c = 0; c < CH; ++c) acc[i][c] = fmaf(p, vk[c], acc[i][c]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-        const int q = q0 + ty + 16 * i;
-        if (q >= T_) continue;
-        const float l = fmaxf(l_i[i], 1e-30f);
-        T* o = out + ((size_t)bn * T_ + q) * H;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] / l);
-        if (tx == 0) lse[(size_t)bn * T_ + q] = m_i[i] + logf(l);
-    }
-}
 
 // ------------------------------------------- bf16 and f16 on the tensor cores
 namespace tc {
@@ -570,27 +397,214 @@ cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
 
 }  // namespace tc
 
-template <typename T, int H>
+// ------------------------------------------------- the slab kernel (k1_slab)
+// Every f32 call, and a 16-bit call at a head dim above 128.  One block of
+// four warps per (bn, 64-row q tile, output slab z): H = W ns, the slab
+// width W = H up to 64 (f32) or 64 (H a multiple of 64), and the block
+// writes ctx columns [W z, W z + W).  Per 64-key tile it loops over the ns
+// slabs of the head dim: slab hs of Qw / Qr (staged once when ns = 1), K and
+// the 128-row table window are staged by cp.async and their products added
+// into the warp's AC fragments s and its BD window x (X = Qr . Gwin^T over
+// the XW = 80 window columns its 16 rows read, as k1_tc's warp at H <= 64),
+// so the scores are the sums over the whole head dim before the online
+// softmax; V's slab z is staged with the last slab, and PV adds into the
+// warp's W columns of ctx.  Each output slab's block recomputes the scores
+// (ns blocks per tile pair).  The products are slab_mma.cuh's: mma.sync
+// m16n8k16 for bf16 / f16, 3xTF32 m16n8k8 for f32, so f32 runs on the
+// tensor cores at about f32 accuracy.  The masks, the online softmax, lse
+// and the rounding of p to E where it enters PV are k1_tc's.  No stage is
+// double-buffered: two blocks per SM (f32 W 64: 102 KB, the staging of BD
+// over the table window, which is read by then) overlap one block's copies
+// with the other's products.
+namespace slabs {
+
+using namespace slab;
+
+constexpr int NW = BQ / 16;      // warps: one per 16-row group
+constexpr int NT = 32 * NW;
+constexpr int XW = BK + 16;      // BD window columns a warp reads
+constexpr int XS = XW + 4;       // f32 row stride of a warp's BD staging
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename E, int W>
+struct Lay {
+    static constexpr int RS = W + PAD<E>;                               // element row stride
+    static constexpr size_t G_BYTES = (size_t)2 * BK * RS * sizeof(E);   // the 128-row window
+    static constexpr size_t X_BYTES = (size_t)NW * 16 * XS * 4;
+    static constexpr bool X_ON_G = G_BYTES >= X_BYTES;                  // BD staged over it
+    static constexpr size_t bytes() {
+        // Qw, Qr, K, V [64][RS]; the window [128][RS]; the warps' BD staging
+        return (size_t)(2 * BQ + 2 * BK) * RS * sizeof(E) + G_BYTES + (X_ON_G ? 0 : X_BYTES);
+    }
+};
+
+// the widths a slab kernel is built for: f32 at 16 / 32 / 64, bf16 / f16 at 64
+__host__ __device__ constexpr int slab_width(int H) { return H < 64 ? H : 64; }
+
+template <typename E, int W>
+__global__ void __launch_bounds__(NT, 2)
+k1_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
+        const E* __restrict__ vv, const E* __restrict__ g, E* __restrict__ out,
+        float* __restrict__ lse, const int* __restrict__ mv_ptr, int mv_const, int N, int T_,
+        int S, int M, float scale, int window, int ns) {
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQw = reinterpret_cast<E*>(smem_raw);
+    E* sQr = sQw + BQ * RS;
+    E* sK = sQr + BQ * RS;
+    E* sV = sK + BK * RS;
+    E* sG = sV + BK * RS;                           // table window rows [0, 128)
+    float* sX = reinterpret_cast<float*>(L::X_ON_G ? sG : sG + 2 * BK * RS);
+
+    const int bn = blockIdx.y, z = blockIdx.z;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+    const int head = bn % N;
+    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
+    const int gq = lane >> 2, t = lane & 3;
+    const int mv = mv_ptr ? *mv_ptr : mv_const;
+    float* sXw = sX + p * 16 * XS;
+
+    const E* rw_b = rw + (size_t)bn * T_ * H;
+    const E* rr_b = rr + (size_t)bn * T_ * H;
+    const E* k_b = kk + (size_t)bn * S * H;
+    const E* v_b = vv + (size_t)bn * S * H;
+    const E* g_h = g + (size_t)head * (T_ + S) * H;
+
+    // keys any row of this tile can see
+    const int q_last = min(q0 + BQ, T_) - 1;
+    const int k_hi = min(S, M + q_last + 1);            // exclusive
+    int k_lo = max(0, M - mv);
+    if (window > 0) k_lo = max(k_lo, M + q0 - window + 1);
+    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+
+    float o[W / 8][4] = {};                         // ctx rows 16p + gq (+8), cols 8n + 2t
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int k0 = kt * BK, u_lo = T_ - q0 - BQ + k0;
+        float s[BK / 8][4] = {}, x[XW / 8][4] = {};
+        for (int hs = 0; hs < ns; ++hs) {
+            const int c0 = W * hs;
+            __syncthreads();             // every warp is done with the staged tiles
+            if (ns > 1 || kt == kt_begin) {
+                stage<W>(sQw, rw_b, q0, BQ, T_, H, c0, tid, NT);
+                stage<W>(sQr, rr_b, q0, BQ, T_, H, c0, tid, NT);
+            }
+            stage<W>(sK, k_b, k0, BK, S, H, c0, tid, NT);
+            stage<W>(sG, g_h, u_lo, 2 * BK, T_ + S, H, c0, tid, NT);
+            if (hs == ns - 1) stage<W>(sV, v_b, k0, BK, S, H, W * z, tid, NT);
+            mma_bf16::cp_commit();
+            mma_bf16::cp_wait<0>();
+            __syncthreads();
+            // AC += Qw . K^T over the tile's 64 keys; X += Qr . Gwin[48 - 16p, + XW)^T
+            slab_product<E, W, XW / 16>(s, sQw, 16 * p, sK, 0, RS, lane);
+            slab_product<E, W, XW / 16>(x, sQr, 16 * p, sG, 48 - 16 * p, RS, lane);
+        }
+        if constexpr (L::X_ON_G) __syncthreads();   // every warp's window reads are done
+        // BD[qr][kl] is X[qr][15 - qr + kl]
+#pragma unroll
+        for (int n = 0; n < XW / 8; ++n) {
+            *reinterpret_cast<float2*>(sXw + gq * XS + 8 * n + 2 * t) = make_float2(x[n][0], x[n][1]);
+            *reinterpret_cast<float2*>(sXw + (gq + 8) * XS + 8 * n + 2 * t) =
+                make_float2(x[n][2], x[n][3]);
+        }
+        __syncwarp();
+
+        // the online softmax on the fragments (k1_tc's at one warp per group)
+        const int q = q0 + 16 * p + gq;
+        const bool full = tc::interior(q0, k0, S, M, mv, window);
+        float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1, qr = gq + 8 * h, ki = 8 * j + 2 * t + (e & 1);
+                float v = (s[j][e] + sXw[qr * XS + 15 - qr + ki]) * scale;
+                if (!full) {
+                    const int k = k0 + ki, d = M + q + 8 * h - k;
+                    if (!(d >= 0 && k < S && k >= M - mv && (window <= 0 || d < window)))
+                        v = kNegInf;
+                }
+                s[j][e] = v;
+                mx[h] = fmaxf(mx[h], v);
+            }
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+            alpha[h] = exp2f((m_r[h] - mx[h]) * kLog2e);
+            m_r[h] = mx[h];
+            l_r[h] *= alpha[h];
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float pr = exp2f((s[j][e] - mx[e >> 1]) * kLog2e);
+                l_r[e >> 1] += pr;
+                s[j][e] = pr;            // rounded to E where it enters PV (16 bits)
+            }
+        // o = o alpha + P . V[:, W z, + W) over the tile's 64 keys (the
+        // tile's products summed apart, then added rounded to nearest)
+        float pv[W / 8][4] = {};
+#pragma unroll
+        for (int kb = 0; kb < BK / K8; ++kb) {
+            FragA<E> a;
+            acc_a<E>(a, s, kb, lane);
+#pragma unroll
+            for (int np = 0; np < W / 16; ++np) {
+                FragB<E> b[2];
+                load_bt(b, sV, RS, 16 * np, K8 * kb, lane);
+                mma(pv[2 * np], a, b[0]);
+                mma(pv[2 * np + 1], a, b[1]);
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], alpha[e >> 1], pv[n][e]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float l = l_r[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int q = q0 + 16 * p + gq + 8 * h;
+        if (q >= T_) continue;
+        const float lc = fmaxf(l, 1e-30f), inv = 1.f / lc;
+        E* o_r = out + ((size_t)bn * T_ + q) * H + W * z;
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) put2<E>(o_r + 8 * n + 2 * t, o[n][2 * h] * inv,
+                                                 o[n][2 * h + 1] * inv);
+        if (z == 0 && t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(lc);
+    }
+}
+
+template <typename E, int W>
 cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
                    const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
-                   int BN, int N, int T_, int S, int M, float scale, int window,
+                   int BN, int N, int T_, int S, int M, float scale, int window, int ns,
                    cudaStream_t stream) {
-    if constexpr (sizeof(T) == 2) {                  // bf16, f16: the tensor-core kernel
-        return tc::launch<T, H>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN, N, T_, S, M,
-                                scale, window, stream);
-    } else {
-        const size_t smem = smem_floats<H>() * sizeof(float);
-        auto kern = flash_rel_attn_fwd_kernel<T, H>;
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-        constexpr int B = fma_tile<H>();
-        dim3 grid((T_ + B - 1) / B, BN);
-        kern<<<grid, NT, smem, stream>>>(
-            (const T*)rw, (const T*)rr, (const T*)k, (const T*)v, (const T*)g, (T*)out, lse,
-            mv_ptr, mv_const, N, T_, S, M, scale, window);
-        return cudaGetLastError();
-    }
+    const size_t smem = Lay<E, W>::bytes();
+    auto kern = k1_slab<E, W>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T_ + BQ - 1) / BQ, BN, ns);
+    kern<<<grid, NT, smem, stream>>>(
+        (const E*)rw, (const E*)rr, (const E*)k, (const E*)v, (const E*)g, (E*)out, lse,
+        mv_ptr, mv_const, N, T_, S, M, scale, window, ns);
+    return cudaGetLastError();
+}
+
+}  // namespace slabs
+
+// the head dims a call takes: 16, 32, 64 and 128, and every multiple of 128
+__host__ __device__ constexpr bool takes(int H) {
+    return H == 16 || H == 32 || H == 64 || (H > 0 && H % 128 == 0);
 }
 
 template <typename T>
@@ -598,16 +612,29 @@ cudaError_t launch_h(int H, const void* rw, const void* rr, const void* k, const
                      const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
                      int BN, int N, int T_, int S, int M, float scale, int window,
                      cudaStream_t st) {
-    switch (H) {
-        case 16: return launch<T, 16>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
-                                      BN, N, T_, S, M, scale, window, st);
-        case 32: return launch<T, 32>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
-                                      BN, N, T_, S, M, scale, window, st);
-        case 64: return launch<T, 64>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
-                                      BN, N, T_, S, M, scale, window, st);
-        case 128: return launch<T, 128>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
-                                        BN, N, T_, S, M, scale, window, st);
-        default: return cudaErrorInvalidValue;
+    if (!takes(H)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(T) == 2) {                  // bf16, f16: k1_tc up to H 128
+        switch (H) {
+            case 16: return tc::launch<T, 16>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
+                                              BN, N, T_, S, M, scale, window, st);
+            case 32: return tc::launch<T, 32>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
+                                              BN, N, T_, S, M, scale, window, st);
+            case 64: return tc::launch<T, 64>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
+                                              BN, N, T_, S, M, scale, window, st);
+            case 128: return tc::launch<T, 128>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
+                                                BN, N, T_, S, M, scale, window, st);
+            default: return slabs::launch<T, 64>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
+                                              N, T_, S, M, scale, window, H / 64, st);
+        }
+    } else {                                         // f32: the slab kernel at every H
+        switch (slabs::slab_width(H)) {
+            case 16: return slabs::launch<T, 16>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
+                                              N, T_, S, M, scale, window, 1, st);
+            case 32: return slabs::launch<T, 32>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
+                                              N, T_, S, M, scale, window, 1, st);
+            default: return slabs::launch<T, 64>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
+                                              N, T_, S, M, scale, window, H / 64, st);
+        }
     }
 }
 
@@ -616,25 +643,41 @@ cudaError_t resources_h(int* out) {
     return resources(tc::k1_tc<E, H>, tc::smem_bytes<H>(), tc::Split<H>::NT, out);
 }
 
+template <typename E, int W>
+cudaError_t resources_slab(int* out) {
+    return resources(slabs::k1_slab<E, W>, slabs::Lay<E, W>::bytes(), slabs::NT, out);
+}
+
+// the kernel a call of this dtype and H runs
 template <typename E>
 cudaError_t resources_e(int H, int* out) {
-    switch (H) {
-        case 16: return resources_h<E, 16>(out);
-        case 32: return resources_h<E, 32>(out);
-        case 64: return resources_h<E, 64>(out);
-        case 128: return resources_h<E, 128>(out);
-        default: return cudaErrorInvalidValue;
+    if (!takes(H)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(E) == 2) {
+        switch (H) {
+            case 16: return resources_h<E, 16>(out);
+            case 32: return resources_h<E, 32>(out);
+            case 64: return resources_h<E, 64>(out);
+            case 128: return resources_h<E, 128>(out);
+            default: return resources_slab<E, 64>(out);
+        }
+    } else {
+        switch (slabs::slab_width(H)) {
+            case 16: return resources_slab<E, 16>(out);
+            case 32: return resources_slab<E, 32>(out);
+            default: return resources_slab<E, 64>(out);
+        }
     }
 }
 
 }  // namespace
 
 // rw/rr [BN, T, H], k/v [BN, S, H], g [N, T+S, H] (dtype 0 = f32, 1 = bf16,
-// 2 = f16; H 16, 32, 64 or 128); out [BN, T, H] in that dtype, lse [BN, T]
-// f32.  mem_valid is read from the device int32 at mv_ptr, or is mv_const
-// when mv_ptr is null.  window <= 0 is no window.  bf16 and f16 run the
-// tensor-core kernel (k1_tc) at every H, f32 the FMA kernel.  Launches on
-// `stream`; returns cudaGetLastError() of the launch.
+// 2 = f16; H 16, 32, 64 or a multiple of 128); out [BN, T, H] in that
+// dtype, lse [BN, T] f32.  mem_valid is read from the device int32 at
+// mv_ptr, or is mv_const when mv_ptr is null.  window <= 0 is no window.
+// bf16 and f16 run k1_tc up to H 128 and k1_slab above; f32 runs k1_slab
+// (3xTF32) at every H.  Launches on `stream`; returns cudaGetLastError() of
+// the launch.
 extern "C" int flash_rel_attn_fwd(const void* rw, const void* rr, const void* k,
                                   const void* v, const void* g, void* out, void* lse,
                                   const void* mv_ptr, int mv_const, int BN, int N,
@@ -655,12 +698,13 @@ extern "C" int flash_rel_attn_fwd(const void* rw, const void* rr, const void* k,
     return (int)cudaErrorInvalidValue;
 }
 
-// The resources of the tensor-core kernel a bf16 (dtype 1) or f16 (2) call
-// at head dim H runs, as the loaded library reports them: out[0..4] =
+// The resources of the kernel a call of this dtype (0 = f32, 1 = bf16, 2 =
+// f16) at head dim H runs, as the loaded library reports them: out[0..4] =
 // registers, local (spill) bytes, dynamic shared bytes, resident blocks per
-// SM and threads per block of k1_tc.  Returns a cudaError_t
-// (cudaErrorInvalidValue for f32 or another H).
+// SM and threads per block of k1_tc or k1_slab.  Returns a cudaError_t
+// (cudaErrorInvalidValue for an H the kernels do not take).
 extern "C" int flash_rel_attn_fwd_resources(int H, int dtype, int* out) {
+    if (dtype == 0) return (int)resources_e<float>(H, out);
     if (dtype == 1) return (int)resources_e<__nv_bfloat16>(H, out);
     if (dtype == 2) return (int)resources_e<__half>(H, out);
     return (int)cudaErrorInvalidValue;

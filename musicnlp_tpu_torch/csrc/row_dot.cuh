@@ -64,11 +64,34 @@ row_dot_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restri
     if (ok && i % L == 0) out[r] = acc;
 }
 
+// rows of more than 32 pieces (a head dim above 128): one warp per row, lane
+// i taking pieces i, i + 32, ...
+template <typename T>
+__global__ void __launch_bounds__(256)
+row_dot_wide(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ out,
+             long long rows, int L) {
+    const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+    const int lane = threadIdx.x & 31;
+    float acc = 0.f;
+    if (r < rows)
+        for (int i = lane; i < L; i += 32)
+            acc = dot8(__ldg(reinterpret_cast<const uint4*>(a) + r * L + i),
+                       __ldg(reinterpret_cast<const uint4*>(b) + r * L + i), acc, T());
+#pragma unroll
+    for (int m = 16; m > 0; m /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    if (r < rows && lane == 0) out[r] = acc;
+}
+
 template <typename T>
 cudaError_t launch_t(const T* a, const T* b, float* out, long long rows, int D,
                      cudaStream_t stream) {
     const int L = D * (int)sizeof(T) / 16;         // 16-byte pieces per row
     const unsigned blocks = (unsigned)((rows * L + 255) / 256);
+    if (L > 32 && D % 128 == 0) {
+        row_dot_wide<T><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, stream>>>(a, b, out,
+                                                                               rows, L);
+        return cudaGetLastError();
+    }
     switch (L) {
         case 2: row_dot_kernel<T, 2><<<blocks, 256, 0, stream>>>(a, b, out, rows); break;
         case 4: row_dot_kernel<T, 4><<<blocks, 256, 0, stream>>>(a, b, out, rows); break;
@@ -80,7 +103,8 @@ cudaError_t launch_t(const T* a, const T* b, float* out, long long rows, int D,
     return cudaGetLastError();
 }
 
-// a, b [rows, D] of one dtype (0 = f32, 1 = bf16, 2 = f16), D 16, 32, 64 or 128; out
+// a, b [rows, D] of one dtype (0 = f32, 1 = bf16, 2 = f16), D 16, 32, 64 or a
+// multiple of 128; out
 // [rows] f32.  Launches on `stream`; returns cudaGetLastError().
 inline cudaError_t launch(const void* a, const void* b, float* out, long long rows, int D,
                           int dtype, cudaStream_t stream) {

@@ -25,11 +25,12 @@ query; pad queries keep their positions.
   * `ChunkedWindowAttn` is the autograd Function (K3 forward, K4 backward);
     `chunked_window_attn` applies it with the JAX package's signature.  Both
     outputs carry gradients: the LSH round combine differentiates lse.
-  * The kernels take any chunk that divides T and head dims 16, 32, 64 and
-    128 (`SUPPORTED_HEAD_DIMS`) in f32, bf16 and f16, which covers every call
-    the JAX `_kernel_ok` sends to its TPU kernel (chunk and head dim
-    multiples of 8) once `ops/chunked_attention` zero-pads a head dim up to
-    the next of them; a head dim above 128 raises on the card.
+  * The kernels take any chunk that divides T and the head dims of K1 / K2
+    (`flash_attention.takes_head_dim`: 16, 32, 64, 128 and every multiple of
+    128) in f32, bf16 and f16, which covers every call the JAX `_kernel_ok`
+    sends to its TPU kernel (chunk and head dim multiples of 8) once
+    `ops/chunked_attention` zero-pads a head dim to the next of them
+    (`kernel_head_dim`).
 
 Bound on the H100 (SXM, 700 W): at the 22-04 LSH shape (G = 32*12*2 = 768,
 T 2048, D 64, c 64, bf16) K3 moves ~0.82 GB (q, k, v, positions in; ctx and
@@ -38,9 +39,13 @@ K4 ~1.8 GB (0.55 ms): both are bound by bytes.  K3 and K4 run every bf16
 and f16 call on the tensor cores: at chunks 32 and 64 and head dims up to
 64 over runs of consecutive chunks, each chunk loaded once per run (mma.sync;
 `k3_tc`, `k4_tc`); every other chunk and head dim 128 over 64-row tiles of
-the windows (`k3_union_tc`; `k4_dq_tc` / `k4_dkdv_tc`).  f32 inputs run the
-f32 FMA kernels of the same two layouts (the per-chunk kernels, `k3_tiled`,
-`k4_dq_tiled` / `k4_dkdv_tiled`), which the f32 parity checks rest on.
+the windows (`k3_union_tc`; `k4_dq_tc` / `k4_dkdv_tc`).  f32 inputs up to
+head dim 128 run the f32 FMA kernels of the same two layouts (the per-chunk
+kernels, `k3_tiled`, `k4_dq_tiled` / `k4_dkdv_tiled`).  Above 128 every
+dtype runs the slab walk (`k3_slab`; `k4_dq_slab` / `k4_dkdv_slab`), the
+tiled walk over 64-wide slabs of the head dim, one output slab per block, on
+the tensor cores (f32 in 3xTF32), with each row's own key in the LSH layers
+rescored as one sequential f32 FMA chain over the whole head dim.
 `chip_smoke.py` measures them against that bound.
 """
 from __future__ import annotations
@@ -50,13 +55,15 @@ from typing import Tuple
 
 import torch
 
+from musicnlp_tpu_torch.ops.flash_attention import (LANE, SMALL_HEAD_DIMS, kernel_head_dim,
+                                                   takes_head_dim)
+
 __all__ = ['chunked_window_attn', 'chunked_window_attn_fwd', 'chunked_window_attn_fwd_plain',
            'chunked_window_attn_bwd', 'chunked_window_attn_bwd_plain', 'ChunkedWindowAttn',
-           'kernel_head_dim', 'visible_pairs', 'LAUNCHES', 'NEG_INF', 'SUPPORTED_HEAD_DIMS']
+           'kernel_head_dim', 'visible_pairs', 'LAUNCHES', 'NEG_INF']
 
 LAUNCHES = {'chunked_window_attn_fwd': 0, 'chunked_window_attn_bwd': 0}
 NEG_INF = -1e9
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _NO_LOOKBACK = torch.iinfo(torch.int32).max
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [
@@ -65,13 +72,6 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] *
     ctypes.c_void_p]
 _DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
-
-
-def kernel_head_dim(d_head: int) -> int:
-    """The head dim the kernels run `d_head` at: the smallest of
-    `SUPPORTED_HEAD_DIMS` that holds it (the rest zero-padded), or d_head
-    itself above 128 (the launch check then raises)."""
-    return next((h for h in SUPPORTED_HEAD_DIMS if h >= d_head), d_head)
 
 
 # ------------------------------------------------------------- plain versions
@@ -177,9 +177,9 @@ def _cuda_args(name: str, floats, ints):
                         f'{[t.dtype for t in floats]}')
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f'{name} takes int32 positions')
-    if floats[0].shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f'{name} takes head dims {SUPPORTED_HEAD_DIMS}, got '
-                         f'{floats[0].shape[-1]}')
+    if not takes_head_dim(floats[0].shape[-1]):
+        raise ValueError(f'{name} takes head dims {SMALL_HEAD_DIMS} and multiples of {LANE}, '
+                         f'got {floats[0].shape[-1]}')
     if not all(t.is_contiguous() for t in floats + ints):
         raise ValueError(f'{name} takes contiguous inputs')
     return dev, _DTYPE_CODE[dtype]

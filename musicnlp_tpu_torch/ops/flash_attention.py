@@ -15,11 +15,13 @@ backward `_make_bwd_fused` (reached through `_flash_bwd`) with
   * `FlashRelAttn` is the autograd Function: K1 forward, K2 backward.
   * `fused_rel_attn` is the drop-in for `ops.attention.rel_attn` around it:
     projections, the distance table, output projection, residual, layer norm.
-  * The kernels take head dims 16, 32, 64 and 128 (`SUPPORTED_HEAD_DIMS`) in
-    f32, bf16 and f16.  `fused_rel_attn` zero-pads any other head dim up to
-    128 to the next of them (`kernel_head_dim`; the scale stays the layer's),
-    so every layer the JAX model's `_flash_ok` sends to its TPU kernel
-    launches K1 / K2 here; a head dim above 128 raises on the card.
+  * The kernels take head dims 16, 32, 64 and 128 (`SMALL_HEAD_DIMS`) and
+    every multiple of 128 (`takes_head_dim`) in f32, bf16 and f16.
+    `fused_rel_attn` zero-pads any other head dim to the next of them
+    (`kernel_head_dim`: up to 128 the next small one, above it the next
+    multiple of 128, the TPU kernels' lane padding; the scale stays the
+    layer's), so every layer the JAX model's `_flash_ok` sends to its TPU
+    kernel launches K1 / K2 here.
 
 Bound on the H100 (SXM, 700 W): at the TF-XL base scoring shape (B*N = 96,
 T = S = 1024, H = 64, bf16, causal) K1 must move ~66 MB (inputs read once,
@@ -27,11 +29,14 @@ ctx and lse written once: 0.0198 ms at 3.35 TB/s) and do ~19.3 GFLOP (three
 H-long products per visible (q, k) pair: AC, BD and PV; 0.0196 ms at 989
 TFLOP/s), so bytes and tensor-core operations bound it about equally.  K2
 does 8 H-long products per visible pair, so operations bound it (see its
-source).  K1 and K2 run every bf16 and f16 call on the tensor cores
-(mma.sync, 16-bit shared tiles, cp.async; `k1_tc`, `k2_dkdv_tc` /
-`k2_dq_tc`, at H 128 with two warps per 16-row group).  f32, which the f32
-parity checks rest on, runs the FMA kernels of both; dtype picks the kernel
-inside each C entry point.
+source).  K1 and K2 run every call on the tensor cores: bf16 and f16 up
+to H 128 on `k1_tc`, `k2_dkdv_tc` / `k2_dq_tc` (mma.sync, 16-bit shared
+tiles, cp.async; at H 128 two warps per 16-row group); f32 at every H, and
+bf16 / f16 above 128, on the slab kernels `k1_slab`, `k2_dkdv_slab` /
+`k2_dq_slab`, which loop the score contractions over 64-wide slabs of the
+head dim and write one slab of the outputs per block, f32 in 3xTF32 (each
+operand split into two TF32 parts, three products: about f32 accuracy).
+dtype and H pick the kernel inside each C entry point.
 
 The distance table g_tab [N, T+S, H] stays a plain matmul outside the kernels
 (as on the TPU): row u holds W_r^T R(clip((M+T-1) - u, 0, clamp_len)), so the
@@ -52,10 +57,11 @@ from musicnlp_tpu_torch.ops.layers import Params, dropout, layer_norm, sinusoid_
 
 __all__ = ['flash_rel_attn_fwd', 'flash_rel_attn_fwd_plain', 'flash_rel_attn_bwd',
            'flash_rel_attn_bwd_plain', 'FlashRelAttn', 'fused_rel_attn', 'distance_table',
-           'kernel_head_dim', 'LAUNCHES', 'SUPPORTED_HEAD_DIMS']
+           'kernel_head_dim', 'takes_head_dim', 'LAUNCHES', 'SMALL_HEAD_DIMS', 'LANE']
 
 LAUNCHES = {'flash_rel_attn_fwd': 0, 'flash_rel_attn_bwd': 0}
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SMALL_HEAD_DIMS = (16, 32, 64, 128)      # the head dims up to 128 the kernels take
+LANE = 128                               # above 128, the kernels take multiples of it
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                            ctypes.c_void_p])
@@ -67,11 +73,18 @@ _DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctyp
 MemValid = Union[int, torch.Tensor]
 
 
+def takes_head_dim(h: int) -> bool:
+    """Whether K1-K4 take head dim h: 16, 32, 64, 128 or a multiple of 128."""
+    return h in SMALL_HEAD_DIMS or (h > 0 and h % LANE == 0)
+
+
 def kernel_head_dim(d_head: int) -> int:
-    """The head dim the kernels run `d_head` at: the smallest of
-    `SUPPORTED_HEAD_DIMS` that holds it (the rest zero-padded), or d_head
-    itself above 128 (the launch check then raises)."""
-    return next((h for h in SUPPORTED_HEAD_DIMS if h >= d_head), d_head)
+    """The head dim the kernels run `d_head` at, the rest zero-padded: the
+    smallest of `SMALL_HEAD_DIMS` that holds it, or above 128 the next
+    multiple of 128 (the TPU kernels pad every head dim to lanes of 128)."""
+    if d_head <= LANE:
+        return next(h for h in SMALL_HEAD_DIMS if h >= d_head)
+    return -(-d_head // LANE) * LANE
 
 
 def _key_mask(T: int, S: int, M: int, mem_valid: MemValid, window: int, device):
@@ -174,8 +187,9 @@ def _launch_args(name: str, tensors, mem_valid: MemValid):
         raise TypeError(f'{name} takes float32, bfloat16 or float16 inputs of one dtype, got '
                         f'{[t.dtype for t in tensors]}')
     H = tensors[0].shape[-1]
-    if H not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f'{name} takes head dims {SUPPORTED_HEAD_DIMS}, got {H}')
+    if not takes_head_dim(H):
+        raise ValueError(f'{name} takes head dims {SMALL_HEAD_DIMS} and multiples of {LANE}, '
+                         f'got {H}')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f'{name} takes contiguous inputs')
     if isinstance(mem_valid, torch.Tensor):
@@ -310,9 +324,10 @@ def fused_rel_attn(
     """Drop-in fused replacement for ops.attention.rel_attn, differentiable
     through K1 / K2.  Like the TPU kernels it has no attention-probability
     dropout and no key padding mask (the JAX model sends those cases to the
-    plain `rel_attn`).  A head dim outside `SUPPORTED_HEAD_DIMS` runs
-    zero-padded to `kernel_head_dim`: the padded columns add nothing to a
-    score, their context columns are dropped, and their gradients are zero."""
+    plain `rel_attn`).  A head dim the kernels do not take runs zero-padded
+    to `kernel_head_dim` at the layer's own scale 1/sqrt(d_head): the padded
+    columns add nothing to a score, their context columns are dropped, and
+    their gradients are zero."""
     dtype = x.dtype
     B, T, d_model = x.shape
     n_head, d_head = p['r_w_bias'].shape

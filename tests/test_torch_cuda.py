@@ -58,12 +58,13 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 # H, T, M, mem_valid, window, clamp; the fourth: a ragged T with memory, a
 # window and mem_valid < M (every edge of the tensor-core kernels' skew
-# windows); the last three: H 128 (f32: the FMA kernels' 32-row tiles; bf16
-# / f16: the tensor-core kernels' two-warp groups), the last over six
-# ragged q and key tiles with a window and no memory
+# windows); then H 128 (f32: the slab kernels' two slabs of 64; bf16 / f16:
+# the tensor-core kernels' two-warp groups), one over six ragged q and key
+# tiles with a window and no memory; the last two: head dims above 128 (the
+# slab kernels in every dtype, four and six slabs)
 CASES = [(64, 128, 0, 0, 0, 1024), (32, 96, 64, 17, 40, 33), (16, 77, 30, 30, 0, 17),
          (64, 200, 100, 37, 150, 64), (128, 96, 64, 17, 40, 33), (128, 200, 100, 37, 150, 64),
-         (128, 333, 0, 0, 150, 1024)]
+         (128, 333, 0, 0, 150, 1024), (256, 96, 64, 17, 40, 33), (384, 130, 0, 0, 60, 64)]
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -178,6 +179,8 @@ CHUNKED = [   # G, T, D, chunk, perm, pads, scale, self_bias
     # chunk 48, whose chunks cross the 64-row tiles' edges
     (2, 480, 32, 16, True, 9, 1.0, -1e5), (1, 640, 128, 128, True, 40, 1.0, -1e5),
     (2, 288, 64, 48, False, 17, 0.125, 0.0),
+    # head dims above 128: the slab walks (four slabs of 64), LSH and local
+    (2, 256, 256, 64, True, 9, 1.0, -1e5), (1, 288, 256, 48, False, 17, 0.0625, 0.0),
 ]
 
 
@@ -208,28 +211,36 @@ def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_b
 
 
 @pytest.mark.parametrize('name,kernels', [
-    ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc')),
-    ('chunked_window_attn_bwd', ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc')),
-    ('flash_rel_attn_fwd', ('k1_tc',)), ('chunked_window_attn_fwd', ('k3_tc', 'k3_union_tc')),
+    ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_slab', 'k2_dq_slab')),
+    ('chunked_window_attn_bwd', ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc', 'k4_dq_slab',
+                                 'k4_dkdv_slab')),
+    ('flash_rel_attn_fwd', ('k1_tc', 'k1_slab')),
+    ('chunked_window_attn_fwd', ('k3_tc', 'k3_union_tc', 'k3_slab')),
 ])
 def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
     """The tensor-core kernels of K1-K4 (every bf16 and f16 call: K1 / K2 at
     head dims 16-128, K3's k3_tc and its tiled walk k3_union_tc, K4's k4_tc
-    and its tiled split k4_dq_tc / k4_dkdv_tc) hold tensor-core
-    instructions (HMMA for mma.sync, HGMMA for wgmma) in `cuobjdump -sass` of
-    the built library, in every instantiation, and are built for both bf16
-    and f16 (K1's and K2's at head dim 128); the FMA kernels keep their FMA
-    code (TF32 would break the f32 parity) and are built for f32 alone."""
+    and its tiled split k4_dq_tc / k4_dkdv_tc; and the slab kernels, which
+    run every f32 call of K1 / K2 and every call above head dim 128) hold
+    tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
+    `cuobjdump -sass` of the built library, in every instantiation, and are
+    built for both bf16 and f16 (K1's and K2's at head dim 128), the slab
+    kernels also for f32 (3xTF32); the FMA kernels (K3 / K4's f32 up to
+    head dim 128) keep their FMA code and are built for f32 alone, and K1 /
+    K2 have none left."""
     counts = vr.tensor_core_counts(name)
     for kern in kernels:
         fns = [c for f, c in counts.items() if kern in f]
         assert fns and all(c > 0 for c in fns), (kern, counts)
-        for part in ('__nv_bfloat16', '6__half'):
+        parts = ('__nv_bfloat16', '6__half') + (('If',) if kern.endswith('_slab') else ())
+        for part in parts:
             assert any(kern in f and part in f for f in counts), (kern, part, counts)
     if name.startswith('flash_rel_attn'):
-        assert all(any(k in f and 'Li128E' in f for f in counts) for k in kernels), counts
-    fma = {f: c for f, c in counts.items() if '_tc' not in f}
-    assert fma and not any(fma.values()), counts
+        assert all(any(k in f and 'Li128E' in f for f in counts)
+                   for k in kernels if k.endswith('_tc')), counts
+    fma = {f: c for f, c in counts.items() if '_tc' not in f and '_slab' not in f}
+    assert not any(fma.values()), counts
+    assert any('row_dot' not in f for f in fma) == name.startswith('chunked'), fma
     # row_dot (delta, in the backward libraries) takes every dtype
     assert not any('__nv_bfloat16' in f or '__half' in f for f in fma if 'row_dot' not in f), fma
 
@@ -323,16 +334,26 @@ def _c1_model(name):
     if name == 'tfxl-fp16':
         cfg = TransfoXLConfig.from_size('debug', vocab_size=422, n_layer=2, dtype='float16')
         return TransfoXL(cfg), TransfoXL(dataclasses.replace(cfg, dtype='float32'), device='cpu')
+    if name == 'tfxl-d192':
+        cfg = TransfoXLConfig.from_size('debug', vocab_size=422, d_model=384, n_head=2,
+                                        d_head=192, n_layer=2, dtype='float32')
+        return TransfoXL(cfg), TransfoXL(cfg, device='cpu')
+    if name == 'reformer-d256':
+        cfg = ReformerConfig.from_size('debug-large', vocab_size=422, dtype='float32',
+                                       attn_layers=('local', 'local'), d_head=256)
+        return Reformer(cfg), Reformer(cfg, device='cpu')
     cfg = ReformerConfig.from_size('debug-large', vocab_size=422, dtype='float32',
                                    attn_layers=('local', 'local'), local_chunk=128)
     return Reformer(cfg), Reformer(cfg, device='cpu')
 
 
-@pytest.mark.parametrize('name', ['tfxl-d128', 'tfxl-fp16', 'reformer-chunk128'])
+@pytest.mark.parametrize('name', ['tfxl-d128', 'tfxl-fp16', 'reformer-chunk128', 'tfxl-d192',
+                                  'reformer-d256'])
 def test_c1_shapes_launch_the_kernels_on_the_card(dev, name):
-    """C.1: a head dim 128, float16, and a Reformer chunk of 128 launch K1 /
-    K2 or K3 / K4 once per layer, forward and backward, and the logits equal
-    the CPU's f32 logits: 1e-4 of the max in f32, 2e-2 in f16 (FP16_REL of
+    """C.1 / C.2: a head dim 128, float16, a Reformer chunk of 128 and head
+    dims above 128 (192, zero-padded to 256; 256) launch K1 / K2 or K3 / K4
+    once per layer, forward and backward, and the logits equal the CPU's f32
+    logits: 1e-4 of the max in f32, 2e-2 in f16 (FP16_REL of
     tests/test_torch_dispatch.py)."""
     model, cpu = _c1_model(name)
     params, cpu_params = model.init(seed=0), cpu.init(seed=0)
@@ -356,15 +377,16 @@ def test_c1_shapes_launch_the_kernels_on_the_card(dev, name):
 
 
 def test_launch_checks_refuse_what_the_kernels_do_not_take(dev):
-    """Called directly, the kernel wrappers raise for a head dim above 128
-    and a dtype other than f32 / bf16 / f16."""
-    rw, rr, k, v, g = _inputs(dev, torch.float32, 2, 1, 64, 0, 256, 64)
+    """Called directly, the kernel wrappers raise for a head dim they do not
+    take (192: the modules pad it to 256) and a dtype other than f32 / bf16 /
+    f16."""
+    rw, rr, k, v, g = _inputs(dev, torch.float32, 2, 1, 64, 0, 192, 64)
     with pytest.raises(ValueError, match='head dims'):
         flash_rel_attn_fwd(rw, rr, k, v, g, 0, M=0, scale=0.1)
     f64 = [t.double() for t in _inputs(dev, torch.float32, 2, 1, 64, 0, 64, 64)]
     with pytest.raises(TypeError, match='float16'):
         flash_rel_attn_fwd(*f64, 0, M=0, scale=0.1)
-    q, k, v, qpos, kpos = _chunked_inputs(dev, torch.float32, 2, 256, 256, False, 0)
+    q, k, v, qpos, kpos = _chunked_inputs(dev, torch.float32, 2, 256, 192, False, 0)
     with pytest.raises(ValueError, match='head dims'):
         ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, chunk=128, scale=0.1)
 

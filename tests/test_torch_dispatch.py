@@ -1,10 +1,12 @@
-"""The widened attention kernels (ROADMAP C.1), on the CPU: K1 / K2 and K3 /
-K4 take head dims 16 / 32 / 64 / 128 and any chunk, in f32, bf16 and f16,
-and the modules zero-pad any other head dim up to 128, so every layer the
-JAX package sends to its TPU kernels goes through the kernels' wrappers
-here (their plain versions on the CPU).  A head-dim-128 TF-XL, a padded
-head dim, an f16 TF-XL and a chunk-128 Reformer match the JAX package in
-f32 at 1e-4 of each tensor's max."""
+"""The widened attention kernels (ROADMAP C.1, C.2), on the CPU: K1 / K2 and
+K3 / K4 take head dims 16 / 32 / 64 / 128 and every multiple of 128 and any
+chunk, in f32, bf16 and f16, and the modules zero-pad any other head dim to
+the next of them (above 128, the next multiple of 128, as the TPU kernels
+pad to lanes of 128), so every layer the JAX package sends to its TPU
+kernels goes through the kernels' wrappers here (their plain versions on
+the CPU).  Head-dim-128 and -256 TF-XLs, padded head dims (48 -> 64, 192 ->
+256), an f16 TF-XL, a chunk-128 Reformer and a head-dim-256 Reformer match
+the JAX package in f32 at 1e-4 of each tensor's max."""
 import dataclasses
 
 import jax
@@ -83,11 +85,16 @@ def _ids(seed, B, T):
 # ------------------------------------------------------------ kernel sets
 @pytest.mark.parametrize('mod', [fa, ck], ids=['K1-K2', 'K3-K4'])
 def test_kernels_take_head_dims_to_128_in_three_dtypes(mod):
-    assert mod.SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
+    """The head dims the kernels take, in f32, bf16 and f16: up to 128 the
+    next of 16 / 32 / 64 / 128, and (since C.2) above 128 the next multiple
+    of 128 (the TPU kernels' `_pad_to` lanes); every padded dim is one the
+    launch check takes, and no other dim up to 1,024 is."""
     assert set(mod._DTYPE_CODE) == {torch.float32, torch.bfloat16, torch.float16}
-    for d in range(1, 257):
-        want = next((h for h in (16, 32, 64, 128) if h >= d), d)
+    for d in range(1, 1025):
+        want = next(h for h in (16, 32, 64, 128) if h >= d) if d <= 128 else -(-d // 128) * 128
         assert mod.kernel_head_dim(d) == want, d
+        assert mod.takes_head_dim(mod.kernel_head_dim(d))
+        assert mod.takes_head_dim(d) == (d in (16, 32, 64, 128) or d % 128 == 0), d
 
 
 # ---------------------------------------------------------------------- TF-XL
@@ -140,6 +147,18 @@ def test_odd_head_dim_tfxl_runs_padded_and_matches_jax(calls):
     assert set(calls['flash']) == {(64, torch.float32)} and calls['rel_attn'] == 0
 
 
+@pytest.mark.parametrize('d_model,d_head,kernel_dim', [(512, 256, 256), (384, 192, 256)])
+def test_head_dims_above_128_tfxl_run_the_kernels_and_match_jax(calls, d_model, d_head,
+                                                              kernel_dim):
+    """d_head 256, and 192 zero-padded to 256 at its own scale 1/sqrt(192):
+    every layer goes through FlashRelAttn at H 256 (K1 / K2's slab kernels
+    on the card), none through the plain rel_attn; logits with and without
+    memory, the loss and every gradient equal JAX's."""
+    _tfxl_matches_jax(*_tfxl_pair(d_model=d_model, d_head=d_head, d_inner=128), d_model=d_model)
+    assert set(calls['flash']) == {(kernel_dim, torch.float32)} and calls['rel_attn'] == 0
+    assert len(calls['flash']) == 3 * TFXL_128['n_layer']
+
+
 def test_fp16_tfxl_runs_the_kernels(calls):
     """float16 goes through FlashRelAttn in f16 (K1 / K2's tensor-core
     kernels on the card) and stays near the f32 model's logits."""
@@ -168,6 +187,36 @@ def test_chunk_128_reformer_runs_the_kernels_and_matches_jax(calls, margins):  #
     ids = _ids(4, 2, 256)
     got = tm.forward(tp, torch.from_numpy(ids))
     assert calls['window'] == [(128, 32, torch.float32)] * 2
+    assert _rel_err(got, jax.jit(jm.forward)(jp, jnp.asarray(ids))) <= REL
+
+    labels = np.where(ids % 5 == 0, -100, ids).astype(np.int32)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, jnp.asarray(ids), jnp.asarray(labels)), has_aux=True))(jp)
+    flat = tckpt.flatten(tp)
+    for t in flat.values():
+        t.requires_grad_(True)
+    tl, _ = tm.loss(tp, torch.from_numpy(ids), torch.from_numpy(labels))
+    grads = torch.autograd.grad(tl, list(flat.values()))
+    assert abs(float(tl.detach()) - float(jl)) <= REL * abs(float(jl))
+    jflat = jckpt._flatten(jg)
+    for key, g in zip(flat, grads):
+        assert _rel_err(g, jflat[key]) <= REL, key
+    assert margins.smallest() > 0
+
+
+def test_head_dim_256_reformer_runs_the_kernels_and_matches_jax(calls, margins):  # noqa: F811
+    """d_head 256 (two heads of 256 at d_model 64): both layers' window
+    attention goes through ChunkedWindowAttn at head dim 256 (K3 / K4's slab
+    kernels on the card); logits, the loss and every gradient equal JAX's."""
+    cfg = dict(REFORMER_128, d_head=256, local_chunk=64, lsh_chunk=64, max_length=128,
+               axial_pos_shape=(8, 16))
+    jm = JReformer(JRConfig(vocab_size=V, **cfg))
+    jp = perturb(jm.init(jax.random.PRNGKey(0)), 1)
+    tm = Reformer(ReformerConfig(vocab_size=V, **cfg), device='cpu')
+    tp = to_torch(jp)
+    ids = _ids(5, 2, 128)
+    got = tm.forward(tp, torch.from_numpy(ids))
+    assert calls['window'] == [(64, 256, torch.float32)] * 2
     assert _rel_err(got, jax.jit(jm.forward)(jp, jnp.asarray(ids))) <= REL
 
     labels = np.where(ids % 5 == 0, -100, ids).astype(np.int32)

@@ -61,6 +61,16 @@ K_NONE = -3e38      # K3's tiled walk: the running max before any key of the win
 LOG2E = math.log2(math.e)
 
 
+# torch on one thread: the suite's xdist workers share the cores, and
+# torch's intra-op threads on these many tiny ops slow each file many-fold
+@pytest.fixture(autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rows(x, r0, n, fill=0):
     """Rows [r0, r0 + n) of x [..., L(, H)], `fill` outside [0, L)."""
     idx = torch.arange(r0, r0 + n)
@@ -657,3 +667,195 @@ def test_k3_union_walk_matches_the_pallas_forward():
                                      self_bias=self_bias)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------- head dims above 128 (and K1 in f32): the slab kernels
+SLAB = 64           # slab width of k1_slab / k3_slab above head dim 64
+
+
+def slab_split(H):
+    """(slab width, slab count) of the slab kernels at head dim H."""
+    w = min(H, SLAB)
+    return w, H // w
+
+
+def k1_slab_tiles(rw, rr, k, v, g, mem_valid, *, M, scale, window):
+    """The schedule of `k1_slab` in torch -> (ctx, lse): one block per (q
+    tile, output slab z) walks K1's key tiles; per tile it sums AC = Qw . K^T
+    and each warp's X = Qr . Gwin[48 - 16w, + 80)^T over the ns slabs of the
+    head dim in order (BD read at column 15 - qr + ki), takes the online
+    softmax (p rounded to the inputs' dtype where it enters PV) and adds P .
+    V[:, slab z] into the block's W columns of ctx.  lse is written by the z
+    = 0 blocks; every z's scores and lse are the same."""
+    BN, T, H = rw.shape
+    S, N = k.shape[1], g.shape[0]
+    W, ns = slab_split(H)
+    dtype = rw.dtype
+    n_qt = -(-T // BQ)
+    qw, qr = _rows(rw.float(), 0, n_qt * BQ), _rows(rr.float(), 0, n_qt * BQ)
+    kf, vf = k.float(), v.float()
+    gb = g.float()[torch.arange(BN) % N]
+    vis = torch.zeros(n_qt * BQ, -(-S // BK) * BK, dtype=torch.bool)
+    vis[:T, :S] = _key_mask(T, S, M, mem_valid, window, 'cpu')
+    ctx = torch.zeros(BN, n_qt * BQ, H)
+    lse = [torch.zeros(BN, n_qt * BQ) for _ in range(ns)]
+    qr_ = torch.arange(16)[:, None]
+    kl = torch.arange(BK)[None, :]
+    for z in range(ns):
+        zc = slice(W * z, W * z + W)
+        for q0 in range(0, n_qt * BQ, BQ):
+            rows = slice(q0, q0 + BQ)
+            m = torch.full((BN, BQ), NEG_INF_K1)
+            l = torch.zeros(BN, BQ)
+            o = torch.zeros(BN, BQ, W)
+            for kt in k1_key_tiles(q0, T, S, M, mem_valid, window):
+                k0, u_lo = kt * BK, T - q0 - BQ + kt * BK
+                gwin, kt_rows = _rows(gb, u_lo, 128), _rows(kf, k0, BK)
+                ac = torch.zeros(BN, BQ, BK)
+                xs = torch.zeros(BN, NW, 16, XW)
+                for hs in range(ns):             # the head dim's slabs, in order
+                    c = slice(W * hs, W * hs + W)
+                    ac += qw[:, rows, c] @ kt_rows[..., c].transpose(1, 2)
+                    for w in range(NW):
+                        xs[:, w] += (qr[:, q0 + 16 * w:q0 + 16 * w + 16, c]
+                                     @ gwin[:, 48 - 16 * w:128 - 16 * w, c].transpose(1, 2))
+                bd = torch.cat([xs[:, w][:, qr_, 15 - qr_ + kl] for w in range(NW)], 1)
+                x = (ac + bd) * scale
+                if not k1_interior(q0, k0, S, M, mem_valid, window):
+                    x = torch.where(vis[rows, k0:k0 + BK], x, torch.full_like(x, NEG_INF_K1))
+                mx = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp2((m - mx) * LOG2E)
+                p = torch.exp2((x - mx[..., None]) * LOG2E)
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + p.to(dtype).float() @ _rows(vf, k0, BK)[..., zc]
+                m = mx
+            lc = l.clamp(min=1e-30)
+            ctx[:, rows, zc] = o * (1 / lc)[..., None]
+            lse[z][:, rows] = m + torch.log(lc)
+    assert all(torch.equal(x, lse[0]) for x in lse)
+    return ctx[:, :T].to(dtype), lse[0][:, :T]
+
+
+K1_SLAB_CASES = [   # H, T, M, mem_valid, window, clamp, dtype
+    (256, 77, 0, 0, 0, 1024, torch.float32),
+    (256, 200, 100, 37, 150, 17, torch.float32),
+    (384, 130, 64, 17, 40, 1024, torch.float32),
+    (128, 140, 30, 30, 0, 17, torch.float32),       # f32 at 128: two slabs of 64
+    (32, 100, 0, 0, 0, 1024, torch.float32),         # f32 below 64: one slab of H
+    (256, 150, 64, 17, 40, 1024, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize('H,T,M,mv,window,clamp,dtype', K1_SLAB_CASES)
+def test_k1_slab_schedule_matches_plain(H, T, M, mv, window, clamp, dtype):
+    """The slab schedule against the plain forward: f32 ctx to 1e-5 of its
+    largest entry and lse to 1e-5; bf16 ctx at the card's limit 2e-2 and lse
+    1e-3 (p rounded per tile against the running max)."""
+    rw, rr, k, v, g = _k1_inputs(H, T, M, clamp, seed=H + T + M, dtype=dtype, N=2, B=1)
+    kw = dict(M=M, scale=H ** -0.5, window=window)
+    ctx, lse = k1_slab_tiles(rw, rr, k, v, g, mv, **kw)
+    ref, ref_lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, **kw)
+    assert ctx.shape == ref.shape and ctx.dtype == ref.dtype
+    err = (ctx.float() - ref.float()).abs().max()
+    if dtype == torch.float32:
+        assert float(err / ref.abs().max()) <= 1e-5
+        assert float((lse - ref_lse).abs().max()) <= 1e-5
+    else:
+        assert float(err) <= 2e-2 and float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+def k3_slab_tiles(q, k, v, qpos, kpos, *, chunk, scale, self_bias):
+    """The schedule of `k3_slab` in torch -> (ctx, lse, own): one block per
+    (64 query rows, output slab z) walks the 64-key tiles of the union of its
+    rows' windows (`k3_union_tc`'s walk); per tile Q . K^T is summed over the
+    ns 64-wide slabs of the head dim, then each row's own key (with a self
+    bias) is rescored as one sequential f32 chain over all D, never a sum of
+    per-slab partials; P . V[:, slab z] goes to the block's columns.  `own`
+    lists the rescored (g, row) of the z = 0 blocks."""
+    G, T, D = q.shape
+    C, dtype = chunk, q.dtype
+    W, ns = slab_split(D)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ctx, lse, own = torch.zeros(G, T, D), [torch.zeros(G, T) for _ in range(ns)], []
+    for z in range(ns):
+        zc = slice(W * z, W * z + W)
+        for q0 in range(0, T, BQ):
+            qt, qp = _rows(qf, q0, BQ), _rows(qpos, q0, BQ, fill=INT32_MIN)
+            r = torch.arange(q0, q0 + BQ)
+            lo = (torch.div(r, C, rounding_mode='floor') - 1) * C
+            m, l, o = torch.full((G, BQ), K_NONE), torch.zeros(G, BQ), torch.zeros(G, BQ, W)
+            for k0 in k3_union_key_tiles(q0, T, C):
+                kt = _rows(kf, k0, BK)
+                kp = _rows(kpos, k0, BK, fill=INT32_MAX)[:, None, :]
+                wk = torch.arange(k0, k0 + BK)
+                s = torch.zeros(G, BQ, BK)
+                for hs in range(ns):
+                    c = slice(W * hs, W * hs + W)
+                    s += qt[..., c] @ kt[..., c].transpose(1, 2)
+                x = s * scale
+                mine = kp == qp[..., None]
+                if self_bias:
+                    x = torch.where(mine, x + self_bias, x)
+                x = torch.where(kp > qp[..., None], torch.full_like(x, NEG_INF_K3), x)
+                inside = (wk[None, :] >= lo[:, None]) & (wk[None, :] < lo[:, None] + 2 * C)
+                x = torch.where(inside, x, torch.full_like(x, -math.inf))
+                if self_bias:
+                    gi, ri, ki = torch.nonzero(mine & inside).unbind(1)
+                    x[gi, ri, ki] = ((k3_chain(qt[gi, ri], kt[gi, ki]) * scale).float()
+                                     + self_bias).float()
+                    if z == 0:
+                        own += [(int(a), q0 + int(b)) for a, b in zip(gi, ri)]
+                mx = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp2((m - mx) * LOG2E)
+                p = torch.exp2((x - mx[..., None]) * LOG2E)
+                l = l * alpha + p.sum(-1)
+                o = o * alpha[..., None] + p.to(dtype).float() @ _rows(vf, k0, BK)[..., zc]
+                m = mx
+            lc = l.clamp(min=1e-30)
+            n = min(BQ, T - q0)
+            ctx[:, q0:q0 + n, zc] = (o * (1 / lc)[..., None])[:, :n]
+            lse[z][:, q0:q0 + n] = (m + torch.log(lc))[:, :n]
+    assert all(torch.equal(x, lse[0]) for x in lse)
+    return ctx.to(dtype), lse[0], own
+
+
+K3_SLAB_CASES = [   # G, T, D, chunk, perm, pads, scale, self_bias, dtype
+    (2, 256, 256, 64, True, 9, 1.0, -1e5, torch.float32),
+    (1, 288, 256, 48, False, 17, 0.0625, 0.0, torch.float32),   # tiles across chunk edges
+    (1, 256, 384, 128, True, 0, 1.0, -1e5, torch.float32),
+    (2, 192, 256, 32, True, 9, 1.0, -1e5, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize('G,T,D,chunk,perm,pads,scale,self_bias,dtype', K3_SLAB_CASES)
+def test_k3_slab_walk_matches_plain(G, T, D, chunk, perm, pads, scale, self_bias, dtype):
+    """The slab walk against the plain forward at the limits of the union
+    walk's test: f32 ctx 1e-5 of its max and lse 1e-5 of each value, 16 bits
+    at the card's."""
+    q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, perm, pads, G + T + D + chunk, dtype)
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    ctx, lse, _ = k3_slab_tiles(q, k, v, qpos, kpos, **kw)
+    ref, ref_lse = chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    err = (ctx.float() - ref.float()).abs().max()
+    if dtype == torch.float32:
+        assert float(err / ref.abs().max()) <= 1e-5 and _lse_close(lse, ref_lse)
+    else:
+        assert float(err) <= K3_CTX_TOL[dtype] and _lse16_close(lse, ref_lse)
+
+
+def test_k3_slab_rescores_own_keys_over_the_whole_head_dim():
+    """LSH at D 256 (four slabs): every row's own key is rescored, and a row
+    that sees only its own key keeps lse = fl(fl(chain(q, k) * scale) +
+    self_bias) exactly, the chain running over all 256 columns in order."""
+    G, T, D, chunk = 2, 384, 256, 64
+    q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, True, 0, 23, torch.float32)
+    _, lse, own = k3_slab_tiles(q, k, v, qpos, kpos, chunk=chunk, scale=1.0, self_bias=-1e5)
+    assert sorted(own) == [(g, r) for g in range(G) for r in range(T)]
+    qp = qpos.reshape(G, T // chunk, chunk)
+    kwin = torch.cat([torch.full_like(qp[:, :1], INT32_MAX), qp[:, :-1]], 1)
+    window = torch.cat([kwin, qp], -1)
+    only_self = ((window[..., None, :] <= qp[..., :, None]).sum(-1) == 1).reshape(G, T)
+    g_i, r_i = torch.nonzero(only_self).unbind(1)
+    assert len(g_i) > 0
+    want = (k3_chain(q[g_i, r_i], k[g_i, r_i]) + -1e5).float()
+    assert torch.equal(lse[g_i, r_i], want)

@@ -28,6 +28,16 @@ GW = 128            # distance-table rows staged per tile pair
 NG = 4              # 16-row groups per tile: group p owns q rows (or keys) 16p..16p+15
 
 
+# torch on one thread: the suite's xdist workers share the cores, and
+# torch's intra-op threads on these many tiny ops slow each file many-fold
+@pytest.fixture(autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _split(H):
     """(warps per group, keys of a warp's S / dP, accumulator columns of a
     warp) of the kernels at head dim H."""
@@ -288,3 +298,142 @@ def test_g_ring_holds_each_window(kernel, steps):
         new = slab(nxt, it + 1)
         assert new not in (slab(0, it), slab(1, it))
         ring[new] = (u_lo + 64) + 64 * nxt if up else u_lo - 64
+
+
+# ----------------------------- head dims above 128 and every f32 call: the slab kernels
+SLAB = 64           # slab width of k2_dkdv_slab / k2_dq_slab above head dim 64
+XW = BK + 16        # BD window columns of a warp (one warp per 16-row group)
+
+
+def slab_order(z, ns):
+    """The slabs a block of output slab z stages per tile pair: z last, so
+    that its tiles stay in shared memory for the output products."""
+    return [(z + 1 + i) % ns for i in range(ns)]
+
+
+def _slab_tile(qw, qr, do, kt, vt, gwin, lse, dl, vis, scale, dtype, W, order):
+    """p and ds [BN, 64, 64] of one tile pair from S, dP and each warp's X =
+    Qr . Gwin[48 - 16g, + 80)^T summed over the slabs in `order`."""
+    BN = qw.shape[0]
+    s, dp = torch.zeros(BN, BQ, BK), torch.zeros(BN, BQ, BK)
+    xs = torch.zeros(BN, NG, 16, XW)
+    for hs in order:
+        c = slice(W * hs, W * hs + W)
+        s += qw[..., c] @ kt[..., c].transpose(1, 2)
+        dp += do[..., c] @ vt[..., c].transpose(1, 2)
+        for g in range(NG):
+            xs[:, g] += qr[:, 16 * g:16 * g + 16, c] @ gwin[:, 48 - 16 * g:128 - 16 * g, c].transpose(1, 2)
+    qr_, kl = torch.arange(16)[:, None], torch.arange(BK)[None, :]
+    bd = torch.cat([xs[:, g][:, qr_, 15 - qr_ + kl] for g in range(NG)], 1)
+    p = torch.where(vis, torch.exp((s + bd) * scale - lse[..., None]), torch.zeros(()))
+    ds = p * (dp - dl[..., None]) * scale
+    return p.to(dtype).float(), ds.to(dtype).float()
+
+
+def k2_slab_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, window):
+    """The schedule of `k2_dkdv_slab` / `k2_dq_slab` in torch -> (drw, drr,
+    dk, dv, dG).  A block owns one output slab z of W columns; per tile pair
+    it sums S, dP and BD over the ns slabs (z last), then adds dv += P^T
+    dO[:, z], dk += dS^T Qw[:, z] (dkdv), drw += dS K[:, z], drr += dSskew
+    Gwin[:, z] over each group's band, and each 16-row block of the dG
+    window, dSskew^T Qr[:, z] over the q blocks of its diagonal band, into
+    dG's rows u_lo + r (dq)."""
+    BN, T, H = rw.shape
+    S, N = k.shape[1], g.shape[0]
+    W = min(H, SLAB)
+    ns, dtype = H // W, rw.dtype
+    K8 = 8 if dtype == torch.float32 else 16          # the product's k-block depth
+    Tp, Sp = -(-T // BQ) * BQ, -(-S // BK) * BK
+    f = lambda x, n: _pad(x.float(), n)
+    qw, qr, do = f(rw, Tp), f(rr, Tp), f(d_out, Tp)
+    kk, vv = f(k, Sp), f(v, Sp)
+    gb = g.float()[torch.arange(BN) % N]
+    lse_p, dl_p = torch.zeros(BN, Tp), torch.zeros(BN, Tp)
+    lse_p[:, :T] = lse
+    dl_p[:, :T] = (d_out.float() * out.float()).sum(-1)
+    vis = torch.zeros(Tp, Sp, dtype=torch.bool)
+    vis[:T, :S] = _key_mask(T, S, M, mem_valid, window, 'cpu')
+
+    def pair(q0, k0, z):
+        gwin = _rows(gb, T - q0 - BQ + k0, GW)
+        qs, ks = slice(q0, q0 + BQ), slice(k0, k0 + BK)
+        p, ds = _slab_tile(qw[:, qs], qr[:, qs], do[:, qs], kk[:, ks], vv[:, ks], gwin,
+                           lse_p[:, qs], dl_p[:, qs], vis[qs, ks], scale, dtype, W,
+                           slab_order(z, ns))
+        return gwin, qs, ks, p, ds
+
+    dk, dv = torch.zeros(BN, Sp, H), torch.zeros(BN, Sp, H)
+    drw, drr = torch.zeros(BN, Tp, H), torch.zeros(BN, Tp, H)
+    dg = torch.zeros(BN, T + S, H)
+    qi, ki = torch.arange(BQ)[:, None], torch.arange(BK)[None, :]
+    for z in range(ns):
+        zc = slice(W * z, W * z + W)
+        for k0 in range(0, S, BK):                  # dkdv
+            k_last = min(k0 + BK, S) - 1
+            q_lo, q_hi = max(0, k0 - M), T
+            if window > 0:
+                q_hi = min(q_hi, window + k_last - M)
+            if not (k_last >= M - mem_valid and q_lo < q_hi):
+                continue
+            for q0 in range(q_lo // BQ * BQ, q_hi, BQ):
+                _, qs, ks, p, ds = pair(q0, k0, z)
+                dv[:, ks, zc] += p.transpose(1, 2) @ do[:, qs, zc]
+                dk[:, ks, zc] += ds.transpose(1, 2) @ qw[:, qs, zc]
+        for q0 in range(0, T, BQ):                  # dq
+            q_last = min(q0 + BQ, T) - 1
+            k_hi, k_lo = min(S, M + q_last + 1), max(0, M - mem_valid)
+            if window > 0:
+                k_lo = max(k_lo, M + q0 - window + 1)
+            for kt in range(k_lo // BK, -(-k_hi // BK)):
+                k0, u_lo = kt * BK, T - q0 - BQ + kt * BK
+                gwin, qs, ks, _, ds = pair(q0, k0, z)
+                dsk = torch.zeros(BN, BQ, GW)
+                dsk[:, qi, 63 - qi + ki] = ds
+                drw[:, qs, zc] += ds @ kk[:, ks, zc]
+                for gr in range(NG):
+                    band = slice(48 - 16 * gr, 128 - 16 * gr)
+                    rows = slice(16 * gr, 16 * gr + 16)
+                    assert not dsk[:, rows][:, :, _outside(band)].any()
+                    drr[:, q0 + 16 * gr:q0 + 16 * gr + 16, zc] += dsk[:, rows, band] @ gwin[:, band, zc]
+                for r0 in range(0, GW, 16):         # the window's 16-row blocks
+                    blk = torch.zeros(BN, 16, W)
+                    for kq in range(BQ // K8):      # the q blocks of the diagonal band
+                        if K8 * kq > 126 - r0 or K8 * kq + K8 - 1 < 48 - r0:
+                            assert not dsk[:, K8 * kq:K8 * kq + K8, r0:r0 + 16].any()
+                            continue
+                        qb = slice(K8 * kq, K8 * kq + K8)
+                        blk += dsk[:, qb, r0:r0 + 16].transpose(1, 2) @ qr[:, q0 + K8 * kq:q0 + K8 * kq + K8, zc]
+                    u = torch.arange(u_lo + r0, u_lo + r0 + 16)
+                    ok = (u >= 0) & (u < T + S)
+                    dg[:, u[ok], zc] += blk[:, ok]
+    dg = dg.reshape(BN // N, N, T + S, H).sum(0)
+    return drw[:, :T].to(dtype), drr[:, :T].to(dtype), dk[:, :S], dv[:, :S], dg
+
+
+@pytest.mark.parametrize('H,T,M,mv,window,clamp,dtype', [
+    (256, 77, 0, 0, 0, 1024, torch.float32), (256, 200, 100, 37, 150, 17, torch.float32),
+    (384, 130, 64, 17, 40, 1024, torch.float32), (128, 140, 30, 30, 0, 17, torch.float32),
+    (32, 100, 64, 17, 40, 1024, torch.float32), (256, 150, 64, 17, 40, 1024, torch.bfloat16),
+])
+def test_slab_schedule_matches_plain_backward(H, T, M, mv, window, clamp, dtype):
+    """The slab kernels' schedule (every f32 head dim, and 16 bits above 128):
+    every output against the plain backward at `TOL_TILES`."""
+    ins = [x.to(dtype) for x in _inputs(H, T, M, clamp, seed=3 * H + T + M, B=1, N=2)]
+    rw, rr, k, v, g, d_out = ins
+    scale = H ** -0.5
+    out, lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, M=M, scale=scale, window=window)
+    args = (rw, rr, k, v, g, out, d_out, lse, mv)
+    got = k2_slab_tiles(*args, M=M, scale=scale, window=window)
+    want = flash_rel_attn_bwd_plain(*args, M=M, scale=scale, window=window)
+    for name, a, b in zip(('drw', 'drr', 'dk', 'dv', 'dG'), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert err <= TOL_TILES[dtype], (name, err)
+
+
+@pytest.mark.parametrize('ns', [1, 2, 4, 6])
+def test_slab_order_ends_at_the_output_slab(ns):
+    """Each output slab's block stages every slab once, its own last."""
+    for z in range(ns):
+        order = slab_order(z, ns)
+        assert sorted(order) == list(range(ns)) and order[-1] == z

@@ -42,6 +42,16 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 PALLAS_TOL = dict(rtol=2e-3, atol=2e-3)
 
 
+# torch on one thread: the suite's xdist workers share the cores, and
+# torch's intra-op threads on these many tiny ops slow each file many-fold
+@pytest.fixture(autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _split(D):
     """(warps per group, keys of a warp's S / dP, accumulator columns of a warp)."""
     sp = 2 if D > 64 else 1
@@ -228,3 +238,117 @@ def test_tile_walk_matches_the_pallas_vjp():
                    torch.from_numpy(w_lse), **kw)
     for name, a, b in zip('qkv', got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **PALLAS_TOL, err_msg=name)
+
+
+# --------------------------------------------- head dims above 128: the slab split
+SLAB = 64           # slab width of k4_dq_slab / k4_dkdv_slab
+
+
+def _chain(qr, kr):
+    """q . k of rows qr, kr [n, D] as the sequential f32 FMA chain over all D."""
+    acc = torch.zeros(qr.shape[0], dtype=torch.float32)
+    for d in range(qr.shape[1]):
+        acc = (acc.double() + qr[:, d].double() * kr[:, d].double()).float()
+    return acc
+
+
+def _slab_tile(qt, ot, kt, vt, r, w, qp, kp, lse, de, dl, C, scale, self_bias, dtype, live,
+               order):
+    """p and ds of one tile pair: S and dP summed over the 64-wide slabs in
+    `order`; with a self bias each own key's score is the sequential chain
+    over the whole head dim, so p = exp(lse - lse) = 1 where a row sees only
+    its own key, as K3's rescore left lse."""
+    s = torch.zeros(qt.shape[0], B, B)
+    dp = torch.zeros_like(s)
+    for hs in order:
+        c = slice(SLAB * hs, SLAB * hs + SLAB)
+        s += qt[..., c] @ kt[..., c].transpose(1, 2)
+        dp += ot[..., c] @ vt[..., c].transpose(1, 2)
+    lo = (torch.div(r, C, rounding_mode='floor') - 1) * C
+    in_window = (w[None, :] >= lo[:, None]) & (w[None, :] < lo[:, None] + 2 * C) & live
+    x = s * scale
+    qpe, kpe = qp[:, :, None], kp[:, None, :]
+    own = (kpe == qpe) & in_window
+    x = torch.where(kpe <= qpe, torch.where(kpe == qpe, x + self_bias, x),
+                    torch.full_like(x, NEG_INF))
+    if self_bias:
+        gi, ri, ki = torch.nonzero(own).unbind(1)
+        x[gi, ri, ki] = ((_chain(qt[gi, ri], kt[gi, ki]) * scale).float() + self_bias).float()
+    p = torch.where(in_window, torch.exp(x - lse[..., None]), torch.zeros(()))
+    ds = p * (dp - de[..., None] + dl[..., None]) * scale
+    return p.to(dtype).float(), ds.to(dtype).float()
+
+
+def k4_slab_tiles(q, k, v, qpos, kpos, out, d_out, lse, d_lse, *, chunk, scale, self_bias=0.0):
+    """The slab split's schedule in torch -> (dq, dk, dv): a block per (tile,
+    output slab z) sums S and dP over the ns slabs, z last, and adds dq +=
+    dS K[:, z] (k4_dq_slab) or dv += P^T dO[:, z], dk += dS^T Q[:, z]
+    (k4_dkdv_slab) into its 64 columns."""
+    G, T, D = q.shape
+    C, dtype, ns = chunk, q.dtype, D // SLAB
+    qf, kf, vf, of = (x.float() for x in (q, k, v, d_out))
+    delta = (of * out.float()).sum(-1)
+    qpos, kpos = qpos.long(), kpos.long()
+    dq, dk, dv = torch.zeros(G, T, D), torch.zeros(G, T, D), torch.zeros(G, T, D)
+    for z in range(ns):
+        zc, order = slice(SLAB * z, SLAB * z + SLAB), [(z + 1 + i) % ns for i in range(ns)]
+        for q0 in range(0, T, B):
+            qt, ot, qp = _rows(qf, q0), _rows(of, q0), _rows(qpos, q0, INT_MIN)
+            l, de, dl = _rows(lse, q0), _rows(delta, q0), _rows(d_lse.float(), q0)
+            q_last = min(q0 + B, T) - 1
+            acc = torch.zeros(G, B, SLAB)
+            for k0 in range((q0 // C - 1) * C, (q_last // C + 1) * C, B):
+                kt, vt, kp = _rows(kf, k0), _rows(vf, k0), _rows(kpos, k0, INT_MAX)
+                _, ds = _slab_tile(qt, ot, kt, vt, torch.arange(q0, q0 + B),
+                                   torch.arange(k0, k0 + B), qp, kp, l, de, dl, C, scale,
+                                   self_bias, dtype, torch.ones(B, B, dtype=torch.bool), order)
+                acc += ds @ kt[..., zc]
+            n = min(B, T - q0)
+            dq[:, q0:q0 + n, zc] = acc[:, :n]
+        for k0 in range(0, T, B):
+            kt, vt, kp = _rows(kf, k0), _rows(vf, k0), _rows(kpos, k0, INT_MAX)
+            k_last = min(k0 + B, T) - 1
+            acc_k, acc_v = torch.zeros(G, B, SLAB), torch.zeros(G, B, SLAB)
+            w = torch.arange(k0, k0 + B)
+            for q0 in range((k0 // C) * C, min((k_last // C + 2) * C, T), B):
+                qt, ot, qp = _rows(qf, q0), _rows(of, q0), _rows(qpos, q0, INT_MIN)
+                l, de, dl = _rows(lse, q0), _rows(delta, q0), _rows(d_lse.float(), q0)
+                r = torch.arange(q0, q0 + B)
+                live = (r[:, None] < T) & (w[None, :] < T)
+                p, ds = _slab_tile(qt, ot, kt, vt, r, w, qp, kp, l, de, dl, C, scale,
+                                   self_bias, dtype, live, order)
+                acc_v += p.transpose(1, 2) @ ot[..., zc]
+                acc_k += ds.transpose(1, 2) @ qt[..., zc]
+            n = min(B, T - k0)
+            dk[:, k0:k0 + n, zc], dv[:, k0:k0 + n, zc] = acc_k[:, :n], acc_v[:, :n]
+    return dq.to(dtype), dk, dv
+
+
+SLAB_CASES = [   # G, T, D, chunk, perm, pads, scale, self_bias, dtype
+    (1, 256, 256, 64, True, 9, 1.0, -1e5, torch.float32),
+    (1, 288, 256, 48, False, 17, 0.0625, 0.0, torch.float32),    # tiles across chunk edges
+    (1, 256, 384, 128, True, 0, 1.0, -1e5, torch.float32),
+    (1, 192, 256, 32, True, 9, 1.0, -1e5, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize('G,T,D,chunk,perm,pads,scale,self_bias,dtype', SLAB_CASES)
+def test_slab_split_matches_plain_backward(G, T, D, chunk, perm, pads, scale, self_bias, dtype):
+    """dq, dk, dv of the emulated slab split against the plain backward on
+    the same inputs and cotangents, each within `TOL`; the forward's lse
+    is K3's slab walk's (own keys rescored by the chain)."""
+    q, k, v, qpos, kpos = _inputs(G, T, D, G + T + D + chunk, perm, pads)
+    if perm:        # shared-QK as the LSH layers: rows that see only their own key
+        k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) / D ** 0.5
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    out, lse = chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    d_out = torch.from_numpy(randn(7, G, T, D)).to(dtype)
+    d_lse = torch.from_numpy(randn(8, G, T))
+    args = (q, k, v, qpos, kpos, out, d_out, lse, d_lse)
+    got = k4_slab_tiles(*args, **kw)
+    want = chunked_window_attn_bwd_plain(*args, **kw)
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert err <= TOL[dtype], (name, err)

@@ -31,6 +31,16 @@ LOG2E = torch.tensor(math.log2(math.e), dtype=torch.float32)
 MASKED = 10 ** 6                   # a key position past every query
 
 
+# torch on one thread: the suite's xdist workers share the cores, and
+# torch's intra-op threads on these many tiny ops slow each file many-fold
+@pytest.fixture(autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def lane_columns() -> torch.Tensor:
     """[4, 32]: the column of lane t's e-th value (float4 j = e // 4 at
     index 4j + t of the row)."""
