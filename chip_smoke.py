@@ -18,14 +18,14 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      up to head dim 128: k1_tc, k2_dkdv_tc / k2_dq_tc, k3_tc / k3_union_tc,
      k4_tc / k4_dq_tc / k4_dkdv_tc; and the slab kernels, every f32 call of
      K1 / K2 and every call above 128: k1_slab, k2_dkdv_slab / k2_dq_slab,
-     k3_slab, k4_dq_slab / k4_dkdv_slab, f32 in 3xTF32) must have some in
-     their bf16 and their f16 instantiation (the slab kernels also in f32),
-     the FMA ones (f32 K3 / K4 up to 128: the per-chunk kernels, k3_tiled,
-     K4's tiled split) none and no 16-bit instantiation; each tensor-core
-     K1-K4 kernel's registers, local (spill) bytes, shared memory and
-     blocks per SM at every head dim (K3 / K4 at chunks 16-128, D 16-128,
-     and D 256) in f32 (the slab kernels), bf16 and f16, read from the
-     loaded library (no spill allowed);
+     k3_slab, k4_dq_slab / k4_dkdv_slab, f32 in 3xTF32; K4's slab kernels
+     run every f32 call of K4 too) must have some in their bf16 and their
+     f16 instantiation (the slab kernels also in f32), the FMA ones (f32 K3
+     up to 128: the per-chunk kernel, k3_tiled) none and no 16-bit
+     instantiation; each tensor-core K1-K4 kernel's registers, local (spill)
+     bytes, shared memory and blocks per SM at every head dim (K3 / K4 at
+     chunks 16-128, D 16-128, and D 256) in f32 (the slab kernels), bf16
+     and f16, read from the loaded library (no spill allowed);
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
      a memory + window case, a head-dim-16 ragged case, the 22-12 shape
@@ -69,9 +69,10 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s; and
      the shapes C.1 added: chunk 128 at phase 11's local shape in f32
      (k3_tiled) and bf16 (k3_union_tc), chunk 128 / D 128 in bf16, the LSH
-     shape in f16 (k3_tc), chunk 16 padded in f32 and in f16; C.2's head dim
-     256 on the slab walks: the LSH shape at G 48 with pads in bf16, f16 and
-     f32, and a local bf16 case);
+     shape in f16 (k3_tc), chunk 16 padded in f32 and in f16, and chunk 128
+     / D 128 in f32 for K4 (every f32 K4 call on its slab kernels); C.2's
+     head dim 256 on the slab walks: the LSH shape at G 48 with pads in
+     bf16, f16 and f32, and a local bf16 case);
      `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
      K4 launches per step), `load_trained` + `score_batch` on the
      run, step time, memory and a profile, a 15-step overfit; one f32 step
@@ -170,8 +171,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      `TOL_16_LOGITS`, which a control with the attention dropped must
      exceed 4 times), an f32
      head-dim-128 step card vs CPU (K1 / K2); a Reformer with local_chunk
-     128, depth 2: an f32 step card vs CPU (K3 / K4: the tiled kernels in
-     the local layer) and `score_batch` 2 x 2048 (2 K3); C.2, depth 2: TF-XLs
+     128, depth 2: an f32 step card vs CPU (K3: the tiled kernel in the
+     local layer; K4: its slab kernels) and `score_batch` 2 x 2048 (2 K3);
+     C.2, depth 2: TF-XLs
      at head dim 256 (d_model 1024, 4 heads) in f32 and bf16 and at 192
      (d_model 768, 4 heads, zero-padded to 256) in f32 and f16 score 2 x
      1024 on K1's slab kernel against the CPU as above, an f32 step of each
@@ -186,7 +188,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      chunk-128 Reformer (depth 2, 2 x 2048) traced the same way, naming
      k1_tc and k2_dkdv_tc / k2_dq_tc once per layer, k3_union_tc /
      k4_dq_tc / k4_dkdv_tc at the local layer and k3_tc / k4_tc at the LSH
-     layer, and none of K3 / K4's FMA kernels or of the slab kernels;
+     layer, and none of K3's FMA kernels or of the slab kernels;
      on phase 8's run: `summarize_run` of its 22-04 train log, `MusicVisualize` reports and `MusicStats` of its
      generated songs, `ground_truth_ikr` of its dataset on the card and the
      CPU, melody grids of 8 rendered .mxl songs and `PitchEmbedding` trained
@@ -300,12 +302,12 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # the FMA does)
 
 # the tensor-core kernels of K1-K4 and their FMA kernels, by name in each
-# library's SASS: K1 / K2 run every call on the tensor cores (bf16 and f16 up
-# to head dim 128 on k1_tc / k2_*_tc, f32 at every head dim and 16 bits
-# above 128 on the slab kernels, f32 in 3xTF32); K3 / K4 run every bf16 and
-# f16 call up to D 128 on the tensor cores (chunks 32 / 64 and D <= 64 on
-# k3_tc / k4_tc, elsewhere on their tiled walks k3_union_tc / k4_dq_tc +
-# k4_dkdv_tc), every call above D 128 on the slab kernels, and f32 up to D
+# library's SASS: K1 / K2 / K4 run every call on the tensor cores (bf16 and
+# f16 up to head dim 128 on k1_tc / k2_*_tc / k4_tc, k4_dq_tc + k4_dkdv_tc,
+# f32 at every head dim and 16 bits above 128 on the slab kernels, f32 in
+# 3xTF32); K3 runs every bf16 and f16 call up to D 128 on the tensor cores
+# (chunks 32 / 64 and D <= 64 on k3_tc, elsewhere on its tiled walk
+# k3_union_tc), every call above D 128 on the slab kernel, and f32 up to D
 # 128 on the FMA kernels, which are built for f32 alone
 SLAB_KERNELS = {'flash_rel_attn_fwd': ('k1_slab',),
                 'flash_rel_attn_bwd': ('k2_dkdv_slab', 'k2_dq_slab'),
@@ -319,8 +321,7 @@ TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',) + SLAB_KERNELS['flash_rel_attn_fw
               + SLAB_KERNELS['chunked_window_attn_bwd']}
 FMA_KERNELS = {'flash_rel_attn_fwd': (), 'flash_rel_attn_bwd': (),
                'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel', 'k3_tiled'),
-               'chunked_window_attn_bwd': ('chunked_window_attn_bwd_kernel', 'k4_dq_tiled',
-                                           'k4_dkdv_tiled')}
+               'chunked_window_attn_bwd': ()}
 # the libraries whose tensor-core kernels take both 16-bit types (all four),
 # and each dtype's fragment of a mangled template name
 BOTH_16_BIT = ('flash_rel_attn_fwd', 'flash_rel_attn_bwd', 'chunked_window_attn_fwd',
@@ -414,9 +415,9 @@ def tensor_core_check(report):
     tensor-core kernel must have some in every instantiation (an FMA-only
     build is not the tensor-core design; the f32 slab kernels' 3xTF32 is
     HMMA too) and be instantiated for bf16 and for f16; the slab kernels
-    also for f32; the FMA kernels none (K3 / K4's f32 parity up to D 128
-    rests on f32 FMAs), and they are built for f32 alone (no 16-bit call
-    reaches them)."""
+    also for f32 (K4's slab kernels run every f32 K4 call); the FMA kernels
+    none (K3's f32 parity up to D 128 rests on f32 FMAs), and they are built
+    for f32 alone (no 16-bit call reaches them)."""
     for lib, tc_names in TC_KERNELS.items():
         SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
         for name in tc_names + FMA_KERNELS[lib]:
@@ -494,14 +495,14 @@ def kernel_resources(report, built):
                  ('k2_dkdv_slab', 'k2_dq_slab') if slab else ('k2_dkdv_tc', 'k2_dq_tc'),
                  dtype=dt, H=H)
         for chunk, D in CHUNK_RESOURCE_SHAPES:
-            if code == 0 and D <= 128:           # f32 up to D 128: the FMA kernels
-                continue
             per_chunk = chunk in (32, 64) and D <= 64
-            read(k3.chunked_window_attn_fwd_resources(chunk, D, code, out),
-                 ('k3_slab',) if D > 128 else ('k3_tc',) if per_chunk else ('k3_union_tc',),
-                 dtype=dt, chunk=chunk, D=D)
+            slab = code == 0 or D > 128          # K4: every f32 call on the slab kernels
+            if code != 0 or D > 128:             # K3 f32 up to D 128: the FMA kernels
+                read(k3.chunked_window_attn_fwd_resources(chunk, D, code, out),
+                     ('k3_slab',) if D > 128 else ('k3_tc',) if per_chunk
+                     else ('k3_union_tc',), dtype=dt, chunk=chunk, D=D)
             read(k4.chunked_window_attn_bwd_resources(chunk, D, code, out),
-                 ('k4_dq_slab', 'k4_dkdv_slab') if D > 128 else ('k4_tc',) if per_chunk
+                 ('k4_dq_slab', 'k4_dkdv_slab') if slab else ('k4_tc',) if per_chunk
                  else ('k4_dq_tc', 'k4_dkdv_tc'), dtype=dt, chunk=chunk, D=D)
     for r in rows:
         log(f'[resources] {json.dumps(r)}')
@@ -532,11 +533,13 @@ def mma_instructions(lib, dtype, D):
 def route_kernels(lib, dtype, D):
     """(kernel names, a mangled template-argument fragment) of the kernels a
     call of `lib` at this dtype and head dim runs: the slab kernels above D
-    128 and for every f32 call of K1 / K2 (slab width min(D, 64)); the FMA
-    kernels for f32 K3 / K4 up to D 128; else the 16-bit tensor-core ones."""
+    128 and for every f32 call of K1 / K2 / K4 (slab width min(D, 64); K2's
+    f32 slabs min(D, 32)); the FMA kernels for f32 K3 up to D 128; else the
+    16-bit tensor-core ones."""
     flash = lib.startswith('flash')
-    if D > 128 or (flash and dtype == torch.float32):
-        return SLAB_KERNELS[lib], f'Li{min(D, 64)}E' if flash else ''
+    if D > 128 or (dtype == torch.float32 and lib != 'chunked_window_attn_fwd'):
+        width = min(D, 32 if lib == 'flash_rel_attn_bwd' and dtype == torch.float32 else 64)
+        return SLAB_KERNELS[lib], f'Li{width}E' if flash else ''
     if dtype == torch.float32:
         return FMA_KERNELS[lib], f'Li{D}E'
     return tuple(n for n in TC_KERNELS[lib] if n not in SLAB_KERNELS[lib]), f'Li{D}E'
@@ -2936,7 +2939,8 @@ def c1_checks(dev, report):
     card_vs_cpu_grads(dev, report, key='c1_tfxl_d128_grads', share_branches=True, **D128)
 
     # the Reformer: a step card vs CPU (loss, every gradient: the local
-    # layer's K3 / K4 tiled kernels at chunk 128, the LSH layer's at 64),
+    # layer's K3 tiled kernel at chunk 128, the LSH layer's at 64; every f32
+    # K4 call on its slab kernels),
     # then its scoring time
     reformer_card_vs_cpu(dev, report, key='c1_reformer_chunk128', local_chunk=128)
     cfg = reformer_config(dtype='float32', attn_layers=('local', 'lsh'), local_chunk=128)
@@ -3063,7 +3067,7 @@ def c1_traces(dev, report):
     head dim 128 (k1_tc once per layer, k2_dkdv_tc / k2_dq_tc once per
     layer), K3 on its tensor-core walk at chunk 128 and k3_tc at the LSH
     layer's 64, K4 on its tensor-core tiled split (and k4_tc at 64), by name
-    in the trace, with none of K3's or K4's FMA kernels and none of the slab
+    in the trace, with none of K3's FMA kernels and none of the slab
     kernels (f32 and head dims above 128 only)."""
     rec = {}
     trace_dir = os.path.join(RUN_DIR, 'trace-c1')
@@ -3103,12 +3107,10 @@ def c1_traces(dev, report):
     counts, kernels, ms = traced_step(trace_dir, lambda: trainer.train_step(params, state, batch))
     expect(counts, chunked_window_attn_fwd=2, chunked_window_attn_bwd=2)
     rec['reformer-chunk128-bf16'] = dict(step_ms=ms, counts=counts, named=named(
-        kernels, 'k4_dq_tc', 'k4_dkdv_tc', 'k4_tc', 'k4_dq_tiled', 'k4_dkdv_tiled', 'k3_tiled',
-        'k3_union_tc', 'k3_tc', 'chunked_window_attn_fwd_kernel',
-        'chunked_window_attn_bwd_kernel', 'k3_slab', 'k4_dq_slab', 'k4_dkdv_slab'))
-    want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k4_dq_tiled=0, k4_dkdv_tiled=0, k3_tiled=0,
-                k3_union_tc=1, k3_tc=1, chunked_window_attn_fwd_kernel=0,
-                chunked_window_attn_bwd_kernel=0, k3_slab=0, k4_dq_slab=0, k4_dkdv_slab=0)
+        kernels, 'k4_dq_tc', 'k4_dkdv_tc', 'k4_tc', 'k3_tiled', 'k3_union_tc', 'k3_tc',
+        'chunked_window_attn_fwd_kernel', 'k3_slab', 'k4_dq_slab', 'k4_dkdv_slab'))
+    want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k3_tiled=0, k3_union_tc=1, k3_tc=1,
+                chunked_window_attn_fwd_kernel=0, k3_slab=0, k4_dq_slab=0, k4_dkdv_slab=0)
     log(f'[trace] C.1 Reformer local_chunk 128 bf16 train_step, depth 2, 2 x 2048: {ms:.1f} ms '
         f'while traced; kernels by name {rec["reformer-chunk128-bf16"]["named"]}')
     if rec['reformer-chunk128-bf16']['named'] != want:
@@ -3388,6 +3390,7 @@ def main() -> int:
         k4_case(dev, 'chunk128-f32', torch.float32, 24, 2048, 64, 128, False, 0, 141),
         k4_case(dev, 'chunk128-bf16', torch.bfloat16, 24, 2048, 64, 128, False, 0, 142),
         k4_case(dev, 'chunk128-d128-bf16', torch.bfloat16, 16, 2048, 128, 128, True, 40, 143),
+        k4_case(dev, 'chunk128-d128-f32', torch.float32, 16, 2048, 128, 128, True, 40, 151),
         k4_case(dev, 'lsh-f16', torch.float16, 48, 2048, 64, 64, True, 0, 144),
         k4_case(dev, 'chunk16-padded-f32', torch.float32, 8, 480, 32, 16, True, 9, 145),
         # ragged 64-row tiles over several chunks on the tensor cores

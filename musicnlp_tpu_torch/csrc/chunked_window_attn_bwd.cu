@@ -22,12 +22,11 @@
 //   (queries j,   keys j)   -> dq_j, dk_j, dv_j
 //   (queries j+1, keys j)   -> dk_j, dv_j  (none for the last chunk)
 //
-// f32 (chunked_window_attn_bwd_kernel): one 256-thread block per (g, chunk
-// j) walks those three tiles; it stages Q, dO, K and V as f32 rows padded to
-// D+1 floats, computes s and dp with f32 FMAs, writes rounded p and ds to
-// shared memory and adds their products into register accumulators (~101 KB
-// of shared memory at C = D = 64, two blocks per SM).  Kept as it is: the
-// f32 parity of the tests rests on it.
+// Routes, chosen inside the C entry point by dtype, chunk and D: every f32
+// call and every call above D 128 -> the slab split (k4_dq_slab /
+// k4_dkdv_slab, below; f32 in 3xTF32); bf16 / f16 at chunks 32 / 64 and D
+// <= 64 -> k4_tc; the other bf16 / f16 calls -> the tiled split on the
+// tensor cores (k4_dq_tc / k4_dkdv_tc).
 //
 // bf16 and f16 at chunks 32 / 64, D <= 64 (k4_tc, templated on the element
 // type), the training path: one block of C / 16 warps per (g, run of
@@ -54,7 +53,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "elem.cuh"
 #include "mma_bf16.cuh"
 #include "kernel_resources.cuh"
 #include "row_dot.cuh"
@@ -62,185 +60,20 @@
 
 namespace {
 
-constexpr int NT = 256;          // threads: a 16 x 16 grid
 constexpr float kNegInf = -1e9f;
 
-using namespace elem;
 using kernel_resources::resources;
 
-template <int C, int D>
-constexpr size_t bwd_smem_bytes() {
-    // sQ, sDO, sK, sV [C][D+1]; sP, sDS [C][C+1]; lse, delta, dlse [C] f32;
-    // qpos, kpos [C] int
-    return (size_t)(4 * C * (D + 1) + 2 * C * (C + 1) + 3 * C) * sizeof(float)
-        + (size_t)2 * C * sizeof(int);
-}
-
-template <typename T, int C, int D>
-__global__ void __launch_bounds__(NT, 2)
-chunked_window_attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v, const T* __restrict__ dout,
-                               const int* __restrict__ qpos, const int* __restrict__ kpos,
-                               const float* __restrict__ lse, const float* __restrict__ delta,
-                               const float* __restrict__ dlse, T* __restrict__ dq,
-                               float* __restrict__ dk, float* __restrict__ dv, int T_,
-                               float scale, float self_bias) {
-    constexpr int DP = D + 1, CP = C + 1;
-    constexpr int R = C / 16;           // rows (queries or keys) per thread
-    constexpr int CD = D / 16;          // feature columns per thread
-    extern __shared__ float smem[];
-    float* sQ = smem;                   // [C][DP]
-    float* sDO = sQ + C * DP;           // [C][DP]
-    float* sK = sDO + C * DP;           // [C][DP]
-    float* sV = sK + C * DP;            // [C][DP]
-    float* sP = sV + C * DP;            // [C][CP]
-    float* sDS = sP + C * CP;           // [C][CP]
-    float* sL = sDS + C * CP;           // [C]
-    float* sDe = sL + C;                // [C]
-    float* sDl = sDe + C;               // [C]
-    int* sQp = (int*)(sDl + C);         // [C]
-    int* sKp = sQp + C;                 // [C]
-
-    const int g = blockIdx.y, j = blockIdx.x, n = gridDim.x;
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const size_t base = (size_t)g * T_;
-
-    float dq_acc[R][CD], dk_acc[R][CD], dv_acc[R][CD];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < CD; ++c) dq_acc[i][c] = dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-    int loaded_q = -1;
-    for (int t = 0; t < 3; ++t) {
-        const int qi = t == 2 ? j + 1 : j;          // query chunk of the tile
-        const int kj = t == 0 ? j - 1 : j;          // key chunk of the tile
-        if (kj < 0 || qi >= n) continue;            // the same for the whole block
-        __syncthreads();                             // the previous tile's reads are done
-        if (qi != loaded_q) {
-            const size_t r0 = base + (size_t)qi * C;
-            for (int e = tid; e < C * D; e += NT) {
-                const int r = e / D, c = e % D;
-                sQ[r * DP + c] = to_f(q[(r0 + r) * D + c]);
-                sDO[r * DP + c] = to_f(dout[(r0 + r) * D + c]);
-            }
-            for (int e = tid; e < C; e += NT) {
-                sQp[e] = qpos[r0 + e];
-                sL[e] = lse[r0 + e];
-                sDe[e] = delta[r0 + e];
-                sDl[e] = dlse[r0 + e];
-            }
-            loaded_q = qi;
-        }
-        {
-            const size_t r0 = base + (size_t)kj * C;
-            for (int e = tid; e < C * D; e += NT) {
-                const int r = e / D, c = e % D;
-                sK[r * DP + c] = to_f(k[(r0 + r) * D + c]);
-                sV[r * DP + c] = to_f(v[(r0 + r) * D + c]);
-            }
-            for (int e = tid; e < C; e += NT) sKp[e] = kpos[r0 + e];
-        }
-        __syncthreads();
-
-        // s and dp of the tile: query row ty + 16 a, key column tx + 16 b
-        float s[R][R], dp[R][R];
-#pragma unroll
-        for (int a = 0; a < R; ++a)
-#pragma unroll
-            for (int b = 0; b < R; ++b) s[a][b] = dp[a][b] = 0.f;
-#pragma unroll 4
-        for (int h = 0; h < D; ++h) {
-            float qa[R], oa[R], kb[R], vb[R];
-#pragma unroll
-            for (int a = 0; a < R; ++a) {
-                qa[a] = sQ[(ty + 16 * a) * DP + h];
-                oa[a] = sDO[(ty + 16 * a) * DP + h];
-            }
-#pragma unroll
-            for (int b = 0; b < R; ++b) {
-                kb[b] = sK[(tx + 16 * b) * DP + h];
-                vb[b] = sV[(tx + 16 * b) * DP + h];
-            }
-#pragma unroll
-            for (int a = 0; a < R; ++a)
-#pragma unroll
-                for (int b = 0; b < R; ++b) {
-                    s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-                    dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
-                }
-        }
-#pragma unroll
-        for (int a = 0; a < R; ++a) {
-            const int qr = ty + 16 * a;
-            const int qp = sQp[qr];
-#pragma unroll
-            for (int b = 0; b < R; ++b) {
-                const int kc = tx + 16 * b;
-                const int kp = sKp[kc];
-                float x = s[a][b] * scale;
-                if (kp <= qp) {
-                    if (kp == qp) x += self_bias;
-                } else {
-                    x = kNegInf;
-                }
-                const float p = expf(x - sL[qr]);
-                const float ds = p * ((dp[a][b] - sDe[qr]) + sDl[qr]) * scale;
-                sP[qr * CP + kc] = round_to<T>(p);
-                sDS[qr * CP + kc] = round_to<T>(ds);
-            }
-        }
-        __syncthreads();
-
-        if (t < 2) {      // dq rows ty + 16 a of query chunk j: sum over the tile's keys
-#pragma unroll 4
-            for (int w = 0; w < C; ++w) {
-                float kd[CD];
-#pragma unroll
-                for (int c = 0; c < CD; ++c) kd[c] = sK[w * DP + tx + 16 * c];
-#pragma unroll
-                for (int a = 0; a < R; ++a) {
-                    const float ds = sDS[(ty + 16 * a) * CP + w];
-#pragma unroll
-                    for (int c = 0; c < CD; ++c) dq_acc[a][c] = fmaf(ds, kd[c], dq_acc[a][c]);
-                }
-            }
-        }
-        if (t > 0) {      // dk / dv rows ty + 16 a of key chunk j: sum over the tile's queries
-#pragma unroll 4
-            for (int r = 0; r < C; ++r) {
-                float qd[CD], od[CD];
-#pragma unroll
-                for (int c = 0; c < CD; ++c) {
-                    qd[c] = sQ[r * DP + tx + 16 * c];
-                    od[c] = sDO[r * DP + tx + 16 * c];
-                }
-#pragma unroll
-                for (int a = 0; a < R; ++a) {
-                    const float ds = sDS[r * CP + ty + 16 * a];
-                    const float p = sP[r * CP + ty + 16 * a];
-#pragma unroll
-                    for (int c = 0; c < CD; ++c) {
-                        dk_acc[a][c] = fmaf(ds, qd[c], dk_acc[a][c]);
-                        dv_acc[a][c] = fmaf(p, od[c], dv_acc[a][c]);
-                    }
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-        const size_t row = base + (size_t)j * C + ty + 16 * a;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-            const size_t o = row * D + tx + 16 * c;
-            dq[o] = from_f<T>(dq_acc[a][c]);
-            dk[o] = dk_acc[a][c];
-            dv[o] = dv_acc[a][c];
-        }
-    }
-}
+struct Args {
+    const void *q, *k, *v, *dout;
+    const int *qpos, *kpos;
+    const float *lse, *delta, *dlse;
+    void* dq;
+    float *dk, *dv;
+    int G, T;
+    float scale, self_bias;
+    cudaStream_t st;
+};
 
 // ------------------------------------------ bf16 and f16 on the tensor cores
 namespace tc {
@@ -477,43 +310,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace tc
 
 // ------------------------------------------- any chunk and D 128: the tiled form
-// What the two kernels above do not take -- a chunk other than 32 or 64, or
-// D = 128 -- in two kernels over 64-row tiles, as K2's kernels split the
-// work (chunked_window_attn_fwd.cu's k3_tiled is the forward); f32 FMAs for
-// f32 (k4_dq_tiled, k4_dkdv_tiled), the tensor cores for bf16 and f16
-// (k4_dq_tc, k4_dkdv_tc, below):
-//   k4_dq_tiled:   one block per (g, 64 query rows): walks the 64-key tiles
-//                  of the union of its rows' windows, keeps dq in registers;
-//   k4_dkdv_tiled: one block per (g, 64 key rows): walks the 64-row query
-//                  tiles whose windows hold its keys (the queries of chunks
-//                  j and j + 1 for a key of chunk j), keeps dk / dv in
-//                  registers.
-// The FMA kernels recompute s and dp = dO . v as f32 FMA chains from shared
-// memory, p = exp(s - lse) for a key inside the query's window (0 outside
-// it), ds = p (dp - delta + dlse) scale, and round p and ds to the input
-// dtype where they enter a product.  Shared memory at D = 128: 150 KB / 167
-// KB.
+// What k4_tc does not take in bf16 and f16 -- a chunk other than 32 or 64,
+// or D = 128 -- in two kernels over 64-row tiles, as K2's kernels split the
+// work (chunked_window_attn_fwd.cu's k3_union_tc is the forward):
+//   k4_dq_tc:   one block per (g, 64 query rows): walks the 64-key tiles of
+//               the union of its rows' windows, keeps dq in registers;
+//   k4_dkdv_tc: one block per (g, 64 key rows): walks the 64-row query
+//               tiles whose windows hold its keys (the queries of chunks j
+//               and j + 1 for a key of chunk j), keeps dk / dv in registers.
+// p = exp(s - lse) for a key inside the query's window (0 outside it), ds =
+// p (dp - delta + dlse) scale, p and ds rounded to the input dtype where
+// they enter a product.  The slab split below walks the same tiles.
 namespace tiled {
 
 constexpr int B = 64;              // rows per tile
-constexpr int R = B / 16;          // rows and columns per thread
-constexpr int PS = B + 1;          // P / dS row stride
-
-template <int D>
-constexpr size_t smem_bytes(int n_pds) {
-    // sQ, sDO, sK, sV [B][D+1]; n_pds tiles [B][PS] (dS, and P for dkdv);
-    // lse, delta, dlse [B] f32; qpos, kpos [B] int
-    return ((size_t)4 * B * (D + 1) + (size_t)n_pds * B * PS + 3 * B) * sizeof(float)
-        + 2 * B * sizeof(int);
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int T_) {
-    for (int e = threadIdx.x; e < B * D; e += NT) {
-        const int r = e / D, c = e % D, row = r0 + r;
-        dst[r * (D + 1) + c] = (row >= 0 && row < T_) ? to_f(src[(size_t)row * D + c]) : 0.f;
-    }
-}
 
 // query positions and the f32 row terms of query rows [q0, q0 + B)
 __device__ __forceinline__ void stage_rows(int* sQp, float* sL, float* sD, float* sDL,
@@ -546,40 +356,6 @@ __device__ __forceinline__ bool in_window(int r, int w, int C) {
     return w >= lo && w < lo + 2 * C;
 }
 
-// s (unscaled) and dp = dO . v of thread (tx, ty): query rows ty + 16 i,
-// key rows tx + 16 j
-template <int D>
-__device__ __forceinline__ void scores(const float* sQ, const float* sDO, const float* sK,
-                                       const float* sV, int tx, int ty, float (&s)[R][R],
-                                       float (&dp)[R][R]) {
-    constexpr int DP = D + 1;
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int h = 0; h < D; ++h) {
-        float a[R], o[R], b[R], vv[R];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-            a[i] = sQ[(ty + 16 * i) * DP + h];
-            o[i] = sDO[(ty + 16 * i) * DP + h];
-        }
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-            b[j] = sK[(tx + 16 * j) * DP + h];
-            vv[j] = sV[(tx + 16 * j) * DP + h];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < R; ++j) {
-                s[i][j] = fmaf(a[i], b[j], s[i][j]);
-                dp[i][j] = fmaf(o[i], vv[j], dp[i][j]);
-            }
-    }
-}
-
 // p = exp(s - lse) of query row r and key row w (0 outside the window), the
 // masks and self_bias of the forward
 __device__ __forceinline__ float prob(float s, int r, int w, int qp, int kp, float lse_r,
@@ -592,191 +368,6 @@ __device__ __forceinline__ float prob(float s, int r, int w, int qp, int kp, flo
         x = kNegInf;
     }
     return expf(x - lse_r);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT, 1)
-k4_dq_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const int* __restrict__ qpos,
-            const int* __restrict__ kpos, const float* __restrict__ lse,
-            const float* __restrict__ delta, const float* __restrict__ dlse,
-            T* __restrict__ dq, int T_, int C, float scale, float self_bias) {
-    constexpr int DP = D + 1;
-    constexpr int CD = D / 16;          // dq columns per thread
-    extern __shared__ float smem[];
-    float* sQ = smem;
-    float* sDO = sQ + B * DP;
-    float* sK = sDO + B * DP;
-    float* sV = sK + B * DP;
-    float* sDS = sV + B * DP;           // [B][PS]
-    float* sL = sDS + B * PS;
-    float* sD = sL + B;
-    float* sDL = sD + B;
-    int* sQp = (int*)(sDL + B);
-    int* sKp = sQp + B;
-
-    const int g = blockIdx.y;
-    const int q0 = blockIdx.x * B;
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const size_t base = (size_t)g * T_;
-    const T* k_g = k + base * D;
-    const T* v_g = v + base * D;
-
-    stage<T, D>(sQ, q + base * D, q0, T_);
-    stage<T, D>(sDO, dout + base * D, q0, T_);
-    stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
-
-    float acc[R][CD];                   // query rows ty + 16 i, columns tx + 16 c
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-
-    const int q_last = min(q0 + B, T_) - 1;
-    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
-    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
-        __syncthreads();                                 // previous tile's reads done
-        stage<T, D>(sK, k_g, k0, T_);
-        stage<T, D>(sV, v_g, k0, T_);
-        stage_kpos(sKp, kpos, base, k0, T_);
-        __syncthreads();
-
-        float s[R][R], dp[R][R];
-        scores<D>(sQ, sDO, sK, sV, tx, ty, s, dp);
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-            const int qi = ty + 16 * i;
-#pragma unroll
-            for (int j = 0; j < R; ++j) {
-                const int kj = tx + 16 * j;
-                const float p = prob(s[i][j], q0 + qi, k0 + kj, sQp[qi], sKp[kj], sL[qi], C,
-                                     scale, self_bias);
-                sDS[qi * PS + kj] = round_to<T>(p * (dp[i][j] - sD[qi] + sDL[qi]) * scale);
-            }
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int kx = 0; kx < B; ++kx) {
-            float kv[CD];
-#pragma unroll
-            for (int c = 0; c < CD; ++c) kv[c] = sK[kx * DP + tx + 16 * c];
-#pragma unroll
-            for (int i = 0; i < R; ++i) {
-                const float ds = sDS[(ty + 16 * i) * PS + kx];
-#pragma unroll
-                for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        const int r = q0 + ty + 16 * i;
-        if (r >= T_) continue;
-        T* o = dq + (base + r) * D;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c]);
-    }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT, 1)
-k4_dkdv_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const T* __restrict__ dout, const int* __restrict__ qpos,
-              const int* __restrict__ kpos, const float* __restrict__ lse,
-              const float* __restrict__ delta, const float* __restrict__ dlse,
-              float* __restrict__ dk, float* __restrict__ dv, int T_, int C, float scale,
-              float self_bias) {
-    constexpr int DP = D + 1;
-    constexpr int CD = D / 16;          // dk / dv columns per thread
-    extern __shared__ float smem[];
-    float* sK = smem;
-    float* sV = sK + B * DP;
-    float* sQ = sV + B * DP;
-    float* sDO = sQ + B * DP;
-    float* sP = sDO + B * DP;           // [B][PS]
-    float* sDS = sP + B * PS;           // [B][PS]
-    float* sL = sDS + B * PS;
-    float* sD = sL + B;
-    float* sDL = sD + B;
-    int* sQp = (int*)(sDL + B);
-    int* sKp = sQp + B;
-
-    const int g = blockIdx.y;
-    const int k0 = blockIdx.x * B;
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const size_t base = (size_t)g * T_;
-    const T* q_g = q + base * D;
-    const T* do_g = dout + base * D;
-
-    stage<T, D>(sK, k + base * D, k0, T_);
-    stage<T, D>(sV, v + base * D, k0, T_);
-    stage_kpos(sKp, kpos, base, k0, T_);
-
-    float acc_k[R][CD], acc_v[R][CD];   // key rows ty + 16 i, columns tx + 16 c
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-    // the query rows whose windows hold a key of [k0, k_last]
-    const int k_last = min(k0 + B, T_) - 1;
-    const int r_lo = (k0 / C) * C, r_hi = min((k_last / C + 2) * C, T_);
-    for (int q0 = r_lo; q0 < r_hi; q0 += B) {
-        __syncthreads();                                 // previous tile's reads done
-        stage<T, D>(sQ, q_g, q0, T_);
-        stage<T, D>(sDO, do_g, q0, T_);
-        stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
-        __syncthreads();
-
-        float s[R][R], dp[R][R];
-        scores<D>(sQ, sDO, sK, sV, tx, ty, s, dp);
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-            const int qi = ty + 16 * i, r = q0 + qi;
-#pragma unroll
-            for (int j = 0; j < R; ++j) {
-                const int kj = tx + 16 * j, w = k0 + kj;
-                const float p = (r < T_ && w < T_)
-                    ? prob(s[i][j], r, w, sQp[qi], sKp[kj], sL[qi], C, scale, self_bias) : 0.f;
-                sP[qi * PS + kj] = round_to<T>(p);
-                sDS[qi * PS + kj] = round_to<T>(p * (dp[i][j] - sD[qi] + sDL[qi]) * scale);
-            }
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int qx = 0; qx < B; ++qx) {
-            float o[CD], a[CD];
-#pragma unroll
-            for (int c = 0; c < CD; ++c) {
-                o[c] = sDO[qx * DP + tx + 16 * c];
-                a[c] = sQ[qx * DP + tx + 16 * c];
-            }
-#pragma unroll
-            for (int i = 0; i < R; ++i) {
-                const float p = sP[qx * PS + ty + 16 * i];
-                const float ds = sDS[qx * PS + ty + 16 * i];
-#pragma unroll
-                for (int c = 0; c < CD; ++c) {
-                    acc_v[i][c] = fmaf(p, o[c], acc_v[i][c]);
-                    acc_k[i][c] = fmaf(ds, a[c], acc_k[i][c]);
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        const int w = k0 + ty + 16 * i;
-        if (w >= T_) continue;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-            dk[(base + w) * D + tx + 16 * c] = acc_k[i][c];
-            dv[(base + w) * D + tx + 16 * c] = acc_v[i][c];
-        }
-    }
 }
 
 // ---- the same split on the tensor cores, for bf16 and f16 (k4_dq_tc, k4_dkdv_tc)
@@ -1125,442 +716,568 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* d
     return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const int* qpos, const int* kpos, const float* lse, const float* delta,
-                   const float* dlse, void* dq, float* dk, float* dv, int G, int T_, int C,
-                   float scale, float self_bias, cudaStream_t stream) {
-    const size_t smem_q = smem_bytes<D>(1), smem_kv = smem_bytes<D>(2);
-    auto kq = k4_dq_tiled<T, D>;
-    auto kv = k4_dkdv_tiled<T, D>;
-    cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem_q);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((T_ + B - 1) / B, G);
-    const T *q_ = (const T*)q, *k_ = (const T*)k, *v_ = (const T*)v, *do_ = (const T*)dout;
-    kq<<<grid, NT, smem_q, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, (T*)dq, T_,
-                                     C, scale, self_bias);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    kv<<<grid, NT, smem_kv, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, dk, dv, T_,
-                                      C, scale, self_bias);
-    return cudaGetLastError();
-}
-
 }  // namespace tiled
 
-// ------------------------------------------- head dims above 128: the slab split
-// Every call at a head dim H above 128 (a multiple of 128), in f32, bf16
-// and f16: the tiled split above (k4_dq_slab per 64 query rows over the key
-// tiles of their windows; k4_dkdv_slab per 64 keys over the query tiles
-// that see them) at one warp per 16-row group, over slabs of the head dim.
-// H = 64 ns; a block of four warps per (g, tile, output slab z) writes
-// columns [64 z, 64 z + 64) of dq (dq) or of dk and dv (dkdv).  Per tile
-// pair it loops over the ns slabs (`pair_scores`): each slab of Q, dO, K and
-// V is staged by cp.async and S = Q . K^T, dP = dO . V^T are added into the
-// warp's fragments, so both are sums over the whole head dim before p and
-// ds exist; slab z is staged last and stays for the output products.  Each
-// output slab's block recomputes S and dP.  p and ds are `prob`'s, with the
-// own key of a row in a layer with a self bias rescored by slab_mma.cuh's
-// self_score (the sequential f32 FMA chain over all H, as k3_slab does), so
-// p = exp(s - lse) is exactly 1 where a row sees only its own key.  The
-// products are slab_mma.cuh's: bf16 / f16 mma.sync, f32 3xTF32.  Shared
-// memory 37 / 55 KB (16 bits), 69 / 103 KB (f32), dq / dkdv.
+// ---------------------------------------- every f32 call, and 16 bits above D 128: the slab split
+// k4_dq_slab (query tiles, each over the 64-key tiles of its rows' windows)
+// and k4_dkdv_slab (key tiles, each over the 64-row query tiles that see
+// it): the tiled split above over slabs of the head dim, for every f32 call
+// (D 16, 32, 64, 128 and above, in 3xTF32) and bf16 / f16 above D 128.
+// They replace the Pallas kernel's f32 and wide-head paths
+// (chunked_attention_kernel.py::_make_bwd, as the file's other kernels do).
+// Eight warps, two per 16-row group: warp c of group p computes S = Q K^T
+// and dP = dO V^T for its 16 rows over keys [32c, 32c + 32), interleaved
+// (`pair_product`), and owns columns [OW c, OW c + OW) of every output slab
+// (OW = W / 2).  Per tile pair the head dim streams through a ring of two
+// cp.async stages (slab i + 1 loads while slab i's products run): S and dP
+// are summed over the slabs once, p and ds follow on the fragments (selects,
+// not branches), the pair's dS (dq) or P^T and dS^T (dk / dv, transposed so
+// that they load by ldmatrix) go to shared memory, and the block applies
+// them to each of its output slabs in turn (dq += dS K; dv += P^T dO, dk +=
+// dS^T Q), restaging only the operand slab each needs (the last score
+// slab's tiles serve the last output slab in place).  The running sums of
+// up to ZS output slabs stay in registers (a lane holds 16 f32 per slab and
+// output), so S and dP are computed once per tile pair up to D 512 for dq
+// and D 256 for dk / dv; above that the output slabs split over ceil(ns /
+// ZS) blocks (grid z), each recomputing the scores.  At one slab (D <= 64)
+// the block's fixed operands (Q, dO for dq; K, V for dk / dv) are staged
+// once, in stage 0's spare tiles, and only the moving pair streams.  The LSH own key is the key of a row's
+// own index (qpos == kpos there: the bucket sort moves q and k together);
+// in a tile pair that holds own keys, lane l of each warp continues
+// self_score's sequential f32 FMA chain of row 16p + l % 16 one k-block at
+// a time inside the product loop (its latency hidden among the products),
+// and p_ds takes it by a shuffle, so that the own key's score is fl(fl(chain
+// scale) + self_bias), the one K3 built lse from, and p = 1 exactly where a
+// row sees only its own key: once per row and kernel, from shared memory.
+// In f32 each k-block's score products and each tile pair's output products
+// go into a fresh fragment (the first product with C = 0) and from there
+// into the running sums by an f32 add (the tensor cores truncate while they
+// accumulate).  f32 over several slabs (D >= 128) carries S across slabs
+// as a pair hi + lo (carry_slab, in 32 KB of shared memory) and p takes
+// exp(fl(s scale - lse) + lo scale): with unnormalised keys at scale 1 (|s|
+// ~ 50) one f32 running sum put p ~1e-5 off, the whole f32 limit.  What
+// bounds it: the products, five D-long ones per visible pair, at the tensor
+// cores' rate (f32 at a third of TF32's), and in f32 the operand splits
+// around them; at one slab also the moving pair's bytes, restaged from L2
+// per tile pair.  Shared memory: f32 W 64 157 KB (dq) / 174 KB (dk / dv),
+// 189 / 207 KB with the carry, 16 bits 83 / 92 KB; one block of eight
+// warps per SM (the registers of the running sums).
 namespace slabs {
 
 using namespace slab;
 using tiled::B;
-using tiled::in_window;
-using tiled::prob;
-using tiled::stage_kpos;
-using tiled::stage_rows;
 
-constexpr int W = 64;            // slab width
-constexpr int NT = 32 * (B / 16);
+constexpr int SP = 2;                   // warps per 16-row group
+constexpr int NT = 32 * SP * (B / 16);  // eight warps
+constexpr int KW = B / SP;              // keys of a warp's S / dP
+constexpr int ZQ = 8, ZKV = 4;          // most output slabs a dq / dk-dv block holds
 
-template <typename E>
+// f32 scores over several slabs carry their sum as a pair (carry_slab): the
+// instances that hold more than one output slab, which f32 takes at D >= 128
+template <typename E, int ZS>
+constexpr bool kCarry = kF32<E> && ZS > 1;
+constexpr size_t CARRY_BYTES = 2 * NT * (KW / 8) * 4 * sizeof(float);   // each lane's pair
+
+template <typename E, int W>
 struct Lay {
     static constexpr int RS = W + PAD<E>, PS = B + PAD<E>;
-    // Q, dO, K, V [B][RS]; n_pds tiles [B][PS] (P and dS for dkdv); lse,
-    // delta, dlse [B] f32; qpos, kpos [B] int
-    static constexpr size_t bytes(int n_pds) {
-        return (size_t)(4 * B * RS + n_pds * B * PS) * sizeof(E) + 3 * B * 4 + 2 * B * 4;
+    static constexpr int TILE = B * RS;                      // one staged [64][W] tile
+    static constexpr int OW = W / SP < 16 ? 16 : W / SP;     // a warp's columns of an output slab
+    // the ring (two stages of Q, dO, K, V); n_pds [B][PS] tiles (dS; P and
+    // dS for dk / dv)
+    static constexpr size_t bytes(int n_pds, bool carry = false) {
+        return (size_t)(8 * TILE + n_pds * B * PS) * sizeof(E) + (carry ? CARRY_BYTES : 0);
     }
 };
 
-// S = Q . K^T and dP = dO . V^T of the tile pair (q0, k0) over the ns slabs
-// of the head dim, slab z last
-template <typename E>
-__device__ __forceinline__ void pair_scores(float (&s)[B / 8][4], float (&dp)[B / 8][4], E* sQ,
-                                            E* sO, E* sK, E* sV, const E* q_g, const E* do_g,
-                                            const E* k_g, const E* v_g, int q0, int k0, int T_,
-                                            int H, int ns, int z, int tid, int p, int lane) {
-    constexpr int RS = Lay<E>::RS;
-#pragma unroll
-    for (int j = 0; j < B / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    for (int i = 0; i < ns; ++i) {
-        const int c0 = W * ((z + 1 + i) % ns);
-        __syncthreads();                 // every warp is done with the staged tiles
-        stage<W>(sQ, q_g, q0, B, T_, H, c0, tid, NT);
-        stage<W>(sO, do_g, q0, B, T_, H, c0, tid, NT);
-        stage<W>(sK, k_g, k0, B, T_, H, c0, tid, NT);
-        stage<W>(sV, v_g, k0, B, T_, H, c0, tid, NT);
-        mma_bf16::cp_commit();
-        mma_bf16::cp_wait<0>();
-        __syncthreads();
-        slab_product<E, W>(s, sQ, 16 * p, sK, 0, RS, lane);
-        slab_product<E, W>(dp, sO, 16 * p, sV, 0, RS, lane);
-    }
-}
+// a slab instance: width W, output slabs per block of dq (ZQ) and dk / dv (ZKV)
+template <int W_, int ZQ_, int ZKV_>
+struct Cfg {
+    static constexpr int W = W_, ZQ = ZQ_, ZKV = ZKV_;
+};
 
-// p and ds of the warp's entries in place of s and dp (`prob`, with the own
-// key rescored by self_score in a layer with a self bias: a row holds at
-// most one own key per tile, patched after the tile's p); q rows q0 + 16p +
-// g (+8), keys k0 + 8j + 2t (+1); the row terms from sQp / sL / sD / sDL
-template <typename E, bool BIAS>
-__device__ __forceinline__ void p_ds(float (&s)[B / 8][4], float (&dp)[B / 8][4],
-                                     const int* sQp, const int* sKp, const float* sL,
-                                     const float* sD, const float* sDL, const E* q_g,
-                                     const E* k_g, int q0, int k0, int T_, int H, int C,
-                                     float scale, float self_bias, int p, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    int own[2] = {-1, -1};               // the lane's column of row h's own key
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int qi = 16 * p + g + 8 * h, r = q0 + qi;
-        const int qp = sQp[qi];
-        const float l = sL[qi];
-#pragma unroll
-        for (int j = 0; j < B / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int kj = 8 * j + 2 * t + e, wk = k0 + kj;
-                const bool live = r < T_ && wk < T_;
-                if (BIAS && live && sKp[kj] == qp && in_window(r, wk, C)) own[h] = kj;
-                s[j][2 * h + e] =
-                    live ? prob(s[j][2 * h + e], r, wk, qp, sKp[kj], l, C, scale, self_bias) : 0.f;
-            }
-    }
-    if (BIAS && __any_sync(0xffffffffu, own[0] >= 0 || own[1] >= 0)) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            if (own[h] < 0) continue;
-            const int r = q0 + 16 * p + g + 8 * h;
-            const float pr = expf(self_score<E>(q_g + (size_t)r * H, k_g + (size_t)(k0 + own[h]) * H,
-                                                H, scale, self_bias) - sL[16 * p + g + 8 * h]);
-#pragma unroll
-            for (int j = 0; j < B / 8; ++j)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    if (8 * j + 2 * t + e == own[h]) s[j][2 * h + e] = pr;
+// f(Cfg) for the instance a call at head dim D runs: W = min(D, 64), every
+// output slab in one block up to ZQ / ZKV slabs (16 bits take D above 128 only)
+template <typename E, typename F>
+cudaError_t with_cfg(int D, F&& f) {
+    if constexpr (kF32<E>) {
+        switch (D) {
+            case 16: return f(Cfg<16, 1, 1>{});
+            case 32: return f(Cfg<32, 1, 1>{});
+            case 64: return f(Cfg<64, 1, 1>{});
+            case 128: return f(Cfg<64, 2, 2>{});
         }
     }
+    if (D <= 128 || D % 128) return cudaErrorInvalidValue;
+    return D <= 256 ? f(Cfg<64, 4, 4>{}) : f(Cfg<64, ZQ, ZKV>{});
+}
+
+// the row terms of rows r0 and r0 + 8: position (INT_MIN past T), lse,
+// delta, dlse, and the first key of the row's window, lo (chunk C)
+struct Rows {
+    int qp[2], lo[2];
+    float l[2], de[2], dl[2];
+};
+
+__device__ __forceinline__ void load_rows(Rows& x, const int* qpos, const float* lse,
+                                          const float* delta, const float* dlse, size_t base,
+                                          int r0, int T_, int C) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-        const int qi = 16 * p + g + 8 * h;
-        const float de = sD[qi], dl = sDL[qi];
-#pragma unroll
-        for (int j = 0; j < B / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-                dp[j][2 * h + e] = s[j][2 * h + e] * (dp[j][2 * h + e] - de + dl) * scale;
+        const int r = r0 + 8 * h;
+        const bool ok = r < T_;
+        x.lo[h] = (r / C - 1) * C;
+        x.qp[h] = ok ? __ldg(qpos + base + r) : INT_MIN;
+        x.l[h] = ok ? __ldg(lse + base + r) : 0.f;
+        x.de[h] = ok ? __ldg(delta + base + r) : 0.f;
+        x.dl[h] = ok ? __ldg(dlse + base + r) : 0.f;
     }
 }
 
-template <typename E, bool BIAS>
-__global__ void __launch_bounds__(NT, 2)
+// positions of keys w0 + 8j (+1), a lane's columns of a warp's S (INT_MAX
+// outside [0, T): never visible)
+__device__ __forceinline__ void load_keys(int (&kp)[KW / 8][2], const int* kpos, size_t base,
+                                          int w0, int T_) {
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int w = w0 + 8 * j + e;
+            kp[j][e] = w >= 0 && w < T_ ? __ldg(kpos + base + w) : INT_MAX;
+        }
+}
+
+// p and ds of the warp's entries in place of s and dp: rows q0 + 16p + g
+// (+8) (row terms x), keys k0 + KW c + 8j + 2t (+1) (positions kp); `prob`
+// (the row's window from x.lo), but a row's own key (key index == row, kpos
+// == qpos) in a layer with a self bias takes the chained score of its row,
+// which lane (row - q0 - 16p) holds in own_v.  LO: s is the pair s + lo
+// (carry_slab; lo the lane's words at `lo`), and a visible entry without a
+// self bias takes exp(fl(s scale - lse) + lo scale), so that neither s nor
+// s scale is rounded at its own magnitude.  Selects, not branches: every
+// entry takes one exp, and no entry waits on a divergent path
+template <bool LO>
+__device__ __forceinline__ void p_ds(float (&s)[KW / 8][4], float (&dp)[KW / 8][4],
+                                     const float* lo, const Rows& x,
+                                     const int (&kp)[KW / 8][2], float own_v, bool bias, int q0,
+                                     int k0, int T_, int C, float scale, float self_bias, int p,
+                                     int c, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    float own[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) own[h] = __shfl_sync(0xffffffffu, own_v, g + 8 * h);
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, r = q0 + 16 * p + g + 8 * h;
+            const int wk = k0 + KW * c + 8 * j + 2 * t + (e & 1), kpe = kp[j][e & 1];
+            const bool in = r < T_ && wk < T_ && wk >= x.lo[h] && wk < x.lo[h] + 2 * C;
+            float xs = s[j][e] * scale;
+            xs = kpe == x.qp[h] ? xs + self_bias : xs;
+            xs = kpe <= x.qp[h] ? xs : kNegInf;
+            xs = bias && wk == r && kpe == x.qp[h] ? own[h] : xs;
+            float arg = xs - x.l[h];
+            // visible and not biased: the entries whose score is s scale
+            if constexpr (LO)
+                arg = kpe < x.qp[h] || (kpe == x.qp[h] && !bias)
+                          ? __fadd_rn(__fmaf_rn(s[j][e], scale, -x.l[h]),
+                                      __fmul_rn(lo[(4 * j + e) * 32 + lane], scale))
+                          : arg;
+            const float pr = in ? expf(arg) : 0.f;
+            s[j][e] = pr;
+            dp[j][e] = pr * (dp[j][e] - x.de[h] + x.dl[h]) * scale;
+        }
+}
+
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
 k4_dq_slab(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
            const E* __restrict__ dout, const int* __restrict__ qpos,
            const int* __restrict__ kpos, const float* __restrict__ lse,
            const float* __restrict__ delta, const float* __restrict__ dlse,
            E* __restrict__ dq, int T_, int C, float scale, float self_bias, int ns) {
-    constexpr int RS = Lay<E>::RS, K8 = KS<E>;
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
+    constexpr bool CARRY = kCarry<E, ZS>;
     const int H = W * ns;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    E* sQ = reinterpret_cast<E*>(smem_raw);
-    E* sO = sQ + B * RS;
-    E* sK = sO + B * RS;
-    E* sV = sK + B * RS;
-    float* sL = reinterpret_cast<float*>(sV + B * RS);
-    float* sD = sL + B;
-    float* sDL = sD + B;
-    int* sQp = reinterpret_cast<int*>(sDL + B);
-    int* sKp = sQp + B;
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: Q, dO, K, V at ring + (4 b + i) TILE
+    E* sDS = ring + 8 * TILE;                    // [B][PS]
 
-    const int g = blockIdx.y, z = blockIdx.z;
+    const int g = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
     const int q0 = blockIdx.x * B;
-    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
-    const int gq = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
+    const bool bias = self_bias != 0.f, once = ns == 1;
+    // CARRY: the warp's score pairs between slabs, past dS
+    float* hold = reinterpret_cast<float*>(sDS + B * PS) + w * 2 * 4 * (KW / 8) * 32;
     const size_t base = (size_t)g * T_;
     const E *q_g = q + base * H, *k_g = k + base * H, *v_g = v + base * H;
     const E* do_g = dout + base * H;
-    stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
 
+    Rows x;
+    load_rows(x, qpos, lse, delta, dlse, base, q0 + 16 * p + gq, T_, C);
+    // the key tiles of the rows' windows, none wholly before the sequence
     const int q_last = min(q0 + B, T_) - 1;
-    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
-    float dqa[W / 8][4] = {};            // query rows 16p + g (+8), columns 8n + 2t of slab z
-    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
-        float s[B / 8][4], dp[B / 8][4];
-        pair_scores<E>(s, dp, sQ, sO, sK, sV, q_g, do_g, k_g, v_g, q0, k0, T_, H, ns, z, tid,
-                       p, lane);
-        // the tile's key positions (the previous tile's were read before
-        // pair_scores' first barrier)
-        stage_kpos(sKp, kpos, base, k0, T_);
-        __syncthreads();
-        p_ds<E, BIAS>(s, dp, sQp, sKp, sL, sD, sDL, q_g, k_g, q0, k0, T_, H, C, scale,
-                      self_bias, p, lane);
-        // dq += dS . K[:, W z..], dS from the accumulators (the tile's
-        // products summed apart, then added rounded to nearest)
-#pragma unroll
-        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
-            float t[2 * CH][4] = {};
-#pragma unroll
-            for (int kb = 0; kb < B / K8; ++kb) {
-                FragA<E> a;
-                acc_a<E>(a, dp, kb, lane);
-#pragma unroll
-                for (int j = 0; j < CH && c + j < W / 16; ++j) {
-                    FragB<E> b[2];
-                    load_bt(b, sK, RS, 16 * (c + j), K8 * kb, lane);
-                    mma(t[2 * j], a, b[0]);
-                    mma(t[2 * j + 1], a, b[1]);
-                }
+    int w_lo = (q0 / C - 1) * C;
+    if (w_lo < 0) w_lo += -w_lo / B * B;
+    const int n_kt = ((q_last / C + 1) * C - w_lo + B - 1) / B;
+    // the items of a key tile: its ns score slabs, then the block's output
+    // slabs but the head dim's last, which the last score slab's tiles serve
+    const bool last_in = z0 + nz == ns;
+    const int per = ns + nz - last_in, n_items = n_kt * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, k0 = w_lo + n / per * B;
+        E* st = ring + (n & 1) * 4 * TILE;
+        if (m < ns) {
+            if (!once) {
+                stage<W>(st, q_g, q0, B, T_, H, W * m, tid, NT);
+                stage<W>(st + TILE, do_g, q0, B, T_, H, W * m, tid, NT);
             }
-            add_pass(dqa, t, c);
+            stage<W>(st + 2 * TILE, k_g, k0, B, T_, H, W * m, tid, NT);
+            stage<W>(st + 3 * TILE, v_g, k0, B, T_, H, W * m, tid, NT);
+        } else {
+            stage<W>(st + 2 * TILE, k_g, k0, B, T_, H, W * (z0 + m - ns), tid, NT);
         }
+        mma_bf16::cp_commit();
+    };
+    if (once) {                                  // Q, dO: stage 0's first tiles, for good
+        stage<W>(ring, q_g, q0, B, T_, H, 0, tid, NT);
+        stage<W>(ring + TILE, do_g, q0, B, T_, H, 0, tid, NT);
     }
+    issue(0);
+
+    // query rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float acc[ZS][OW / 8][4] = {};
+    // dq[:, slab z0 + zi] += dS . K_slab (tK), the warp's columns, the
+    // pair's products summed apart
+    auto apply = [&](int zi, const E* tK) {
+        if (OW * c >= W) return;                 // W 16: the group's second warp has none
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += CH) {
+                float tq[2 * CH][4] = {};
+#pragma unroll 1
+                for (int kb = 0; kb < B / K8; ++kb) {
+                    FragA<E> a;
+                    load_a(a, sDS, PS, 16 * p, K8 * kb, lane);
+#pragma unroll
+                    for (int j = 0; j < CH && cp + j < OW / 16; ++j) {
+                        FragB<E> b[2];
+                        load_bt(b, tK, RS, OW * c + 16 * (cp + j), K8 * kb, lane);
+                        mma(tq[2 * j], a, b[0]);
+                        mma(tq[2 * j + 1], a, b[1]);
+                    }
+                }
+                add_pass(acc[zz], tq, cp);
+            }
+        }
+    };
+
+    float s[KW / 8][4], dp[KW / 8][4];
+    int kp[KW / 8][2];
+    float own = 0.f;                             // lane l: the own score's chain of row 16p + l % 16
+    const int ol = 16 * p + (lane & 15), ro = q0 + ol;
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, k0 = w_lo + n / per * B;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * 4 * TILE;
+        const E* tQ = once ? ring : st;
+        if (m >= ns) {
+            apply(m - ns, st + 2 * TILE);
+            continue;
+        }
+        if (m == 0) {
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            own = 0.f;
+        }
+        if (m == ns - 1) load_keys(kp, kpos, base, k0 + KW * c + 2 * t, T_);
+        // a pair that holds own keys: lane l also chains row 16p + l % 16
+        // against its own key (clamped into the key tile)
+        if (bias && k0 < q0 + B && q0 < k0 + B)
+            pair_product<E, W, true>(s, dp, tQ, tQ + TILE, st + 2 * TILE, st + 3 * TILE, 16 * p,
+                                     KW * c, RS, lane, own, tQ + ol * RS,
+                                     st + 2 * TILE + min(max(ro - k0, 0), B - 1) * RS);
+        else
+            pair_product<E, W, false>(s, dp, tQ, tQ + TILE, st + 2 * TILE, st + 3 * TILE,
+                                      16 * p, KW * c, RS, lane, own, tQ, tQ);
+        if constexpr (CARRY) carry_slab(s, hold, m, ns, lane);
+        if (m < ns - 1) continue;
+        p_ds<CARRY>(s, dp, hold + 4 * (KW / 8) * 32, x, kp,
+                    __fadd_rn(__fmul_rn(own, scale), self_bias), bias, q0, k0, T_, C, scale,
+                    self_bias, p, c, lane);
+        put_frags<E, false>(sDS, dp, PS, 16 * p, KW * c, lane);
+        mma_bf16::group_sync<SP>(p);             // the group's dS rows are written
+        if (last_in) apply(ns - 1 - z0, st + 2 * TILE);
+    }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int r = q0 + 16 * p + gq + 8 * h;
-        if (r >= T_) continue;
-        E* o = dq + (base + r) * H + W * z;
+    for (int zz = 0; zz < ZS; ++zz) {
+        if (zz >= nz || OW * c >= W) continue;
 #pragma unroll
-        for (int n = 0; n < W / 8; ++n) put2<E>(o + 8 * n + 2 * t, dqa[n][2 * h], dqa[n][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+            const int r = q0 + 16 * p + gq + 8 * h;
+            if (r >= T_) continue;
+            E* o = dq + (base + r) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int n = 0; n < OW / 8; ++n)
+                put2<E>(o + 8 * n + 2 * t, acc[zz][n][2 * h], acc[zz][n][2 * h + 1]);
+        }
     }
 }
 
-template <typename E, bool BIAS>
-__global__ void __launch_bounds__(NT, 2)
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
 k4_dkdv_slab(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
              const E* __restrict__ dout, const int* __restrict__ qpos,
              const int* __restrict__ kpos, const float* __restrict__ lse,
              const float* __restrict__ delta, const float* __restrict__ dlse,
              float* __restrict__ dk, float* __restrict__ dv, int T_, int C, float scale,
              float self_bias, int ns) {
-    using L = Lay<E>;
-    constexpr int RS = L::RS, PS = L::PS, K8 = KS<E>;
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
+    constexpr bool CARRY = kCarry<E, ZS>;
     const int H = W * ns;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    E* sQ = reinterpret_cast<E*>(smem_raw);
-    E* sO = sQ + B * RS;
-    E* sK = sO + B * RS;
-    E* sV = sK + B * RS;
-    E* sP = sV + B * RS;
-    E* sDS = sP + B * PS;
-    float* sL = reinterpret_cast<float*>(sDS + B * PS);
-    float* sD = sL + B;
-    float* sDL = sD + B;
-    int* sQp = reinterpret_cast<int*>(sDL + B);
-    int* sKp = sQp + B;
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: Q, dO, K, V at ring + (4 b + i) TILE
+    E* sP = ring + 8 * TILE;                     // P^T [B keys][PS]
+    E* sDS = sP + B * PS;                        // dS^T
 
-    const int g = blockIdx.y, z = blockIdx.z;
+    const int g = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
     const int k0 = blockIdx.x * B;
-    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
-    const int gq = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
+    const bool bias = self_bias != 0.f, once = ns == 1;
+    // CARRY: the warp's score pairs between slabs, past dS
+    float* hold = reinterpret_cast<float*>(sDS + B * PS) + w * 2 * 4 * (KW / 8) * 32;
     const size_t base = (size_t)g * T_;
     const E *q_g = q + base * H, *k_g = k + base * H, *v_g = v + base * H;
     const E* do_g = dout + base * H;
-    stage_kpos(sKp, kpos, base, k0, T_);
 
-    // the query rows whose windows hold a key of [k0, k_last]
+    int kp[KW / 8][2];
+    load_keys(kp, kpos, base, k0 + KW * c + 2 * t, T_);
+    // the query tiles whose windows hold a key of [k0, k_last]
     const int k_last = min(k0 + B, T_) - 1;
     const int r_lo = (k0 / C) * C, r_hi = min((k_last / C + 2) * C, T_);
-    float dka[W / 8][4] = {}, dva[W / 8][4] = {};   // key rows 16p + g (+8), cols 8n + 2t
-    for (int q0 = r_lo; q0 < r_hi; q0 += B) {
-        float s[B / 8][4], dp[B / 8][4];
-        pair_scores<E>(s, dp, sQ, sO, sK, sV, q_g, do_g, k_g, v_g, q0, k0, T_, H, ns, z, tid,
-                       p, lane);
-        // the q tile's row terms (the previous tile's were read before
-        // pair_scores' first barrier)
-        stage_rows(sQp, sL, sD, sDL, qpos, lse, delta, dlse, base, q0, T_);
-        __syncthreads();
-        p_ds<E, BIAS>(s, dp, sQp, sKp, sL, sD, sDL, q_g, k_g, q0, k0, T_, H, C, scale,
-                      self_bias, p, lane);
-#pragma unroll
-        for (int j = 0; j < B / 8; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int o = (16 * p + gq + 8 * h) * PS + 8 * j + 2 * t;
-                put2<E>(sP + o, s[j][2 * h], s[j][2 * h + 1]);
-                put2<E>(sDS + o, dp[j][2 * h], dp[j][2 * h + 1]);
-            }
-        __syncthreads();                 // every warp's P / dS rows are written
-
-        // dv += P^T dO[:, W z..], dk += dS^T Q[:, W z..] over the tile's 64
-        // query rows (summed apart, then added rounded to nearest)
-#pragma unroll
-        for (int c = 0; c < W / 16; ++c) {               // one n-pair per pass
-            float tv[2][4] = {}, tk[2][4] = {};
-#pragma unroll 1
-            for (int kq = 0; kq < B / K8; ++kq) {
-                FragA<E> ap, ad;
-                load_at(ap, sP, PS, 16 * p, K8 * kq, lane);
-                load_at(ad, sDS, PS, 16 * p, K8 * kq, lane);
-                FragB<E> bo[2], bq[2];
-                load_bt(bo, sO, RS, 16 * c, K8 * kq, lane);
-                load_bt(bq, sQ, RS, 16 * c, K8 * kq, lane);
-                mma(tv[0], ap, bo[0]);
-                mma(tv[1], ap, bo[1]);
-                mma(tk[0], ad, bq[0]);
-                mma(tk[1], ad, bq[1]);
-            }
-            add_pass(dva, tv, c);
-            add_pass(dka, tk, c);
+    const int n_qt = (r_hi - r_lo + B - 1) / B;
+    const bool last_in = z0 + nz == ns;
+    const int per = ns + nz - last_in, n_items = n_qt * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, q0 = r_lo + n / per * B;
+        E* st = ring + (n & 1) * 4 * TILE;
+        const int c0 = W * (m < ns ? m : z0 + m - ns);
+        stage<W>(st, q_g, q0, B, T_, H, c0, tid, NT);
+        stage<W>(st + TILE, do_g, q0, B, T_, H, c0, tid, NT);
+        if (m < ns && !once) {
+            stage<W>(st + 2 * TILE, k_g, k0, B, T_, H, c0, tid, NT);
+            stage<W>(st + 3 * TILE, v_g, k0, B, T_, H, c0, tid, NT);
         }
+        mma_bf16::cp_commit();
+    };
+    if (once) {                                  // K, V: stage 0's last tiles, for good
+        stage<W>(ring + 2 * TILE, k_g, k0, B, T_, H, 0, tid, NT);
+        stage<W>(ring + 3 * TILE, v_g, k0, B, T_, H, 0, tid, NT);
     }
+    issue(0);
+
+    // key rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float dka[ZS][OW / 8][4] = {}, dva[ZS][OW / 8][4] = {};
+    // dv[:, slab z0 + zi] += P^T dO_slab, dk += dS^T Q_slab (tQ, tO), the
+    // warp's columns, PC n-pairs per pass (one where the running sums of four
+    // slabs leave no registers for more), the pair's products summed apart
+    constexpr int PC = ZS <= 2 ? 2 : 1;
+    auto apply = [&](int zi, const E* tQ, const E* tO) {
+        if (OW * c >= W) return;                 // W 16: the group's second warp has none
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += PC) {
+                float tv[2 * PC][4] = {}, tk[2 * PC][4] = {};
+#pragma unroll 1
+                for (int kq = 0; kq < B / K8; ++kq) {
+                    FragA<E> ap, ad;
+                    load_a(ap, sP, PS, 16 * p, K8 * kq, lane);
+                    load_a(ad, sDS, PS, 16 * p, K8 * kq, lane);
+#pragma unroll
+                    for (int j = 0; j < PC && cp + j < OW / 16; ++j) {
+                        FragB<E> bo[2], bq[2];
+                        load_bt(bo, tO, RS, OW * c + 16 * (cp + j), K8 * kq, lane);
+                        load_bt(bq, tQ, RS, OW * c + 16 * (cp + j), K8 * kq, lane);
+                        mma(tv[2 * j], ap, bo[0]);
+                        mma(tk[2 * j], ad, bq[0]);
+                        mma(tv[2 * j + 1], ap, bo[1]);
+                        mma(tk[2 * j + 1], ad, bq[1]);
+                    }
+                }
+                add_pass(dva[zz], tv, cp);
+                add_pass(dka[zz], tk, cp);
+            }
+        }
+    };
+
+    Rows x;
+    float s[KW / 8][4], dp[KW / 8][4];
+    float own = 0.f;                             // lane l: the own score's chain of row 16p + l % 16
+    const int ol = 16 * p + (lane & 15);
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, q0 = r_lo + n / per * B;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * 4 * TILE;
+        const E* tK = (once ? ring : st) + 2 * TILE;
+        if (m >= ns) {
+            apply(m - ns, st, st + TILE);
+            continue;
+        }
+        if (m == 0) {
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+            own = 0.f;
+        }
+        if (m == ns - 1) load_rows(x, qpos, lse, delta, dlse, base, q0 + 16 * p + gq, T_, C);
+        // a pair that holds own keys: lane l also chains row 16p + l % 16 of
+        // the q tile against its own key (clamped into the key tile)
+        if (bias && k0 < q0 + B && q0 < k0 + B)
+            pair_product<E, W, true>(s, dp, st, st + TILE, tK, tK + TILE, 16 * p, KW * c, RS,
+                                     lane, own, st + ol * RS,
+                                     tK + min(max(q0 + ol - k0, 0), B - 1) * RS);
+        else
+            pair_product<E, W, false>(s, dp, st, st + TILE, tK, tK + TILE, 16 * p, KW * c, RS,
+                                      lane, own, st, st);
+        if constexpr (CARRY) carry_slab(s, hold, m, ns, lane);
+        if (m < ns - 1) continue;
+        p_ds<CARRY>(s, dp, hold + 4 * (KW / 8) * 32, x, kp,
+                    __fadd_rn(__fmul_rn(own, scale), self_bias), bias, q0, k0, T_, C, scale,
+                    self_bias, p, c, lane);
+        put_frags<E, true>(sP, s, PS, 16 * p, KW * c, lane);
+        put_frags<E, true>(sDS, dp, PS, 16 * p, KW * c, lane);
+        __syncthreads();                         // every warp's P^T / dS^T entries are written
+        if (last_in) apply(ns - 1 - z0, st, st + TILE);
+    }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int wk = k0 + 16 * p + gq + 8 * h;
-        if (wk >= T_) continue;
-        float* dk_r = dk + (base + wk) * H + W * z;
-        float* dv_r = dv + (base + wk) * H + W * z;
+    for (int zz = 0; zz < ZS; ++zz) {
+        if (zz >= nz || OW * c >= W) continue;
 #pragma unroll
-        for (int n = 0; n < W / 8; ++n) {
-            put2<float>(dk_r + 8 * n + 2 * t, dka[n][2 * h], dka[n][2 * h + 1]);
-            put2<float>(dv_r + 8 * n + 2 * t, dva[n][2 * h], dva[n][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+            const int wk = k0 + 16 * p + gq + 8 * h;
+            if (wk >= T_) continue;
+            const size_t o = (base + wk) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int n = 0; n < OW / 8; ++n) {
+                put2<float>(dk + o + 8 * n + 2 * t, dka[zz][n][2 * h], dka[zz][n][2 * h + 1]);
+                put2<float>(dv + o + 8 * n + 2 * t, dva[zz][n][2 * h], dva[zz][n][2 * h + 1]);
+            }
         }
     }
 }
 
-template <typename E, bool BIAS>
-cudaError_t launch_b(const void* q, const void* k, const void* v, const void* dout,
-                     const int* qpos, const int* kpos, const float* lse, const float* delta,
-                     const float* dlse, void* dq, float* dk, float* dv, int G, int T_, int C,
-                     int H, float scale, float self_bias, cudaStream_t stream) {
-    const size_t smem_q = Lay<E>::bytes(0), smem_kv = Lay<E>::bytes(2);
-    auto kq = k4_dq_slab<E, BIAS>;
-    auto kv = k4_dkdv_slab<E, BIAS>;
+template <typename E, int W, int ZQ_, int ZKV_>
+cudaError_t launch_w(const Args& a, int C, int ns) {
+    using L = Lay<E, W>;
+    const size_t smem_q = L::bytes(1, kCarry<E, ZQ_>), smem_kv = L::bytes(2, kCarry<E, ZKV_>);
+    auto kq = k4_dq_slab<E, W, ZQ_>;
+    auto kv = k4_dkdv_slab<E, W, ZKV_>;
     cudaError_t err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem_q);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
     if (err != cudaSuccess) return err;
-    const int ns = H / W;
-    const dim3 grid((T_ + B - 1) / B, G, ns);
-    const E *q_ = (const E*)q, *k_ = (const E*)k, *v_ = (const E*)v, *do_ = (const E*)dout;
-    kq<<<grid, NT, smem_q, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, (E*)dq, T_,
-                                     C, scale, self_bias, ns);
+    const int tiles = (a.T + B - 1) / B;
+    const E *q = (const E*)a.q, *k = (const E*)a.k, *v = (const E*)a.v, *dout = (const E*)a.dout;
+    kq<<<dim3(tiles, a.G, (ns + ZQ_ - 1) / ZQ_), NT, smem_q, a.st>>>(
+        q, k, v, dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse, (E*)a.dq, a.T, C, a.scale,
+        a.self_bias, ns);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    kv<<<grid, NT, smem_kv, stream>>>(q_, k_, v_, do_, qpos, kpos, lse, delta, dlse, dk, dv, T_,
-                                      C, scale, self_bias, ns);
+    kv<<<dim3(tiles, a.G, (ns + ZKV_ - 1) / ZKV_), NT, smem_kv, a.st>>>(
+        q, k, v, dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse, a.dk, a.dv, a.T, C, a.scale,
+        a.self_bias, ns);
     return cudaGetLastError();
 }
 
 template <typename E>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const int* qpos, const int* kpos, const float* lse, const float* delta,
-                   const float* dlse, void* dq, float* dk, float* dv, int G, int T_, int C,
-                   int H, float scale, float self_bias, cudaStream_t stream) {
-    if (self_bias != 0.f)
-        return launch_b<E, true>(q, k, v, dout, qpos, kpos, lse, delta, dlse, dq, dk, dv, G,
-                                 T_, C, H, scale, self_bias, stream);
-    return launch_b<E, false>(q, k, v, dout, qpos, kpos, lse, delta, dlse, dq, dk, dv, G, T_,
-                              C, H, scale, self_bias, stream);
+cudaError_t launch(const Args& a, int C, int D) {
+    return with_cfg<E>(D, [&](auto cfg) {
+        using F = decltype(cfg);
+        return launch_w<E, F::W, F::ZQ, F::ZKV>(a, C, D / F::W);
+    });
+}
+
+// the resources of the dq and dk / dv instances a call at head dim D runs
+template <typename E>
+cudaError_t resources_d(int D, int* out) {
+    return with_cfg<E>(D, [&](auto cfg) {
+        using F = decltype(cfg);
+        using L = Lay<E, F::W>;
+        cudaError_t err = resources(k4_dq_slab<E, F::W, F::ZQ>,
+                                    L::bytes(1, kCarry<E, F::ZQ>), NT, out);
+        if (err != cudaSuccess) return err;
+        return resources(k4_dkdv_slab<E, F::W, F::ZKV>, L::bytes(2, kCarry<E, F::ZKV>), NT,
+                         out + 5);
+    });
 }
 
 }  // namespace slabs
 
-template <typename T, int C, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const int* qpos, const int* kpos, const float* lse, const float* delta,
-                   const float* dlse, void* dq, float* dk, float* dv, int G, int T_,
-                   float scale, float self_bias, cudaStream_t stream) {
-    const size_t smem = bwd_smem_bytes<C, D>();
-    auto kern = chunked_window_attn_bwd_kernel<T, C, D>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(T_ / C, G);
-    kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-                                     qpos, kpos, lse, delta, dlse, (T*)dq, dk, dv, T_, scale,
-                                     self_bias);
-    return cudaGetLastError();
-}
-
-struct Args {
-    const void *q, *k, *v, *dout;
-    const int *qpos, *kpos;
-    const float *lse, *delta, *dlse;
-    void* dq;
-    float *dk, *dv;
-    int G, T;
-    float scale, self_bias;
-    cudaStream_t st;
-};
-
-template <typename T, int C, int D>
+template <typename E, int C, int D>
 cudaError_t run(const Args& a) {
-    if constexpr (sizeof(T) == 2)                         // the tensor-core kernel
-        return tc::launch<T, C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
-                                   a.dlse, a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias,
-                                   a.st);
-    else
-        return launch<T, C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
+    return tc::launch<E, C, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
                                a.dq, a.dk, a.dv, a.G, a.T, a.scale, a.self_bias, a.st);
 }
 
-template <typename T, int C>
+template <typename E, int C>
 cudaError_t run_d(int D, const Args& a) {
     switch (D) {
-        case 16: return run<T, C, 16>(a);
-        case 32: return run<T, C, 32>(a);
-        case 64: return run<T, C, 64>(a);
+        case 16: return run<E, C, 16>(a);
+        case 32: return run<E, C, 32>(a);
+        case 64: return run<E, C, 64>(a);
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <typename T>
+template <typename E>
 cudaError_t run_c(int C, int D, const Args& a) {
     switch (C) {
-        case 32: return run_d<T, 32>(D, a);
-        case 64: return run_d<T, 64>(D, a);
+        case 32: return run_d<E, 32>(D, a);
+        case 64: return run_d<E, 64>(D, a);
         default: return cudaErrorInvalidValue;
     }
 }
 
-// the tiled split: f32 FMAs for T = float, the tensor cores for bf16 / f16
-template <typename T, int D>
+template <typename E, int D>
 cudaError_t run_tiled_d(int C, const Args& a) {
-    if constexpr (sizeof(T) == 2)
-        return tiled::launch_tc<T, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
-                                      a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C, a.scale,
-                                      a.self_bias, a.st);
-    else
-        return tiled::launch<T, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta,
-                                   a.dlse, a.dq, a.dk, a.dv, a.G, a.T, C, a.scale, a.self_bias,
-                                   a.st);
+    return tiled::launch_tc<E, D>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
+                                  a.dq, a.dk, a.dv, a.G, a.T, C, a.scale, a.self_bias, a.st);
 }
 
-template <typename T>
+template <typename E>
 cudaError_t run_tiled(int C, int D, const Args& a) {
     switch (D) {
-        case 16: return run_tiled_d<T, 16>(C, a);
-        case 32: return run_tiled_d<T, 32>(C, a);
-        case 64: return run_tiled_d<T, 64>(C, a);
-        case 128: return run_tiled_d<T, 128>(C, a);
+        case 16: return run_tiled_d<E, 16>(C, a);
+        case 32: return run_tiled_d<E, 32>(C, a);
+        case 64: return run_tiled_d<E, 64>(C, a);
+        case 128: return run_tiled_d<E, 128>(C, a);
         default: return cudaErrorInvalidValue;
     }
 }
 
-// the resources of the tensor-core kernels of a 16-bit call: k4_tc (out[0..4];
-// out[5..9] zero) or k4_dq_tc and k4_dkdv_tc
+// the resources of the tensor-core kernels of a 16-bit call up to D 128:
+// k4_tc (out[0..4]; out[5..9] zero) or k4_dq_tc and k4_dkdv_tc
 template <typename E, int D>
 cudaError_t resources_d(int C, int* out) {
     if constexpr (D <= 64) {
@@ -1576,36 +1293,29 @@ cudaError_t resources_d(int C, int* out) {
     return resources(tiled::k4_dkdv_tc<E, D>, tiled::dkdv_tc_smem_bytes<D>(), NT, out + 5);
 }
 
-// the resources of k4_dq_slab and k4_dkdv_slab (their self-bias instances),
-// which run D above 128
-template <typename E>
-cudaError_t resources_slab(int* out) {
-    using L = slabs::Lay<E>;
-    cudaError_t err = resources(slabs::k4_dq_slab<E, true>, L::bytes(0), slabs::NT, out);
-    if (err != cudaSuccess) return err;
-    return resources(slabs::k4_dkdv_slab<E, true>, L::bytes(2), slabs::NT, out + 5);
-}
-
+// the kernels a call of this dtype, chunk and D runs: every f32 call and D
+// above 128 -> the slab split; bf16 / f16 at chunks 32 / 64 and D <= 64 ->
+// k4_tc; the rest -> the tiled split on the tensor cores
 template <typename E>
 cudaError_t resources_c(int C, int D, int* out) {
-    if (D > 128 && D % 128 == 0) return resources_slab<E>(out);
-    switch (D) {
-        case 16: return resources_d<E, 16>(C, out);
-        case 32: return resources_d<E, 32>(C, out);
-        case 64: return resources_d<E, 64>(C, out);
-        case 128: return resources_d<E, 128>(C, out);
-        default: return cudaErrorInvalidValue;
+    if constexpr (!slab::kF32<E>) {
+        switch (D) {
+            case 16: return resources_d<E, 16>(C, out);
+            case 32: return resources_d<E, 32>(C, out);
+            case 64: return resources_d<E, 64>(C, out);
+            case 128: return resources_d<E, 128>(C, out);
+        }
     }
+    return slabs::resources_d<E>(D, out);
 }
 
-template <typename T>
+template <typename E>
 cudaError_t route(int C, int D, const Args& a) {
-    // D above 128: the slab split; chunks 32 / 64 at D <= 64: the per-chunk
-    // kernels; the rest: the tiled split
-    if (D > 128 && D % 128 == 0)
-        return slabs::launch<T>(a.q, a.k, a.v, a.dout, a.qpos, a.kpos, a.lse, a.delta, a.dlse,
-                                a.dq, a.dk, a.dv, a.G, a.T, C, D, a.scale, a.self_bias, a.st);
-    return (C == 32 || C == 64) && D <= 64 ? run_c<T>(C, D, a) : run_tiled<T>(C, D, a);
+    if constexpr (!slab::kF32<E>) {
+        if (D <= 128)
+            return (C == 32 || C == 64) && D <= 64 ? run_c<E>(C, D, a) : run_tiled<E>(C, D, a);
+    }
+    return slabs::launch<E>(a, C, D);
 }
 
 }  // namespace
@@ -1613,10 +1323,9 @@ cudaError_t route(int C, int D, const Args& a) {
 // q/k/v/dout [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32
 // [G, T], lse/delta/dlse f32 [G, T]; dq [G, T, D] in the input dtype, dk/dv
 // [G, T, D] f32.  T % chunk == 0; D 16, 32, 64, 128 or a multiple of 128.
-// Chunks 32 and 64 at D <= 64 run the per-chunk kernels (f32: the FMA
-// kernel; bf16 and f16: k4_tc); every other chunk and D 128 run the tiled
-// split (f32: k4_dq_tiled / k4_dkdv_tiled; bf16 and f16: k4_dq_tc /
-// k4_dkdv_tc); D above 128 runs k4_dq_slab / k4_dkdv_slab.
+// Every f32 call and D above 128 run k4_dq_slab / k4_dkdv_slab; bf16 and
+// f16 at chunks 32 and 64 with D <= 64 run k4_tc, every other chunk and D
+// 128 the tiled split (k4_dq_tc / k4_dkdv_tc).
 // Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* qpos, const void* kpos,
@@ -1643,18 +1352,15 @@ extern "C" int chunked_window_attn_bwd_delta(const void* dout, const void* out, 
                                 (cudaStream_t)stream);
 }
 
-// The resources of the tensor-core kernels a bf16 (dtype 1) or f16 (2) call
-// at this chunk and D runs, as the loaded library reports them: out[0..4] =
+// The resources of the kernels a call of this dtype (0 = f32, 1 = bf16, 2 =
+// f16), chunk and D runs, as the loaded library reports them: out[0..4] =
 // registers, local (spill) bytes, dynamic shared bytes, resident blocks per
-// SM and threads per block of k4_tc (out[5..9] zero) or of k4_dq_tc, and
-// out[5..9] of k4_dkdv_tc, or (D above 128, every dtype 0-2) of
-// k4_dq_slab / k4_dkdv_slab.  Returns a cudaError_t
-// (cudaErrorInvalidValue for f32 up to D 128 or a D it does not take).
+// SM and threads per block of k4_tc (out[5..9] zero), k4_dq_tc or
+// k4_dq_slab, and out[5..9] of k4_dkdv_tc or k4_dkdv_slab.  Returns a
+// cudaError_t (cudaErrorInvalidValue for a D it does not take).
 extern "C" int chunked_window_attn_bwd_resources(int chunk, int D, int dtype, int* out) {
     if (chunk <= 0) return (int)cudaErrorInvalidValue;
-    if (dtype == 0)                // f32 has tensor-core kernels above D 128 only
-        return D > 128 && D % 128 == 0 ? (int)resources_slab<float>(out)
-                                       : (int)cudaErrorInvalidValue;
+    if (dtype == 0) return (int)resources_c<float>(chunk, D, out);
     if (dtype == 1) return (int)resources_c<__nv_bfloat16>(chunk, D, out);
     if (dtype == 2) return (int)resources_c<__half>(chunk, D, out);
     return (int)cudaErrorInvalidValue;

@@ -627,163 +627,146 @@ k2_dq_tc(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict
 
 // ------------------------------------------------- the slab kernels
 // Every f32 call, and a 16-bit call at a head dim above 128: k2_dkdv_slab
-// and k2_dq_slab, the split of the tensor-core kernels above at one warp per
-// 16-row group, over slabs of the head dim.  H = W ns (W = H up to 64 in
-// f32, else 64); a block of four warps owns one output slab z: columns [W
-// z, W z + W) of dk / dv (dkdv) or of drw, drr and dG (dq).  Per tile pair
-// it loops over the ns slabs (`pair_scores`): each slab of Qw, Qr, dO, K, V
-// and the 128-row table window is staged by cp.async and its products added
-// into the warp's S, dP and BD window fragments, so the contractions run
-// over the whole head dim before p and ds exist; slab z is staged last, so
-// its tiles stay for the output products.  Each output slab's block
-// recomputes S and dP (ns blocks per tile pair).  p, ds and the skew are
-// the tensor-core kernels' (p_ds; dSskew[qi][63 - qi + ki] = ds); dk / dv
-// accumulate over the q tiles in registers (P and dS rows shared through
-// shared memory), drw / drr over the key tiles, and each key tile's 127
-// rows of dG, computed per 16-row block, are added to device memory by
-// float2 atomics (no window halves carried: the slab kernels hold S, dP and
-// BD of a whole tile in registers).  The products are slab_mma.cuh's: bf16
-// / f16 mma.sync, f32 3xTF32, so f32 runs on the tensor cores at about f32
-// accuracy.  Shared memory in f32 at W 64: 153 KB (dkdv, BD staged over
-// the window) and 173 KB (dq), one block per SM; in 16 bits 102 / 101 KB,
-// two.
+// (a block per 64-key tile, over the q tiles that see it) and k2_dq_slab (a
+// block per 64-row q tile, over the key tiles its rows see), the split of
+// the tensor-core kernels above over slabs of the head dim: H = W ns, W =
+// min(H, 32) in f32 and 64 in 16 bits.  Eight warps, two per 16-row group
+// (tc::Split<128>'s layout): warp c of group p computes S = Qw K^T and dP =
+// dO V^T for its 16 q rows over keys [32c, 32c + 32), and X = Qr Gwin^T over
+// the 48 window rows those keys' skew reads, and owns columns [OW c, OW c +
+// OW) of every output slab (OW = W / 2) for dk / dv and drw / drr.  Per tile
+// pair the head dim streams through a ring of two cp.async stages of seven
+// 64-row tiles (Qw, dO, Qr, K, V and the 128-row window; slab i + 1 loads
+// while slab i's products run): S, dP and X are summed over the slabs once
+// (X's per-slab sums land in the warp's f32 staging, where the skew reads
+// them: BD[qr][kl] = X[qr][15 - qr + kl]), p and ds follow (tc::p_ds), and
+// the block applies the pair's P / dS (dkdv, stored transposed so that P^T
+// and dS^T load by ldmatrix) or dS and dSskew (dq; dSskew[qi][63 - qi +
+// ki] = ds) to each of its output slabs in turn, restaging only the
+// operands each needs (the last score slab's tiles serve the last output
+// slab in place).  The running sums of up to ZS output slabs (256 columns)
+// stay in registers, so the scores are computed once per tile pair up to H
+// 256; above that the output slabs split over ceil(ns / ZS) blocks (grid
+// z), each recomputing them.  dG: each key tile's 128 window rows of the
+// slab, computed by 16-row blocks (one per warp), are added to device
+// memory by float2 atomics.  Carrying the window halves across key tiles,
+// as the 16-bit kernels do, would keep each warp's 16 rows of its ZS
+// output slabs through the walk, 16 W ZS / 32 more f32 per lane: 32 at H
+// 64 (k2_dq_slab<float, 32, 2>, 190-208 registers: 222-240 of the 255 a
+// thread may hold; not tried) and 64 at H 128 (<float, 32, 4>, 242: past
+// 255).  The window is not kept as a ring across key tiles either: with
+// the head dim streamed, its upper half would stay resident at full H
+// between tile pairs, 64 (H + 4) f32: 17 KB at H 64 on this kernel's 202
+// KB (219 of the 227 KB a block may have; it would save one of the seven
+// 64-row tiles staged per slab and tile pair; not tried), 33 KB at H 128
+// (235 KB: does not fit), 65 KB at 256.  The products are slab_mma.cuh's:
+// bf16 / f16 mma.sync, f32 3xTF32, each k-block's score products and each
+// tile pair's output products summed apart in a zeroed fragment and added
+// into the running sums with an f32 add.  What bounds it: the products
+// (S, dP, BD and five output products per pair) at the tensor cores' rate
+// (f32 at a third of TF32's), then the atomics of dG.  Shared memory: dkdv
+// 190 KB (f32) / 174 KB (16 bits), dq 207 / 182 KB; one block of eight
+// warps per SM.
 namespace slabs {
 
 using namespace slab;
 
-constexpr int NW = BQ / 16;      // warps: one per 16-row group
-constexpr int NT = 32 * NW;
-constexpr int XW = BK + 16;      // BD window columns a warp reads
-constexpr int XS = XW + 4;       // f32 row stride of a warp's BD staging
+constexpr int SP = 2;                   // warps per 16-row group
+constexpr int NT = 32 * SP * (BQ / 16); // eight warps
+constexpr int KW = BK / SP;             // keys of a warp's S / dP
+constexpr int XW = KW + 16;             // BD window columns a warp reads
+constexpr int XS = XW + 4;              // f32 row stride of a warp's BD staging
+static_assert(KW == tc::Split<128>::KW && XS == tc::Split<128>::XS, "tc::p_ds<128>'s layout");
 
 template <typename E, int W>
 struct Lay {
     static constexpr int RS = W + PAD<E>;            // operand row stride
     static constexpr int PS = BK + PAD<E>;           // P / dS row stride
     static constexpr int DSS = 2 * BK + PAD<E>;      // dSskew row stride
-    static constexpr size_t T_BYTES = (size_t)BQ * RS * sizeof(E);   // one 64-row tile
-    static constexpr size_t G_BYTES = 2 * T_BYTES;                   // the 128-row window
-    static constexpr size_t X_BYTES = (size_t)NW * 16 * XS * 4;
-    static constexpr bool X_ON_G = G_BYTES >= X_BYTES;
-    // K, V, Qw, dO, Qr; the window (BD staged over it when it fits); P, dS
+    static constexpr int TILE = BQ * RS;             // one staged [64][W] tile
+    static constexpr int OW = W / SP < 16 ? 16 : W / SP;   // a warp's columns of an output slab
+    // a ring stage: Qw, dO, Qr, K, V, the window's two halves
+    static constexpr int QW = 0, DO = 1, QR = 2, KK = 3, VV = 4, GG = 5, NTILE = 7;
+    static constexpr size_t RING = (size_t)2 * NTILE * TILE * sizeof(E);
+    static constexpr size_t X_BYTES = (size_t)(NT / 32) * 16 * XS * 4;
+    // the ring; the warps' BD staging; P^T and dS^T [BK][PS]
     static constexpr size_t dkdv_bytes() {
-        return 5 * T_BYTES + G_BYTES + (X_ON_G ? 0 : X_BYTES) + (size_t)2 * BQ * PS * sizeof(E);
+        return RING + X_BYTES + (size_t)2 * BK * PS * sizeof(E);
     }
-    // Qw, Qr, dO, K, V; the window; BD staging; dSskew
+    // the ring; the warps' BD staging; dS [BQ][PS]; dSskew [BQ][DSS]
     static constexpr size_t dq_bytes() {
-        return 5 * T_BYTES + G_BYTES + X_BYTES + (size_t)BQ * DSS * sizeof(E);
+        return RING + X_BYTES + (size_t)BQ * (PS + DSS) * sizeof(E);
     }
 };
 
-__host__ __device__ constexpr int slab_width(int H) { return H < 64 ? H : 64; }
-
-// The staged tiles of a block: [64][RS] each, the window [128][RS]
-template <typename E>
-struct Tiles {
-    E *qw, *qr, *dO, *k, *v, *g;
+// a slab instance: width W, output slabs a block holds ZS
+template <int W_, int ZS_>
+struct Cfg {
+    static constexpr int W = W_, ZS = ZS_;
 };
 
-// S = Qw . K^T, dP = dO . V^T over the tile's 64 keys and X = Qr . Gwin[48 -
-// 16p, + XW)^T of the tile pair (q0, k0), summed over the ns slabs of the
-// head dim, slab z last.  `q_once` / `k_once`: the q tile's (Qw, Qr, dO) /
-// the key tile's (K, V) single slab is staged already (ns = 1)
+// f(Cfg) for the instance a call at head dim H runs: f32 in slabs of
+// min(H, 32), 16 bits (H above 128) of 64; up to 256 output columns a block
+template <typename E, typename F>
+cudaError_t with_cfg(int H, F&& f) {
+    if constexpr (kF32<E>) {
+        switch (H) {
+            case 16: return f(Cfg<16, 1>{});
+            case 32: return f(Cfg<32, 1>{});
+            case 64: return f(Cfg<32, 2>{});
+            case 128: return f(Cfg<32, 4>{});
+        }
+        if (H <= 128 || H % 128) return cudaErrorInvalidValue;
+        return f(Cfg<32, 8>{});
+    } else {
+        if (H <= 128 || H % 128) return cudaErrorInvalidValue;
+        return f(Cfg<64, 4>{});
+    }
+}
+
+// X of one staged slab (Qr rows 16p.. against window rows 48 - 16p + KW c +
+// [0, XW)) into the warp's f32 staging sXw [16][XS]: stored at slab 0,
+// added (f32, rounded to nearest) after
 template <typename E, int W>
-__device__ __forceinline__ void pair_scores(float (&s)[BK / 8][4], float (&dp)[BK / 8][4],
-                                            float (&x)[XW / 8][4], const Tiles<E>& sm,
-                                            const E* rw_b, const E* rr_b, const E* do_b,
-                                            const E* k_b, const E* v_b, const E* g_h, int q0,
-                                            int k0, int T_, int S, int H, int ns, int z,
-                                            bool q_once, bool k_once, int tid, int p, int lane) {
+__device__ __forceinline__ void bd_slab(float* sXw, const E* Qr, const E* G, int p, int c,
+                                        bool first, int lane) {
     constexpr int RS = Lay<E, W>::RS;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    float x[XW / 8][4] = {};
+    slab_product<E, W>(x, Qr, 16 * p, G, 48 - 16 * p + KW * c, RS, lane);
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int n = 0; n < XW / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-    for (int i = 0; i < ns; ++i) {
-        const int c0 = W * ((z + 1 + i) % ns);
-        __syncthreads();                 // every warp is done with the staged tiles
-        if (!q_once) {
-            stage<W>(sm.qw, rw_b, q0, BQ, T_, H, c0, tid, NT);
-            stage<W>(sm.qr, rr_b, q0, BQ, T_, H, c0, tid, NT);
-            stage<W>(sm.dO, do_b, q0, BQ, T_, H, c0, tid, NT);
-        }
-        if (!k_once) {
-            stage<W>(sm.k, k_b, k0, BK, S, H, c0, tid, NT);
-            stage<W>(sm.v, v_b, k0, BK, S, H, c0, tid, NT);
-        }
-        stage<W>(sm.g, g_h, T_ - q0 - BQ + k0, 2 * BK, T_ + S, H, c0, tid, NT);
-        mma_bf16::cp_commit();
-        mma_bf16::cp_wait<0>();
-        __syncthreads();
-        slab_product<E, W>(s, sm.qw, 16 * p, sm.k, 0, RS, lane);
-        slab_product<E, W>(dp, sm.dO, 16 * p, sm.v, 0, RS, lane);
-        slab_product<E, W>(x, sm.qr, 16 * p, sm.g, 48 - 16 * p, RS, lane);
-    }
-}
-
-// X into the warp's staging sXw [16][XS], then p and ds in place of s and
-// dp (the tensor-core kernels' p_ds at one warp per group: BD[qr][kl] =
-// X[qr][15 - qr + kl]); l / dl: lse and delta of rows g, g + 8
-__device__ __forceinline__ void p_ds(float (&s)[BK / 8][4], float (&dp)[BK / 8][4],
-                                     const float (&x)[XW / 8][4], float* sXw, int q0, int k0,
-                                     int p, int lane, const float (&l)[2], const float (&dl)[2],
-                                     int T_, int S, int M, int mv, float scale, int window) {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int n = 0; n < XW / 8; ++n) {
-        *reinterpret_cast<float2*>(sXw + g * XS + 8 * n + 2 * t) = make_float2(x[n][0], x[n][1]);
-        *reinterpret_cast<float2*>(sXw + (g + 8) * XS + 8 * n + 2 * t) =
-            make_float2(x[n][2], x[n][3]);
-    }
-    __syncwarp();
-    const bool full = tc::tile_full(q0, k0, T_, S, M, mv, window);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int qr = g + 8 * (e >> 1), kl = 8 * j + 2 * t + (e & 1);
-            const float bd = sXw[qr * XS + 15 - qr + kl];
-            const bool ok = full || visible(q0 + 16 * p + qr, k0 + kl, T_, S, M, mv, window);
-            const float pr = ok ? expf((s[j][e] + bd) * scale - l[e >> 1]) : 0.f;
-            dp[j][e] = pr * (dp[j][e] - dl[e >> 1]) * scale;
-            s[j][e] = pr;
+        for (int h = 0; h < 2; ++h) {
+            float2* o = reinterpret_cast<float2*>(sXw + (g + 8 * h) * XS + 8 * n + 2 * t);
+            const float2 v = first ? make_float2(0.f, 0.f) : *o;
+            *o = make_float2(v.x + x[n][2 * h], v.y + x[n][2 * h + 1]);
         }
 }
 
-template <typename E, int W>
-__global__ void __launch_bounds__(NT, 2)
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
 k2_dkdv_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
              const E* __restrict__ vv, const E* __restrict__ g, const E* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ mv_ptr,
              int mv_const, int N, int T_, int S, int M, float scale, int window, int ns) {
     using L = Lay<E, W>;
-    constexpr int RS = L::RS, PS = L::PS, K8 = KS<E>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
     const int H = W * ns;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    Tiles<E> sm;
-    sm.k = reinterpret_cast<E*>(smem_raw);
-    sm.v = sm.k + BK * RS;
-    sm.qw = sm.v + BK * RS;
-    sm.dO = sm.qw + BQ * RS;
-    sm.qr = sm.dO + BQ * RS;
-    sm.g = sm.qr + BQ * RS;
-    float* sX = reinterpret_cast<float*>(L::X_ON_G ? sm.g : sm.g + 2 * BK * RS);
-    E* sP = reinterpret_cast<E*>(reinterpret_cast<unsigned char*>(sm.g) + L::G_BYTES +
-                                 (L::X_ON_G ? 0 : L::X_BYTES));
-    E* sDS = sP + BQ * PS;
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: tile i at ring + (NTILE b + i) TILE
+    float* sX = reinterpret_cast<float*>(smem_raw + L::RING);
+    E* sP = reinterpret_cast<E*>(smem_raw + L::RING + L::X_BYTES);   // P^T [BK][PS]
+    E* sDS = sP + BK * PS;                                           // dS^T
 
-    const int bn = blockIdx.y, z = blockIdx.z;
+    const int bn = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
     const int k0 = blockIdx.x * BK;
     const int head = bn % N;
-    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
-    const int gq = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
     const int mv = mv_ptr ? *mv_ptr : mv_const;
-    float* sXw = sX + p * 16 * XS;
+    float* sXw = sX + w * 16 * XS;
 
     const E* rw_b = rw + (size_t)bn * T_ * H;
     const E* rr_b = rr + (size_t)bn * T_ * H;
@@ -801,96 +784,137 @@ k2_dkdv_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __rest
     if (window > 0) q_hi = min(q_hi, window + k_last - M);
     const bool any = k_last >= M - mv && q_lo < q_hi;
     const int qt_begin = q_lo / BQ, qt_end = any ? (q_hi + BQ - 1) / BQ : qt_begin;
-
-    float dka[W / 8][4] = {}, dva[W / 8][4] = {};   // key rows 16p + gq (+8), cols 8n + 2t
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-        const int q0 = qt * BQ;
-        float s[BK / 8][4], dp[BK / 8][4], x[XW / 8][4];
-        pair_scores<E, W>(s, dp, x, sm, rw_b, rr_b, do_b, k_b, v_b, g_h, q0, k0, T_, S, H, ns,
-                          z, false, ns == 1 && qt > qt_begin, tid, p, lane);
-        float l2[2], d2[2];
-        tc::row_stats(l2, d2, lse_b, dl_b, q0, p, lane, T_);
-        if constexpr (L::X_ON_G) __syncthreads();   // every warp's window reads are done
-        p_ds(s, dp, x, sXw, q0, k0, p, lane, l2, d2, T_, S, M, mv, scale, window);
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int o = (16 * p + gq + 8 * h) * PS + 8 * j + 2 * t;
-                put2<E>(sP + o, s[j][2 * h], s[j][2 * h + 1]);
-                put2<E>(sDS + o, dp[j][2 * h], dp[j][2 * h + 1]);
-            }
-        __syncthreads();                 // every warp's P / dS rows are written
-
-        // dv += P^T dO[:, W z..], dk += dS^T Qw[:, W z..] over the tile's 64 q
-        // rows (summed apart, then added rounded to nearest)
-#pragma unroll
-        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
-            float tv[2 * CH][4] = {}, tk[2 * CH][4] = {};
-#pragma unroll 1
-            for (int kq = 0; kq < BQ / K8; ++kq) {
-                FragA<E> ap, ad;
-                load_at(ap, sP, PS, 16 * p, K8 * kq, lane);
-                load_at(ad, sDS, PS, 16 * p, K8 * kq, lane);
-#pragma unroll
-                for (int j = 0; j < CH && c + j < W / 16; ++j) {
-                    FragB<E> bo[2], bq[2];
-                    load_bt(bo, sm.dO, RS, 16 * (c + j), K8 * kq, lane);
-                    load_bt(bq, sm.qw, RS, 16 * (c + j), K8 * kq, lane);
-                    mma(tv[2 * j], ap, bo[0]);
-                    mma(tv[2 * j + 1], ap, bo[1]);
-                    mma(tk[2 * j], ad, bq[0]);
-                    mma(tk[2 * j + 1], ad, bq[1]);
-                }
-            }
-            add_pass(dva, tv, c);
-            add_pass(dka, tk, c);
+    // the items of a q tile: its ns score slabs, then the block's output
+    // slabs but the head dim's last, which the last score slab's tiles serve
+    const bool last_in = z0 + nz == ns;
+    const int per = ns + nz - last_in, n_items = (qt_end - qt_begin) * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, q0 = (qt_begin + n / per) * BQ;
+        E* st = ring + (n & 1) * L::NTILE * TILE;
+        const int c0 = W * (m < ns ? m : z0 + m - ns);
+        stage<W>(st + L::QW * TILE, rw_b, q0, BQ, T_, H, c0, tid, NT);
+        stage<W>(st + L::DO * TILE, do_b, q0, BQ, T_, H, c0, tid, NT);
+        if (m < ns) {
+            stage<W>(st + L::QR * TILE, rr_b, q0, BQ, T_, H, c0, tid, NT);
+            stage<W>(st + L::KK * TILE, k_b, k0, BK, S, H, c0, tid, NT);
+            stage<W>(st + L::VV * TILE, v_b, k0, BK, S, H, c0, tid, NT);
+            stage<W>(st + L::GG * TILE, g_h, T_ - q0 - BQ + k0, 2 * BK, T_ + S, H, c0, tid, NT);
         }
+        mma_bf16::cp_commit();
+    };
+    if (n_items > 0) issue(0);
+
+    // key rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float dka[ZS][OW / 8][4] = {}, dva[ZS][OW / 8][4] = {};
+    // dv[:, slab z0 + zi] += P^T dO_slab, dk += dS^T Qw_slab, the warp's
+    // columns, PC n-pairs per pass, the pair's products summed apart
+    constexpr int PC = ZS <= 2 ? 2 : 1;
+    auto apply = [&](int zi, const E* st) {
+        if (OW * c >= W) return;                 // W 16: the group's second warp has none
+        const E* tQ = st + L::QW * TILE;
+        const E* tO = st + L::DO * TILE;
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += PC) {
+                float tv[2 * PC][4] = {}, tk[2 * PC][4] = {};
+#pragma unroll 1
+                for (int kq = 0; kq < BQ / K8; ++kq) {
+                    FragA<E> ap, ad;
+                    load_a(ap, sP, PS, 16 * p, K8 * kq, lane);
+                    load_a(ad, sDS, PS, 16 * p, K8 * kq, lane);
+#pragma unroll
+                    for (int j = 0; j < PC && cp + j < OW / 16; ++j) {
+                        FragB<E> bo[2], bq[2];
+                        load_bt(bo, tO, RS, OW * c + 16 * (cp + j), K8 * kq, lane);
+                        load_bt(bq, tQ, RS, OW * c + 16 * (cp + j), K8 * kq, lane);
+                        mma(tv[2 * j], ap, bo[0]);
+                        mma(tk[2 * j], ad, bq[0]);
+                        mma(tv[2 * j + 1], ap, bo[1]);
+                        mma(tk[2 * j + 1], ad, bq[1]);
+                    }
+                }
+                add_pass(dva[zz], tv, cp);
+                add_pass(dka[zz], tk, cp);
+            }
+        }
+    };
+
+    float s[KW / 8][4], dp[KW / 8][4], l2[2], d2[2], unused = 0.f;
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, q0 = (qt_begin + n / per) * BQ;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m >= ns) {
+            apply(m - ns, st);
+            continue;
+        }
+        if (m == 0) {
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+        if (m == ns - 1) tc::row_stats(l2, d2, lse_b, dl_b, q0, p, lane, T_);
+        pair_product<E, W, false>(s, dp, st + L::QW * TILE, st + L::DO * TILE,
+                                  st + L::KK * TILE, st + L::VV * TILE, 16 * p, KW * c, RS, lane,
+                                  unused, nullptr, nullptr);
+        bd_slab<E, W>(sXw, st + L::QR * TILE, st + L::GG * TILE, p, c, m == 0, lane);
+        if (m < ns - 1) continue;
+        __syncwarp();                            // the warp's X is staged
+        tc::p_ds<128>(s, dp, sXw, q0, k0, p, c, lane, l2, d2, T_, S, M, mv, scale, window,
+                      tc::tile_full(q0, k0, T_, S, M, mv, window));
+        put_frags<E, true>(sP, s, PS, 16 * p, KW * c, lane);
+        put_frags<E, true>(sDS, dp, PS, 16 * p, KW * c, lane);
+        __syncthreads();                         // every warp's P^T / dS^T entries are written
+        if (last_in) apply(ns - 1 - z0, st);
     }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int k = k0 + 16 * p + gq + 8 * h;
-        if (k >= S) continue;
-        float* dk_r = dk + ((size_t)bn * S + k) * H + W * z;
-        float* dv_r = dv + ((size_t)bn * S + k) * H + W * z;
+    for (int zz = 0; zz < ZS; ++zz) {
+        if (zz >= nz || OW * c >= W) continue;
 #pragma unroll
-        for (int n = 0; n < W / 8; ++n) {
-            put2<float>(dk_r + 8 * n + 2 * t, dka[n][2 * h], dka[n][2 * h + 1]);
-            put2<float>(dv_r + 8 * n + 2 * t, dva[n][2 * h], dva[n][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+            const int k = k0 + 16 * p + gq + 8 * h;
+            if (k >= S) continue;
+            const size_t o = ((size_t)bn * S + k) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int n = 0; n < OW / 8; ++n) {
+                put2<float>(dk + o + 8 * n + 2 * t, dka[zz][n][2 * h], dka[zz][n][2 * h + 1]);
+                put2<float>(dv + o + 8 * n + 2 * t, dva[zz][n][2 * h], dva[zz][n][2 * h + 1]);
+            }
         }
     }
 }
 
-template <typename E, int W>
-__global__ void __launch_bounds__(NT, 2)
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
 k2_dq_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
            const E* __restrict__ vv, const E* __restrict__ g, const E* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta, E* __restrict__ drw,
            E* __restrict__ drr, float* __restrict__ dg, const int* __restrict__ mv_ptr,
            int mv_const, int N, int T_, int S, int M, float scale, int window, int ns) {
     using L = Lay<E, W>;
-    constexpr int RS = L::RS, DSS = L::DSS, K8 = KS<E>;
+    constexpr int RS = L::RS, PS = L::PS, DSS = L::DSS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
     const int H = W * ns;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    Tiles<E> sm;
-    sm.qw = reinterpret_cast<E*>(smem_raw);
-    sm.qr = sm.qw + BQ * RS;
-    sm.dO = sm.qr + BQ * RS;
-    sm.k = sm.dO + BQ * RS;
-    sm.v = sm.k + BK * RS;
-    sm.g = sm.v + BK * RS;
-    float* sX = reinterpret_cast<float*>(sm.g + 2 * BK * RS);
-    E* sDsk = reinterpret_cast<E*>(sX + NW * 16 * XS);   // dSskew [64][DSS]
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: tile i at ring + (NTILE b + i) TILE
+    float* sX = reinterpret_cast<float*>(smem_raw + L::RING);
+    E* sDS = reinterpret_cast<E*>(smem_raw + L::RING + L::X_BYTES);  // dS [BQ][PS]
+    E* sDsk = sDS + BQ * PS;                                         // dSskew [BQ][DSS]
 
-    const int bn = blockIdx.y, z = blockIdx.z;
+    const int bn = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
     const int head = bn % N;
-    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
-    const int gq = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
     const int mv = mv_ptr ? *mv_ptr : mv_const;
-    float* sXw = sX + p * 16 * XS;
-    E* dsk = sDsk + 16 * p * DSS;                   // the warp's rows of dSskew
+    float* sXw = sX + w * 16 * XS;
+    E* dsk = sDsk + 16 * p * DSS;                // the group's rows of dSskew
 
     const E* rw_b = rw + (size_t)bn * T_ * H;
     const E* rr_b = rr + (size_t)bn * T_ * H;
@@ -898,7 +922,7 @@ k2_dq_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restri
     const E* k_b = kk + (size_t)bn * S * H;
     const E* v_b = vv + (size_t)bn * S * H;
     const E* g_h = g + (size_t)head * (T_ + S) * H;
-    float* dg_h = dg + (size_t)head * (T_ + S) * H + W * z;
+    float* dg_h = dg + (size_t)head * (T_ + S) * H;
 
     // keys any row of this tile can see (K1's range)
     const int q_last = min(q0 + BQ, T_) - 1;
@@ -906,114 +930,161 @@ k2_dq_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restri
     int k_lo = max(0, M - mv);
     if (window > 0) k_lo = max(k_lo, M + q0 - window + 1);
     const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+    const bool last_in = z0 + nz == ns;
+    const int per = ns + nz - last_in, n_items = max(kt_end - kt_begin, 0) * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        E* st = ring + (n & 1) * L::NTILE * TILE;
+        const int c0 = W * (m < ns ? m : z0 + m - ns);
+        stage<W>(st + L::QR * TILE, rr_b, q0, BQ, T_, H, c0, tid, NT);
+        stage<W>(st + L::KK * TILE, k_b, k0, BK, S, H, c0, tid, NT);
+        stage<W>(st + L::GG * TILE, g_h, T_ - q0 - BQ + k0, 2 * BK, T_ + S, H, c0, tid, NT);
+        if (m < ns) {
+            stage<W>(st + L::QW * TILE, rw_b, q0, BQ, T_, H, c0, tid, NT);
+            stage<W>(st + L::DO * TILE, do_b, q0, BQ, T_, H, c0, tid, NT);
+            stage<W>(st + L::VV * TILE, v_b, k0, BK, S, H, c0, tid, NT);
+        }
+        mma_bf16::cp_commit();
+    };
+    if (n_items > 0) issue(0);
 
     float l2[2], d2[2];
     tc::row_stats(l2, d2, lse + (size_t)bn * T_, delta + (size_t)bn * T_, q0, p, lane, T_);
-    float dwa[W / 8][4] = {}, dra[W / 8][4] = {};   // q rows 16p + gq (+8), cols 8n + 2t
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * BK, u_lo = T_ - q0 - BQ + k0;   // G row of window row 0
-        float s[BK / 8][4], dp[BK / 8][4], x[XW / 8][4];
-        pair_scores<E, W>(s, dp, x, sm, rw_b, rr_b, do_b, k_b, v_b, g_h, q0, k0, T_, S, H, ns,
-                          z, ns == 1 && kt > kt_begin, false, tid, p, lane);
-        p_ds(s, dp, x, sXw, q0, k0, p, lane, l2, d2, T_, S, M, mv, scale, window);
-
-        // drw += dS . K[:, W z..], dS from the accumulators (each tile's
-        // products summed apart, then added rounded to nearest, as drr's)
+    // q rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float dwa[ZS][OW / 8][4] = {}, dra[ZS][OW / 8][4] = {};
+    // slab z0 + zi of the tile pair at k0 (staged in st): drw += dS . K, drr
+    // += dSskew . Gwin over the group's band of window rows [48 - 16p, 128 -
+    // 16p) (the warp's columns; the pair's products summed apart), and the
+    // window rows [16w, 16w + 16) of dG += dSskew^T . Qr into device memory
+    auto apply = [&](int zi, const E* st, int k0) {
+        const E* tK = st + L::KK * TILE;
+        const E* tG = st + L::GG * TILE;
+        const E* tQr = st + L::QR * TILE;
+        if (OW * c < W) {                        // W 16: the group's second warp has none
 #pragma unroll
-        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
-            float tw[2 * CH][4] = {};
+            for (int zz = 0; zz < ZS; ++zz) {
+                if (zz != zi) continue;
 #pragma unroll
-            for (int kb = 0; kb < BK / K8; ++kb) {
-                FragA<E> a;
-                acc_a<E>(a, dp, kb, lane);
+                for (int cp = 0; cp < OW / 16; cp += CH) {
+                    float tw[2 * CH][4] = {}, tr[2 * CH][4] = {};
+#pragma unroll 1
+                    for (int kb = 0; kb < BK / K8; ++kb) {
+                        FragA<E> a;
+                        load_a(a, sDS, PS, 16 * p, K8 * kb, lane);
 #pragma unroll
-                for (int j = 0; j < CH && c + j < W / 16; ++j) {
-                    FragB<E> b[2];
-                    load_bt(b, sm.k, RS, 16 * (c + j), K8 * kb, lane);
-                    mma(tw[2 * j], a, b[0]);
-                    mma(tw[2 * j + 1], a, b[1]);
+                        for (int j = 0; j < CH && cp + j < OW / 16; ++j) {
+                            FragB<E> b[2];
+                            load_bt(b, tK, RS, OW * c + 16 * (cp + j), K8 * kb, lane);
+                            mma(tw[2 * j], a, b[0]);
+                            mma(tw[2 * j + 1], a, b[1]);
+                        }
+                    }
+#pragma unroll 1
+                    for (int kr = 0; kr < 80 / K8; ++kr) {
+                        const int r0 = 48 - 16 * p + K8 * kr;
+                        FragA<E> a;
+                        load_a(a, sDsk, DSS, 16 * p, r0, lane);
+#pragma unroll
+                        for (int j = 0; j < CH && cp + j < OW / 16; ++j) {
+                            FragB<E> b[2];
+                            load_bt(b, tG, RS, OW * c + 16 * (cp + j), r0, lane);
+                            mma(tr[2 * j], a, b[0]);
+                            mma(tr[2 * j + 1], a, b[1]);
+                        }
+                    }
+                    add_pass(dwa[zz], tw, cp);
+                    add_pass(dra[zz], tr, cp);
                 }
             }
-            add_pass(dwa, tw, c);
         }
-        // the warp's rows of dSskew: zero, then dSskew[qr][63 - 16p - qr + ki] = ds
-        for (int e = lane; e < 16 * 2 * BK / PAD<E>; e += 32)
+        // window rows [r0, r0 + 16) hold q rows [48 - r0, 126 - r0]
+        const int r0 = 16 * w, u_lo = T_ - q0 - BQ + k0;
+        float ga[W / 8][4] = {};
+#pragma unroll 1
+        for (int kq = 0; kq < BQ / K8; ++kq) {
+            if (K8 * kq > 126 - r0 || K8 * kq + K8 - 1 < 48 - r0) continue;
+            FragA<E> a;
+            load_at(a, sDsk, DSS, r0, K8 * kq, lane);
+#pragma unroll
+            for (int np = 0; np < W / 16; ++np) {
+                FragB<E> b[2];
+                load_bt(b, tQr, RS, 16 * np, K8 * kq, lane);
+                mma(ga[2 * np], a, b[0]);
+                mma(ga[2 * np + 1], a, b[1]);
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int u = u_lo + r0 + gq + 8 * h;
+            if (u < 0 || u >= T_ + S) continue;
+#pragma unroll
+            for (int n = 0; n < W / 8; ++n) {
+                const float2 v = make_float2(ga[n][2 * h], ga[n][2 * h + 1]);
+                if (v.x != 0.f || v.y != 0.f)
+                    atomicAdd(reinterpret_cast<float2*>(dg_h + (size_t)u * H +
+                                                        W * (z0 + zi) + 8 * n + 2 * t),
+                              v);
+            }
+        }
+    };
+
+    float s[KW / 8][4], dp[KW / 8][4], unused = 0.f;
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m >= ns) {
+            apply(m - ns, st, k0);
+            continue;
+        }
+        if (m == 0) {
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+        pair_product<E, W, false>(s, dp, st + L::QW * TILE, st + L::DO * TILE,
+                                  st + L::KK * TILE, st + L::VV * TILE, 16 * p, KW * c, RS, lane,
+                                  unused, nullptr, nullptr);
+        bd_slab<E, W>(sXw, st + L::QR * TILE, st + L::GG * TILE, p, c, m == 0, lane);
+        if (m < ns - 1) continue;
+        __syncwarp();                            // the warp's X is staged
+        tc::p_ds<128>(s, dp, sXw, q0, k0, p, c, lane, l2, d2, T_, S, M, mv, scale, window,
+                      tc::tile_full(q0, k0, T_, S, M, mv, window));
+        // the group's rows of dS, and of dSskew: zero, then dSskew[qr][63 -
+        // 16p - qr + ki] = ds
+        put_frags<E, false>(sDS, dp, PS, 16 * p, KW * c, lane);
+        for (int e = lane + 32 * c; e < 16 * 2 * BK / PAD<E>; e += 32 * SP)
             *reinterpret_cast<uint4*>(dsk + (e / (2 * BK / PAD<E>)) * DSS +
                                       (e % (2 * BK / PAD<E>)) * PAD<E>) = make_uint4(0, 0, 0, 0);
-        __syncwarp();
+        mma_bf16::group_sync<SP>(p);             // the group's dSskew rows are zero
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
+        for (int j = 0; j < KW / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int qr = gq + 8 * (e >> 1), ki = 8 * j + 2 * t + (e & 1);
-                dsk[qr * DSS + 63 - 16 * p - qr + ki] = from_f<E>(dp[j][e]);
+                const int qr = gq + 8 * (e >> 1), ki = KW * c + 8 * j + 2 * t + (e & 1);
+                put1<E>(dsk + qr * DSS + 63 - 16 * p - qr + ki, dp[j][e]);
             }
-        __syncwarp();
-        // drr += dSskew . Gwin[:, W z..] over the warp's window rows [48 - 16p, 128 - 16p)
-#pragma unroll
-        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
-            float tr[2 * CH][4] = {};
-#pragma unroll 1
-            for (int kr = 0; kr < 80 / K8; ++kr) {
-                const int r0 = 48 - 16 * p + K8 * kr;
-                FragA<E> a;
-                load_a(a, sDsk, DSS, 16 * p, r0, lane);
-#pragma unroll
-                for (int j = 0; j < CH && c + j < W / 16; ++j) {
-                    FragB<E> b[2];
-                    load_bt(b, sm.g, RS, 16 * (c + j), r0, lane);
-                    mma(tr[2 * j], a, b[0]);
-                    mma(tr[2 * j + 1], a, b[1]);
-                }
-            }
-            add_pass(dra, tr, c);
-        }
-        __syncthreads();                 // every warp's dSskew rows are written
-
-        // dG window rows [32p, 32p + 32), columns W z.., += dSskew^T . Qr over
-        // the tile's q rows (window row r holds q rows [63 - r, 126 - r]),
-        // added to device memory block by block
-#pragma unroll
-        for (int mb = 0; mb < 2; ++mb) {
-            const int r0 = 32 * p + 16 * mb;
-            float ga[W / 8][4] = {};
-#pragma unroll 1
-            for (int kq = 0; kq < BQ / K8; ++kq) {
-                if (K8 * kq > 126 - r0 || K8 * kq + K8 - 1 < 48 - r0) continue;
-                FragA<E> a;
-                load_at(a, sDsk, DSS, r0, K8 * kq, lane);
-#pragma unroll
-                for (int np = 0; np < W / 16; ++np) {
-                    FragB<E> b[2];
-                    load_bt(b, sm.qr, RS, 16 * np, K8 * kq, lane);
-                    mma(ga[2 * np], a, b[0]);
-                    mma(ga[2 * np + 1], a, b[1]);
-                }
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int u = u_lo + r0 + gq + 8 * h;
-                if (u < 0 || u >= T_ + S) continue;
-#pragma unroll
-                for (int n = 0; n < W / 8; ++n) {
-                    const float2 v = make_float2(ga[n][2 * h], ga[n][2 * h + 1]);
-                    if (v.x != 0.f || v.y != 0.f)
-                        atomicAdd(reinterpret_cast<float2*>(dg_h + (size_t)u * H + 8 * n + 2 * t), v);
-                }
-            }
-        }
+        __syncthreads();                         // every group's dS / dSskew rows are written
+        if (last_in) apply(ns - 1 - z0, st, k0);
     }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int q = q0 + 16 * p + gq + 8 * h;
-        if (q >= T_) continue;
-        E* w_r = drw + ((size_t)bn * T_ + q) * H + W * z;
-        E* r_r = drr + ((size_t)bn * T_ + q) * H + W * z;
+    for (int zz = 0; zz < ZS; ++zz) {
+        if (zz >= nz || OW * c >= W) continue;
 #pragma unroll
-        for (int n = 0; n < W / 8; ++n) {
-            put2<E>(w_r + 8 * n + 2 * t, dwa[n][2 * h], dwa[n][2 * h + 1]);
-            put2<E>(r_r + 8 * n + 2 * t, dra[n][2 * h], dra[n][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+            const int q = q0 + 16 * p + gq + 8 * h;
+            if (q >= T_) continue;
+            const size_t o = ((size_t)bn * T_ + q) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int n = 0; n < OW / 8; ++n) {
+                put2<E>(drw + o + 8 * n + 2 * t, dwa[zz][n][2 * h], dwa[zz][n][2 * h + 1]);
+                put2<E>(drr + o + 8 * n + 2 * t, dra[zz][n][2 * h], dra[zz][n][2 * h + 1]);
+            }
         }
     }
 }
@@ -1055,12 +1126,12 @@ cudaError_t launch_tc(const Args& a) {
     return cudaGetLastError();
 }
 
-template <typename E, int W>
+template <typename E, int W, int ZS>
 cudaError_t launch_slab(const Args& a, int ns) {
     using L = slabs::Lay<E, W>;
     const size_t smem_kv = L::dkdv_bytes(), smem_q = L::dq_bytes();
-    auto kv = slabs::k2_dkdv_slab<E, W>;
-    auto kq = slabs::k2_dq_slab<E, W>;
+    auto kv = slabs::k2_dkdv_slab<E, W, ZS>;
+    auto kq = slabs::k2_dq_slab<E, W, ZS>;
     cudaError_t err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem_kv);
     if (err != cudaSuccess) return err;
@@ -1069,12 +1140,13 @@ cudaError_t launch_slab(const Args& a, int ns) {
     const E *rw = (const E*)a.rw, *rr = (const E*)a.rr, *k = (const E*)a.k, *v = (const E*)a.v,
             *g = (const E*)a.g, *dout = (const E*)a.dout;
     const float *lse = (const float*)a.lse, *delta = (const float*)a.delta;
-    kv<<<dim3((a.S + BK - 1) / BK, a.BN, ns), slabs::NT, smem_kv, a.stream>>>(
+    const int nz = (ns + ZS - 1) / ZS;
+    kv<<<dim3((a.S + BK - 1) / BK, a.BN, nz), slabs::NT, smem_kv, a.stream>>>(
         rw, rr, k, v, g, dout, lse, delta, (float*)a.dk, (float*)a.dv, a.mv_ptr, a.mv_const,
         a.N, a.T, a.S, a.M, a.scale, a.window, ns);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    kq<<<dim3((a.T + BQ - 1) / BQ, a.BN, ns), slabs::NT, smem_q, a.stream>>>(
+    kq<<<dim3((a.T + BQ - 1) / BQ, a.BN, nz), slabs::NT, smem_q, a.stream>>>(
         rw, rr, k, v, g, dout, lse, delta, (E*)a.drw, (E*)a.drr, (float*)a.dg, a.mv_ptr,
         a.mv_const, a.N, a.T, a.S, a.M, a.scale, a.window, ns);
     return cudaGetLastError();
@@ -1094,15 +1166,12 @@ cudaError_t launch_h(int H, const Args& a) {
             case 32: return launch_tc<E, 32>(a);
             case 64: return launch_tc<E, 64>(a);
             case 128: return launch_tc<E, 128>(a);
-            default: return launch_slab<E, 64>(a, H / 64);
-        }
-    } else {
-        switch (slabs::slab_width(H)) {
-            case 16: return launch_slab<E, 16>(a, 1);
-            case 32: return launch_slab<E, 32>(a, 1);
-            default: return launch_slab<E, 64>(a, H / 64);
         }
     }
+    return slabs::with_cfg<E>(H, [&](auto cfg) {
+        using F = decltype(cfg);
+        return launch_slab<E, F::W, F::ZS>(a, H / F::W);
+    });
 }
 
 template <typename E, int H>
@@ -1111,14 +1180,6 @@ cudaError_t resources_tc(int* out) {
     cudaError_t err = resources(tc::k2_dkdv_tc<E, H>, tc::dkdv_smem_bytes<H>(), NT, out);
     if (err != cudaSuccess) return err;
     return resources(tc::k2_dq_tc<E, H>, tc::dq_smem_bytes<H>(), NT, out + 5);
-}
-
-template <typename E, int W>
-cudaError_t resources_slab(int* out) {
-    using L = slabs::Lay<E, W>;
-    cudaError_t err = resources(slabs::k2_dkdv_slab<E, W>, L::dkdv_bytes(), slabs::NT, out);
-    if (err != cudaSuccess) return err;
-    return resources(slabs::k2_dq_slab<E, W>, L::dq_bytes(), slabs::NT, out + 5);
 }
 
 // the kernels a call of this dtype and H runs
@@ -1131,15 +1192,16 @@ cudaError_t resources_h(int H, int* out) {
             case 32: return resources_tc<E, 32>(out);
             case 64: return resources_tc<E, 64>(out);
             case 128: return resources_tc<E, 128>(out);
-            default: return resources_slab<E, 64>(out);
-        }
-    } else {
-        switch (slabs::slab_width(H)) {
-            case 16: return resources_slab<E, 16>(out);
-            case 32: return resources_slab<E, 32>(out);
-            default: return resources_slab<E, 64>(out);
         }
     }
+    return slabs::with_cfg<E>(H, [&](auto cfg) {
+        using F = decltype(cfg);
+        using L = slabs::Lay<E, F::W>;
+        cudaError_t err = resources(slabs::k2_dkdv_slab<E, F::W, F::ZS>, L::dkdv_bytes(),
+                                    slabs::NT, out);
+        if (err != cudaSuccess) return err;
+        return resources(slabs::k2_dq_slab<E, F::W, F::ZS>, L::dq_bytes(), slabs::NT, out + 5);
+    });
 }
 
 }  // namespace

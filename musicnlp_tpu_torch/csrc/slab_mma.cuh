@@ -6,13 +6,15 @@
 //   bf16, f16  mma.sync m16n8k16 (E in, f32 accumulate), one per product;
 //   f32        3xTF32: mma.sync m16n8k8 with TF32 inputs, f32 accumulate.
 //              Each f32 operand x is split where its fragment is loaded into
-//              hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (x - hi is
-//              exact in f32), and a product is lo.hi + hi.lo + hi.hi, the
-//              small terms first: only lo.lo (~2^-22 of the product) and
-//              lo's own rounding (~2^-22 of x) are lost, so the sums keep
-//              about f32 accuracy at a third of the TF32 rate (CUTLASS's
-//              OpMultiplyAddFastF32).  Operands are split as fragments, not
-//              as staged values, because a split copy of every staged tile
+//              hi = x rounded to TF32 and lo = x - hi (exact in f32) rounded
+//              to TF32, both to nearest with ties away from zero
+//              (cvt.rna.tf32's rounding, done on the bits: plus 2^12, and
+//              the low 13 bits cleared for hi, dropped by the tensor core
+//              for lo), and a product is lo.hi + hi.lo + hi.hi, the small
+//              terms first: only lo.lo (~2^-22 of the product) and lo's own
+//              rounding (~2^-22 of x) are lost, so the sums keep about f32
+//              accuracy at a third of the TF32 rate.  Operands are split as fragments, not as
+//              staged values, because a split copy of every staged tile
 //              would double the f32 tiles' shared memory.
 // The tensor cores accumulate with truncation, not rounding to nearest, so a
 // long sum of f32 products drifts by about an ulp of the sum per step: a
@@ -20,7 +22,8 @@
 // a zeroed fragment and that into its running sums with an f32 add (K2's dk
 // / dv over 1,024 rows read 1.5e-5 of their max with one accumulator,
 // against the 1e-5 limit; drr at head dim 256, 1.4e-5 with the scores summed
-// over four slabs in one).
+// over four slabs in one).  K4's f32 scores over several slabs (D >= 128)
+// also carry their sum across slabs as a pair (carry_slab, below).
 // Operands sit in shared memory as E rows whose stride is the slab width W
 // plus 16 bytes (an odd number of 16-byte units: ldmatrix without bank
 // conflicts).  A k-block of a product is KS = 16 (b16) or 8 (f32) elements
@@ -55,16 +58,14 @@ template <> struct FragA<float> { uint32_t h[4], l[4]; };
 template <typename E> struct FragB { uint32_t r[2]; };
 template <> struct FragB<float> { uint32_t h[2], l[2]; };
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return r;
-}
-
-// x (f32 bits) -> its TF32 high part and the TF32 rounding of the rest
+// x (f32 bits) -> its TF32 high part and the TF32 rounding of the rest, both
+// to nearest with ties away from zero (the bits are sign and magnitude, so
+// adding half of 2^13 rounds the magnitude away from zero).  lo keeps its
+// low 13 bits: the tensor core drops them, which completes the rounding
+// (as ptxas lowers cvt.rna.tf32 feeding an mma), one instruction fewer
 __device__ __forceinline__ void split(uint32_t x, uint32_t& h, uint32_t& l) {
-    h = tf32(__uint_as_float(x));
-    l = tf32(__uint_as_float(x) - __uint_as_float(h));
+    h = (x + 0x1000u) & 0xffffe000u;
+    l = __float_as_uint(__uint_as_float(x) - __uint_as_float(h)) + 0x1000u;
 }
 
 template <int N>
@@ -84,6 +85,44 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same with C = 0: d = a . b (d's contents dropped, no zeroing)
+__device__ __forceinline__ void mma_tf32_z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1) {
+    asm(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+template <typename E>
+__device__ __forceinline__ void mma16_z(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+    if constexpr (std::is_same_v<E, __half>)
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+            : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+    else
+        asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+            : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// d = a . b over one k-block, into a fragment whose contents are dropped
+// (the zeroed fragment of the flush rule, without zeroing it)
+template <typename E>
+__device__ __forceinline__ void mma_z(float (&d)[4], const FragA<E>& a, const FragB<E>& b) {
+    if constexpr (kF32<E>) {
+        mma_tf32_z(d, a.l, b.h[0], b.h[1]);
+        mma_tf32(d, a.h, b.l[0], b.l[1]);
+        mma_tf32(d, a.h, b.h[0], b.h[1]);
+    } else {
+        mma16_z<E>(d, a.r, b.r[0], b.r[1]);
+    }
 }
 
 // d += a . b over one k-block
@@ -254,6 +293,17 @@ __device__ __forceinline__ void put2(E* dst, float lo, float hi) {
         *reinterpret_cast<uint32_t*>(dst) = mma_bf16::pack<E>(lo, hi);
 }
 
+// one f32 value as E at dst (rounded to E by RNE; f32 as it is)
+template <typename E>
+__device__ __forceinline__ void put1(E* dst, float x) {
+    if constexpr (kF32<E>)
+        *dst = x;
+    else if constexpr (std::is_same_v<E, __half>)
+        *dst = __float2half_rn(x);
+    else
+        *dst = __float2bfloat16_rn(x);
+}
+
 // rows [r0, r0 + n) x columns [c0, c0 + W) of a [len, ld] matrix into
 // shared rows of stride W + PAD; zero fill outside [0, len); nt threads
 template <int W, typename E>
@@ -265,6 +315,118 @@ __device__ __forceinline__ void stage(E* dst, const E* src, int r0, int n, int l
         const bool ok = row >= 0 && row < len;
         cp_async16(dst + r * (W + PAD<E>) + c, src + (ok ? (size_t)row * ld + c0 + c : 0), ok);
     }
+}
+
+// acc continued over the W columns of the staged rows a and b in column
+// order: self_score's sequential f32 FMA chain, a piece at a time
+template <typename E, int W>
+__device__ __forceinline__ float own_chain(float acc, const E* a, const E* b) {
+    if constexpr (kF32<E>) {
+#pragma unroll
+        for (int d = 0; d < W; ++d) acc = fmaf(a[d], b[d], acc);
+    } else {
+        const uint32_t* a2 = reinterpret_cast<const uint32_t*>(a);
+        const uint32_t* b2 = reinterpret_cast<const uint32_t*>(b);
+#pragma unroll
+        for (int d = 0; d < W / 2; ++d) {
+            const float2 x = mma_bf16::unpack<E>(a2[d]), y = mma_bf16::unpack<E>(b2[d]);
+            acc = fmaf(x.x, y.x, acc);
+            acc = fmaf(x.y, y.y, acc);
+        }
+    }
+    return acc;
+}
+
+// The backward slab kernels' scores: S += Q . K^T and dP += dO . V^T over
+// one staged slab of W columns, rows m0 + [0, 16) of Q / dO against keys n0
+// + [0, 8 N) of K / V (row stride ld); each k-block's products summed apart
+// in a fresh fragment, then added (slab_product's rule), S and dP
+// interleaved so that the tensor cores have twice the independent chains.
+// CHAIN: `own` continues over the slab's columns of the staged rows ca and
+// cb (own_chain, one k-block's columns at a time, in order), so that the
+// sequential chain's latency hides among the products
+template <typename E, int W, bool CHAIN, int N>
+__device__ __forceinline__ void pair_product(float (&s)[N][4], float (&dp)[N][4], const E* Q,
+                                             const E* O, const E* K, const E* V, int m0,
+                                             int n0, int ld, int lane, float& own, const E* ca,
+                                             const E* cb) {
+#pragma unroll 1
+    for (int kb = 0; kb < W / KS<E>; ++kb) {
+        float ts[N][4], td[N][4];
+        FragA<E> aq, ao;
+        load_a(aq, Q, ld, m0, KS<E> * kb, lane);
+        load_a(ao, O, ld, m0, KS<E> * kb, lane);
+#pragma unroll
+        for (int j = 0; j < N / 2; ++j) {
+            FragB<E> bk[2], bv[2];
+            load_b(bk, K, ld, n0 + 16 * j, KS<E> * kb, lane);
+            load_b(bv, V, ld, n0 + 16 * j, KS<E> * kb, lane);
+            mma_z(ts[2 * j], aq, bk[0]);
+            mma_z(td[2 * j], ao, bv[0]);
+            mma_z(ts[2 * j + 1], aq, bk[1]);
+            mma_z(td[2 * j + 1], ao, bv[1]);
+        }
+        if constexpr (CHAIN)
+            own = own_chain<E, KS<E>>(own, ca + KS<E> * kb, cb + KS<E> * kb);
+        add_pass(s, ts, 0);
+        add_pass(dp, td, 0);
+    }
+}
+
+// s + e == a + b exactly, s = fl(a + b), whatever the magnitudes (Knuth's
+// TwoSum; the _rn intrinsics keep the steps from being fused or reordered)
+__device__ __forceinline__ float two_sum(float a, float b, float& e) {
+    const float s = __fadd_rn(a, b), bv = __fsub_rn(s, a);
+    e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bv)), __fsub_rn(b, bv));
+    return s;
+}
+
+// The f32 backward kernels' score S over ns >= 2 slabs of the head dim,
+// carried as an unevaluated pair hi + lo: after slab m the slab's sum s
+// (its k-blocks added in f32, as pair_product adds them) goes into the pair
+// by two_sum.  The pair waits in `hold`, each lane's own words of [2][4
+// N][32] f32 in shared memory (hi, then lo: no barrier, and no registers
+// held through the products), and s restarts at 0; after the last slab s
+// = hi, and lo stays in `hold` for p_ds.  A score of |s| ~ 50 summed in
+// f32 over 16-32 k-blocks rounds at ~4e-6 per add, which exp(s - lse)
+// turns into a relative error of p of that size; the pair leaves only
+// each slab's own sum rounded.
+template <int N>
+__device__ __forceinline__ void carry_slab(float (&s)[N][4], float* hold, int m, int ns,
+                                           int lane) {
+    float* lo = hold + 4 * N * 32;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int i = (4 * j + e) * 32 + lane;
+            float err;
+            const float h = two_sum(m ? hold[i] : 0.f, s[j][e], err);
+            lo[i] = __fadd_rn(m ? lo[i] : 0.f, err);
+            if (m < ns - 1) hold[i] = h;
+            s[j][e] = m < ns - 1 ? 0.f : h;
+        }
+}
+
+// a C fragment row block x (rows r0 + g (+8), columns c0 + 8j + 2t (+1))
+// into the shared tile dst (row stride ld) as it is (dst[row][column]) or
+// transposed (dst[column][row]), rounded to E
+template <typename E, bool TRANS, int N>
+__device__ __forceinline__ void put_frags(E* dst, const float (&x)[N][4], int ld, int r0, int c0,
+                                          int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = r0 + g + 8 * h, k = c0 + 8 * j + 2 * t;
+            if constexpr (TRANS) {
+                put1<E>(dst + k * ld + r, x[j][2 * h]);
+                put1<E>(dst + (k + 1) * ld + r, x[j][2 * h + 1]);
+            } else {
+                put2<E>(dst + r * ld + k, x[j][2 * h], x[j][2 * h + 1]);
+            }
+        }
 }
 
 // fl(fl(q . k * scale) + self_bias) for the H-long rows q and k in device

@@ -28,6 +28,8 @@ from musicnlp_tpu_torch.preprocess.melody_grid import GridVocab
 from musicnlp_tpu_torch.tools import vpu_roofline as vr
 from musicnlp_tpu_torch.trainer.melody_w2v import PitchEmbedding
 from musicnlp_tpu_torch.utils.profiling import device_trace, step_kernels
+from tests.slab_configs import with_cfg
+from tests.test_torch_tf32x3 import k4 as k4_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -210,6 +212,33 @@ def test_k3_k4_match_plain(dev, dtype, G, T, D, chunk, perm, pads, scale, self_b
         assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
 
 
+@pytest.mark.parametrize('G,T,D,chunk,pads', [(1, 640, 128, 128, 40), (2, 256, 256, 64, 9)])
+def test_f32_k4_is_closer_to_f64_than_plain(dev, G, T, D, chunk, pads):
+    """The f32 cases of test_k3_k4_match_plain with unnormalised LSH keys
+    (scale 1: scores up to ~50, where an f32 add rounds at ~4e-6): K4's dq,
+    dk, dv lie no farther from the f64 backward on the same inputs (out and
+    lse K3's; a row's own key keeps its f32 score, which lse holds) than the
+    plain f32 backward does.  Prints both errors."""
+    q, k, v, qpos, kpos = _chunked_inputs(dev, torch.float32, G, T, D, True, pads)
+    kw = dict(chunk=chunk, scale=1.0, self_bias=-1e5)
+    out, lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    d_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    d_lse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    args = (q, k, v, qpos, kpos, out, d_out, lse, d_lse)
+    got = ck.chunked_window_attn_bwd(*args, **kw)
+    plain = ck.chunked_window_attn_bwd_plain(*args, **kw)
+    own = ((q.double() * k.double()).sum(-1).float() - 1e5).double()
+    f64 = [x.double() for x in (q, k, v)]
+    want = k4_reference(*f64, qpos.long(), kpos.long(), out.double(), d_out.double(),
+                        lse.double(), d_lse.double(), chunk, 1.0, -1e5, torch.matmul, own)
+    torch.cuda.synchronize()
+    err = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+    for name, a, b, c in zip(('dq', 'dk', 'dv'), got, plain, want):
+        print(f'[f64] G {G} T {T} D {D} chunk {chunk} {name}: kernel {err(a, c):.3e} '
+              f'plain {err(b, c):.3e} kernel-vs-plain {_rel_err(a, b):.3e}')
+        assert err(a, c) <= err(b, c), (name, err(a, c), err(b, c))
+
+
 @pytest.mark.parametrize('name,kernels', [
     ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_slab', 'k2_dq_slab')),
     ('chunked_window_attn_bwd', ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc', 'k4_dq_slab',
@@ -225,9 +254,9 @@ def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
     tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
     `cuobjdump -sass` of the built library, in every instantiation, and are
     built for both bf16 and f16 (K1's and K2's at head dim 128), the slab
-    kernels also for f32 (3xTF32); the FMA kernels (K3 / K4's f32 up to
-    head dim 128) keep their FMA code and are built for f32 alone, and K1 /
-    K2 have none left."""
+    kernels also for f32 (3xTF32; K4's run every f32 call); the FMA kernels
+    (K3's f32 up to head dim 128) keep their FMA code and are built for f32
+    alone, and K1, K2 and K4 have none left."""
     counts = vr.tensor_core_counts(name)
     for kern in kernels:
         fns = [c for f, c in counts.items() if kern in f]
@@ -240,9 +269,74 @@ def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
                    for k in kernels if k.endswith('_tc')), counts
     fma = {f: c for f, c in counts.items() if '_tc' not in f and '_slab' not in f}
     assert not any(fma.values()), counts
-    assert any('row_dot' not in f for f in fma) == name.startswith('chunked'), fma
+    assert any('row_dot' not in f for f in fma) == (name == 'chunked_window_attn_fwd'), fma
     # row_dot (delta, in the backward libraries) takes every dtype
     assert not any('__nv_bfloat16' in f or '__half' in f for f in fma if 'row_dot' not in f), fma
+
+
+def _slab_hmma(name, kernels, dtype, D):
+    """HMMA + HGMMA of the slab kernels `kernels` of library `name` in the
+    instance a call at head dim D in this dtype runs: <dtype, W, ZS> as the
+    C entry's `with_cfg` picks them (read from the source), found by the
+    mangled template arguments in `cuobjdump -sass`."""
+    part = {torch.float32: 'If', torch.bfloat16: '__nv_bfloat16', torch.float16: '6__half'}[dtype]
+    W, *zs = with_cfg(name, D, dtype == torch.float32)
+    zs = dict(zip(kernels, zs if len(zs) == len(kernels) else zs * len(kernels)))
+    counts = vr.tensor_core_counts(name)
+    return {k: sum(c for f, c in counts.items() if k in f and f'{part}Li{W}ELi{zs[k]}EE' in f)
+            for k in kernels}
+
+
+@pytest.mark.parametrize('chunk', [16, 64, 128])
+@pytest.mark.parametrize('D', [32, 64, 128, 256])
+def test_f32_k4_runs_on_the_slab_kernels(dev, chunk, D):
+    """Every f32 K4 call runs k4_dq_slab / k4_dkdv_slab (3xTF32 on the
+    tensor cores: their f32 instance of `with_cfg` at D holds HMMA):
+    dq, dk, dv against the plain backward within 1e-5 of each output's max,
+    LSH-permuted positions with pad keys and the self bias, T ragged against
+    the 64-row tiles."""
+    assert all(_slab_hmma('chunked_window_attn_bwd', ('k4_dq_slab', 'k4_dkdv_slab'),
+                          torch.float32, D).values())
+    G, T = 2, 5 * chunk if chunk < 64 else 3 * chunk
+    q, k, v, qpos, kpos = _chunked_inputs(dev, torch.float32, G, T, D, True, 9, seed=D + chunk)
+    k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) / D ** 0.5
+    kw = dict(chunk=chunk, scale=1.0, self_bias=-1e5)
+    out, lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    d_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    d_lse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    args = (q, k, v, qpos, kpos, out, d_out, lse, d_lse)
+    before = ck.LAUNCHES['chunked_window_attn_bwd']
+    got = ck.chunked_window_attn_bwd(*args, **kw)
+    want = ck.chunked_window_attn_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['chunked_window_attn_bwd'] == before + 1
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
+        assert _rel_err(a, b) <= 1e-5, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize('H,dtype', [(64, torch.float32), (128, torch.float32),
+                                     (256, torch.float32), (384, torch.bfloat16)])
+def test_k2_slab_kernels_match_plain(dev, H, dtype):
+    """k2_dkdv_slab / k2_dq_slab (every f32 K2 call, in 3xTF32, and 16 bits
+    above head dim 128) hold HMMA in the instance the call runs (`with_cfg`
+    at H) and match the plain backward: 1e-5 of each
+    output's max in f32, 2e-2 in bf16, on a ragged T with memory, mem_valid
+    and a window."""
+    assert all(_slab_hmma('flash_rel_attn_bwd', ('k2_dkdv_slab', 'k2_dq_slab'), dtype,
+                          H).values())
+    B, N, T, M, mv, window, clamp = 2, 2, 200, 100, 37, 150, 64
+    rw, rr, k, v, g = _inputs(dev, dtype, B * N, N, T, M, H, clamp, seed=H)
+    scale, mvt = H ** -0.5, torch.tensor(mv, dtype=torch.int32, device=dev)
+    out, lse = flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=M, scale=scale, window=window)
+    d_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(dev, dtype)
+    got = flash_rel_attn_bwd(rw, rr, k, v, g, out, d_out, lse, mvt, M=M, scale=scale,
+                             window=window)
+    want = flash_rel_attn_bwd_plain(rw, rr, k, v, g, out, d_out, lse, mv, M=M, scale=scale,
+                                    window=window)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else TOL16[dtype]
+    for name, a, b in zip(('drw', 'drr', 'dk', 'dv', 'dG'), got, want):
+        assert _rel_err(a, b) <= tol, (name, _rel_err(a, b))
 
 
 def test_reformer_forward_and_backward_launch_once_per_layer(dev):

@@ -22,6 +22,7 @@ import torch
 from musicnlp_tpu_torch.ops.flash_attention import (
     _key_mask, distance_table, flash_rel_attn_bwd_plain, flash_rel_attn_fwd_plain,
 )
+from tests.slab_configs import with_cfg
 
 BQ = BK = 64        # q rows / keys per tile
 GW = 128            # distance-table rows staged per tile pair
@@ -301,30 +302,48 @@ def test_g_ring_holds_each_window(kernel, steps):
 
 
 # ----------------------------- head dims above 128 and every f32 call: the slab kernels
-SLAB = 64           # slab width of k2_dkdv_slab / k2_dq_slab above head dim 64
-XW = BK + 16        # BD window columns of a warp (one warp per 16-row group)
+SP = 2              # warps per 16-row group of the slab kernels
+KW = BK // SP       # keys of a warp's S / dP
+XW = KW + 16        # BD window columns a warp reads
 
 
-def slab_order(z, ns):
-    """The slabs a block of output slab z stages per tile pair: z last, so
-    that its tiles stay in shared memory for the output products."""
-    return [(z + 1 + i) % ns for i in range(ns)]
+def slab_config(H, dtype):
+    """(slab width W, output slabs per block ZS) of k2_dkdv_slab / k2_dq_slab
+    at head dim H, read from the C entry's `with_cfg`."""
+    return with_cfg('flash_rel_attn_bwd', H, dtype == torch.float32)
 
 
-def _slab_tile(qw, qr, do, kt, vt, gwin, lse, dl, vis, scale, dtype, W, order):
-    """p and ds [BN, 64, 64] of one tile pair from S, dP and each warp's X =
-    Qr . Gwin[48 - 16g, + 80)^T summed over the slabs in `order`."""
-    BN = qw.shape[0]
-    s, dp = torch.zeros(BN, BQ, BK), torch.zeros(BN, BQ, BK)
-    xs = torch.zeros(BN, NG, 16, XW)
-    for hs in order:
-        c = slice(W * hs, W * hs + W)
-        s += qw[..., c] @ kt[..., c].transpose(1, 2)
-        dp += do[..., c] @ vt[..., c].transpose(1, 2)
+def slab_items(ns, z0, nz):
+    """A block's items per tile pair: ('score', i) for the ns slabs in order,
+    then ('out', z) for its output slabs [z0, z0 + nz) but the head dim's
+    last, which the last score item's tiles serve in place."""
+    last_in = z0 + nz == ns
+    return ([('score', i) for i in range(ns)]
+            + [('out', z) for z in range(z0, z0 + nz) if not (last_in and z == ns - 1)])
+
+
+def _slab_tile(qw, qr, do, kt, vt, gwin, lse, dl, vis, scale, dtype, W, items):
+    """p and ds [BN, 64, 64] of one tile pair from one score pass, the score
+    items of `items` (a block's `slab_items`) in order: S, dP and each
+    warp's X = Qr[16p..] . Gwin[48 - 16p + 32c, + 48)^T summed over the
+    W-wide slabs (X's first slab stored, the rest added, in the warp's f32
+    staging), BD read from X at column 15 - qr + kl."""
+    BN, H = qw.shape[0], qw.shape[-1]
+    s, dp, bd = torch.zeros(BN, BQ, BK), torch.zeros(BN, BQ, BK), torch.zeros(BN, BQ, BK)
+    xs = torch.zeros(BN, NG, SP, 16, XW)
+    for hs in (i for kind, i in items if kind == 'score'):
+        cs = slice(W * hs, W * hs + W)
         for g in range(NG):
-            xs[:, g] += qr[:, 16 * g:16 * g + 16, c] @ gwin[:, 48 - 16 * g:128 - 16 * g, c].transpose(1, 2)
-    qr_, kl = torch.arange(16)[:, None], torch.arange(BK)[None, :]
-    bd = torch.cat([xs[:, g][:, qr_, 15 - qr_ + kl] for g in range(NG)], 1)
+            rows = slice(16 * g, 16 * g + 16)
+            for c in range(SP):
+                keys, r0 = slice(KW * c, KW * c + KW), 48 - 16 * g + KW * c
+                s[:, rows, keys] += qw[:, rows, cs] @ kt[:, keys, cs].transpose(1, 2)
+                dp[:, rows, keys] += do[:, rows, cs] @ vt[:, keys, cs].transpose(1, 2)
+                xs[:, g, c] += qr[:, rows, cs] @ gwin[:, r0:r0 + XW, cs].transpose(1, 2)
+    qr_, kl = torch.arange(16)[:, None], torch.arange(KW)[None, :]
+    for g in range(NG):
+        for c in range(SP):
+            bd[:, 16 * g:16 * g + 16, KW * c:KW * c + KW] = xs[:, g, c][:, qr_, 15 - qr_ + kl]
     p = torch.where(vis, torch.exp((s + bd) * scale - lse[..., None]), torch.zeros(()))
     ds = p * (dp - dl[..., None]) * scale
     return p.to(dtype).float(), ds.to(dtype).float()
@@ -332,16 +351,19 @@ def _slab_tile(qw, qr, do, kt, vt, gwin, lse, dl, vis, scale, dtype, W, order):
 
 def k2_slab_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, window):
     """The schedule of `k2_dkdv_slab` / `k2_dq_slab` in torch -> (drw, drr,
-    dk, dv, dG).  A block owns one output slab z of W columns; per tile pair
-    it sums S, dP and BD over the ns slabs (z last), then adds dv += P^T
-    dO[:, z], dk += dS^T Qw[:, z] (dkdv), drw += dS K[:, z], drr += dSskew
-    Gwin[:, z] over each group's band, and each 16-row block of the dG
-    window, dSskew^T Qr[:, z] over the q blocks of its diagonal band, into
-    dG's rows u_lo + r (dq)."""
+    dk, dv, dG).  A block owns a group of ZS output slabs; per tile pair it
+    runs its `slab_items`: the score items make one score pass
+    (`_slab_tile`), then the last score item's slab (when the block has it)
+    and each output item's slab z take dv += P^T dO[:, z], dk += dS^T Qw[:,
+    z] (dkdv), or drw += dS K[:, z], drr += dSskew Gwin[:, z] over each
+    group's band and, by the window's 16-row blocks (one per warp),
+    dSskew^T Qr[:, z] over the q blocks of its diagonal band into dG's rows
+    u_lo + r (dq)."""
     BN, T, H = rw.shape
     S, N = k.shape[1], g.shape[0]
-    W = min(H, SLAB)
-    ns, dtype = H // W, rw.dtype
+    dtype = rw.dtype
+    W, ZS = slab_config(H, dtype)
+    ns = H // W
     K8 = 8 if dtype == torch.float32 else 16          # the product's k-block depth
     Tp, Sp = -(-T // BQ) * BQ, -(-S // BK) * BK
     f = lambda x, n: _pad(x.float(), n)
@@ -354,20 +376,28 @@ def k2_slab_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, wind
     vis = torch.zeros(Tp, Sp, dtype=torch.bool)
     vis[:T, :S] = _key_mask(T, S, M, mem_valid, window, 'cpu')
 
-    def pair(q0, k0, z):
+    def pair(q0, k0, items):
         gwin = _rows(gb, T - q0 - BQ + k0, GW)
         qs, ks = slice(q0, q0 + BQ), slice(k0, k0 + BK)
         p, ds = _slab_tile(qw[:, qs], qr[:, qs], do[:, qs], kk[:, ks], vv[:, ks], gwin,
-                           lse_p[:, qs], dl_p[:, qs], vis[qs, ks], scale, dtype, W,
-                           slab_order(z, ns))
+                           lse_p[:, qs], dl_p[:, qs], vis[qs, ks], scale, dtype, W, items)
         return gwin, qs, ks, p, ds
+
+    def applied(items, nz):
+        """The output slabs a block's items apply, in order: the last score
+        item's (when the block has it), then each output item's."""
+        outs = [i for kind, i in items if kind == 'out']
+        last = [ns - 1] if len(outs) < nz else []
+        return [slice(W * z, W * z + W) for z in last + outs]
 
     dk, dv = torch.zeros(BN, Sp, H), torch.zeros(BN, Sp, H)
     drw, drr = torch.zeros(BN, Tp, H), torch.zeros(BN, Tp, H)
     dg = torch.zeros(BN, T + S, H)
     qi, ki = torch.arange(BQ)[:, None], torch.arange(BK)[None, :]
-    for z in range(ns):
-        zc = slice(W * z, W * z + W)
+    for z0 in range(0, ns, ZS):
+        nz = min(ZS, ns - z0)
+        items = slab_items(ns, z0, nz)
+        zs = applied(items, nz)
         for k0 in range(0, S, BK):                  # dkdv
             k_last = min(k0 + BK, S) - 1
             q_lo, q_hi = max(0, k0 - M), T
@@ -376,9 +406,11 @@ def k2_slab_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, wind
             if not (k_last >= M - mem_valid and q_lo < q_hi):
                 continue
             for q0 in range(q_lo // BQ * BQ, q_hi, BQ):
-                _, qs, ks, p, ds = pair(q0, k0, z)
-                dv[:, ks, zc] += p.transpose(1, 2) @ do[:, qs, zc]
-                dk[:, ks, zc] += ds.transpose(1, 2) @ qw[:, qs, zc]
+                _, qs, ks, p, ds = pair(q0, k0, items)
+                pt, dst = p.transpose(1, 2), ds.transpose(1, 2)    # staged transposed
+                for zc in zs:
+                    dv[:, ks, zc] += pt @ do[:, qs, zc]
+                    dk[:, ks, zc] += dst @ qw[:, qs, zc]
         for q0 in range(0, T, BQ):                  # dq
             q_last = min(q0 + BQ, T) - 1
             k_hi, k_lo = min(S, M + q_last + 1), max(0, M - mem_valid)
@@ -386,26 +418,29 @@ def k2_slab_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, wind
                 k_lo = max(k_lo, M + q0 - window + 1)
             for kt in range(k_lo // BK, -(-k_hi // BK)):
                 k0, u_lo = kt * BK, T - q0 - BQ + kt * BK
-                gwin, qs, ks, _, ds = pair(q0, k0, z)
+                gwin, qs, ks, _, ds = pair(q0, k0, items)
                 dsk = torch.zeros(BN, BQ, GW)
                 dsk[:, qi, 63 - qi + ki] = ds
-                drw[:, qs, zc] += ds @ kk[:, ks, zc]
-                for gr in range(NG):
-                    band = slice(48 - 16 * gr, 128 - 16 * gr)
-                    rows = slice(16 * gr, 16 * gr + 16)
-                    assert not dsk[:, rows][:, :, _outside(band)].any()
-                    drr[:, q0 + 16 * gr:q0 + 16 * gr + 16, zc] += dsk[:, rows, band] @ gwin[:, band, zc]
-                for r0 in range(0, GW, 16):         # the window's 16-row blocks
-                    blk = torch.zeros(BN, 16, W)
-                    for kq in range(BQ // K8):      # the q blocks of the diagonal band
-                        if K8 * kq > 126 - r0 or K8 * kq + K8 - 1 < 48 - r0:
-                            assert not dsk[:, K8 * kq:K8 * kq + K8, r0:r0 + 16].any()
-                            continue
-                        qb = slice(K8 * kq, K8 * kq + K8)
-                        blk += dsk[:, qb, r0:r0 + 16].transpose(1, 2) @ qr[:, q0 + K8 * kq:q0 + K8 * kq + K8, zc]
-                    u = torch.arange(u_lo + r0, u_lo + r0 + 16)
-                    ok = (u >= 0) & (u < T + S)
-                    dg[:, u[ok], zc] += blk[:, ok]
+                for zc in zs:
+                    drw[:, qs, zc] += ds @ kk[:, ks, zc]
+                    for gr in range(NG):
+                        band = slice(48 - 16 * gr, 128 - 16 * gr)
+                        rows = slice(16 * gr, 16 * gr + 16)
+                        assert not dsk[:, rows][:, :, _outside(band)].any()
+                        drr[:, q0 + 16 * gr:q0 + 16 * gr + 16, zc] += \
+                            dsk[:, rows, band] @ gwin[:, band, zc]
+                    for r0 in range(0, GW, 16):     # warp r0 / 16's window rows
+                        blk = torch.zeros(BN, 16, W)
+                        for kq in range(BQ // K8):  # the q blocks of the diagonal band
+                            if K8 * kq > 126 - r0 or K8 * kq + K8 - 1 < 48 - r0:
+                                assert not dsk[:, K8 * kq:K8 * kq + K8, r0:r0 + 16].any()
+                                continue
+                            qb = slice(K8 * kq, K8 * kq + K8)
+                            blk += dsk[:, qb, r0:r0 + 16].transpose(1, 2) @ \
+                                qr[:, q0 + K8 * kq:q0 + K8 * kq + K8, zc]
+                        u = torch.arange(u_lo + r0, u_lo + r0 + 16)
+                        ok = (u >= 0) & (u < T + S)
+                        dg[:, u[ok], zc] += blk[:, ok]
     dg = dg.reshape(BN // N, N, T + S, H).sum(0)
     return drw[:, :T].to(dtype), drr[:, :T].to(dtype), dk[:, :S], dv[:, :S], dg
 
@@ -414,10 +449,14 @@ def k2_slab_tiles(rw, rr, k, v, g, out, d_out, lse, mem_valid, *, M, scale, wind
     (256, 77, 0, 0, 0, 1024, torch.float32), (256, 200, 100, 37, 150, 17, torch.float32),
     (384, 130, 64, 17, 40, 1024, torch.float32), (128, 140, 30, 30, 0, 17, torch.float32),
     (32, 100, 64, 17, 40, 1024, torch.float32), (256, 150, 64, 17, 40, 1024, torch.bfloat16),
+    (64, 150, 64, 17, 40, 96, torch.float32), (16, 90, 0, 0, 0, 1024, torch.float32),
+    (384, 100, 0, 0, 0, 1024, torch.float16),
 ])
 def test_slab_schedule_matches_plain_backward(H, T, M, mv, window, clamp, dtype):
     """The slab kernels' schedule (every f32 head dim, and 16 bits above 128):
-    every output against the plain backward at `TOL_TILES`."""
+    one score pass per tile pair, its P / dS (or dS / dSskew) applied to
+    each output slab; every output against the plain backward at
+    `TOL_TILES`."""
     ins = [x.to(dtype) for x in _inputs(H, T, M, clamp, seed=3 * H + T + M, B=1, N=2)]
     rw, rr, k, v, g, d_out = ins
     scale = H ** -0.5
@@ -431,9 +470,26 @@ def test_slab_schedule_matches_plain_backward(H, T, M, mv, window, clamp, dtype)
         assert err <= TOL_TILES[dtype], (name, err)
 
 
-@pytest.mark.parametrize('ns', [1, 2, 4, 6])
-def test_slab_order_ends_at_the_output_slab(ns):
-    """Each output slab's block stages every slab once, its own last."""
-    for z in range(ns):
-        order = slab_order(z, ns)
-        assert sorted(order) == list(range(ns)) and order[-1] == z
+@pytest.mark.parametrize('H,dtype', [(16, torch.float32), (64, torch.float32),
+                                     (128, torch.float32), (256, torch.float32),
+                                     (384, torch.float32), (256, torch.bfloat16),
+                                     (384, torch.bfloat16)])
+def test_slab_items_score_once_and_apply_each_output_slab_once(H, dtype):
+    """Each block's items per tile pair: the head dim's slabs scored once,
+    in order, and each of its output slabs applied once, the last in place;
+    the blocks of a tile together apply every output slab once, and up to
+    256 columns one block scores each tile pair."""
+    W, ZS = slab_config(H, dtype)
+    ns = H // W
+    applied = []
+    for z0 in range(0, ns, ZS):
+        nz = min(ZS, ns - z0)
+        items = slab_items(ns, z0, nz)
+        assert [i for kind, i in items if kind == 'score'] == list(range(ns))
+        outs = [z for kind, z in items if kind == 'out']
+        if z0 + nz == ns:
+            outs.append(ns - 1)
+        assert sorted(outs) == list(range(z0, z0 + nz))
+        applied += outs
+    assert sorted(applied) == list(range(ns))
+    assert (ns + ZS - 1) // ZS == (1 if H <= 256 else 2)

@@ -28,6 +28,7 @@ from musicnlp_tpu.ops.pallas.chunked_attention_kernel import (
 from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
     NEG_INF, chunked_window_attn_bwd_plain, chunked_window_attn_fwd_plain,
 )
+from tests.slab_configs import with_cfg
 from tests.torch_parity import randn
 
 B = 64                                   # rows per tile
@@ -240,8 +241,26 @@ def test_tile_walk_matches_the_pallas_vjp():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **PALLAS_TOL, err_msg=name)
 
 
-# --------------------------------------------- head dims above 128: the slab split
-SLAB = 64           # slab width of k4_dq_slab / k4_dkdv_slab
+# ------------------------- every f32 call, and 16 bits above D 128: the slab split
+SLAB = 64           # the widest slab of k4_dq_slab / k4_dkdv_slab
+SP = 2              # warps per 16-row group
+KW = B // SP        # keys of a warp's S / dP
+
+
+def slab_config(D, dtype):
+    """(slab width W, output slabs of a dq block ZQ, of a dk / dv block ZKV)
+    of the slab kernels at head dim D, read from the C entry's `with_cfg`."""
+    return with_cfg('chunked_window_attn_bwd', D, dtype == torch.float32)
+
+
+def slab_items(ns, z0, nz):
+    """A block's items per tile pair: ('score', i) for the ns slabs of the
+    head dim in order, then ('out', z) for its output slabs [z0, z0 + nz)
+    but the head dim's last, which the last score item's tiles serve in
+    place (('score', ns - 1) also applies slab ns - 1 when the block has it)."""
+    last_in = z0 + nz == ns
+    return ([('score', i) for i in range(ns)]
+            + [('out', z) for z in range(z0, z0 + nz) if not (last_in and z == ns - 1)])
 
 
 def _chain(qr, kr):
@@ -252,91 +271,156 @@ def _chain(qr, kr):
     return acc
 
 
-def _slab_tile(qt, ot, kt, vt, r, w, qp, kp, lse, de, dl, C, scale, self_bias, dtype, live,
-               order):
-    """p and ds of one tile pair: S and dP summed over the 64-wide slabs in
-    `order`; with a self bias each own key's score is the sequential chain
-    over the whole head dim, so p = exp(lse - lse) = 1 where a row sees only
-    its own key, as K3's rescore left lse."""
-    s = torch.zeros(qt.shape[0], B, B)
-    dp = torch.zeros_like(s)
-    for hs in order:
-        c = slice(SLAB * hs, SLAB * hs + SLAB)
-        s += qt[..., c] @ kt[..., c].transpose(1, 2)
-        dp += ot[..., c] @ vt[..., c].transpose(1, 2)
-    lo = (torch.div(r, C, rounding_mode='floor') - 1) * C
-    in_window = (w[None, :] >= lo[:, None]) & (w[None, :] < lo[:, None] + 2 * C) & live
-    x = s * scale
-    qpe, kpe = qp[:, :, None], kp[:, None, :]
-    own = (kpe == qpe) & in_window
-    x = torch.where(kpe <= qpe, torch.where(kpe == qpe, x + self_bias, x),
-                    torch.full_like(x, NEG_INF))
-    if self_bias:
-        gi, ri, ki = torch.nonzero(own).unbind(1)
-        x[gi, ri, ki] = ((_chain(qt[gi, ri], kt[gi, ki]) * scale).float() + self_bias).float()
-    p = torch.where(in_window, torch.exp(x - lse[..., None]), torch.zeros(()))
-    ds = p * (dp - de[..., None] + dl[..., None]) * scale
-    return p.to(dtype).float(), ds.to(dtype).float()
+def two_sum(a, b):
+    """(fl(a + b), its exact error), as slab_mma.cuh's two_sum."""
+    s = a + b
+    bv = s - a
+    return s, (a - (s - bv)) + (b - bv)
+
+
+class ScorePass:
+    """One tile pair's score pass, a slab at a time: S and dP by warp (each
+    warp's rows over its KW keys), summed in f32 over the slabs in order;
+    with `carry` (f32 instances that hold more than one output slab) each
+    slab's S starts at 0 and goes into the pair (hi, lo) by two_sum
+    (carry_slab)."""
+
+    def __init__(self, G, carry):
+        self.s, self.dp, self.carry = torch.zeros(G, B, B), torch.zeros(G, B, B), carry
+        self.hi, self.lo = torch.zeros(G, B, B), torch.zeros(G, B, B)
+
+    def add(self, qt, ot, kt, vt, cs):
+        s = torch.zeros_like(self.s) if self.carry else self.s
+        for c in range(SP):
+            keys = slice(KW * c, KW * c + KW)
+            s[..., keys] += qt[..., cs] @ kt[:, keys, cs].transpose(1, 2)
+            self.dp[..., keys] += ot[..., cs] @ vt[:, keys, cs].transpose(1, 2)
+        if self.carry:
+            self.hi, err = two_sum(self.hi, s)
+            self.lo = self.lo + err
+            self.s = self.hi
+
+    def p_ds(self, r, w, qp, kp, lse, de, dl, C, scale, self_bias, dtype, live, own):
+        """p and ds of the pair, rounded to dtype: a row's own key (key index
+        == row, kpos == qpos) in a layer with a self bias takes `own` [G, 64],
+        its chained score, so p = exp(lse - lse) = 1 where a row sees only
+        its own key, as K3 left lse; with `carry` a visible unbiased entry
+        takes exp(fl(s scale - lse) + lo scale) (p_ds<true>)."""
+        s, dp = self.s, self.dp
+        lo = (torch.div(r, C, rounding_mode='floor') - 1) * C
+        in_window = (w[None, :] >= lo[:, None]) & (w[None, :] < lo[:, None] + 2 * C) & live
+        x = s * scale
+        qpe, kpe = qp[:, :, None], kp[:, None, :]
+        x = torch.where(kpe <= qpe, torch.where(kpe == qpe, x + self_bias, x),
+                        torch.full_like(x, NEG_INF))
+        if self_bias:
+            diag = (w[None, :] == r[:, None]) & (kpe == qpe)
+            x = torch.where(diag, own[:, :, None], x)
+        arg = x - lse[..., None]
+        if self.carry:      # fma(s, scale, -lse): one rounding of the exact s scale - lse
+            fused = (s.double() * scale - lse[..., None].double()).float() + self.lo * scale
+            arg = torch.where((kpe < qpe) | ((kpe == qpe) & (self_bias == 0)), fused, arg)
+        p = torch.where(in_window, torch.exp(arg), torch.zeros(()))
+        ds = p * (dp - de[..., None] + dl[..., None]) * scale
+        return p.to(dtype).float(), ds.to(dtype).float()
 
 
 def k4_slab_tiles(q, k, v, qpos, kpos, out, d_out, lse, d_lse, *, chunk, scale, self_bias=0.0):
     """The slab split's schedule in torch -> (dq, dk, dv): a block per (tile,
-    output slab z) sums S and dP over the ns slabs, z last, and adds dq +=
-    dS K[:, z] (k4_dq_slab) or dv += P^T dO[:, z], dk += dS^T Q[:, z]
-    (k4_dkdv_slab) into its 64 columns."""
+    group of ZQ / ZKV output slabs) walks its partner tiles, and per tile
+    pair runs its `slab_items` in order: a score item adds its slab to the
+    pair's one score pass (`ScorePass`; the own keys from the chain over
+    all D), the last one turns it into p and ds and applies the last
+    output slab when the block has it; an output item z adds dq += dS
+    K[:, z] (k4_dq_slab) or dv += P^T dO[:, z], dk += dS^T Q[:, z]
+    (k4_dkdv_slab), each pair's products summed apart, then added."""
     G, T, D = q.shape
-    C, dtype, ns = chunk, q.dtype, D // SLAB
+    C, dtype = chunk, q.dtype
+    W, ZQ, ZKV = slab_config(D, dtype)
+    ns = D // W
     qf, kf, vf, of = (x.float() for x in (q, k, v, d_out))
     delta = (of * out.float()).sum(-1)
     qpos, kpos = qpos.long(), kpos.long()
+    own = torch.zeros(G, T)
+    if self_bias:                        # each row's own score: the chain, scaled, biased
+        for g in range(G):
+            own[g] = (_chain(qf[g], kf[g]) * scale).float() + self_bias
+    cols = lambda z: slice(W * z, W * z + W)
+
+    def walk(q0, k0, live, Z, z0, apply):
+        """Tile pair (q0, k0) through the items of the block of output slabs
+        [z0, z0 + Z)."""
+        qt, ot, qp = _rows(qf, q0), _rows(of, q0), _rows(qpos, q0, INT_MIN)
+        kt, vt, kp = _rows(kf, k0), _rows(vf, k0), _rows(kpos, k0, INT_MAX)
+        nz = min(Z, ns - z0)
+        sc = ScorePass(G, dtype == torch.float32 and Z > 1)
+        p = ds = None
+        for kind, i in slab_items(ns, z0, nz):
+            if kind == 'out':
+                apply(i, qt, ot, kt, p, ds)
+                continue
+            sc.add(qt, ot, kt, vt, cols(i))
+            if i < ns - 1:
+                continue
+            p, ds = sc.p_ds(torch.arange(q0, q0 + B), torch.arange(k0, k0 + B), qp, kp,
+                            _rows(lse, q0), _rows(delta, q0), _rows(d_lse.float(), q0), C,
+                            scale, self_bias, dtype, live, _rows(own, q0))
+            if z0 + nz == ns:
+                apply(ns - 1, qt, ot, kt, p, ds)
+
     dq, dk, dv = torch.zeros(G, T, D), torch.zeros(G, T, D), torch.zeros(G, T, D)
-    for z in range(ns):
-        zc, order = slice(SLAB * z, SLAB * z + SLAB), [(z + 1 + i) % ns for i in range(ns)]
+    everywhere = torch.ones(B, B, dtype=torch.bool)
+    for z0 in range(0, ns, ZQ):          # k4_dq_slab
         for q0 in range(0, T, B):
-            qt, ot, qp = _rows(qf, q0), _rows(of, q0), _rows(qpos, q0, INT_MIN)
-            l, de, dl = _rows(lse, q0), _rows(delta, q0), _rows(d_lse.float(), q0)
             q_last = min(q0 + B, T) - 1
-            acc = torch.zeros(G, B, SLAB)
-            for k0 in range((q0 // C - 1) * C, (q_last // C + 1) * C, B):
-                kt, vt, kp = _rows(kf, k0), _rows(vf, k0), _rows(kpos, k0, INT_MAX)
-                _, ds = _slab_tile(qt, ot, kt, vt, torch.arange(q0, q0 + B),
-                                   torch.arange(k0, k0 + B), qp, kp, l, de, dl, C, scale,
-                                   self_bias, dtype, torch.ones(B, B, dtype=torch.bool), order)
-                acc += ds @ kt[..., zc]
+            w_lo = (q0 // C - 1) * C
+            w_lo += max(0, -w_lo) // B * B             # no key tile wholly before the sequence
+            acc = torch.zeros(G, B, D)
+
+            def apply_q(z, qt, ot, kt, p, ds):
+                acc[..., cols(z)] += ds @ kt[..., cols(z)]
+            for k0 in range(w_lo, (q_last // C + 1) * C, B):
+                walk(q0, k0, everywhere, ZQ, z0, apply_q)
             n = min(B, T - q0)
-            dq[:, q0:q0 + n, zc] = acc[:, :n]
+            for z in range(z0, min(z0 + ZQ, ns)):
+                dq[:, q0:q0 + n, cols(z)] = acc[:, :n, cols(z)]
+    for z0 in range(0, ns, ZKV):         # k4_dkdv_slab
         for k0 in range(0, T, B):
-            kt, vt, kp = _rows(kf, k0), _rows(vf, k0), _rows(kpos, k0, INT_MAX)
             k_last = min(k0 + B, T) - 1
-            acc_k, acc_v = torch.zeros(G, B, SLAB), torch.zeros(G, B, SLAB)
             w = torch.arange(k0, k0 + B)
+            acc_k, acc_v = torch.zeros(G, B, D), torch.zeros(G, B, D)
+
+            def apply_kv(z, qt, ot, kt, p, ds):
+                acc_v[..., cols(z)] += p.transpose(1, 2) @ ot[..., cols(z)]
+                acc_k[..., cols(z)] += ds.transpose(1, 2) @ qt[..., cols(z)]
             for q0 in range((k0 // C) * C, min((k_last // C + 2) * C, T), B):
-                qt, ot, qp = _rows(qf, q0), _rows(of, q0), _rows(qpos, q0, INT_MIN)
-                l, de, dl = _rows(lse, q0), _rows(delta, q0), _rows(d_lse.float(), q0)
                 r = torch.arange(q0, q0 + B)
-                live = (r[:, None] < T) & (w[None, :] < T)
-                p, ds = _slab_tile(qt, ot, kt, vt, r, w, qp, kp, l, de, dl, C, scale,
-                                   self_bias, dtype, live, order)
-                acc_v += p.transpose(1, 2) @ ot[..., zc]
-                acc_k += ds.transpose(1, 2) @ qt[..., zc]
+                walk(q0, k0, (r[:, None] < T) & (w[None, :] < T), ZKV, z0, apply_kv)
             n = min(B, T - k0)
-            dk[:, k0:k0 + n, zc], dv[:, k0:k0 + n, zc] = acc_k[:, :n], acc_v[:, :n]
+            for z in range(z0, min(z0 + ZKV, ns)):
+                dk[:, k0:k0 + n, cols(z)] = acc_k[:, :n, cols(z)]
+                dv[:, k0:k0 + n, cols(z)] = acc_v[:, :n, cols(z)]
     return dq.to(dtype), dk, dv
 
 
 SLAB_CASES = [   # G, T, D, chunk, perm, pads, scale, self_bias, dtype
     (1, 256, 256, 64, True, 9, 1.0, -1e5, torch.float32),
     (1, 288, 256, 48, False, 17, 0.0625, 0.0, torch.float32),    # tiles across chunk edges
-    (1, 256, 384, 128, True, 0, 1.0, -1e5, torch.float32),
+    (1, 256, 384, 128, True, 0, 1.0, -1e5, torch.float32),       # two dk / dv slab groups
     (1, 192, 256, 32, True, 9, 1.0, -1e5, torch.bfloat16),
+    (1, 192, 384, 64, True, 9, 1.0, -1e5, torch.float16),
+    (2, 160, 64, 16, True, 9, 1.0, -1e5, torch.float32),         # one slab, ragged last tile
+    (2, 96, 16, 32, True, 4, 1.0, -1e5, torch.float32),          # a slab of 16
+    (1, 256, 128, 128, False, 0, 0.09, 0.0, torch.float32),      # two slabs in one block
 ]
 
 
 @pytest.mark.parametrize('G,T,D,chunk,perm,pads,scale,self_bias,dtype', SLAB_CASES)
 def test_slab_split_matches_plain_backward(G, T, D, chunk, perm, pads, scale, self_bias, dtype):
-    """dq, dk, dv of the emulated slab split against the plain backward on
-    the same inputs and cotangents, each within `TOL`; the forward's lse
-    is K3's slab walk's (own keys rescored by the chain)."""
+    """dq, dk, dv of the emulated slab split (one score pass per tile pair,
+    P / dS applied per output slab, the own key from the chain) against
+    the plain backward on the same inputs and cotangents, each within
+    `TOL`; the forward's lse is K3's (own keys rescored by the chain)."""
     q, k, v, qpos, kpos = _inputs(G, T, D, G + T + D + chunk, perm, pads)
     if perm:        # shared-QK as the LSH layers: rows that see only their own key
         k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) / D ** 0.5
@@ -352,3 +436,72 @@ def test_slab_split_matches_plain_backward(G, T, D, chunk, perm, pads, scale, se
         assert a.shape == b.shape and a.dtype == b.dtype, name
         err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
         assert err <= TOL[dtype], (name, err)
+
+
+def test_slab_split_matches_the_pallas_vjp():
+    """At one small case (D 64 in one slab, chunk 16, LSH-permuted and
+    padded positions, f32) the emulated slab split gives the gradients of
+    jax.grad through the Pallas kernel's custom VJP in interpret mode."""
+    G, T, D, chunk, scale, self_bias = 1, 128, 64, 16, 1.0, -1e5
+    q, k, v, qpos, kpos = _inputs(G, T, D, 9, True, 24)
+    w_out, w_lse = randn(22, G, T, D), randn(23, G, T)
+
+    def jloss(q, k, v):
+        o, l = pallas_chunked_window_attn(q, k, v, jnp.asarray(qpos.numpy()),
+                                          jnp.asarray(kpos.numpy()), chunk=chunk, scale=scale,
+                                          self_bias=self_bias, interpret=True, form='windows')
+        return jnp.sum(o * w_out) + jnp.sum(l * w_lse)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
+    out, lse = chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    got = k4_slab_tiles(q, k, v, qpos, kpos, out, torch.from_numpy(w_out), lse,
+                        torch.from_numpy(w_lse), **kw)
+    for name, a, b in zip('qkv', got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **PALLAS_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize('D,dtype', [(16, torch.float32), (64, torch.float32),
+                                     (128, torch.float32), (256, torch.float32),
+                                     (384, torch.float32), (256, torch.bfloat16),
+                                     (512, torch.float16)])
+def test_slab_items_score_once_and_apply_each_output_slab_once(D, dtype):
+    """Each block's items per tile pair: the head dim's slabs scored once,
+    in order, and each of its output slabs applied once, the last one in
+    place; the blocks of a tile together apply every output slab once, and
+    up to D 256 (dk / dv) and 512 (dq) one block scores each tile pair."""
+    W, ZQ, ZKV = slab_config(D, dtype)
+    ns = D // W
+    for Z in (ZQ, ZKV):
+        applied = []
+        for z0 in range(0, ns, Z):
+            nz = min(Z, ns - z0)
+            items = slab_items(ns, z0, nz)
+            assert [i for kind, i in items if kind == 'score'] == list(range(ns))
+            outs = [z for kind, z in items if kind == 'out']
+            if z0 + nz == ns:
+                outs.append(ns - 1)          # applied by the last score item
+            assert sorted(outs) == list(range(z0, z0 + nz))
+            applied += outs
+        assert sorted(applied) == list(range(ns))
+        assert (ns + Z - 1) // Z == (1 if D <= (512 if Z == ZQ else 256) else 2)
+
+
+@pytest.mark.parametrize('T,chunk', [(480, 16), (2048, 64), (320, 128), (96, 32)])
+def test_slab_walk_skips_key_tiles_before_the_sequence(T, chunk):
+    """k4_dq_slab's walk starts at the first key tile that holds a key of the
+    sequence (w_lo moved up by whole tiles past 0): no tile it visits lies
+    wholly before the sequence, and it still visits every key of each row's
+    window in exactly one key tile."""
+    C = chunk
+    for q0 in range(0, T, B):
+        q_last = min(q0 + B, T) - 1
+        w_lo = (q0 // C - 1) * C
+        w_lo += max(0, -w_lo) // B * B
+        tiles = list(range(w_lo, (q_last // C + 1) * C, B))
+        assert all(k0 + B > 0 for k0 in tiles)
+        seen = torch.zeros(T, dtype=torch.int32)
+        for k0 in tiles:
+            seen[max(k0, 0):min(k0 + B, T)] += 1
+        for r in range(q0, q_last + 1):
+            lo = (r // C - 1) * C
+            assert bool((seen[max(lo, 0):lo + 2 * C] == 1).all()), (q0, r)
