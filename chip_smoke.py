@@ -17,15 +17,15 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      kernel -- the tensor-core kernels (every bf16 and f16 call of K1-K4
      up to head dim 128: k1_tc, k2_dkdv_tc / k2_dq_tc, k3_tc / k3_union_tc,
      k4_tc / k4_dq_tc / k4_dkdv_tc; and the slab kernels, every f32 call of
-     K1 / K2 and every call above 128: k1_slab, k2_dkdv_slab / k2_dq_slab,
-     k3_slab, k4_dq_slab / k4_dkdv_slab, f32 in 3xTF32; K4's slab kernels
-     run every f32 call of K4 too) must have some in their bf16 and their
-     f16 instantiation (the slab kernels also in f32), the FMA ones (f32 K3
-     up to 128: the per-chunk kernel, k3_tiled) none and no 16-bit
-     instantiation; each tensor-core K1-K4 kernel's registers, local (spill)
-     bytes, shared memory and blocks per SM at every head dim (K3 / K4 at
-     chunks 16-128, D 16-128, and D 256) in f32 (the slab kernels), bf16
-     and f16, read from the loaded library (no spill allowed);
+     K1-K4 and every call above 128: k1_slab, k2_dkdv_slab / k2_dq_slab,
+     k3_slab, k4_dq_slab / k4_dkdv_slab, f32 in 3xTF32) must have some in
+     their bf16 and their f16 instantiation (the slab kernels also in f32),
+     and no other function but the backward's row-dot pass is left in the
+     four libraries (no FMA kernel); each K1-K4 kernel's registers, local
+     (spill) bytes, shared memory and blocks per SM at every head dim (K3 /
+     K4 at chunks 16-128, D 16-128, 256 and 384) in f32 (the slab
+     kernels), bf16 and f16, read from the loaded library (no spill
+     allowed);
   2. K1 (forward) and K2 (backward) against their plain versions on CUDA
      tensors: the base shapes (scoring B 8 and training B 21, bf16 and f32),
      a memory + window case, a head-dim-16 ragged case, the 22-12 shape
@@ -42,7 +42,8 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      f16 head-dim-128 memory + window case, and head dim 128 in bf16 at the
      22-11 batch (B 21 x 6 heads, d_model 768) for K1 and for K2; and ROADMAP
      C.2's head dims above 128 on the slab kernels: 256 (B 2 x 4 heads) in
-     bf16, f16 and f32, an f32 memory + window case, and 384 in bf16; the
+     bf16, f16 and f32, an f32 memory + window case, and 384 in bf16 and
+     f32 (six output slabs in one block); the
      f32 cases' bounds at the FMA peak and at the 3xTF32 rate (495 / 3
      TFLOP/s) side by side;
   3. the training path, counts set to 0 before and read after:
@@ -68,11 +69,11 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      D 16 and D 32 / chunk 32 padded cases; times of each kernel, its plain version and an
      SDPA yardstick over the unfolded windows; K4's achieved TFLOP/s; and
      the shapes C.1 added: chunk 128 at phase 11's local shape in f32
-     (k3_tiled) and bf16 (k3_union_tc), chunk 128 / D 128 in bf16, the LSH
-     shape in f16 (k3_tc), chunk 16 padded in f32 and in f16, and chunk 128
-     / D 128 in f32 for K4 (every f32 K4 call on its slab kernels); C.2's
-     head dim 256 on the slab walks: the LSH shape at G 48 with pads in
-     bf16, f16 and f32, and a local bf16 case);
+     and bf16 (k3_union_tc), chunk 128 / D 128 in bf16, the LSH shape in
+     f16 (k3_tc), chunk 16 padded in f32 and in f16, and chunk 128 / D 128
+     in f32 for K4; every f32 K3 / K4 call on the slab kernels; C.2's head
+     dim 256 on the slab walks: the LSH shape at G 48 with pads in bf16,
+     f16 and f32, and local cases in bf16 and f32);
      `Trainer.train` for 4 steps of 32 x 2048 synthetic songs (12 K3 + 12
      K4 launches per step), `load_trained` + `score_batch` on the
      run, step time, memory and a profile, a 15-step overfit; one f32 step
@@ -171,8 +172,9 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      `TOL_16_LOGITS`, which a control with the attention dropped must
      exceed 4 times), an f32
      head-dim-128 step card vs CPU (K1 / K2); a Reformer with local_chunk
-     128, depth 2: an f32 step card vs CPU (K3: the tiled kernel in the
-     local layer; K4: its slab kernels) and `score_batch` 2 x 2048 (2 K3);
+     128, depth 2: an f32 step card vs CPU (K3 / K4: the slab kernels) and
+     `score_batch` 2 x 2048 (2 K3, traced: k3_slab twice, no other K3
+     kernel);
      C.2, depth 2: TF-XLs
      at head dim 256 (d_model 1024, 4 heads) in f32 and bf16 and at 192
      (d_model 768, 4 heads, zero-padded to 256) in f32 and f16 score 2 x
@@ -188,7 +190,7 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      chunk-128 Reformer (depth 2, 2 x 2048) traced the same way, naming
      k1_tc and k2_dkdv_tc / k2_dq_tc once per layer, k3_union_tc /
      k4_dq_tc / k4_dkdv_tc at the local layer and k3_tc / k4_tc at the LSH
-     layer, and none of K3's FMA kernels or of the slab kernels;
+     layer, and none of the slab kernels;
      on phase 8's run: `summarize_run` of its 22-04 train log, `MusicVisualize` reports and `MusicStats` of its
      generated songs, `ground_truth_ikr` of its dataset on the card and the
      CPU, melody grids of 8 rendered .mxl songs and `PitchEmbedding` trained
@@ -301,14 +303,11 @@ ROOFLINE_K = 1024                                # passes of the timed K5 / K6 c
 # version's f64 product and sum are exact, so it rounds once per pass, as
 # the FMA does)
 
-# the tensor-core kernels of K1-K4 and their FMA kernels, by name in each
-# library's SASS: K1 / K2 / K4 run every call on the tensor cores (bf16 and
-# f16 up to head dim 128 on k1_tc / k2_*_tc / k4_tc, k4_dq_tc + k4_dkdv_tc,
-# f32 at every head dim and 16 bits above 128 on the slab kernels, f32 in
-# 3xTF32); K3 runs every bf16 and f16 call up to D 128 on the tensor cores
-# (chunks 32 / 64 and D <= 64 on k3_tc, elsewhere on its tiled walk
-# k3_union_tc), every call above D 128 on the slab kernel, and f32 up to D
-# 128 on the FMA kernels, which are built for f32 alone
+# the tensor-core kernels of K1-K4, by name in each library's SASS: K1-K4
+# run every call on the tensor cores (bf16 and f16 up to head dim 128 on
+# k1_tc / k2_*_tc, on k3_tc / k4_tc at chunks 32 / 64 and D <= 64 and on the
+# tiled walks k3_union_tc / k4_dq_tc + k4_dkdv_tc elsewhere; f32 at every
+# head dim and 16 bits above 128 on the slab kernels, f32 in 3xTF32)
 SLAB_KERNELS = {'flash_rel_attn_fwd': ('k1_slab',),
                 'flash_rel_attn_bwd': ('k2_dkdv_slab', 'k2_dq_slab'),
                 'chunked_window_attn_fwd': ('k3_slab',),
@@ -319,9 +318,6 @@ TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',) + SLAB_KERNELS['flash_rel_attn_fw
               + SLAB_KERNELS['chunked_window_attn_fwd'],
               'chunked_window_attn_bwd': ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc')
               + SLAB_KERNELS['chunked_window_attn_bwd']}
-FMA_KERNELS = {'flash_rel_attn_fwd': (), 'flash_rel_attn_bwd': (),
-               'chunked_window_attn_fwd': ('chunked_window_attn_fwd_kernel', 'k3_tiled'),
-               'chunked_window_attn_bwd': ()}
 # the libraries whose tensor-core kernels take both 16-bit types (all four),
 # and each dtype's fragment of a mangled template name
 BOTH_16_BIT = ('flash_rel_attn_fwd', 'flash_rel_attn_bwd', 'chunked_window_attn_fwd',
@@ -414,27 +410,24 @@ def tensor_core_check(report):
     """HMMA / HGMMA instructions in the SASS of every K1-K4 kernel: each
     tensor-core kernel must have some in every instantiation (an FMA-only
     build is not the tensor-core design; the f32 slab kernels' 3xTF32 is
-    HMMA too) and be instantiated for bf16 and for f16; the slab kernels
-    also for f32 (K4's slab kernels run every f32 K4 call); the FMA kernels
-    none (K3's f32 parity up to D 128 rests on f32 FMAs), and they are built
-    for f32 alone (no 16-bit call reaches them)."""
+    HMMA too) and be instantiated for bf16 and for f16, the slab kernels
+    also for f32 (they run every f32 call); no other function is left in a
+    library but the backward's row-dot pass (delta), without tensor-core
+    instructions."""
     for lib, tc_names in TC_KERNELS.items():
         SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
-        for name in tc_names + FMA_KERNELS[lib]:
+        for name in tc_names:
             fns = [c for f, c in counts.items() if name in f]
-            if not fns or (name in tc_names and min(fns) == 0) or \
-                    (name not in tc_names and any(fns)):
+            if not fns or min(fns) == 0:
                 raise AssertionError(f'{lib}: tensor-core instructions of {name}: {counts}')
             dtypes = (torch.bfloat16, torch.float16) + \
                 ((torch.float32,) if name in SLAB_KERNELS[lib] else ())
-            if name in tc_names and lib in BOTH_16_BIT and not all(
+            if lib in BOTH_16_BIT and not all(
                     any(name in f and DTYPE_MANGLED[d] in f for f in counts) for d in dtypes):
                 raise AssertionError(f'{lib}: {name} is not built for {dtypes}: {counts}')
-            if name not in tc_names and any(
-                    name in f and DTYPE_MANGLED[d] in f for f in counts
-                    for d in (torch.bfloat16, torch.float16)):
-                raise AssertionError(f'{lib}: the FMA kernel {name} is built for a 16-bit '
-                                     f'type: {counts}')
+        other = {f: c for f, c in counts.items() if not any(n in f for n in tc_names)}
+        if any(other.values()) or not all('row_dot' in f for f in other):
+            raise AssertionError(f'{lib}: functions besides its tensor-core kernels: {other}')
     log(f'[sass] HMMA/HGMMA per kernel function: {json.dumps(SASS_MMA)}')
     report['sass_tensor_core_instructions'] = dict(SASS_MMA)
 
@@ -442,10 +435,11 @@ def tensor_core_check(report):
 # (chunk, D) of K3's and K4's tensor-core kernels whose resources phase 1
 # reads: the per-chunk kernels k3_tc / k4_tc and the tiled walks
 CHUNK_RESOURCE_SHAPES = ((32, 16), (32, 32), (64, 64), (16, 32), (128, 64), (128, 128),
-                         (64, 256))
-# head dims above 128 whose slab kernels phase 1 reads (one instantiation
-# each per dtype: the slab width is 64 at every multiple of 128)
-WIDE_HEAD_DIMS = (256,)
+                         (64, 256), (64, 384))
+# head dims above 128 whose slab kernels phase 1 reads (each dtype's
+# instances: slab width 64, output slabs per block up to 256 columns, then
+# up to 512, by each file's `with_cfg`)
+WIDE_HEAD_DIMS = (256, 384)
 
 
 def ptxas_spills(log: str) -> dict:
@@ -464,8 +458,8 @@ def ptxas_spills(log: str) -> dict:
 
 def kernel_resources(report, built):
     """Registers, local bytes (stack), dynamic shared memory and resident
-    blocks per SM of each tensor-core K1-K4 kernel at every head dim in bf16
-    and f16 (K3 / K4 at `CHUNK_RESOURCE_SHAPES`), as the loaded libraries
+    blocks per SM of each K1-K4 kernel at every head dim in f32, bf16 and
+    f16 (K3 / K4 at `CHUNK_RESOURCE_SHAPES`), as the loaded libraries
     report them (`*_resources`: cudaFuncGetAttributes and the occupancy
     query), and the spill bytes ptxas reported for every instantiation in
     this run's build (`built`); raises if one spills or cannot run."""
@@ -496,11 +490,10 @@ def kernel_resources(report, built):
                  dtype=dt, H=H)
         for chunk, D in CHUNK_RESOURCE_SHAPES:
             per_chunk = chunk in (32, 64) and D <= 64
-            slab = code == 0 or D > 128          # K4: every f32 call on the slab kernels
-            if code != 0 or D > 128:             # K3 f32 up to D 128: the FMA kernels
-                read(k3.chunked_window_attn_fwd_resources(chunk, D, code, out),
-                     ('k3_slab',) if D > 128 else ('k3_tc',) if per_chunk
-                     else ('k3_union_tc',), dtype=dt, chunk=chunk, D=D)
+            slab = code == 0 or D > 128          # every f32 call on the slab kernels
+            read(k3.chunked_window_attn_fwd_resources(chunk, D, code, out),
+                 ('k3_slab',) if slab else ('k3_tc',) if per_chunk else ('k3_union_tc',),
+                 dtype=dt, chunk=chunk, D=D)
             read(k4.chunked_window_attn_bwd_resources(chunk, D, code, out),
                  ('k4_dq_slab', 'k4_dkdv_slab') if slab else ('k4_tc',) if per_chunk
                  else ('k4_dq_tc', 'k4_dkdv_tc'), dtype=dt, chunk=chunk, D=D)
@@ -533,15 +526,12 @@ def mma_instructions(lib, dtype, D):
 def route_kernels(lib, dtype, D):
     """(kernel names, a mangled template-argument fragment) of the kernels a
     call of `lib` at this dtype and head dim runs: the slab kernels above D
-    128 and for every f32 call of K1 / K2 / K4 (slab width min(D, 64); K2's
-    f32 slabs min(D, 32)); the FMA kernels for f32 K3 up to D 128; else the
-    16-bit tensor-core ones."""
+    128 and for every f32 call (K1 / K2 by slab width: min(D, 64), K2's f32
+    slabs min(D, 32)); else the 16-bit tensor-core ones."""
     flash = lib.startswith('flash')
-    if D > 128 or (dtype == torch.float32 and lib != 'chunked_window_attn_fwd'):
+    if D > 128 or dtype == torch.float32:
         width = min(D, 32 if lib == 'flash_rel_attn_bwd' and dtype == torch.float32 else 64)
         return SLAB_KERNELS[lib], f'Li{width}E' if flash else ''
-    if dtype == torch.float32:
-        return FMA_KERNELS[lib], f'Li{D}E'
     return tuple(n for n in TC_KERNELS[lib] if n not in SLAB_KERNELS[lib]), f'Li{D}E'
 
 
@@ -2927,8 +2917,9 @@ def c1_checks(dev, report):
     heads) in f32 and bf16, one in float16 at the 22-11 widths, and a
     Reformer with local_chunk 128 (the LSH layer keeps chunk 64), depth 2:
     each scores through `score_batch` on K1 / K3 (f32 on k1_slab and
-    k3_tiled at chunk 128; bf16 and f16 on k1_tc), held against the port's
-    CPU run in f32; a training step of the f32 head-dim-128 TF-XL and of the
+    k3_slab; bf16 and f16 on k1_tc), held against the port's CPU run in
+    f32, the Reformer's scoring traced (k3_slab in both layers, no other K3
+    kernel); a training step of the f32 head-dim-128 TF-XL and of the
     Reformer (K2 / K4) against the CPU's gradients."""
     rec = {}
     for name, kw in (('tfxl-d128-f32', dict(D128, dtype='float32')),
@@ -2938,10 +2929,9 @@ def c1_checks(dev, report):
     torch.cuda.empty_cache()
     card_vs_cpu_grads(dev, report, key='c1_tfxl_d128_grads', share_branches=True, **D128)
 
-    # the Reformer: a step card vs CPU (loss, every gradient: the local
-    # layer's K3 tiled kernel at chunk 128, the LSH layer's at 64; every f32
-    # K4 call on its slab kernels),
-    # then its scoring time
+    # the Reformer: a step card vs CPU (loss, every gradient; every f32 K3 /
+    # K4 call on the slab kernels, chunk 128 in the local layer, 64 in the
+    # LSH layer), then its scoring time and kernels by name
     reformer_card_vs_cpu(dev, report, key='c1_reformer_chunk128', local_chunk=128)
     cfg = reformer_config(dtype='float32', attn_layers=('local', 'lsh'), local_chunk=128)
     model = Reformer(cfg)
@@ -2953,12 +2943,15 @@ def c1_checks(dev, report):
     mets, counts = counted(score)
     expect(counts, chunked_window_attn_fwd=2)
     ms = time_ms(score, iters=3, warmup=1)
+    _, kernels, _ = traced_step(os.path.join(RUN_DIR, 'trace-c1-score'), score)
+    names = named(kernels, 'k3_slab', 'k3_union_tc', 'k3_tc')
     rec['reformer-chunk128-f32'] = dict(counts=counts, score_ms=ms, loss=float(mets['loss']),
-                                        err=report['c1_reformer_chunk128']['rel'])
+                                        err=report['c1_reformer_chunk128']['rel'], named=names)
     log(f'[c1] reformer-chunk128-f32, depth 2, 2 x 2048: score_batch {ms:.2f} ms, loss '
-        f'{float(mets["loss"]):.5f}; counts {counts}')
-    if not math.isfinite(float(mets['loss'])):
-        raise AssertionError(f'C.1 Reformer chunk 128: loss {mets}')
+        f'{float(mets["loss"]):.5f}; counts {counts}; K3 kernels by name {names}')
+    if not math.isfinite(float(mets['loss'])) or names != dict(k3_slab=2, k3_union_tc=0,
+                                                                k3_tc=0):
+        raise AssertionError(f'C.1 Reformer chunk 128: loss {mets}, K3 kernels {names}')
     report['c1'] = rec
     del model, params
     torch.cuda.empty_cache()
@@ -3107,10 +3100,10 @@ def c1_traces(dev, report):
     counts, kernels, ms = traced_step(trace_dir, lambda: trainer.train_step(params, state, batch))
     expect(counts, chunked_window_attn_fwd=2, chunked_window_attn_bwd=2)
     rec['reformer-chunk128-bf16'] = dict(step_ms=ms, counts=counts, named=named(
-        kernels, 'k4_dq_tc', 'k4_dkdv_tc', 'k4_tc', 'k3_tiled', 'k3_union_tc', 'k3_tc',
-        'chunked_window_attn_fwd_kernel', 'k3_slab', 'k4_dq_slab', 'k4_dkdv_slab'))
-    want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k3_tiled=0, k3_union_tc=1, k3_tc=1,
-                chunked_window_attn_fwd_kernel=0, k3_slab=0, k4_dq_slab=0, k4_dkdv_slab=0)
+        kernels, 'k4_dq_tc', 'k4_dkdv_tc', 'k4_tc', 'k3_union_tc', 'k3_tc', 'k3_slab',
+        'k4_dq_slab', 'k4_dkdv_slab'))
+    want = dict(k4_dq_tc=1, k4_dkdv_tc=1, k4_tc=1, k3_union_tc=1, k3_tc=1, k3_slab=0,
+                k4_dq_slab=0, k4_dkdv_slab=0)
     log(f'[trace] C.1 Reformer local_chunk 128 bf16 train_step, depth 2, 2 x 2048: {ms:.1f} ms '
         f'while traced; kernels by name {rec["reformer-chunk128-bf16"]["named"]}')
     if rec['reformer-chunk128-bf16']['named'] != want:
@@ -3310,6 +3303,7 @@ def main() -> int:
         k1_case(dev, 'd256-memory-window-f32', torch.float32, 2, 4, 1000, 512, 256, 96, 300,
                 512, 20, False),
         k1_case(dev, 'd384-bf16', torch.bfloat16, 2, 4, 1024, 0, 384, 1024, 0, 0, 21, True),
+        k1_case(dev, 'd384-f32', torch.float32, 2, 4, 1024, 0, 384, 1024, 0, 0, 22, True),
     ]
     k2 = [
         k2_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 21, True),
@@ -3365,8 +3359,8 @@ def main() -> int:
         k3_case(dev, 'd32-chunk32-single-block', torch.float32, 8, 32, 32, 32, True, 4, 37),
         k3_case(dev, 'd16-chunk32-padded-bf16', torch.bfloat16, 48, 512, 16, 32, True, 40, 38),
         k3_case(dev, 'd32-chunk32-padded-bf16', torch.bfloat16, 48, 512, 32, 32, True, 40, 39),
-        # C.1's shapes: phase 11's local layer at chunk 128 (2 x 12 heads) on
-        # the tiled walk (f32 k3_tiled, bf16 k3_union_tc), chunk 128 at D 128,
+        # C.1's shapes: phase 11's local layer at chunk 128 (2 x 12 heads)
+        # (f32 k3_slab, bf16 the tiled walk k3_union_tc), chunk 128 at D 128,
         # the LSH shape in f16 (k3_tc<__half>), chunk 16 padded
         k3_case(dev, 'chunk128-f32', torch.float32, 24, 2048, 64, 128, False, 0, 131),
         k3_case(dev, 'chunk128-bf16', torch.bfloat16, 24, 2048, 64, 128, False, 0, 132),
@@ -3379,6 +3373,7 @@ def main() -> int:
         k3_case(dev, 'd256-lsh-f16', torch.float16, 48, 2048, 256, 64, True, 40, 137),
         k3_case(dev, 'd256-lsh-f32', torch.float32, 48, 2048, 256, 64, True, 40, 138),
         k3_case(dev, 'd256-local-bf16', torch.bfloat16, 24, 2048, 256, 64, False, 0, 139),
+        k3_case(dev, 'd256-local-f32', torch.float32, 24, 2048, 256, 64, False, 0, 140),
     ]
     k4 = [
         k4_case(dev, 'lsh-bf16', torch.bfloat16, 768, 2048, 64, 64, True, 0, 41),

@@ -834,19 +834,6 @@ __device__ __forceinline__ void load_rows(Rows& x, const int* qpos, const float*
     }
 }
 
-// positions of keys w0 + 8j (+1), a lane's columns of a warp's S (INT_MAX
-// outside [0, T): never visible)
-__device__ __forceinline__ void load_keys(int (&kp)[KW / 8][2], const int* kpos, size_t base,
-                                          int w0, int T_) {
-#pragma unroll
-    for (int j = 0; j < KW / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const int w = w0 + 8 * j + e;
-            kp[j][e] = w >= 0 && w < T_ ? __ldg(kpos + base + w) : INT_MAX;
-        }
-}
-
 // p and ds of the warp's entries in place of s and dp: rows q0 + 16p + g
 // (+8) (row terms x), keys k0 + KW c + 8j + 2t (+1) (positions kp); `prob`
 // (the row's window from x.lo), but a row's own key (key index == row, kpos

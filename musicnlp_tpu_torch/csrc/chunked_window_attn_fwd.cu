@@ -23,17 +23,10 @@
 // against 0.05 ms at 989 TFLOP/s -- bytes bound it (local, G 384: 0.123 ms).
 //
 // Routes (chosen inside the C entry point by dtype, chunk and D):
-//   f32, chunks 32 / 64 at D <= 64: chunked_window_attn_fwd_kernel (FMAs);
-//   f32, every other chunk and D 128: k3_tiled (FMAs);
 //   bf16 / f16, chunks 32 / 64 at D <= 64: k3_tc (tensor cores);
 //   bf16 / f16, every other chunk and D 128: k3_union_tc (tensor cores);
-//   every dtype, D above 128: k3_slab (tensor cores; f32 in 3xTF32).
-//
-// f32 (chunked_window_attn_fwd_kernel): one 256-thread block per (g, chunk)
-// stages the query chunk and the 2C-key window as f32 rows of stride D+1,
-// computes the [C, 2C] scores with f32 FMAs, takes the row softmax with
-// 16-lane shuffles and runs PV from shared memory; every chunk's K and V is
-// read by two blocks.  Kept as it is: the f32 parity checks rest on it.
+//   f32 at every chunk and D, and every dtype above D 128: k3_slab (tensor
+//   cores; f32 in 3xTF32).
 //
 // bf16 and f16 (k3_tc, templated on the element type E), the training and
 // scoring path: K4's run layout (chunked_window_attn_bwd.cu).  One block of
@@ -61,8 +54,9 @@
 // branch).  Shared memory at C = D = 64: K, V x 3 slots 54 KB, Q x 2 slots
 // 18 KB, positions 1.3 KB -- 74 KB per block.
 //
-// The tiled walk (k3_tiled in f32, k3_union_tc in bf16 / f16) takes the
-// rest: see `namespace tiled` below.
+// The tiled walk (k3_union_tc) takes the other 16-bit calls up to D 128
+// (see `namespace tiled` below), and the slab walk (k3_slab) every f32 call
+// and every call above D 128 (`namespace slabs`).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -70,154 +64,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "elem.cuh"
 #include "kernel_resources.cuh"
 #include "mma_bf16.cuh"
 #include "slab_mma.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads: a 16 x 16 grid
 constexpr float kNegInf = -1e9f;
 
-using namespace elem;
 using kernel_resources::resources;
-
-template <int C, int D>
-struct Fwd {
-    static constexpr int W = 2 * C;                       // window keys
-    static constexpr int DP = D + 1;                      // padded row
-    static constexpr int PS = W + 1;                      // P row stride
-    static constexpr int KBUF = (W * DP > C * PS) ? W * DP : C * PS;   // K, then P
-    static constexpr size_t smem_bytes() {
-        return (size_t)(C * DP + KBUF + W * DP) * sizeof(float) + (size_t)(C + W) * sizeof(int);
-    }
-};
-
-template <typename T, int C, int D>
-__global__ void __launch_bounds__(NT, 2)
-chunked_window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v, const int* __restrict__ qpos,
-                               const int* __restrict__ kpos, T* __restrict__ out,
-                               float* __restrict__ lse, int T_, float scale, float self_bias) {
-    using F = Fwd<C, D>;
-    constexpr int W = F::W, DP = F::DP, PS = F::PS;
-    constexpr int RQ = C / 16;          // query rows per thread
-    constexpr int CK = W / 16;          // window columns per thread
-    constexpr int CD = D / 16;          // context columns per thread
-    extern __shared__ float smem[];
-    float* sQ = smem;                   // [C][DP]
-    float* sK = sQ + C * DP;            // [W][DP], then P [C][PS]
-    float* sV = sK + F::KBUF;           // [W][DP]
-    int* sQp = (int*)(sV + W * DP);     // [C]
-    int* sKp = sQp + C;                 // [W]
-    float* sP = sK;
-
-    const int g = blockIdx.y;
-    const int r0 = blockIdx.x * C;      // first query row of the chunk
-    const int w0 = r0 - C;              // first row of the window (the look-back)
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const size_t base = (size_t)g * T_;
-
-    for (int e = tid; e < C * D; e += NT) {
-        const int r = e / D, c = e % D;
-        sQ[r * DP + c] = to_f(q[(base + r0 + r) * D + c]);
-    }
-    for (int e = tid; e < W * D; e += NT) {
-        const int r = e / D, c = e % D, row = w0 + r;
-        const bool ok = row >= 0;
-        sK[r * DP + c] = ok ? to_f(k[(base + row) * D + c]) : 0.f;
-        sV[r * DP + c] = ok ? to_f(v[(base + row) * D + c]) : 0.f;
-    }
-    for (int e = tid; e < C; e += NT) sQp[e] = qpos[base + r0 + e];
-    for (int e = tid; e < W; e += NT) {
-        const int row = w0 + e;
-        sKp[e] = row >= 0 ? kpos[base + row] : INT_MAX;  // no look-back: never visible
-    }
-    __syncthreads();
-
-    // scores: query row ty + 16 i, window column tx + 16 j
-    float s[RQ][CK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int h = 0; h < D; ++h) {
-        float a[RQ], b[CK];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) a[i] = sQ[(ty + 16 * i) * DP + h];
-#pragma unroll
-        for (int j = 0; j < CK; ++j) b[j] = sK[(tx + 16 * j) * DP + h];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-            for (int j = 0; j < CK; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-    __syncthreads();                     // every K read done: P may overwrite it
-
-    float l_i[RQ], lse_i[RQ];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-        const int qr = ty + 16 * i;
-        const int qp = sQp[qr];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-            const int kp = sKp[tx + 16 * j];
-            float x = s[i][j] * scale;
-            if (kp <= qp) {
-                if (kp == qp) x += self_bias;
-            } else {
-                x = kNegInf;
-            }
-            s[i][j] = x;
-            mx = fmaxf(mx, x);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < CK; ++j) {
-            const float p = expf(s[i][j] - mx);
-            sum += p;
-            sP[qr * PS + tx + 16 * j] = round_to<T>(p);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-            sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        l_i[i] = fmaxf(sum, 1e-30f);
-        lse_i[i] = mx + logf(l_i[i]);
-    }
-    __syncthreads();
-
-    float acc[RQ][CD];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-    for (int w = 0; w < W; ++w) {
-        float vw[CD];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) vw[c] = sV[w * DP + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-            const float p = sP[(ty + 16 * i) * PS + w];
-#pragma unroll
-            for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(p, vw[c], acc[i][c]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-        const size_t row = base + r0 + ty + 16 * i;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) out[row * D + tx + 16 * c] = from_f<T>(acc[i][c] / l_i[i]);
-        if (tx == 0) lse[row] = lse_i[i];
-    }
-}
 
 // ------------------------------------------- bf16 and f16 on the tensor cores
 namespace tc {
@@ -483,9 +338,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
 
 }  // namespace tc
 
-// ---------------------------------------------- any chunk and D 128: the tiled form
-// What the per-chunk kernels above do not take -- a chunk other than 32 or
-// 64, or D = 128 (their [C, 2C] tiles would not fit in shared memory at C
+// ----------------------------- bf16 / f16 at any other chunk and D 128: the tiled form
+// What the per-chunk kernel above does not take -- a chunk other than 32 or
+// 64, or D = 128 (its [C, 2C] tiles would not fit in shared memory at C
 // 128) -- as flash attention over the windows.  One block per (g, 64 query
 // rows), which may span several chunks (C < 64) or part of one (C > 64),
 // walks the 64-key tiles of the union of its rows' windows, [(q0 / C - 1) C,
@@ -493,191 +348,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
 // is no term of its softmax; a key inside it that the query may not see (a
 // later position, or chunk 0's zero look-back) scores NEG_INF, as above.  p
 // is rounded to v's dtype against the running max before PV, as K1 does.
-// k3_tiled, for f32: 256 threads, operands as f32 rows of stride D+1 in
-// shared memory and every product an f32 FMA, as in the f32 kernel; a row
-// that sees only its own key keeps lse = fl(s + self_bias) exactly (its FMA
-// order is the reference's; the other terms are exp(-1e9 - max) = 0 and l =
-// 1).  Shared memory at D = 128: 116 KB.  k3_union_tc, for bf16 and f16, is
-// the same walk on the tensor cores (below).
 namespace tiled {
 
 constexpr int B = 64;              // query rows per block, keys per tile
-constexpr int R = B / 16;          // rows and columns per thread
-constexpr int PS = B + 1;          // P row stride
 constexpr float kNone = -3e38f;    // running max before any key of the window
 
-template <int D>
-constexpr size_t smem_bytes() {
-    return ((size_t)3 * B * (D + 1) + (size_t)B * PS) * sizeof(float) + 2 * B * sizeof(int);
-}
-
-// rows [r0, r0 + B) of a [T_, D] matrix into f32 rows of stride D+1, zero
-// outside [0, T_)
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int T_) {
-    for (int e = threadIdx.x; e < B * D; e += NT) {
-        const int r = e / D, c = e % D, row = r0 + r;
-        dst[r * (D + 1) + c] = (row >= 0 && row < T_) ? to_f(src[(size_t)row * D + c]) : 0.f;
-    }
-}
-
-// query row r (chunk r / C) sees key rows [(r / C - 1) C, (r / C + 1) C)
-__device__ __forceinline__ bool in_window(int r, int w, int C) {
-    const int lo = (r / C - 1) * C;
-    return w >= lo && w < lo + 2 * C;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT, 2)
-k3_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-         const int* __restrict__ qpos, const int* __restrict__ kpos, T* __restrict__ out,
-         float* __restrict__ lse, int T_, int C, float scale, float self_bias) {
-    constexpr int DP = D + 1;
-    constexpr int CD = D / 16;          // context columns per thread
-    extern __shared__ float smem[];
-    float* sQ = smem;                   // [B][DP]
-    float* sK = sQ + B * DP;            // [B][DP]
-    float* sV = sK + B * DP;            // [B][DP]
-    float* sP = sV + B * DP;            // [B][PS]
-    int* sQp = (int*)(sP + B * PS);     // [B]
-    int* sKp = sQp + B;                 // [B]
-
-    const int g = blockIdx.y;
-    const int q0 = blockIdx.x * B;
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const size_t base = (size_t)g * T_;
-    const T* k_g = k + base * D;
-    const T* v_g = v + base * D;
-
-    stage<T, D>(sQ, q + base * D, q0, T_);
-    if (tid < B) sQp[tid] = q0 + tid < T_ ? qpos[base + q0 + tid] : INT_MIN;
-
-    float m_i[R], l_i[R], acc[R][CD];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        m_i[i] = kNone;
-        l_i[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-    }
-
-    // the union of the windows of rows [q0, q_last]
-    const int q_last = min(q0 + B, T_) - 1;
-    const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
-    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
-        __syncthreads();                                 // previous tile's P / V reads done
-        stage<T, D>(sK, k_g, k0, T_);
-        stage<T, D>(sV, v_g, k0, T_);
-        if (tid < B) {
-            const int w = k0 + tid;
-            sKp[tid] = (w >= 0 && w < T_) ? kpos[base + w] : INT_MAX;  // look-back of chunk 0
-        }
-        __syncthreads();
-
-        // scores: query row ty + 16 i, key column tx + 16 j
-        float s[R][R];
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < R; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int h = 0; h < D; ++h) {
-            float a[R], b[R];
-#pragma unroll
-            for (int i = 0; i < R; ++i) a[i] = sQ[(ty + 16 * i) * DP + h];
-#pragma unroll
-            for (int j = 0; j < R; ++j) b[j] = sK[(tx + 16 * j) * DP + h];
-#pragma unroll
-            for (int i = 0; i < R; ++i)
-#pragma unroll
-                for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-        }
-
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-            const int qi = ty + 16 * i, r = q0 + qi, qp = sQp[qi];
-            bool in[R];
-            float mx = kNone;
-#pragma unroll
-            for (int j = 0; j < R; ++j) {
-                const int kp = sKp[tx + 16 * j];
-                float x = s[i][j] * scale;
-                if (kp <= qp) {
-                    if (kp == qp) x += self_bias;
-                } else {
-                    x = kNegInf;
-                }
-                s[i][j] = x;
-                in[j] = in_window(r, k0 + tx + 16 * j, C);
-                if (in[j]) mx = fmaxf(mx, x);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m_i[i], mx);
-            const float alpha = expf(m_i[i] - m_new);
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < R; ++j) {
-                const float p = in[j] ? expf(s[i][j] - m_new) : 0.f;
-                sum += p;
-                sP[qi * PS + tx + 16 * j] = round_to<T>(p);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            l_i[i] = l_i[i] * alpha + sum;
-            m_i[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-        }
-        __syncthreads();
-
-#pragma unroll 4
-        for (int kx = 0; kx < B; ++kx) {
-            float vk[CD];
-#pragma unroll
-            for (int c = 0; c < CD; ++c) vk[c] = sV[kx * DP + tx + 16 * c];
-#pragma unroll
-            for (int i = 0; i < R; ++i) {
-                const float p = sP[(ty + 16 * i) * PS + kx];
-#pragma unroll
-                for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(p, vk[c], acc[i][c]);
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        const int r = q0 + ty + 16 * i;
-        if (r >= T_) continue;
-        const float l = fmaxf(l_i[i], 1e-30f);
-        T* o = out + (base + r) * D;
-#pragma unroll
-        for (int c = 0; c < CD; ++c) o[tx + 16 * c] = from_f<T>(acc[i][c] / l);
-        if (tx == 0) lse[base + r] = m_i[i] + logf(l);
-    }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
-                   const int* kpos, void* out, float* lse, int G, int T_, int C, float scale,
-                   float self_bias, cudaStream_t stream) {
-    const size_t smem = smem_bytes<D>();
-    auto kern = k3_tiled<T, D>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kern<<<dim3((T_ + B - 1) / B, G), NT, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, qpos, kpos, (T*)out, lse, T_, C, scale,
-        self_bias);
-    return cudaGetLastError();
-}
-
-// ---- the same walk on the tensor cores, for bf16 and f16 (k3_union_tc)
-// S = Q K^T and PV are mma.sync m16n8k16 products (mma_bf16.cuh); the
-// window, the masks, self_bias and the online softmax stay f32 on the
-// accumulator fragments, with p rounded to E where it enters PV.  Q, K and V
+// k3_union_tc: S = Q K^T and PV are mma.sync m16n8k16 products
+// (mma_bf16.cuh); the window, the masks, self_bias and the online softmax
+// stay f32 on the accumulator fragments, with p rounded to E where it enters PV.  Q, K and V
 // sit in shared memory as b16 rows of stride D+8, loaded by cp.async with
 // zero fill; the next key tile loads while the current one computes.  A
 // tile's 64 rows are four 16-row groups; at D <= 64 a group is one warp, at
@@ -952,200 +630,313 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* qp
 
 }  // namespace tiled
 
-// ------------------------------------------- head dims above 128: k3_slab
-// Every call at a head dim H above 128 (a multiple of 128), in f32, bf16
-// and f16: k3_union_tc's walk over the 64-key tiles of the union of a 64-row
-// block's windows, at one warp per 16-row group, over slabs of the head
-// dim.  H = 64 ns; a block of four warps per (g, 64 rows, output slab z)
-// writes ctx columns [64 z, 64 z + 64).  Per key tile it loops over the ns
-// slabs: slab hs of Q and K is staged by cp.async and Q . K^T added into the
-// warp's score fragments, so the scores are sums over the whole head dim
-// before the online softmax; V's slab z is staged with the last slab.  Each
-// output slab's block recomputes the scores.  The window, the masks, the
-// self bias and the online softmax are k3_union_tc's; in a layer with a
-// self bias each row's own key is rescored by slab_mma.cuh's self_score, the
-// sequential f32 FMA chain over all H of the rows in device memory (never a
-// sum of per-slab partials), so a row that sees only its own key keeps lse
-// = fl(s + self_bias) exactly.  The products are slab_mma.cuh's: bf16 /
-// f16 mma.sync, f32 3xTF32.  Shared memory 27 KB (16 bits) / 51 KB (f32).
+// ------------------------------- every f32 call, and 16 bits above D 128: k3_slab
+// k3_union_tc's walk over the 64-key tiles of the union of a 64-row
+// block's windows, over slabs of the head dim: H = W ns, the slab width W =
+// min(H, 64).  A block per (g, 64 rows, group of up to ZS output slabs).
+// Eight warps, two per 16-row group: warp c of group p sums S = Q . K^T for
+// its 16 rows over keys [32c, 32c + 32) and owns columns [OW c, OW c + OW)
+// of each of the block's output slabs (OW = W / 2).  Per tile pair the head
+// dim streams through a ring of two cp.async stages of three 64-row tiles
+// (Q, K, V; slab i + 1 loads while slab i's products run): each slab's S is
+// summed apart (a zeroed fragment per slab, its k-blocks added in f32) and
+// added to the pair's sums, slab 0 first, so the scores are computed once
+// per tile pair; then the window, the masks, the self bias and the online
+// softmax (k3_union_tc's; the max of both key halves through shared
+// memory), the ctx sums of every output slab rescaled, and the group's P
+// rows (rounded to E; f32 as they are) into shared memory.  The last score
+// slab's stage also holds V's slab of the block's last output slab, which
+// the group applies in place; the other output slabs follow as items of
+// their own: ctx[:, slab z] += P . V_slab, the warp's columns, the tile
+// pair's products summed apart, then added.  The sums of up to ZS output
+// slabs stay in registers (16 f32 per slab and lane): `with_cfg` keeps
+// every slab in one block up to H 256 (ZS 4) and 512 (ZS 8); above, grid z
+// splits the output slabs, each block recomputing the scores.  At one slab
+// (f32 up to D 64) Q is staged once, in stage 0, and a tile pair is one
+// item.  The LSH own key is the key of a row's own index (kpos == qpos
+// there): in a tile pair that holds own keys, lane l of each warp continues
+// the sequential f32 FMA chain of row 16p + l % 16 against it one k-block
+// at a time inside the product loop, from the staged tiles, in d order
+// (slab_product's CHAIN), and the row takes fl(fl(chain scale) +
+// self_bias) by a shuffle, so that a row that sees only its own key keeps
+// lse = fl(s + self_bias) exactly, as the reference's f32 product gives it.
+// The products are slab_mma.cuh's: bf16 / f16 mma.sync, f32 3xTF32.  What
+// bounds it: at the 22-04 shapes the bytes (each q, k, v row read about
+// twice: the look-back), in f32 the products and the operand splits.
+// Shared memory at W 64: 120 KB (f32) / 64 KB (16 bits); one block of
+// eight warps per SM.
 namespace slabs {
 
 using namespace slab;
 using tiled::B;
 using tiled::kNone;
 
-constexpr int W = 64;            // slab width
-constexpr int NT = 32 * (B / 16);
+constexpr int SP = 2;                   // warps per 16-row group
+constexpr int NT = 32 * SP * (B / 16);  // eight warps
+constexpr int NW = NT / 32;
+constexpr int KW = B / SP;              // keys of a warp's S
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename E>
-constexpr size_t smem_bytes() {
-    // Q, K, V [B][W + PAD]; qpos, kpos [B] int
-    return (size_t)3 * B * (W + PAD<E>) * sizeof(E) + 2 * B * sizeof(int);
+template <typename E, int W>
+struct Lay {
+    static constexpr int RS = W + PAD<E>, PS = B + PAD<E>;
+    static constexpr int TILE = B * RS;                      // one staged [64][W] tile
+    static constexpr int OW = W / SP < 16 ? 16 : W / SP;     // a warp's columns of an output slab
+    static constexpr int QQ = 0, KK = 1, VV = 2, NTILE = 3;  // a ring stage: Q, K, V
+    static constexpr size_t RING = (size_t)2 * NTILE * TILE * sizeof(E);
+    // the ring; P [B][PS]; each warp's row max / sum [16] f32
+    static constexpr size_t bytes() {
+        return RING + (size_t)B * PS * sizeof(E) + (size_t)NW * 16 * 4;
+    }
+};
+
+// a slab instance: width W, output slabs a block holds ZS
+template <int W_, int ZS_>
+struct Cfg {
+    static constexpr int W = W_, ZS = ZS_;
+};
+
+// f(Cfg) for the instance a call at head dim D runs: f32 in slabs of
+// min(D, 64), 16 bits (D above 128) of 64; every output slab in one block
+// up to 256 columns, then up to 512
+template <typename E, typename F>
+cudaError_t with_cfg(int D, F&& f) {
+    if constexpr (kF32<E>) {
+        switch (D) {
+            case 16: return f(Cfg<16, 1>{});
+            case 32: return f(Cfg<32, 1>{});
+            case 64: return f(Cfg<64, 1>{});
+            case 128: return f(Cfg<64, 2>{});
+        }
+    }
+    if (D <= 128 || D % 128) return cudaErrorInvalidValue;
+    return D <= 256 ? f(Cfg<64, 4>{}) : f(Cfg<64, 8>{});
 }
 
-template <typename E, bool BIAS>
-__global__ void __launch_bounds__(NT, 2)
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
 k3_slab(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
         const int* __restrict__ qpos, const int* __restrict__ kpos, E* __restrict__ out,
         float* __restrict__ lse, int T_, int C, float scale, float self_bias, int ns) {
-    constexpr int RS = W + PAD<E>, K8 = KS<E>;
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
+    // k-blocks of a product unrolled at a time: all of a slab's where the
+    // registers allow without a spill (ptxas: ZS 8 spilled at 2)
+    constexpr int UNR = ZS > 4 ? 1 : W / K8;
     const int H = W * ns;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    E* sQ = reinterpret_cast<E*>(smem_raw);
-    E* sK = sQ + B * RS;
-    E* sV = sK + B * RS;
-    int* sQp = reinterpret_cast<int*>(sV + B * RS);
-    int* sKp = sQp + B;
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: Q, K, V at ring + (3 b + i) TILE
+    E* sP = ring + 2 * L::NTILE * TILE;          // [B][PS]
+    float* sRows = reinterpret_cast<float*>(sP + B * PS);   // [NW][16]
 
-    const int g = blockIdx.y, z = blockIdx.z;
+    const int g = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
     const int q0 = blockIdx.x * B;
-    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
-    const int gq = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
+    const bool bias = self_bias != 0.f, once = ns == 1;
+    float* sRow = sRows + w * 16;
+    const float* mate = sRows + (w ^ 1) * 16;
     const size_t base = (size_t)g * T_;
-    const E* q_g = q + base * H;
-    const E* k_g = k + base * H;
-    const E* v_g = v + base * H;
+    const E *q_g = q + base * H, *k_g = k + base * H, *v_g = v + base * H;
 
+    // the union of the windows of rows [q0, q_last], from the first
+    // window's look-back (chunk 0's: zeros at INT_MAX, masked but terms of
+    // a fully masked row's uniform average)
     const int q_last = min(q0 + B, T_) - 1;
     const int w_lo = (q0 / C - 1) * C, w_hi = (q_last / C + 1) * C;
-    if (tid < B) sQp[tid] = q0 + tid < T_ ? qpos[base + q0 + tid] : INT_MIN;
+    const int n_kt = (w_hi - w_lo + B - 1) / B;
+    // the items of a key tile: its ns score slabs (the last also staging V's
+    // slab of the block's last output slab), then the block's other output slabs
+    const int per = ns + nz - 1, n_items = n_kt * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, k0 = w_lo + n / per * B;
+        E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m < ns) {
+            if (!once) stage<W>(st + L::QQ * TILE, q_g, q0, B, T_, H, W * m, tid, NT);
+            stage<W>(st + L::KK * TILE, k_g, k0, B, T_, H, W * m, tid, NT);
+            if (m == ns - 1)
+                stage<W>(st + L::VV * TILE, v_g, k0, B, T_, H, W * (z0 + nz - 1), tid, NT);
+        } else {
+            stage<W>(st + L::VV * TILE, v_g, k0, B, T_, H, W * (z0 + m - ns), tid, NT);
+        }
+        mma_bf16::cp_commit();
+    };
+    if (once)                                    // Q: stage 0's first tile, for good
+        stage<W>(ring + L::QQ * TILE, q_g, q0, B, T_, H, 0, tid, NT);
+    issue(0);
 
-    // rows 16p + gq (+8): first window key, positions, running max / sums
-    int lo[2], qp[2] = {INT_MIN, INT_MIN};
+    // rows 16p + gq (+8): position (INT_MIN past T), first window key
+    int qp[2], lo[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) lo[h] = ((q0 + 16 * p + gq + 8 * h) / C - 1) * C;
-    float m[2] = {kNone, kNone}, l[2] = {0.f, 0.f};
-    float o[W / 8][4] = {};                         // ctx columns 8n + 2t of slab z
-    for (int k0 = w_lo; k0 < w_hi; k0 += B) {
-        float s[B / 8][4] = {};
-        for (int hs = 0; hs < ns; ++hs) {
-            const int c0 = W * hs;
-            __syncthreads();             // every warp is done with the staged tiles
-            if (ns > 1 || k0 == w_lo) stage<W>(sQ, q_g, q0, B, T_, H, c0, tid, NT);
-            stage<W>(sK, k_g, k0, B, T_, H, c0, tid, NT);
-            if (hs == ns - 1) stage<W>(sV, v_g, k0, B, T_, H, W * z, tid, NT);
-            mma_bf16::cp_commit();
-            if (hs == 0 && tid < B) {    // a key outside [0, T): INT_MAX, never visible
-                const int wk = k0 + tid;
-                sKp[tid] = (wk >= 0 && wk < T_) ? kpos[base + wk] : INT_MAX;
+    for (int h = 0; h < 2; ++h) {
+        const int r = q0 + 16 * p + gq + 8 * h;
+        qp[h] = r < T_ ? __ldg(qpos + base + r) : INT_MIN;
+        lo[h] = (r / C - 1) * C;
+    }
+    float m_r[2] = {kNone, kNone}, l_r[2] = {0.f, 0.f};
+    // ctx rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float o[ZS][OW / 8][4] = {};
+    // ctx[:, slab z0 + zi] += P . V_slab (tV), the warp's columns, PC
+    // n-pairs per pass, the tile pair's products summed apart
+    constexpr int PC = ZS <= 2 ? 2 : 1;
+    auto apply = [&](int zi, const E* tV) {
+        if (OW * c >= W) return;                 // W 16: the group's second warp has none
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += PC) {
+                float tv[2 * PC][4] = {};
+#pragma unroll (UNR)
+                for (int kb = 0; kb < B / K8; ++kb) {
+                    FragA<E> a;
+                    load_a(a, sP, PS, 16 * p, K8 * kb, lane);
+#pragma unroll
+                    for (int j = 0; j < PC && cp + j < OW / 16; ++j) {
+                        FragB<E> b[2];
+                        load_bt(b, tV, RS, OW * c + 16 * (cp + j), K8 * kb, lane);
+                        mma(tv[2 * j], a, b[0]);
+                        mma(tv[2 * j + 1], a, b[1]);
+                    }
+                }
+                add_pass(o[zz], tv, cp);
             }
-            mma_bf16::cp_wait<0>();
-            __syncthreads();
-            slab_product<E, W>(s, sQ, 16 * p, sK, 0, RS, lane);
         }
-        if (k0 == w_lo) {
-            qp[0] = sQp[16 * p + gq];
-            qp[1] = sQp[16 * p + gq + 8];
+    };
+
+    float s[KW / 8][4];
+    int kp[KW / 8][2];
+    float own = 0.f;                     // lane l: the own score's chain of row 16p + l % 16
+    const int ol = 16 * p + (lane & 15), ro = q0 + ol;
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, k0 = w_lo + n / per * B;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m >= ns) {
+            apply(m - ns, st + L::VV * TILE);
+            continue;
         }
-        // the window, the masks and the self bias (k3_union_tc's); own[h]:
-        // this lane's column holding row h's own key, if any
-        int own[2] = {-1, -1};
+        const E* tQ = (once ? ring : st) + L::QQ * TILE;
+        const E* tK = st + L::KK * TILE;
+        if (m == ns - 1) load_keys(kp, kpos, base, k0 + KW * c + 2 * t, T_);
+        if (m == 0) own = 0.f;
+        // S over the warp's keys, the slab's sum apart, then added; a pair
+        // that holds own keys: lane l also chains row 16p + l % 16 against
+        // its own key (clamped into the key tile)
+        float sm[KW / 8][4] = {};
+        if (bias && k0 < q0 + B && q0 < k0 + B)
+            slab_product<E, W, CH, true, UNR>(sm, tQ, 16 * p, tK, KW * c, RS, lane, &own,
+                                                 tQ + ol * RS,
+                                                 tK + min(max(ro - k0, 0), B - 1) * RS);
+        else
+            slab_product<E, W, CH, false, UNR>(sm, tQ, 16 * p, tK, KW * c, RS, lane);
 #pragma unroll
-        for (int j = 0; j < B / 8; ++j)
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = m ? s[j][e] + sm[j][e] : sm[j][e];
+        if (m < ns - 1) continue;
+
+        // the window, the masks and the self bias (k3_union_tc's), the own
+        // key's chained score, which lane gq + 8h holds for row gq + 8h
+        float own_h[2], mx[2] = {m_r[0], m_r[1]};
+        const float own_v = __fadd_rn(__fmul_rn(own, scale), self_bias);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) own_h[h] = __shfl_sync(0xffffffffu, own_v, gq + 8 * h);
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                const int h = e >> 1, kj = 8 * j + 2 * t + (e & 1), wk = k0 + kj;
-                const int kpv = sKp[kj];
+                const int h = e >> 1, r = q0 + 16 * p + gq + 8 * h;
+                const int wk = k0 + KW * c + 8 * j + 2 * t + (e & 1), kpe = kp[j][e & 1];
                 float x = s[j][e] * scale;
-                if (BIAS && kpv == qp[h]) {
-                    x += self_bias;
-                    own[h] = kj;
-                }
-                if (kpv > qp[h]) x = kNegInf;
-                if (wk < lo[h] || wk >= lo[h] + 2 * C) {
-                    x = -INFINITY;
-                    if (BIAS && own[h] == kj) own[h] = -1;
-                }
+                x = bias && kpe == qp[h] ? x + self_bias : x;
+                x = kpe > qp[h] ? kNegInf : x;
+                x = bias && wk == r && kpe == qp[h] ? own_h[h] : x;
+                x = wk < lo[h] || wk >= lo[h] + 2 * C ? -INFINITY : x;
                 s[j][e] = x;
+                mx[h] = fmaxf(mx[h], x);
             }
-        if (BIAS && __any_sync(0xffffffffu, own[0] >= 0 || own[1] >= 0)) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                if (own[h] < 0) continue;
-                const int r = q0 + 16 * p + gq + 8 * h;
-                const float x = self_score<E>(q_g + (size_t)r * H, k_g + (size_t)(k0 + own[h]) * H,
-                                              H, scale, self_bias);
-#pragma unroll
-                for (int j = 0; j < B / 8; ++j)
-#pragma unroll
-                    for (int e = 2 * h; e < 2 * h + 2; ++e)
-                        if (8 * j + 2 * t + (e & 1) == own[h]) s[j][e] = x;
-            }
-        }
-        // the online softmax on the fragments
-        float mx[2] = {m[0], m[1]}, alpha[2];
-#pragma unroll
-        for (int j = 0; j < B / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        // the online softmax on the fragments: the max over both key halves
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
             mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-            alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
-            m[h] = mx[h];
-            l[h] *= alpha[h];
+        }
+        if (t == 0) {
+            sRow[gq] = mx[0];
+            sRow[gq + 8] = mx[1];
+        }
+        mma_bf16::group_sync<SP>(p);
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mx[h] = fmaxf(mx[h], mate[gq + 8 * h]);
+            alpha[h] = exp2f((m_r[h] - mx[h]) * kLog2e);
+            m_r[h] = mx[h];
+            l_r[h] *= alpha[h];
         }
 #pragma unroll
-        for (int j = 0; j < B / 8; ++j)
+        for (int j = 0; j < KW / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float pr = exp2f((s[j][e] - mx[e >> 1]) * kLog2e);
-                l[e >> 1] += pr;
+                l_r[e >> 1] += pr;
                 s[j][e] = pr;            // rounded to E where it enters PV (16 bits)
             }
-        // o = o alpha + P . V[:, W z, + W) over the tile's 64 keys (the
-        // tile's products summed apart, then added rounded to nearest)
 #pragma unroll
-        for (int c = 0; c < W / 16; c += CH) {           // CH n-pairs per pass
-            float pv[2 * CH][4] = {};
+        for (int zz = 0; zz < ZS; ++zz)
 #pragma unroll
-            for (int kb = 0; kb < B / K8; ++kb) {
-                FragA<E> a;
-                acc_a<E>(a, s, kb, lane);
+            for (int nn = 0; nn < OW / 8; ++nn)
 #pragma unroll
-                for (int j = 0; j < CH; ++j) {
-                    FragB<E> b[2];
-                    load_bt(b, sV, RS, 16 * (c + j), K8 * kb, lane);
-                    mma(pv[2 * j], a, b[0]);
-                    mma(pv[2 * j + 1], a, b[1]);
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < 2 * CH; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    o[2 * c + j][e] = fmaf(o[2 * c + j][e], alpha[e >> 1], pv[j][e]);
-        }
+                for (int e = 0; e < 4; ++e) o[zz][nn][e] *= alpha[e >> 1];
+        put_frags<E, false>(sP, s, PS, 16 * p, KW * c, lane);
+        mma_bf16::group_sync<SP>(p);             // the group's P rows are written
+        apply(nz - 1, st + L::VV * TILE);
     }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
 
+    float l_row[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        float l = l_r[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        l_row[h] = l;
+    }
+    if (t == 0) {                                // the sum over both key halves (the mate
+        sRow[gq] = l_row[0];                     // read the last max before P's barrier)
+        sRow[gq + 8] = l_row[1];
+    }
+    mma_bf16::group_sync<SP>(p);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
         const int r = q0 + 16 * p + gq + 8 * h;
         if (r >= T_) continue;
-        const float lc = fmaxf(l[h], 1e-30f), inv = 1.f / lc;
-        E* o_r = out + (base + r) * H + W * z;
+        const float lc = fmaxf(l_row[h] + mate[gq + 8 * h], 1e-30f), inv = 1.f / lc;
 #pragma unroll
-        for (int n = 0; n < W / 8; ++n) put2<E>(o_r + 8 * n + 2 * t, o[n][2 * h] * inv,
-                                                 o[n][2 * h + 1] * inv);
-        if (z == 0 && t == 0) lse[base + r] = m[h] + logf(lc);
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz >= nz || OW * c >= W) continue;
+            E* o_r = out + (base + r) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int nn = 0; nn < OW / 8; ++nn)
+                put2<E>(o_r + 8 * nn + 2 * t, o[zz][nn][2 * h] * inv, o[zz][nn][2 * h + 1] * inv);
+        }
+        if (z0 == 0 && c == 0 && t == 0) lse[base + r] = m_r[h] + logf(lc);
     }
 }
 
-template <typename E>
+template <typename E, int W, int ZS>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
-                   const int* kpos, void* out, float* lse, int G, int T_, int C, int H,
+                   const int* kpos, void* out, float* lse, int G, int T_, int C, int ns,
                    float scale, float self_bias, cudaStream_t stream) {
-    const size_t smem = smem_bytes<E>();
-    auto kern = self_bias != 0.f ? k3_slab<E, true> : k3_slab<E, false>;
+    const size_t smem = Lay<E, W>::bytes();
+    auto kern = k3_slab<E, W, ZS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const int ns = H / W;
-    kern<<<dim3((T_ + B - 1) / B, G, ns), NT, smem, stream>>>(
+    kern<<<dim3((T_ + B - 1) / B, G, (ns + ZS - 1) / ZS), NT, smem, stream>>>(
         (const E*)q, (const E*)k, (const E*)v, qpos, kpos, (E*)out, lse, T_, C, scale,
         self_bias, ns);
     return cudaGetLastError();
@@ -1153,100 +944,69 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
 
 }  // namespace slabs
 
-template <typename T, int C, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
-                   const int* kpos, void* out, float* lse, int G, int T_, float scale,
-                   float self_bias, cudaStream_t stream) {
-    if constexpr (sizeof(T) == 2) {                       // bf16, f16: the tensor-core kernel
-        return tc::launch<T, C, D>(q, k, v, qpos, kpos, out, lse, G, T_, scale, self_bias,
-                                   stream);
-    } else {
-        const size_t smem = Fwd<C, D>::smem_bytes();
-        auto kern = chunked_window_attn_fwd_kernel<T, C, D>;
-        cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-        dim3 grid(T_ / C, G);
-        kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, qpos, kpos,
-                                         (T*)out, lse, T_, scale, self_bias);
-        return cudaGetLastError();
-    }
-}
-
-template <typename T, int C>
+template <typename E, int C>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const int* qpos,
                      const int* kpos, void* out, float* lse, int G, int T_, float scale,
                      float self_bias, cudaStream_t st) {
     switch (D) {
-        case 16: return launch<T, C, 16>(q, k, v, qpos, kpos, out, lse, G, T_, scale,
-                                         self_bias, st);
-        case 32: return launch<T, C, 32>(q, k, v, qpos, kpos, out, lse, G, T_, scale,
-                                         self_bias, st);
-        case 64: return launch<T, C, 64>(q, k, v, qpos, kpos, out, lse, G, T_, scale,
-                                         self_bias, st);
+        case 16: return tc::launch<E, C, 16>(q, k, v, qpos, kpos, out, lse, G, T_, scale,
+                                             self_bias, st);
+        case 32: return tc::launch<E, C, 32>(q, k, v, qpos, kpos, out, lse, G, T_, scale,
+                                             self_bias, st);
+        case 64: return tc::launch<E, C, 64>(q, k, v, qpos, kpos, out, lse, G, T_, scale,
+                                             self_bias, st);
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <typename T>
-cudaError_t launch_c(int C, int D, const void* q, const void* k, const void* v,
-                     const int* qpos, const int* kpos, void* out, float* lse, int G, int T_,
-                     float scale, float self_bias, cudaStream_t st) {
-    switch (C) {
-        case 32: return launch_d<T, 32>(D, q, k, v, qpos, kpos, out, lse, G, T_, scale,
-                                        self_bias, st);
-        case 64: return launch_d<T, 64>(D, q, k, v, qpos, kpos, out, lse, G, T_, scale,
-                                        self_bias, st);
-        default: return cudaErrorInvalidValue;
-    }
-}
-
-// the tiled walk at head dim D: f32 FMAs for T = float, the tensor cores for bf16 / f16
-template <typename T, int D>
-cudaError_t launch_tiled(const void* q, const void* k, const void* v, const int* qpos,
-                         const int* kpos, void* out, float* lse, int G, int T_, int C,
-                         float scale, float self_bias, cudaStream_t st) {
-    if constexpr (sizeof(T) == 2)
-        return tiled::launch_tc<T, D>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                      self_bias, st);
-    else
-        return tiled::launch<T, D>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale, self_bias,
-                                   st);
-}
-
-template <typename T>
+template <typename E>
 cudaError_t launch_tiled_d(int D, const void* q, const void* k, const void* v,
                            const int* qpos, const int* kpos, void* out, float* lse, int G,
                            int T_, int C, float scale, float self_bias, cudaStream_t st) {
     switch (D) {
-        case 16: return launch_tiled<T, 16>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                            self_bias, st);
-        case 32: return launch_tiled<T, 32>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                            self_bias, st);
-        case 64: return launch_tiled<T, 64>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                            self_bias, st);
-        case 128: return launch_tiled<T, 128>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
-                                              self_bias, st);
+        case 16: return tiled::launch_tc<E, 16>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                                self_bias, st);
+        case 32: return tiled::launch_tc<E, 32>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                                self_bias, st);
+        case 64: return tiled::launch_tc<E, 64>(q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                                self_bias, st);
+        case 128: return tiled::launch_tc<E, 128>(q, k, v, qpos, kpos, out, lse, G, T_, C,
+                                                  scale, self_bias, st);
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <typename T>
+// the head dims a call takes: 16, 32, 64 and 128, and every multiple of 128
+constexpr bool takes(int D) { return D == 16 || D == 32 || D == 64 || (D > 0 && D % 128 == 0); }
+
+template <typename E>
 cudaError_t route(int C, int D, const void* q, const void* k, const void* v, const int* qpos,
                   const int* kpos, void* out, float* lse, int G, int T_, float scale,
                   float self_bias, cudaStream_t st) {
-    // chunks 32 / 64 at D <= 64: the per-chunk kernels; D above 128: the slab
-    // walk; the rest: the tiled walk
-    if (D > 128 && D % 128 == 0)
-        return slabs::launch<T>(q, k, v, qpos, kpos, out, lse, G, T_, C, D, scale, self_bias,
-                                st);
-    if ((C == 32 || C == 64) && D <= 64)
-        return launch_c<T>(C, D, q, k, v, qpos, kpos, out, lse, G, T_, scale, self_bias, st);
-    return launch_tiled_d<T>(D, q, k, v, qpos, kpos, out, lse, G, T_, C, scale, self_bias, st);
+    // f32 and D above 128: the slab walk; 16 bits up to D 128: chunks 32 /
+    // 64 at D <= 64 on the per-chunk kernel, the rest on the tiled walk
+    if (!takes(D)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(E) == 2) {
+        if (D <= 128) {
+            if (C == 32 && D <= 64)
+                return launch_d<E, 32>(D, q, k, v, qpos, kpos, out, lse, G, T_, scale,
+                                       self_bias, st);
+            if (C == 64 && D <= 64)
+                return launch_d<E, 64>(D, q, k, v, qpos, kpos, out, lse, G, T_, scale,
+                                       self_bias, st);
+            return launch_tiled_d<E>(D, q, k, v, qpos, kpos, out, lse, G, T_, C, scale,
+                                     self_bias, st);
+        }
+    }
+    return slabs::with_cfg<E>(D, [&](auto cfg) {
+        using F = decltype(cfg);
+        return slabs::launch<E, F::W, F::ZS>(q, k, v, qpos, kpos, out, lse, G, T_, C, D / F::W,
+                                             scale, self_bias, st);
+    });
 }
 
-// the resources of the tensor-core kernel of a 16-bit call (its self-bias
-// instance): k3_tc at chunks 32 / 64 and D <= 64, else k3_union_tc
+// the resources of the tensor-core kernel of a 16-bit call up to D 128 (its
+// self-bias instance): k3_tc at chunks 32 / 64 and D <= 64, else k3_union_tc
 template <typename E, int D>
 cudaError_t resources_d(int C, int* out) {
     if constexpr (D <= 64) {
@@ -1259,33 +1019,32 @@ cudaError_t resources_d(int C, int* out) {
                      tiled::Split<D>::NT, out);
 }
 
-// the resources of k3_slab (its self-bias instance), which runs D above 128
-template <typename E>
-cudaError_t resources_slab(int* out) {
-    return resources(slabs::k3_slab<E, true>, slabs::smem_bytes<E>(), slabs::NT, out);
-}
-
 template <typename E>
 cudaError_t resources_c(int C, int D, int* out) {
-    if (D > 128 && D % 128 == 0) return resources_slab<E>(out);
-    switch (D) {
-        case 16: return resources_d<E, 16>(C, out);
-        case 32: return resources_d<E, 32>(C, out);
-        case 64: return resources_d<E, 64>(C, out);
-        case 128: return resources_d<E, 128>(C, out);
-        default: return cudaErrorInvalidValue;
+    if (!takes(D)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(E) == 2) {
+        switch (D) {
+            case 16: return resources_d<E, 16>(C, out);
+            case 32: return resources_d<E, 32>(C, out);
+            case 64: return resources_d<E, 64>(C, out);
+            case 128: return resources_d<E, 128>(C, out);
+        }
     }
+    return slabs::with_cfg<E>(D, [&](auto cfg) {
+        using F = decltype(cfg);
+        return resources(slabs::k3_slab<E, F::W, F::ZS>, slabs::Lay<E, F::W>::bytes(),
+                         slabs::NT, out);
+    });
 }
 
 }  // namespace
 
 // q/k/v [G, T, D] (dtype 0 = f32, 1 = bf16, 2 = f16), qpos/kpos int32 [G, T];
 // out [G, T, D] in that dtype, lse [G, T] f32.  T % chunk == 0; D 16, 32, 64,
-// 128 or a multiple of 128.  Chunks 32 and 64 at D <= 64 run the per-chunk
-// kernels (f32: the FMA kernel; bf16 and f16: k3_tc); every other chunk and
-// D 128 run the tiled walk (f32: k3_tiled; bf16 and f16: k3_union_tc); D
-// above 128 runs k3_slab.  Launches on `stream`; returns cudaGetLastError()
-// of the launch.
+// 128 or a multiple of 128.  bf16 and f16 up to D 128 run k3_tc (chunks 32
+// and 64 at D <= 64) or the tiled walk k3_union_tc; f32 at every D and
+// every dtype above D 128 run k3_slab (f32 in 3xTF32).  Launches on
+// `stream`; returns cudaGetLastError() of the launch.
 extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void* v,
                                        const void* qpos, const void* kpos, void* out,
                                        void* lse, int G, int T, int D, int chunk, int dtype,
@@ -1306,17 +1065,15 @@ extern "C" int chunked_window_attn_fwd(const void* q, const void* k, const void*
     return (int)cudaErrorInvalidValue;
 }
 
-// The resources of the tensor-core kernel a bf16 (dtype 1) or f16 (2) call at
-// this chunk and D runs, as the loaded library reports them: out[0..4] =
-// registers, local (spill) bytes, dynamic shared bytes, resident blocks per
-// SM and threads per block of k3_tc, k3_union_tc or (D above 128, every
-// dtype 0-2) k3_slab, the self-bias instance.  Returns a cudaError_t
-// (cudaErrorInvalidValue for f32 up to D 128 or a D it does not take).
+// The resources of the kernel a call of this dtype (0 = f32, 1 = bf16, 2 =
+// f16) at this chunk and D runs, as the loaded library reports them:
+// out[0..4] = registers, local (spill) bytes, dynamic shared bytes, resident
+// blocks per SM and threads per block of k3_tc, k3_union_tc (their
+// self-bias instances) or k3_slab.  Returns a cudaError_t
+// (cudaErrorInvalidValue for a D it does not take).
 extern "C" int chunked_window_attn_fwd_resources(int chunk, int D, int dtype, int* out) {
     if (chunk <= 0) return (int)cudaErrorInvalidValue;
-    if (dtype == 0)                // f32 has a tensor-core kernel above D 128 only
-        return D > 128 && D % 128 == 0 ? (int)resources_slab<float>(out)
-                                       : (int)cudaErrorInvalidValue;
+    if (dtype == 0) return (int)resources_c<float>(chunk, D, out);
     if (dtype == 1) return (int)resources_c<__nv_bfloat16>(chunk, D, out);
     if (dtype == 2) return (int)resources_c<__half>(chunk, D, out);
     return (int)cudaErrorInvalidValue;

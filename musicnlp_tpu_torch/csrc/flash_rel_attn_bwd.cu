@@ -76,7 +76,6 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
-#include "elem.cuh"
 #include "mma_bf16.cuh"
 #include "kernel_resources.cuh"
 #include "row_dot.cuh"
@@ -87,7 +86,6 @@ namespace {
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
 
-using namespace elem;
 using kernel_resources::resources;
 
 __device__ __forceinline__ bool visible(int q, int k, int T_, int S, int M, int mv, int window) {
@@ -532,7 +530,7 @@ k2_dq_tc(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int qr = gq + 8 * (e >> 1), ki = KW * c + 8 * j + 2 * t + (e & 1);
-                dsk[qr * DSS + 63 - 16 * p - qr + ki] = from_f<E>(dp[j][e]);
+                slab::put1<E>(dsk + qr * DSS + 63 - 16 * p - qr + ki, dp[j][e]);
             }
         if constexpr (SP > 1) put_rows<E, H>(dsr, dp, c, lane);
         group_sync<SP>(p);
@@ -724,26 +722,6 @@ cudaError_t with_cfg(int H, F&& f) {
     }
 }
 
-// X of one staged slab (Qr rows 16p.. against window rows 48 - 16p + KW c +
-// [0, XW)) into the warp's f32 staging sXw [16][XS]: stored at slab 0,
-// added (f32, rounded to nearest) after
-template <typename E, int W>
-__device__ __forceinline__ void bd_slab(float* sXw, const E* Qr, const E* G, int p, int c,
-                                        bool first, int lane) {
-    constexpr int RS = Lay<E, W>::RS;
-    float x[XW / 8][4] = {};
-    slab_product<E, W>(x, Qr, 16 * p, G, 48 - 16 * p + KW * c, RS, lane);
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int n = 0; n < XW / 8; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            float2* o = reinterpret_cast<float2*>(sXw + (g + 8 * h) * XS + 8 * n + 2 * t);
-            const float2 v = first ? make_float2(0.f, 0.f) : *o;
-            *o = make_float2(v.x + x[n][2 * h], v.y + x[n][2 * h + 1]);
-        }
-}
-
 template <typename E, int W, int ZS>
 __global__ void __launch_bounds__(NT, 1)
 k2_dkdv_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
@@ -862,7 +840,8 @@ k2_dkdv_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __rest
         pair_product<E, W, false>(s, dp, st + L::QW * TILE, st + L::DO * TILE,
                                   st + L::KK * TILE, st + L::VV * TILE, 16 * p, KW * c, RS, lane,
                                   unused, nullptr, nullptr);
-        bd_slab<E, W>(sXw, st + L::QR * TILE, st + L::GG * TILE, p, c, m == 0, lane);
+        skew_slab<E, W, XW, XS>(sXw, st + L::QR * TILE, 16 * p, st + L::GG * TILE,
+                                48 - 16 * p + KW * c, m == 0, lane);
         if (m < ns - 1) continue;
         __syncwarp();                            // the warp's X is staged
         tc::p_ds<128>(s, dp, sXw, q0, k0, p, c, lane, l2, d2, T_, S, M, mv, scale, window,
@@ -1048,7 +1027,8 @@ k2_dq_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restri
         pair_product<E, W, false>(s, dp, st + L::QW * TILE, st + L::DO * TILE,
                                   st + L::KK * TILE, st + L::VV * TILE, 16 * p, KW * c, RS, lane,
                                   unused, nullptr, nullptr);
-        bd_slab<E, W>(sXw, st + L::QR * TILE, st + L::GG * TILE, p, c, m == 0, lane);
+        skew_slab<E, W, XW, XS>(sXw, st + L::QR * TILE, 16 * p, st + L::GG * TILE,
+                                48 - 16 * p + KW * c, m == 0, lane);
         if (m < ns - 1) continue;
         __syncwarp();                            // the warp's X is staged
         tc::p_ds<128>(s, dp, sXw, q0, k0, p, c, lane, l2, d2, T_, S, M, mv, scale, window,

@@ -126,17 +126,17 @@ __device__ __forceinline__ bool interior(int q0, int k0, int S, int M, int mv, i
 // (rows gq, gq + 8 of the group: e >> 1; key columns kc + 8j + 2t + (e & 1)
 // of the tile's keys, kc = KW c) and becomes p; BD comes from the warp's
 // staging sXw.  m: the rows' running max, l: this lane's partial row sums
-// over its keys, o: its ctx accumulators, all rescaled by alpha.  At SP 2
-// the group's two warps take the max of both halves through sRow (their
-// [16] f32 row slots; `mate` is the other warp's).  MASK: the per-pair mask
-// (a tile pair that is not interior); q is the query of row gq.
+// over its keys, both rescaled by alpha, which the caller applies to its
+// ctx sums.  At SP 2 the group's two warps take the max of both halves
+// through sRow (their [16] f32 row slots; `mate` is the other warp's).
+// MASK: the per-pair mask (a tile pair that is not interior); q is the
+// query of row gq.  The slab kernel (k1_slab) runs it at SP 2.
 template <bool MASK, int H>
-__device__ __forceinline__ void softmax_tile(float (&s)[Split<H>::KW / 8][4],
-                                             float (&o)[Split<H>::HW / 8][4], float (&m)[2],
-                                             float (&l)[2], const float* sXw, float* sRow,
-                                             const float* mate, int grp, int q, int kc, int gq,
-                                             int t, int S, int M, int mv, float scale,
-                                             int window) {
+__device__ __forceinline__ void tile_p(float (&s)[Split<H>::KW / 8][4], float (&m)[2],
+                                       float (&l)[2], float (&alpha)[2], const float* sXw,
+                                       float* sRow, const float* mate, int grp, int q, int kc,
+                                       int gq, int t, int S, int M, int mv, float scale,
+                                       int window) {
     using SPL = Split<H>;
     constexpr int KW = SPL::KW, XS = SPL::XS;
     float mx[2] = {m[0], m[1]};
@@ -154,7 +154,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[Split<H>::KW / 8][4],
             s[j][e] = x;
             mx[h] = fmaxf(mx[h], x);
         }
-    float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
         mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
@@ -183,8 +182,20 @@ __device__ __forceinline__ void softmax_tile(float (&s)[Split<H>::KW / 8][4],
             l[e >> 1] += p;
             s[j][e] = p;                 // rounded to E where it enters PV
         }
+}
+
+// tile_p, then o (the warp's ctx accumulators) rescaled by alpha
+template <bool MASK, int H>
+__device__ __forceinline__ void softmax_tile(float (&s)[Split<H>::KW / 8][4],
+                                             float (&o)[Split<H>::HW / 8][4], float (&m)[2],
+                                             float (&l)[2], const float* sXw, float* sRow,
+                                             const float* mate, int grp, int q, int kc, int gq,
+                                             int t, int S, int M, int mv, float scale,
+                                             int window) {
+    float alpha[2];
+    tile_p<MASK, H>(s, m, l, alpha, sXw, sRow, mate, grp, q, kc, gq, t, S, M, mv, scale, window);
 #pragma unroll
-    for (int n = 0; n < SPL::HW / 8; ++n)
+    for (int n = 0; n < Split<H>::HW / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 }
@@ -398,73 +409,110 @@ cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
 }  // namespace tc
 
 // ------------------------------------------------- the slab kernel (k1_slab)
-// Every f32 call, and a 16-bit call at a head dim above 128.  One block of
-// four warps per (bn, 64-row q tile, output slab z): H = W ns, the slab
-// width W = H up to 64 (f32) or 64 (H a multiple of 64), and the block
-// writes ctx columns [W z, W z + W).  Per 64-key tile it loops over the ns
-// slabs of the head dim: slab hs of Qw / Qr (staged once when ns = 1), K and
-// the 128-row table window are staged by cp.async and their products added
-// into the warp's AC fragments s and its BD window x (X = Qr . Gwin^T over
-// the XW = 80 window columns its 16 rows read, as k1_tc's warp at H <= 64),
-// so the scores are the sums over the whole head dim before the online
-// softmax; V's slab z is staged with the last slab, and PV adds into the
-// warp's W columns of ctx.  Each output slab's block recomputes the scores
-// (ns blocks per tile pair).  The products are slab_mma.cuh's: mma.sync
-// m16n8k16 for bf16 / f16, 3xTF32 m16n8k8 for f32, so f32 runs on the
-// tensor cores at about f32 accuracy.  The masks, the online softmax, lse
-// and the rounding of p to E where it enters PV are k1_tc's.  No stage is
-// double-buffered: two blocks per SM (f32 W 64: 102 KB, the staging of BD
-// over the table window, which is read by then) overlap one block's copies
-// with the other's products.
+// Every f32 call, and a 16-bit call at a head dim above 128: H = W ns, the
+// slab width W = H up to 64 (f32) or 64.  A block per (bn, 64-row q tile,
+// group of up to ZS output slabs) walks K1's key tiles once.  Eight warps,
+// two per 16-row group (k1_tc's layout at H = 128, tc::Split<128>): warp c
+// of group p sums AC = Qw . K^T over keys [32c, 32c + 32) of the tile and X
+// = Qr . Gwin^T over the 48 window columns [48 - 16p + 32c, + 48) those
+// keys' skew reads, and owns columns [OW c, OW c + OW) of each of the
+// block's output slabs (OW = W / 2).  Per tile pair the head dim streams
+// through a ring of two cp.async stages of five 64-row tiles (Qw, Qr, K and
+// the 128-row window; slab i + 1 loads while slab i's products run): each
+// slab's AC is summed apart (a zeroed fragment per slab, its k-blocks added
+// in f32) and added to the pair's sums, slab 0 first, and X's per-slab sums
+// land in the warp's f32 staging (skew_slab), so the scores are computed
+// once per tile pair; then the online softmax (tc::tile_p: the max of both
+// key halves through shared memory), the ctx sums of every output slab
+// rescaled, and the group's P rows (rounded to E; f32 as they are) written
+// over its BD staging.  The block's output slabs follow as items of their
+// own, V's slab staged in K's place: ctx[:, slab z] += P . V_slab, the
+// warp's columns, the tile pair's products summed apart, then added.  The
+// sums of up to ZS output slabs stay in registers (16 f32 per slab and
+// lane): `with_cfg` keeps every slab in one block up to H 256 (ZS 4) and
+// 512 (ZS 8); above, grid z splits the output slabs, each block recomputing
+// the scores.  At one slab (f32 up to H 64) Qw and Qr are staged once, in
+// stage 0.  The masks, the online softmax, lse and the rounding of p are
+// k1_tc's.  The products are slab_mma.cuh's: mma.sync m16n8k16 for bf16 /
+// f16, 3xTF32 m16n8k8 for f32.  What bounds it: the three H-long products
+// per visible pair at the tensor cores' rate (f32 at a third of TF32's),
+// and the operand splits around them in f32.  Shared memory at W 64: 197 KB
+// (f32) / 116 KB (16 bits); one block of eight warps per SM.
 namespace slabs {
 
 using namespace slab;
+using SPL = tc::Split<128>;       // two warps per 16-row group
 
-constexpr int NW = BQ / 16;      // warps: one per 16-row group
-constexpr int NT = 32 * NW;
-constexpr int XW = BK + 16;      // BD window columns a warp reads
-constexpr int XS = XW + 4;       // f32 row stride of a warp's BD staging
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int SP = SPL::SP, NT = SPL::NT, NW = SPL::NW, KW = SPL::KW, XW = SPL::XW,
+              XS = SPL::XS;
 
 template <typename E, int W>
 struct Lay {
-    static constexpr int RS = W + PAD<E>;                               // element row stride
-    static constexpr size_t G_BYTES = (size_t)2 * BK * RS * sizeof(E);   // the 128-row window
+    static constexpr int RS = W + PAD<E>;             // operand row stride
+    static constexpr int PS = BK + PAD<E>;            // P row stride
+    static constexpr int TILE = BQ * RS;              // one staged [64][W] tile
+    static constexpr int OW = W / SP < 16 ? 16 : W / SP;   // a warp's columns of an output slab
+    // a ring stage: Qw, Qr, K (an output item's V), the window's two halves
+    static constexpr int QW = 0, QR = 1, KK = 2, GG = 3, NTILE = 5;
+    static constexpr size_t RING = (size_t)2 * NTILE * TILE * sizeof(E);
     static constexpr size_t X_BYTES = (size_t)NW * 16 * XS * 4;
-    static constexpr bool X_ON_G = G_BYTES >= X_BYTES;                  // BD staged over it
-    static constexpr size_t bytes() {
-        // Qw, Qr, K, V [64][RS]; the window [128][RS]; the warps' BD staging
-        return (size_t)(2 * BQ + 2 * BK) * RS * sizeof(E) + G_BYTES + (X_ON_G ? 0 : X_BYTES);
-    }
+    static_assert(16 * PS * sizeof(E) <= (size_t)SP * 16 * XS * 4, "P fits the group's staging");
+    // the ring; the warps' BD staging (each group's P over it); each warp's
+    // row max / sum [16] f32
+    static constexpr size_t bytes() { return RING + X_BYTES + (size_t)NW * 16 * 4; }
 };
 
-// the widths a slab kernel is built for: f32 at 16 / 32 / 64, bf16 / f16 at 64
-__host__ __device__ constexpr int slab_width(int H) { return H < 64 ? H : 64; }
+// a slab instance: width W, output slabs a block holds ZS
+template <int W_, int ZS_>
+struct Cfg {
+    static constexpr int W = W_, ZS = ZS_;
+};
 
-template <typename E, int W>
-__global__ void __launch_bounds__(NT, 2)
+// f(Cfg) for the instance a call at head dim H runs: f32 in slabs of
+// min(H, 64), 16 bits (H above 128) of 64; every output slab in one block
+// up to 256 columns, then up to 512
+template <typename E, typename F>
+cudaError_t with_cfg(int H, F&& f) {
+    if constexpr (kF32<E>) {
+        switch (H) {
+            case 16: return f(Cfg<16, 1>{});
+            case 32: return f(Cfg<32, 1>{});
+            case 64: return f(Cfg<64, 1>{});
+            case 128: return f(Cfg<64, 2>{});
+        }
+    }
+    if (H <= 128 || H % 128) return cudaErrorInvalidValue;
+    return H <= 256 ? f(Cfg<64, 4>{}) : f(Cfg<64, 8>{});
+}
+
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
 k1_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict__ kk,
         const E* __restrict__ vv, const E* __restrict__ g, E* __restrict__ out,
         float* __restrict__ lse, const int* __restrict__ mv_ptr, int mv_const, int N, int T_,
         int S, int M, float scale, int window, int ns) {
     using L = Lay<E, W>;
-    constexpr int RS = L::RS, K8 = KS<E>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
+    // k-blocks of a product unrolled at a time: as many as the registers
+    // allow without a spill (ptxas: f32 W 64 spilled at all 8, ZS 8 at 2)
+    constexpr int UNR = ZS > 4 ? 1 : kF32<E> && W == 64 ? 4 : W / K8;
     const int H = W * ns;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    E* sQw = reinterpret_cast<E*>(smem_raw);
-    E* sQr = sQw + BQ * RS;
-    E* sK = sQr + BQ * RS;
-    E* sV = sK + BK * RS;
-    E* sG = sV + BK * RS;                           // table window rows [0, 128)
-    float* sX = reinterpret_cast<float*>(L::X_ON_G ? sG : sG + 2 * BK * RS);
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: tile i at ring + (NTILE b + i) TILE
+    float* sX = reinterpret_cast<float*>(smem_raw + L::RING);   // [NW][16][XS]
+    float* sRows = sX + NW * 16 * XS;                            // [NW][16]
 
-    const int bn = blockIdx.y, z = blockIdx.z;
+    const int bn = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
     const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
     const int head = bn % N;
-    const int tid = threadIdx.x, p = tid >> 5, lane = tid & 31;
-    const int gq = lane >> 2, t = lane & 3;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
     const int mv = mv_ptr ? *mv_ptr : mv_const;
-    float* sXw = sX + p * 16 * XS;
+    const bool once = ns == 1;
+    float* sXw = sX + w * 16 * XS;
+    E* sPg = reinterpret_cast<E*>(sX + p * SP * 16 * XS);     // the group's P [16][PS]
+    float* sRow = sRows + w * 16;
+    const float* mate = sRows + (w ^ 1) * 16;
 
     const E* rw_b = rw + (size_t)bn * T_ * H;
     const E* rr_b = rr + (size_t)bn * T_ * H;
@@ -478,122 +526,148 @@ k1_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict_
     int k_lo = max(0, M - mv);
     if (window > 0) k_lo = max(k_lo, M + q0 - window + 1);
     const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
-
-    float o[W / 8][4] = {};                         // ctx rows 16p + gq (+8), cols 8n + 2t
-    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k0 = kt * BK, u_lo = T_ - q0 - BQ + k0;
-        float s[BK / 8][4] = {}, x[XW / 8][4] = {};
-        for (int hs = 0; hs < ns; ++hs) {
-            const int c0 = W * hs;
-            __syncthreads();             // every warp is done with the staged tiles
-            if (ns > 1 || kt == kt_begin) {
-                stage<W>(sQw, rw_b, q0, BQ, T_, H, c0, tid, NT);
-                stage<W>(sQr, rr_b, q0, BQ, T_, H, c0, tid, NT);
+    // the items of a key tile: its ns score slabs, then the block's output slabs
+    const int per = ns + nz, n_items = max(kt_end - kt_begin, 0) * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m < ns) {
+            if (!once) {
+                stage<W>(st + L::QW * TILE, rw_b, q0, BQ, T_, H, W * m, tid, NT);
+                stage<W>(st + L::QR * TILE, rr_b, q0, BQ, T_, H, W * m, tid, NT);
             }
-            stage<W>(sK, k_b, k0, BK, S, H, c0, tid, NT);
-            stage<W>(sG, g_h, u_lo, 2 * BK, T_ + S, H, c0, tid, NT);
-            if (hs == ns - 1) stage<W>(sV, v_b, k0, BK, S, H, W * z, tid, NT);
-            mma_bf16::cp_commit();
-            mma_bf16::cp_wait<0>();
-            __syncthreads();
-            // AC += Qw . K^T over the tile's 64 keys; X += Qr . Gwin[48 - 16p, + XW)^T
-            slab_product<E, W, XW / 16>(s, sQw, 16 * p, sK, 0, RS, lane);
-            slab_product<E, W, XW / 16>(x, sQr, 16 * p, sG, 48 - 16 * p, RS, lane);
+            stage<W>(st + L::KK * TILE, k_b, k0, BK, S, H, W * m, tid, NT);
+            stage<W>(st + L::GG * TILE, g_h, T_ - q0 - BQ + k0, 2 * BK, T_ + S, H, W * m, tid,
+                     NT);
+        } else {
+            stage<W>(st + L::KK * TILE, v_b, k0, BK, S, H, W * (z0 + m - ns), tid, NT);
         }
-        if constexpr (L::X_ON_G) __syncthreads();   // every warp's window reads are done
-        // BD[qr][kl] is X[qr][15 - qr + kl]
-#pragma unroll
-        for (int n = 0; n < XW / 8; ++n) {
-            *reinterpret_cast<float2*>(sXw + gq * XS + 8 * n + 2 * t) = make_float2(x[n][0], x[n][1]);
-            *reinterpret_cast<float2*>(sXw + (gq + 8) * XS + 8 * n + 2 * t) =
-                make_float2(x[n][2], x[n][3]);
+        mma_bf16::cp_commit();
+    };
+    if (n_items > 0) {
+        if (once) {                              // Qw, Qr: stage 0's first tiles, for good
+            stage<W>(ring + L::QW * TILE, rw_b, q0, BQ, T_, H, 0, tid, NT);
+            stage<W>(ring + L::QR * TILE, rr_b, q0, BQ, T_, H, 0, tid, NT);
         }
-        __syncwarp();
-
-        // the online softmax on the fragments (k1_tc's at one warp per group)
-        const int q = q0 + 16 * p + gq;
-        const bool full = tc::interior(q0, k0, S, M, mv, window);
-        float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int h = e >> 1, qr = gq + 8 * h, ki = 8 * j + 2 * t + (e & 1);
-                float v = (s[j][e] + sXw[qr * XS + 15 - qr + ki]) * scale;
-                if (!full) {
-                    const int k = k0 + ki, d = M + q + 8 * h - k;
-                    if (!(d >= 0 && k < S && k >= M - mv && (window <= 0 || d < window)))
-                        v = kNegInf;
-                }
-                s[j][e] = v;
-                mx[h] = fmaxf(mx[h], v);
-            }
-        float alpha[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-            alpha[h] = exp2f((m_r[h] - mx[h]) * kLog2e);
-            m_r[h] = mx[h];
-            l_r[h] *= alpha[h];
-        }
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float pr = exp2f((s[j][e] - mx[e >> 1]) * kLog2e);
-                l_r[e >> 1] += pr;
-                s[j][e] = pr;            // rounded to E where it enters PV (16 bits)
-            }
-        // o = o alpha + P . V[:, W z, + W) over the tile's 64 keys (the
-        // tile's products summed apart, then added rounded to nearest)
-        float pv[W / 8][4] = {};
-#pragma unroll
-        for (int kb = 0; kb < BK / K8; ++kb) {
-            FragA<E> a;
-            acc_a<E>(a, s, kb, lane);
-#pragma unroll
-            for (int np = 0; np < W / 16; ++np) {
-                FragB<E> b[2];
-                load_bt(b, sV, RS, 16 * np, K8 * kb, lane);
-                mma(pv[2 * np], a, b[0]);
-                mma(pv[2 * np + 1], a, b[1]);
-            }
-        }
-#pragma unroll
-        for (int n = 0; n < W / 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], alpha[e >> 1], pv[n][e]);
+        issue(0);
     }
 
+    // ctx rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float o[ZS][OW / 8][4] = {};
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    // ctx[:, slab z0 + zi] += P . V_slab (tV), the warp's columns, PC
+    // n-pairs per pass, the tile pair's products summed apart
+    constexpr int PC = ZS <= 2 ? 2 : 1;
+    auto apply = [&](int zi, const E* tV) {
+        if (OW * c >= W) return;                 // W 16: the group's second warp has none
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += PC) {
+                float tv[2 * PC][4] = {};
+#pragma unroll (UNR)
+                for (int kb = 0; kb < BK / K8; ++kb) {
+                    FragA<E> a;
+                    load_a(a, sPg, PS, 0, K8 * kb, lane);
+#pragma unroll
+                    for (int j = 0; j < PC && cp + j < OW / 16; ++j) {
+                        FragB<E> b[2];
+                        load_bt(b, tV, RS, OW * c + 16 * (cp + j), K8 * kb, lane);
+                        mma(tv[2 * j], a, b[0]);
+                        mma(tv[2 * j + 1], a, b[1]);
+                    }
+                }
+                add_pass(o[zz], tv, cp);
+            }
+        }
+    };
+
+    float s[KW / 8][4];
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m >= ns) {
+            apply(m - ns, st + L::KK * TILE);
+            continue;
+        }
+        const E* tQ = once ? ring : st;
+        // AC over the warp's keys, the slab's sum apart, then added
+        float sm[KW / 8][4] = {};
+        slab_product<E, W, CH, false, UNR>(sm, tQ + L::QW * TILE, 16 * p, st + L::KK * TILE,
+                                           KW * c, RS, lane);
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = m ? s[j][e] + sm[j][e] : sm[j][e];
+        skew_slab<E, W, XW, XS, UNR>(sXw, tQ + L::QR * TILE, 16 * p, st + L::GG * TILE,
+                                     48 - 16 * p + KW * c, m == 0, lane);
+        if (m < ns - 1) continue;
+        __syncwarp();                            // the warp's X is staged
+        const int q = q0 + 16 * p + gq;
+        float alpha[2];
+        if (tc::interior(q0, k0, S, M, mv, window))
+            tc::tile_p<false, 128>(s, m_r, l_r, alpha, sXw, sRow, mate, p, q, k0 + KW * c, gq,
+                                   t, S, M, mv, scale, window);
+        else
+            tc::tile_p<true, 128>(s, m_r, l_r, alpha, sXw, sRow, mate, p, q, k0 + KW * c, gq, t,
+                                  S, M, mv, scale, window);
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz)
+#pragma unroll
+            for (int nn = 0; nn < OW / 8; ++nn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[zz][nn][e] *= alpha[e >> 1];
+        // the group's P rows over its staging (both warps' BD reads are
+        // done: tile_p's max exchange is behind the group barrier)
+        put_frags<E, false>(sPg, s, PS, 0, KW * c, lane);
+    }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
+
+    float l_row[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
         float l = l_r[h];
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
+        l_row[h] = l;
+    }
+    if (t == 0) {                                // the sum over both key halves (the mate
+        sRow[gq] = l_row[0];                     // read the last max before an item barrier)
+        sRow[gq + 8] = l_row[1];
+    }
+    mma_bf16::group_sync<SP>(p);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
         const int q = q0 + 16 * p + gq + 8 * h;
         if (q >= T_) continue;
-        const float lc = fmaxf(l, 1e-30f), inv = 1.f / lc;
-        E* o_r = out + ((size_t)bn * T_ + q) * H + W * z;
+        const float lc = fmaxf(l_row[h] + mate[gq + 8 * h], 1e-30f), inv = 1.f / lc;
 #pragma unroll
-        for (int n = 0; n < W / 8; ++n) put2<E>(o_r + 8 * n + 2 * t, o[n][2 * h] * inv,
-                                                 o[n][2 * h + 1] * inv);
-        if (z == 0 && t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(lc);
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz >= nz || OW * c >= W) continue;
+            E* o_r = out + ((size_t)bn * T_ + q) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int nn = 0; nn < OW / 8; ++nn)
+                put2<E>(o_r + 8 * nn + 2 * t, o[zz][nn][2 * h] * inv, o[zz][nn][2 * h + 1] * inv);
+        }
+        if (z0 == 0 && c == 0 && t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(lc);
     }
 }
 
-template <typename E, int W>
+template <typename E, int W, int ZS>
 cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
                    const void* g, void* out, float* lse, const int* mv_ptr, int mv_const,
                    int BN, int N, int T_, int S, int M, float scale, int window, int ns,
                    cudaStream_t stream) {
     const size_t smem = Lay<E, W>::bytes();
-    auto kern = k1_slab<E, W>;
+    auto kern = k1_slab<E, W, ZS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((T_ + BQ - 1) / BQ, BN, ns);
+    dim3 grid((T_ + BQ - 1) / BQ, BN, (ns + ZS - 1) / ZS);
     kern<<<grid, NT, smem, stream>>>(
         (const E*)rw, (const E*)rr, (const E*)k, (const E*)v, (const E*)g, (E*)out, lse,
         mv_ptr, mv_const, N, T_, S, M, scale, window, ns);
@@ -623,29 +697,18 @@ cudaError_t launch_h(int H, const void* rw, const void* rr, const void* k, const
                                               BN, N, T_, S, M, scale, window, st);
             case 128: return tc::launch<T, 128>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const,
                                                 BN, N, T_, S, M, scale, window, st);
-            default: return slabs::launch<T, 64>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
-                                              N, T_, S, M, scale, window, H / 64, st);
-        }
-    } else {                                         // f32: the slab kernel at every H
-        switch (slabs::slab_width(H)) {
-            case 16: return slabs::launch<T, 16>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
-                                              N, T_, S, M, scale, window, 1, st);
-            case 32: return slabs::launch<T, 32>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
-                                              N, T_, S, M, scale, window, 1, st);
-            default: return slabs::launch<T, 64>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN,
-                                              N, T_, S, M, scale, window, H / 64, st);
         }
     }
+    return slabs::with_cfg<T>(H, [&](auto cfg) {     // f32, and 16 bits above 128
+        using F = decltype(cfg);
+        return slabs::launch<T, F::W, F::ZS>(rw, rr, k, v, g, out, lse, mv_ptr, mv_const, BN, N,
+                                             T_, S, M, scale, window, H / F::W, st);
+    });
 }
 
 template <typename E, int H>
 cudaError_t resources_h(int* out) {
     return resources(tc::k1_tc<E, H>, tc::smem_bytes<H>(), tc::Split<H>::NT, out);
-}
-
-template <typename E, int W>
-cudaError_t resources_slab(int* out) {
-    return resources(slabs::k1_slab<E, W>, slabs::Lay<E, W>::bytes(), slabs::NT, out);
 }
 
 // the kernel a call of this dtype and H runs
@@ -658,15 +721,13 @@ cudaError_t resources_e(int H, int* out) {
             case 32: return resources_h<E, 32>(out);
             case 64: return resources_h<E, 64>(out);
             case 128: return resources_h<E, 128>(out);
-            default: return resources_slab<E, 64>(out);
-        }
-    } else {
-        switch (slabs::slab_width(H)) {
-            case 16: return resources_slab<E, 16>(out);
-            case 32: return resources_slab<E, 32>(out);
-            default: return resources_slab<E, 64>(out);
         }
     }
+    return slabs::with_cfg<E>(H, [&](auto cfg) {
+        using F = decltype(cfg);
+        return resources(slabs::k1_slab<E, F::W, F::ZS>, slabs::Lay<E, F::W>::bytes(),
+                         slabs::NT, out);
+    });
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 // The product policy of the slab kernels of K1-K4 (flash_rel_attn_fwd.cu,
 // flash_rel_attn_bwd.cu, chunked_window_attn_fwd.cu,
-// chunked_window_attn_bwd.cu): the kernels that run every f32 call of K1 /
-// K2 and every call of K1-K4 at a head dim above 128.  One kernel body
+// chunked_window_attn_bwd.cu): the kernels that run every f32 call of K1-K4
+// and every call at a head dim above 128.  One kernel body
 // serves three element types E:
 //   bf16, f16  mma.sync m16n8k16 (E in, f32 accumulate), one per product;
 //   f32        3xTF32: mma.sync m16n8k8 with TF32 inputs, f32 accumulate.
@@ -22,8 +22,11 @@
 // a zeroed fragment and that into its running sums with an f32 add (K2's dk
 // / dv over 1,024 rows read 1.5e-5 of their max with one accumulator,
 // against the 1e-5 limit; drr at head dim 256, 1.4e-5 with the scores summed
-// over four slabs in one).  K4's f32 scores over several slabs (D >= 128)
-// also carry their sum across slabs as a pair (carry_slab, below).
+// over four slabs in one).  K1 / K3's forward scores sum each slab apart
+// and add the slab sums in order (at |s| ~ 50 one running sum over the 32
+// k-blocks of head dim 256 lay farther from f64 than the plain f32 forward);
+// K4's f32 scores over several slabs (D >= 128) carry their sum across slabs
+// as a pair (carry_slab, below).
 // Operands sit in shared memory as E rows whose stride is the slab width W
 // plus 16 bytes (an odd number of 16-byte units: ldmatrix without bank
 // conflicts).  A k-block of a product is KS = 16 (b16) or 8 (f32) elements
@@ -38,6 +41,7 @@
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -251,6 +255,26 @@ __device__ __forceinline__ void add_pass(float (&acc)[N][4], const float (&t)[M]
         for (int e = 0; e < 4; ++e) acc[2 * c + j][e] += t[j][e];
 }
 
+// acc continued over the W columns of the staged rows a and b in column
+// order: self_score's sequential f32 FMA chain, a piece at a time
+template <typename E, int W>
+__device__ __forceinline__ float own_chain(float acc, const E* a, const E* b) {
+    if constexpr (kF32<E>) {
+#pragma unroll
+        for (int d = 0; d < W; ++d) acc = fmaf(a[d], b[d], acc);
+    } else {
+        const uint32_t* a2 = reinterpret_cast<const uint32_t*>(a);
+        const uint32_t* b2 = reinterpret_cast<const uint32_t*>(b);
+#pragma unroll
+        for (int d = 0; d < W / 2; ++d) {
+            const float2 x = mma_bf16::unpack<E>(a2[d]), y = mma_bf16::unpack<E>(b2[d]);
+            acc = fmaf(x.x, y.x, acc);
+            acc = fmaf(x.y, y.y, acc);
+        }
+    }
+    return acc;
+}
+
 // acc += A[m0, m0 + 16) . B[n0, n0 + 8 N)^T over one slab's W columns (A and
 // B stored [row][col], row stride ld).  In passes of PASS n-pairs (A is
 // reloaded per pass); each k-block's products summed apart in t, then added
@@ -258,16 +282,21 @@ __device__ __forceinline__ void add_pass(float (&acc)[N][4], const float (&t)[M]
 // k-block's sum and never on the running score (a score of |s| ~ 50, an LSH
 // layer's at head dim 256 with unit inputs, summed over 32 k-blocks with
 // flushes per slab only, missed the f32 limit by 1.2x through exp(s - lse)).
-// The k-blocks are not unrolled, and the backward
-// kernels take passes of CH n-pairs, so that few fragments are in flight:
-// the f32 fragments are twice the registers (the forward kernels, with
-// fewer running sums, take one pass).
-template <typename E, int W, int PASS = CH, int N>
+// The k-blocks are unrolled UNROLL at a time (the backward kernels: not
+// at all, so that few fragments are in flight beside their running sums;
+// the forward ones as far as their registers allow: 5-17% faster on an
+// H100), and the kernels take passes of CH n-pairs: the f32 fragments are
+// twice the registers.  CHAIN: *own continues over the slab's columns of the
+// staged rows ca and cb (own_chain, one k-block's columns at a time, in
+// order, in the first pass), so that the sequential chain's latency hides
+// among the products.
+template <typename E, int W, int PASS = CH, bool CHAIN = false, int UNROLL = 1, int N>
 __device__ __forceinline__ void slab_product(float (&acc)[N][4], const E* A, int m0, const E* B,
-                                             int n0, int ld, int lane) {
+                                             int n0, int ld, int lane, float* own = nullptr,
+                                             const E* ca = nullptr, const E* cb = nullptr) {
 #pragma unroll
     for (int c = 0; c < N / 2; c += PASS) {
-#pragma unroll 1
+#pragma unroll (UNROLL)
         for (int kb = 0; kb < W / KS<E>; ++kb) {
             float t[2 * PASS][4] = {};
             FragA<E> a;
@@ -279,9 +308,32 @@ __device__ __forceinline__ void slab_product(float (&acc)[N][4], const E* A, int
                 mma(t[2 * j], a, b[0]);
                 mma(t[2 * j + 1], a, b[1]);
             }
+            if constexpr (CHAIN)
+                if (c == 0) *own = own_chain<E, KS<E>>(*own, ca + KS<E> * kb, cb + KS<E> * kb);
             add_pass(acc, t, c);
         }
     }
+}
+
+// K1 / K2's skew product of one staged slab: X = Qr[m0, m0 + 16) . G[n0,
+// n0 + XW)^T over the slab's W columns (row stride W + PAD) into the warp's
+// f32 staging sXw [16][XS], where BD[qr][kl] = X[qr][15 - qr + kl] is read:
+// stored at the head dim's first slab, added (f32, rounded to nearest)
+// after; the k-blocks unrolled UNROLL at a time (slab_product's)
+template <typename E, int W, int XW, int XS, int UNROLL = 1>
+__device__ __forceinline__ void skew_slab(float* sXw, const E* Qr, int m0, const E* G, int n0,
+                                          bool first, int lane) {
+    float x[XW / 8][4] = {};
+    slab_product<E, W, CH, false, UNROLL>(x, Qr, m0, G, n0, W + PAD<E>, lane);
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int n = 0; n < XW / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float2* o = reinterpret_cast<float2*>(sXw + (g + 8 * h) * XS + 8 * n + 2 * t);
+            const float2 v = first ? make_float2(0.f, 0.f) : *o;
+            *o = make_float2(v.x + x[n][2 * h], v.y + x[n][2 * h + 1]);
+        }
 }
 
 // two f32 values as E at dst (rounded to E by RNE; f32 as they are)
@@ -315,26 +367,6 @@ __device__ __forceinline__ void stage(E* dst, const E* src, int r0, int n, int l
         const bool ok = row >= 0 && row < len;
         cp_async16(dst + r * (W + PAD<E>) + c, src + (ok ? (size_t)row * ld + c0 + c : 0), ok);
     }
-}
-
-// acc continued over the W columns of the staged rows a and b in column
-// order: self_score's sequential f32 FMA chain, a piece at a time
-template <typename E, int W>
-__device__ __forceinline__ float own_chain(float acc, const E* a, const E* b) {
-    if constexpr (kF32<E>) {
-#pragma unroll
-        for (int d = 0; d < W; ++d) acc = fmaf(a[d], b[d], acc);
-    } else {
-        const uint32_t* a2 = reinterpret_cast<const uint32_t*>(a);
-        const uint32_t* b2 = reinterpret_cast<const uint32_t*>(b);
-#pragma unroll
-        for (int d = 0; d < W / 2; ++d) {
-            const float2 x = mma_bf16::unpack<E>(a2[d]), y = mma_bf16::unpack<E>(b2[d]);
-            acc = fmaf(x.x, y.x, acc);
-            acc = fmaf(x.y, y.y, acc);
-        }
-    }
-    return acc;
 }
 
 // The backward slab kernels' scores: S += Q . K^T and dP += dO . V^T over
@@ -408,6 +440,21 @@ __device__ __forceinline__ void carry_slab(float (&s)[N][4], float* hold, int m,
         }
 }
 
+// K3 / K4: the positions of keys w0 + 8j (+1), j < N, a lane's columns of
+// a warp's scores (rows base + w of kpos; INT_MAX outside [0, T): never
+// visible)
+template <int N>
+__device__ __forceinline__ void load_keys(int (&kp)[N][2], const int* kpos, size_t base, int w0,
+                                          int T_) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int w = w0 + 8 * j + e;
+            kp[j][e] = w >= 0 && w < T_ ? __ldg(kpos + base + w) : INT_MAX;
+        }
+}
+
 // a C fragment row block x (rows r0 + g (+8), columns c0 + 8j + 2t (+1))
 // into the shared tile dst (row stride ld) as it is (dst[row][column]) or
 // transposed (dst[column][row]), rounded to E
@@ -427,35 +474,6 @@ __device__ __forceinline__ void put_frags(E* dst, const float (&x)[N][4], int ld
                 put2<E>(dst + r * ld + k, x[j][2 * h], x[j][2 * h + 1]);
             }
         }
-}
-
-// fl(fl(q . k * scale) + self_bias) for the H-long rows q and k in device
-// memory (16-byte aligned), q . k as the sequential f32 FMA chain over d
-// (the order of the reference's f32 product, which the lse of a row that
-// sees only its own key keeps)
-template <typename E>
-__device__ __forceinline__ float self_score(const E* q, const E* k, int H, float scale,
-                                            float self_bias) {
-    const uint4* q4 = reinterpret_cast<const uint4*>(q);
-    const uint4* k4 = reinterpret_cast<const uint4*>(k);
-    float acc = 0.f;
-#pragma unroll 1
-    for (int d = 0; d < H / PAD<E>; ++d) {
-        const uint4 qv = __ldg(q4 + d), kv = __ldg(k4 + d);
-        const uint32_t* a = reinterpret_cast<const uint32_t*>(&qv);
-        const uint32_t* b = reinterpret_cast<const uint32_t*>(&kv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if constexpr (kF32<E>) {
-                acc = fmaf(__uint_as_float(a[j]), __uint_as_float(b[j]), acc);
-            } else {
-                const float2 x = mma_bf16::unpack<E>(a[j]), y = mma_bf16::unpack<E>(b[j]);
-                acc = fmaf(x.x, y.x, acc);
-                acc = fmaf(x.y, y.y, acc);
-            }
-        }
-    }
-    return __fadd_rn(__fmul_rn(acc, scale), self_bias);
 }
 
 }  // namespace slab

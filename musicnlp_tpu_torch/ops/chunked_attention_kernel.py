@@ -35,17 +35,17 @@ query; pad queries keep their positions.
 Bound on the H100 (SXM, 700 W): at the 22-04 LSH shape (G = 32*12*2 = 768,
 T 2048, D 64, c 64, bf16) K3 moves ~0.82 GB (q, k, v, positions in; ctx and
 lse out: 0.25 ms at 3.35 TB/s) for ~52 GFLOP (0.05 ms at 989 TFLOP/s), and
-K4 ~1.8 GB (0.55 ms): both are bound by bytes.  K3 and K4 run every bf16
-and f16 call on the tensor cores: at chunks 32 and 64 and head dims up to
-64 over runs of consecutive chunks, each chunk loaded once per run (mma.sync;
-`k3_tc`, `k4_tc`); every other chunk and head dim 128 over 64-row tiles of
-the windows (`k3_union_tc`; `k4_dq_tc` / `k4_dkdv_tc`).  f32 inputs up to
-head dim 128 run the f32 FMA kernels of the same two layouts (the per-chunk
-kernels, `k3_tiled`, `k4_dq_tiled` / `k4_dkdv_tiled`).  Above 128 every
-dtype runs the slab walk (`k3_slab`; `k4_dq_slab` / `k4_dkdv_slab`), the
-tiled walk over 64-wide slabs of the head dim, one output slab per block, on
-the tensor cores (f32 in 3xTF32), with each row's own key in the LSH layers
-rescored as one sequential f32 FMA chain over the whole head dim.
+K4 ~1.8 GB (0.55 ms): both are bound by bytes.  K3 and K4 run every call
+on the tensor cores.  bf16 and f16 up to head dim 128: at chunks 32 and 64
+and head dims up to 64 over runs of consecutive chunks, each chunk loaded
+once per run (mma.sync; `k3_tc`, `k4_tc`); every other chunk and head dim
+128 over 64-row tiles of the windows (`k3_union_tc`; `k4_dq_tc` /
+`k4_dkdv_tc`).  f32 at every head dim, and every dtype above 128, on the
+slab walk (`k3_slab`; `k4_dq_slab` / `k4_dkdv_slab`; f32 in 3xTF32): the
+tiled walk with the head dim streamed in slabs of up to 64 columns, the
+scores summed once per tile pair and applied to each of the block's output
+slabs, with each row's own key in the LSH layers scored as one sequential
+f32 FMA chain over the whole head dim.
 `chip_smoke.py` measures them against that bound.
 """
 from __future__ import annotations

@@ -33,9 +33,10 @@ source).  K1 and K2 run every call on the tensor cores: bf16 and f16 up
 to H 128 on `k1_tc`, `k2_dkdv_tc` / `k2_dq_tc` (mma.sync, 16-bit shared
 tiles, cp.async; at H 128 two warps per 16-row group); f32 at every H, and
 bf16 / f16 above 128, on the slab kernels `k1_slab`, `k2_dkdv_slab` /
-`k2_dq_slab`, which loop the score contractions over 64-wide slabs of the
-head dim and write one slab of the outputs per block, f32 in 3xTF32 (each
-operand split into two TF32 parts, three products: about f32 accuracy).
+`k2_dq_slab`, which stream the head dim in slabs of up to 64 columns, sum
+the scores once per tile pair and apply them to each output slab a block
+holds, f32 in 3xTF32 (each operand split into two TF32 parts, three
+products: about f32 accuracy).
 dtype and H pick the kernel inside each C entry point.
 
 The distance table g_tab [N, T+S, H] stays a plain matmul outside the kernels

@@ -1,14 +1,15 @@
-"""The instance table of the backward slab kernels, read from their CUDA
-source (`with_cfg` in `csrc/chunked_window_attn_bwd.cu` and
-`csrc/flash_rel_attn_bwd.cu`), so that the tests that emulate or check the
-kernels' tiling follow the table the C entry points launch from.
+"""The instance tables of the slab kernels, read from their CUDA sources
+(`with_cfg` in `csrc/flash_rel_attn_fwd.cu`, `csrc/flash_rel_attn_bwd.cu`,
+`csrc/chunked_window_attn_fwd.cu` and `csrc/chunked_window_attn_bwd.cu`),
+so that the tests that emulate or check the kernels' tiling follow the
+table the C entry points launch from.
 
 `with_cfg(D, f)` calls f with `Cfg<W, Z...>` for the head dim D: f32 by the
-cases of its `if constexpr (kF32<E>)` block, then (both files) by the
+cases of its `if constexpr (kF32<E>)` block, then (every file) by the
 return that follows, `f(Cfg<...>{})` or `D <= n ? f(Cfg<...>{}) :
 f(Cfg<...>{})`, after its guard `D <= 128 || D % 128` (a head dim it
 refuses).  Names in a Cfg resolve from the file's `constexpr int`s.  No
-file here imports jax: the card's tests read the table too."""
+file here imports jax: the card's tests read the tables too."""
 import re
 from functools import lru_cache
 from pathlib import Path

@@ -29,7 +29,7 @@ from musicnlp_tpu_torch.tools import vpu_roofline as vr
 from musicnlp_tpu_torch.trainer.melody_w2v import PitchEmbedding
 from musicnlp_tpu_torch.utils.profiling import device_trace, step_kernels
 from tests.slab_configs import with_cfg
-from tests.test_torch_tf32x3 import k4 as k4_reference
+from tests.test_torch_tf32x3 import k4 as k4_reference, k4_scores
 
 pytestmark = pytest.mark.cuda
 
@@ -239,6 +239,44 @@ def test_f32_k4_is_closer_to_f64_than_plain(dev, G, T, D, chunk, pads):
         assert err(a, c) <= err(b, c), (name, err(a, c), err(b, c))
 
 
+def _k3_f64(q, k, v, qpos, kpos, chunk, scale, self_bias, own):
+    """K3's forward in f64 (chunked_window_attn_fwd_plain's function) ->
+    (ctx, lse); `own` [G, T]: each row's own-key score (kpos == qpos)."""
+    G, T, D = q.shape
+    s = k4_scores(q, k, qpos, kpos, chunk, scale, self_bias, torch.matmul, own)
+    lse = torch.logsumexp(s, -1)
+    ctx = torch.exp(s - lse[..., None]) @ ck._windows(v, chunk)
+    return ctx.reshape(G, T, D), lse.reshape(G, T)
+
+
+@pytest.mark.parametrize('G,T,D,chunk,pads', [(1, 640, 128, 128, 40), (2, 256, 256, 64, 9)])
+def test_f32_k3_is_closer_to_f64_than_plain(dev, G, T, D, chunk, pads):
+    """The f32 K3 cases of test_k3_k4_match_plain with unnormalised LSH keys
+    (scale 1: scores up to ~50, where an f32 add rounds at ~4e-6): K3's ctx
+    (over its largest entry) and lse lie no farther from the f64 forward on
+    the same inputs than the plain f32 forward does.  A row's own key keeps
+    its f32 score in the f64 forward, and lse is compared on the rows that
+    see another key: a row that sees only its own key holds lse = fl(s +
+    self_bias) on a grid of 2^-7 (pinned bit for bit by the CPU schedule
+    tests).  Prints both errors."""
+    q, k, v, qpos, kpos = _chunked_inputs(dev, torch.float32, G, T, D, True, pads)
+    kw = dict(chunk=chunk, scale=1.0, self_bias=-1e5)
+    got, got_lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    plain, plain_lse = ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    own = ((q.double() * k.double()).sum(-1).float() - 1e5).double()
+    want, want_lse = _k3_f64(q.double(), k.double(), v.double(), qpos.long(), kpos.long(),
+                             chunk, 1.0, -1e5, own)
+    torch.cuda.synchronize()
+    rows = want_lse > -5e4
+    err = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+    lerr = lambda a: float((a.double() - want_lse)[rows].abs().max())
+    print(f'[f64] G {G} T {T} D {D} chunk {chunk}: ctx kernel {err(got, want):.3e} plain '
+          f'{err(plain, want):.3e}; lse kernel {lerr(got_lse):.3e} plain {lerr(plain_lse):.3e} '
+          f'({int(rows.sum())} rows)')
+    assert err(got, want) <= err(plain, want)
+    assert lerr(got_lse) <= lerr(plain_lse)
+
+
 @pytest.mark.parametrize('name,kernels', [
     ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_slab', 'k2_dq_slab')),
     ('chunked_window_attn_bwd', ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc', 'k4_dq_slab',
@@ -247,16 +285,17 @@ def test_f32_k4_is_closer_to_f64_than_plain(dev, G, T, D, chunk, pads):
     ('chunked_window_attn_fwd', ('k3_tc', 'k3_union_tc', 'k3_slab')),
 ])
 def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
-    """The tensor-core kernels of K1-K4 (every bf16 and f16 call: K1 / K2 at
-    head dims 16-128, K3's k3_tc and its tiled walk k3_union_tc, K4's k4_tc
-    and its tiled split k4_dq_tc / k4_dkdv_tc; and the slab kernels, which
-    run every f32 call of K1 / K2 and every call above head dim 128) hold
-    tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
-    `cuobjdump -sass` of the built library, in every instantiation, and are
-    built for both bf16 and f16 (K1's and K2's at head dim 128), the slab
-    kernels also for f32 (3xTF32; K4's run every f32 call); the FMA kernels
-    (K3's f32 up to head dim 128) keep their FMA code and are built for f32
-    alone, and K1, K2 and K4 have none left."""
+    """The tensor-core kernels of K1-K4 (every bf16 and f16 call up to head
+    dim 128: K1 / K2's k1_tc and k2_*_tc, K3's k3_tc and its tiled walk
+    k3_union_tc, K4's k4_tc and its tiled split k4_dq_tc / k4_dkdv_tc; and
+    the slab kernels, which run every f32 call of K1-K4 and every call above
+    head dim 128) hold tensor-core instructions (HMMA for mma.sync, HGMMA for
+    wgmma) in `cuobjdump -sass` of the built library, in every
+    instantiation, and are built for both bf16 and f16 (K1's and K2's at
+    head dim 128), the slab kernels also for f32 (3xTF32).  No FMA kernel is
+    left in any of the four libraries: the only other function is the
+    backward's row-dot pass (delta), which takes every dtype and holds no
+    tensor-core instruction."""
     counts = vr.tensor_core_counts(name)
     for kern in kernels:
         fns = [c for f, c in counts.items() if kern in f]
@@ -269,9 +308,8 @@ def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
                    for k in kernels if k.endswith('_tc')), counts
     fma = {f: c for f, c in counts.items() if '_tc' not in f and '_slab' not in f}
     assert not any(fma.values()), counts
-    assert any('row_dot' not in f for f in fma) == (name == 'chunked_window_attn_fwd'), fma
-    # row_dot (delta, in the backward libraries) takes every dtype
-    assert not any('__nv_bfloat16' in f or '__half' in f for f in fma if 'row_dot' not in f), fma
+    assert all('row_dot' in f for f in fma), fma
+    assert any('row_dot' in f for f in fma) == name.endswith('_bwd'), fma
 
 
 def _slab_hmma(name, kernels, dtype, D):
@@ -312,6 +350,56 @@ def test_f32_k4_runs_on_the_slab_kernels(dev, chunk, D):
     assert ck.LAUNCHES['chunked_window_attn_bwd'] == before + 1
     for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
         assert _rel_err(a, b) <= 1e-5, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize('chunk', [16, 64, 128])
+@pytest.mark.parametrize('D', [32, 64, 128, 256])
+def test_f32_k3_runs_on_the_slab_kernels(dev, chunk, D):
+    """Every f32 K3 call runs k3_slab (3xTF32 on the tensor cores: its f32
+    instance of `with_cfg` at D holds HMMA): ctx within 1e-5 of its largest
+    entry and lse within 1e-5 of each value (1e-3 at least) against the
+    plain forward, LSH-permuted positions with pad keys and the self bias,
+    T ragged against the 64-row tiles."""
+    assert all(_slab_hmma('chunked_window_attn_fwd', ('k3_slab',), torch.float32, D).values())
+    G, T = 2, 5 * chunk if chunk < 64 else 3 * chunk
+    q, k, v, qpos, kpos = _chunked_inputs(dev, torch.float32, G, T, D, True, 9, seed=D + chunk)
+    k = q * torch.rsqrt((q * q).mean(-1, keepdim=True) + 1e-6) / D ** 0.5
+    kw = dict(chunk=chunk, scale=1.0, self_bias=-1e5)
+    before = ck.LAUNCHES['chunked_window_attn_fwd']
+    out, lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    ref, ref_lse = ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES['chunked_window_attn_fwd'] == before + 1
+    assert _rel_err(out, ref) <= 1e-5, _rel_err(out, ref)
+    assert bool(((lse - ref_lse).abs() <= (1e-5 * ref_lse.abs()).clamp(min=1e-3)).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_forward_slab_kernels_split_the_output_slabs(dev, dtype):
+    """At head dim 640 (ten slabs of 64) k1_slab and k3_slab hold at most
+    eight output slabs a block (`with_cfg`), so grid z splits them over two
+    blocks, each scoring the tile pairs again: ctx and lse against the plain
+    forwards (ctx 2e-5 / 2e-2, lse 1e-4 / 1e-3 in f32 / bf16)."""
+    H = 640
+    assert with_cfg('flash_rel_attn_fwd', H, dtype == torch.float32)[1] < H // 64
+    assert with_cfg('chunked_window_attn_fwd', H, dtype == torch.float32)[1] < H // 64
+    tol = 2e-5 if dtype == torch.float32 else TOL16[dtype]
+    ltol = 1e-4 if dtype == torch.float32 else 1e-3
+    rw, rr, k, v, g = _inputs(dev, dtype, 4, 2, 130, 64, H, 33)
+    mvt = torch.tensor(17, dtype=torch.int32, device=dev)
+    ctx, lse = flash_rel_attn_fwd(rw, rr, k, v, g, mvt, M=64, scale=H ** -0.5, window=40)
+    ref, ref_lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, 17, M=64, scale=H ** -0.5,
+                                            window=40)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ctx.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=ltol)
+    q, k, v, qpos, kpos = _chunked_inputs(dev, dtype, 2, 320, H, True, 9)
+    kw = dict(chunk=64, scale=H ** -0.5, self_bias=-1e5)
+    out, lse = ck.chunked_window_attn_fwd(q, k, v, qpos, kpos, **kw)
+    ref, ref_lse = ck.chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= (1e-5 if dtype == torch.float32 else tol)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
 
 
 @pytest.mark.parametrize('H,dtype', [(64, torch.float32), (128, torch.float32),

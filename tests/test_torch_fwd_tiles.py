@@ -32,7 +32,19 @@ same key / column split, and with a self bias each row's own key is
 rescored as the sequential f32 FMA chain; chunks 8 / 16 / 48 / 128, D 128,
 LSH-permuted and padded positions, ragged last tiles, once against the
 Pallas forward in interpret mode.  p rounds to bf16 or f16 where it enters
-PV."""
+PV.
+
+The slab kernels (`k1_slab`, `k3_slab`: every f32 call and every call above
+head dim 128) run one score pass per tile pair: a block per (q tile, group
+of output slabs that `with_cfg` in the source sets, read by
+tests/slab_configs.py) streams the head dim's slabs in order, each slab's
+scores summed apart and then added, takes the online softmax once (two warps
+per 16-row group, keys split in halves, the row max shared, the sums apart
+until the end) and applies P to each of its output slabs; above the
+table's slabs per block grid z splits them.  K3's own-key chain runs slab by
+slab over the staged tiles, bit for bit the whole-row chain.  Each is held
+against the plain forward and once against the Pallas forward in interpret
+mode."""
 import math
 
 import jax.numpy as jnp
@@ -42,6 +54,7 @@ import torch
 
 from musicnlp_tpu.ops.pallas.chunked_attention_kernel import (
     chunked_window_attn as pallas_chunked_window_attn)
+from musicnlp_tpu.ops.pallas.flash_attention import _fwd_call as pallas_k1_fwd
 
 from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
     NEG_INF as NEG_INF_K3, chunked_window_attn_fwd_plain,
@@ -49,6 +62,7 @@ from musicnlp_tpu_torch.ops.chunked_attention_kernel import (
 from musicnlp_tpu_torch.ops.flash_attention import (
     _key_mask, distance_table, flash_rel_attn_fwd_plain,
 )
+from tests.slab_configs import with_cfg
 
 BQ = BK = 64        # K1: q rows / keys per tile
 NW = 4              # K1: warps; warp w owns q rows 16w..16w+15
@@ -669,28 +683,53 @@ def test_k3_union_walk_matches_the_pallas_forward():
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=2e-4, atol=2e-4)
 
 
-# ------------------------------------- head dims above 128 (and K1 in f32): the slab kernels
-SLAB = 64           # slab width of k1_slab / k3_slab above head dim 64
+# ------------------------------- every f32 call, and head dims above 128: the slab kernels
+SP = 2              # warps per 16-row group of k1_slab / k3_slab
+KW = BK // SP       # keys of a warp's scores
+SXW = KW + 16       # k1_slab: BD window columns a warp reads
 
 
-def slab_split(H):
-    """(slab width, slab count) of the slab kernels at head dim H."""
-    w = min(H, SLAB)
-    return w, H // w
+def slab_config(name, H, dtype):
+    """(slab width W, output slabs a block holds ZS) of the forward slab
+    kernel of `csrc/<name>.cu` at head dim H, read from its `with_cfg`."""
+    return with_cfg(name, H, dtype == torch.float32)
+
+
+def fwd_slab_items(ns, nz, v_with_last_score):
+    """A block's items per tile pair: ('score', i) for the ns slabs of the
+    head dim in order, then ('out', z) for its output slabs 0 .. nz - 1 (the
+    block's own numbering); with `v_with_last_score` (k3_slab) the last
+    score item's stage also holds V's slab of the block's last output slab,
+    which that item applies, so the items list the others."""
+    return ([('score', i) for i in range(ns)]
+            + [('out', z) for z in range(nz - 1 if v_with_last_score else nz)])
+
+
+def chain_from(acc, qr, kr):
+    """acc continued over the columns of rows qr, kr [n, W] as the sequential
+    f32 FMA chain (k3_chain's steps): slab_mma.cuh's own_chain."""
+    for d in range(qr.shape[1]):
+        acc = (acc.double() + qr[:, d].double() * kr[:, d].double()).float()
+    return acc
 
 
 def k1_slab_tiles(rw, rr, k, v, g, mem_valid, *, M, scale, window):
-    """The schedule of `k1_slab` in torch -> (ctx, lse): one block per (q
-    tile, output slab z) walks K1's key tiles; per tile it sums AC = Qw . K^T
-    and each warp's X = Qr . Gwin[48 - 16w, + 80)^T over the ns slabs of the
-    head dim in order (BD read at column 15 - qr + ki), takes the online
-    softmax (p rounded to the inputs' dtype where it enters PV) and adds P .
-    V[:, slab z] into the block's W columns of ctx.  lse is written by the z
-    = 0 blocks; every z's scores and lse are the same."""
+    """The schedule of `k1_slab` in torch -> (ctx, lse, blocks): a block
+    per (q tile, group of ZS output slabs) walks K1's key tiles and runs
+    each tile pair's `fwd_slab_items`: a score item adds its slab's AC = Qw
+    . K^T (summed apart, then added: slab 0 first) and each warp's X = Qr .
+    Gwin[48 - 16p + 32c, + 48)^T (group p, warp c; BD read at column 15 - qr
+    + ki of the warp's keys [32c, 32c + 32)); after the last, the online
+    softmax (the row max over both warps' key halves, each warp's row sums
+    apart until the end), every output slab's sums rescaled and P rounded
+    to the inputs' dtype; an output item adds P . V[:, slab].  lse comes from
+    the z0 = 0 blocks; every block's lse is the same.  `blocks` counts the
+    blocks per q tile (grid z)."""
     BN, T, H = rw.shape
     S, N = k.shape[1], g.shape[0]
-    W, ns = slab_split(H)
     dtype = rw.dtype
+    W, ZS = slab_config('flash_rel_attn_fwd', H, dtype)
+    ns = H // W
     n_qt = -(-T // BQ)
     qw, qr = _rows(rw.float(), 0, n_qt * BQ), _rows(rr.float(), 0, n_qt * BQ)
     kf, vf = k.float(), v.float()
@@ -698,42 +737,57 @@ def k1_slab_tiles(rw, rr, k, v, g, mem_valid, *, M, scale, window):
     vis = torch.zeros(n_qt * BQ, -(-S // BK) * BK, dtype=torch.bool)
     vis[:T, :S] = _key_mask(T, S, M, mem_valid, window, 'cpu')
     ctx = torch.zeros(BN, n_qt * BQ, H)
-    lse = [torch.zeros(BN, n_qt * BQ) for _ in range(ns)]
+    lses = []
     qr_ = torch.arange(16)[:, None]
-    kl = torch.arange(BK)[None, :]
-    for z in range(ns):
-        zc = slice(W * z, W * z + W)
+    kl = torch.arange(KW)[None, :]
+    for z0 in range(0, ns, ZS):                  # grid z
+        nz = min(ZS, ns - z0)
+        lse = torch.zeros(BN, n_qt * BQ)
         for q0 in range(0, n_qt * BQ, BQ):
             rows = slice(q0, q0 + BQ)
             m = torch.full((BN, BQ), NEG_INF_K1)
-            l = torch.zeros(BN, BQ)
-            o = torch.zeros(BN, BQ, W)
+            l = torch.zeros(SP, BN, BQ)          # each warp's sums over its keys
+            o = torch.zeros(BN, BQ, nz * W)
             for kt in k1_key_tiles(q0, T, S, M, mem_valid, window):
                 k0, u_lo = kt * BK, T - q0 - BQ + kt * BK
-                gwin, kt_rows = _rows(gb, u_lo, 128), _rows(kf, k0, BK)
-                ac = torch.zeros(BN, BQ, BK)
-                xs = torch.zeros(BN, NW, 16, XW)
-                for hs in range(ns):             # the head dim's slabs, in order
-                    c = slice(W * hs, W * hs + W)
-                    ac += qw[:, rows, c] @ kt_rows[..., c].transpose(1, 2)
-                    for w in range(NW):
-                        xs[:, w] += (qr[:, q0 + 16 * w:q0 + 16 * w + 16, c]
-                                     @ gwin[:, 48 - 16 * w:128 - 16 * w, c].transpose(1, 2))
-                bd = torch.cat([xs[:, w][:, qr_, 15 - qr_ + kl] for w in range(NW)], 1)
-                x = (ac + bd) * scale
-                if not k1_interior(q0, k0, S, M, mem_valid, window):
-                    x = torch.where(vis[rows, k0:k0 + BK], x, torch.full_like(x, NEG_INF_K1))
-                mx = torch.maximum(m, x.amax(-1))
-                alpha = torch.exp2((m - mx) * LOG2E)
-                p = torch.exp2((x - mx[..., None]) * LOG2E)
-                l = l * alpha + p.sum(-1)
-                o = o * alpha[..., None] + p.to(dtype).float() @ _rows(vf, k0, BK)[..., zc]
-                m = mx
-            lc = l.clamp(min=1e-30)
-            ctx[:, rows, zc] = o * (1 / lc)[..., None]
-            lse[z][:, rows] = m + torch.log(lc)
-    assert all(torch.equal(x, lse[0]) for x in lse)
-    return ctx[:, :T].to(dtype), lse[0][:, :T]
+                gwin, kt_rows, vt = _rows(gb, u_lo, 128), _rows(kf, k0, BK), _rows(vf, k0, BK)
+                xs = torch.zeros(BN, NW, SP, 16, SXW)
+                for kind, i in fwd_slab_items(ns, nz, False):
+                    if kind == 'out':
+                        zc = slice(W * (z0 + i), W * (z0 + i) + W)
+                        o[..., W * i:W * i + W] += P @ vt[..., zc]
+                        continue
+                    c = slice(W * i, W * i + W)
+                    sm = qw[:, rows, c] @ kt_rows[..., c].transpose(1, 2)
+                    ac = sm if i == 0 else ac + sm
+                    for p in range(NW):
+                        for cw in range(SP):
+                            r0 = 48 - 16 * p + KW * cw
+                            xs[:, p, cw] += (qr[:, q0 + 16 * p:q0 + 16 * p + 16, c]
+                                             @ gwin[:, r0:r0 + SXW, c].transpose(1, 2))
+                    if i < ns - 1:
+                        continue
+                    bd = torch.cat([torch.cat([xs[:, p, cw][:, qr_, 15 - qr_ + kl]
+                                               for cw in range(SP)], 2) for p in range(NW)], 1)
+                    x = (ac + bd) * scale
+                    if not k1_interior(q0, k0, S, M, mem_valid, window):
+                        x = torch.where(vis[rows, k0:k0 + BK], x, torch.full_like(x, NEG_INF_K1))
+                    mx = m
+                    for cw in range(SP):         # each warp's max, then the pair's
+                        mx = torch.maximum(mx, x[..., KW * cw:KW * cw + KW].amax(-1))
+                    alpha = torch.exp2((m - mx) * LOG2E)
+                    p_ = torch.exp2((x - mx[..., None]) * LOG2E)
+                    for cw in range(SP):
+                        l[cw] = l[cw] * alpha + p_[..., KW * cw:KW * cw + KW].sum(-1)
+                    o = o * alpha[..., None]
+                    P = p_.to(dtype).float()
+                    m = mx
+            lc = (l[0] + l[1]).clamp(min=1e-30)
+            ctx[:, rows, W * z0:W * (z0 + nz)] = o * (1 / lc)[..., None]
+            lse[:, rows] = m + torch.log(lc)
+        lses.append(lse)
+    assert all(torch.equal(x, lses[0]) for x in lses)
+    return ctx[:, :T].to(dtype), lses[0][:, :T], len(lses)
 
 
 K1_SLAB_CASES = [   # H, T, M, mem_valid, window, clamp, dtype
@@ -743,6 +797,9 @@ K1_SLAB_CASES = [   # H, T, M, mem_valid, window, clamp, dtype
     (128, 140, 30, 30, 0, 17, torch.float32),       # f32 at 128: two slabs of 64
     (32, 100, 0, 0, 0, 1024, torch.float32),         # f32 below 64: one slab of H
     (256, 150, 64, 17, 40, 1024, torch.bfloat16),
+    (384, 130, 64, 17, 40, 1024, torch.bfloat16),    # six output slabs in one block
+    (640, 130, 64, 17, 40, 33, torch.float32),       # ten: grid z splits them
+    (16, 77, 30, 30, 0, 17, torch.float32),          # a slab of 16: one warp of a pair idle
 ]
 
 
@@ -753,7 +810,7 @@ def test_k1_slab_schedule_matches_plain(H, T, M, mv, window, clamp, dtype):
     1e-3 (p rounded per tile against the running max)."""
     rw, rr, k, v, g = _k1_inputs(H, T, M, clamp, seed=H + T + M, dtype=dtype, N=2, B=1)
     kw = dict(M=M, scale=H ** -0.5, window=window)
-    ctx, lse = k1_slab_tiles(rw, rr, k, v, g, mv, **kw)
+    ctx, lse, _ = k1_slab_tiles(rw, rr, k, v, g, mv, **kw)
     ref, ref_lse = flash_rel_attn_fwd_plain(rw, rr, k, v, g, mv, **kw)
     assert ctx.shape == ref.shape and ctx.dtype == ref.dtype
     err = (ctx.float() - ref.float()).abs().max()
@@ -764,59 +821,103 @@ def test_k1_slab_schedule_matches_plain(H, T, M, mv, window, clamp, dtype):
         assert float(err) <= 2e-2 and float((lse - ref_lse).abs().max()) <= 1e-3
 
 
+def test_k1_slab_schedule_matches_the_pallas_forward():
+    """At one small case (f32, head dim 128 in two slabs, memory with
+    mem_valid < M and a window) the emulated slab schedule gives the Pallas
+    kernel's ctx and lse in interpret mode (the TPU kernel sums in another
+    order: 2e-4, as tests/test_torch_attention.py's parity)."""
+    H, T, M, mv, window = 128, 128, 64, 40, 100
+    rw, rr, k, v, g = _k1_inputs(H, T, M, 33, seed=5, N=2, B=1)
+    packed = pallas_k1_fwd(*(jnp.asarray(x.numpy()) for x in (rw, rr, k, v, g)), mv, M=M,
+                           scale=H ** -0.5, window=window, bq=BQ, bk=BK, interpret=True)
+    got, got_lse, _ = k1_slab_tiles(rw, rr, k, v, g, mv, M=M, scale=H ** -0.5, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(packed[..., :H]), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(packed[..., H]), rtol=2e-4,
+                               atol=2e-4)
+
+
 def k3_slab_tiles(q, k, v, qpos, kpos, *, chunk, scale, self_bias):
-    """The schedule of `k3_slab` in torch -> (ctx, lse, own): one block per
-    (64 query rows, output slab z) walks the 64-key tiles of the union of its
-    rows' windows (`k3_union_tc`'s walk); per tile Q . K^T is summed over the
-    ns 64-wide slabs of the head dim, then each row's own key (with a self
-    bias) is rescored as one sequential f32 chain over all D, never a sum of
-    per-slab partials; P . V[:, slab z] goes to the block's columns.  `own`
-    lists the rescored (g, row) of the z = 0 blocks."""
+    """The schedule of `k3_slab` in torch -> (ctx, lse, own, blocks): a block
+    per (64 query rows, group of ZS output slabs) walks the 64-key tiles of
+    the union of its rows' windows (`k3_union_tc`'s walk) and runs each tile
+    pair's `fwd_slab_items`: a score item adds its slab's Q . K^T (summed
+    apart, then added: slab 0 first) and, with a self bias in a tile pair
+    that holds own keys, continues each row's own-key chain over the slab's
+    columns of the staged rows (the Q tile's row, the K tile's row of the
+    same index, clamped into the tile); after the last, the masks, the own
+    key's chained score where key index == row and kpos == qpos, the online
+    softmax (max over both warps' key halves), every output slab's sums
+    rescaled, P rounded, and the block's last output slab applied from the
+    same stage; an output item adds P . V[:, slab].  `own` lists the (g,
+    row) that took the chained score in the z0 = 0 blocks."""
     G, T, D = q.shape
     C, dtype = chunk, q.dtype
-    W, ns = slab_split(D)
+    W, ZS = slab_config('chunked_window_attn_fwd', D, dtype)
+    ns = D // W
     qf, kf, vf = q.float(), k.float(), v.float()
-    ctx, lse, own = torch.zeros(G, T, D), [torch.zeros(G, T) for _ in range(ns)], []
-    for z in range(ns):
-        zc = slice(W * z, W * z + W)
+    ctx, lses, own = torch.zeros(G, T, D), [], []
+    for z0 in range(0, ns, ZS):                  # grid z
+        nz = min(ZS, ns - z0)
+        lse = torch.zeros(G, T)
         for q0 in range(0, T, BQ):
             qt, qp = _rows(qf, q0, BQ), _rows(qpos, q0, BQ, fill=INT32_MIN)
             r = torch.arange(q0, q0 + BQ)
             lo = (torch.div(r, C, rounding_mode='floor') - 1) * C
-            m, l, o = torch.full((G, BQ), K_NONE), torch.zeros(G, BQ), torch.zeros(G, BQ, W)
+            m, l = torch.full((G, BQ), K_NONE), torch.zeros(SP, G, BQ)
+            o = torch.zeros(G, BQ, nz * W)
             for k0 in k3_union_key_tiles(q0, T, C):
-                kt = _rows(kf, k0, BK)
+                kt, vt = _rows(kf, k0, BK), _rows(vf, k0, BK)
                 kp = _rows(kpos, k0, BK, fill=INT32_MAX)[:, None, :]
                 wk = torch.arange(k0, k0 + BK)
-                s = torch.zeros(G, BQ, BK)
-                for hs in range(ns):
-                    c = slice(W * hs, W * hs + W)
-                    s += qt[..., c] @ kt[..., c].transpose(1, 2)
-                x = s * scale
-                mine = kp == qp[..., None]
-                if self_bias:
-                    x = torch.where(mine, x + self_bias, x)
-                x = torch.where(kp > qp[..., None], torch.full_like(x, NEG_INF_K3), x)
-                inside = (wk[None, :] >= lo[:, None]) & (wk[None, :] < lo[:, None] + 2 * C)
-                x = torch.where(inside, x, torch.full_like(x, -math.inf))
-                if self_bias:
-                    gi, ri, ki = torch.nonzero(mine & inside).unbind(1)
-                    x[gi, ri, ki] = ((k3_chain(qt[gi, ri], kt[gi, ki]) * scale).float()
-                                     + self_bias).float()
-                    if z == 0:
-                        own += [(int(a), q0 + int(b)) for a, b in zip(gi, ri)]
-                mx = torch.maximum(m, x.amax(-1))
-                alpha = torch.exp2((m - mx) * LOG2E)
-                p = torch.exp2((x - mx[..., None]) * LOG2E)
-                l = l * alpha + p.sum(-1)
-                o = o * alpha[..., None] + p.to(dtype).float() @ _rows(vf, k0, BK)[..., zc]
-                m = mx
-            lc = l.clamp(min=1e-30)
+                chains = bool(self_bias) and k0 < q0 + BQ and q0 < k0 + BK
+                kr = (r - k0).clamp(0, BK - 1)   # the K tile's row of each row's index
+                acc = torch.zeros(G, BQ)
+                items = fwd_slab_items(ns, nz, True)
+                for kind, i in items:
+                    if kind == 'out':
+                        zc = slice(W * (z0 + i), W * (z0 + i) + W)
+                        o[..., W * i:W * i + W] += P @ vt[..., zc]
+                        continue
+                    c = slice(W * i, W * i + W)
+                    sm = qt[..., c] @ kt[..., c].transpose(1, 2)
+                    s = sm if i == 0 else s + sm
+                    if chains:
+                        acc = torch.stack([chain_from(acc[b], qt[b][:, c], kt[b][kr][:, c])
+                                           for b in range(G)])
+                    if i < ns - 1:
+                        continue
+                    x = s * scale
+                    mine = kp == qp[..., None]
+                    if self_bias:
+                        x = torch.where(mine, x + self_bias, x)
+                    x = torch.where(kp > qp[..., None], torch.full_like(x, NEG_INF_K3), x)
+                    if self_bias:
+                        own_v = ((acc * scale).float() + self_bias).float()
+                        diag = mine & (wk[None, None, :] == r[None, :, None])
+                        x = torch.where(diag, own_v[..., None], x)
+                        if z0 == 0:
+                            own += [(int(a), q0 + int(b)) for a, b, _ in torch.nonzero(diag)]
+                    inside = (wk[None, :] >= lo[:, None]) & (wk[None, :] < lo[:, None] + 2 * C)
+                    x = torch.where(inside, x, torch.full_like(x, -math.inf))
+                    mx = m
+                    for cw in range(SP):         # each warp's max, then the pair's
+                        mx = torch.maximum(mx, x[..., KW * cw:KW * cw + KW].amax(-1))
+                    alpha = torch.exp2((m - mx) * LOG2E)
+                    p_ = torch.exp2((x - mx[..., None]) * LOG2E)
+                    for cw in range(SP):
+                        l[cw] = l[cw] * alpha + p_[..., KW * cw:KW * cw + KW].sum(-1)
+                    o = o * alpha[..., None]
+                    P = p_.to(dtype).float()
+                    m = mx
+                    last = slice(W * (z0 + nz - 1), W * (z0 + nz))
+                    o[..., W * (nz - 1):] += P @ vt[..., last]
+            lc = (l[0] + l[1]).clamp(min=1e-30)
             n = min(BQ, T - q0)
-            ctx[:, q0:q0 + n, zc] = (o * (1 / lc)[..., None])[:, :n]
-            lse[z][:, q0:q0 + n] = (m + torch.log(lc))[:, :n]
-    assert all(torch.equal(x, lse[0]) for x in lse)
-    return ctx.to(dtype), lse[0], own
+            ctx[:, q0:q0 + n, W * z0:W * (z0 + nz)] = (o * (1 / lc)[..., None])[:, :n]
+            lse[:, q0:q0 + n] = (m + torch.log(lc))[:, :n]
+        lses.append(lse)
+    assert all(torch.equal(x, lses[0]) for x in lses)
+    return ctx.to(dtype), lses[0], own, len(lses)
 
 
 K3_SLAB_CASES = [   # G, T, D, chunk, perm, pads, scale, self_bias, dtype
@@ -824,6 +925,14 @@ K3_SLAB_CASES = [   # G, T, D, chunk, perm, pads, scale, self_bias, dtype
     (1, 288, 256, 48, False, 17, 0.0625, 0.0, torch.float32),   # tiles across chunk edges
     (1, 256, 384, 128, True, 0, 1.0, -1e5, torch.float32),
     (2, 192, 256, 32, True, 9, 1.0, -1e5, torch.bfloat16),
+    # f32 up to D 128: one slab of D, two of 64 at D 128, chunks 16 / 64 / 128
+    (2, 480, 64, 16, True, 9, 1.0, -1e5, torch.float32),
+    (2, 256, 64, 64, True, 9, 1.0, -1e5, torch.float32),
+    (1, 384, 64, 128, False, 0, 0.125, 0.0, torch.float32),
+    (1, 320, 128, 16, True, 9, 1.0, -1e5, torch.float32),
+    (2, 256, 128, 64, False, 30, 0.088, 0.0, torch.float32),
+    (1, 384, 128, 128, True, 40, 1.0, -1e5, torch.float32),
+    (1, 192, 640, 64, True, 9, 0.04, -1e5, torch.float32),      # ten slabs: grid z splits
 ]
 
 
@@ -834,7 +943,7 @@ def test_k3_slab_walk_matches_plain(G, T, D, chunk, perm, pads, scale, self_bias
     at the card's."""
     q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, perm, pads, G + T + D + chunk, dtype)
     kw = dict(chunk=chunk, scale=scale, self_bias=self_bias)
-    ctx, lse, _ = k3_slab_tiles(q, k, v, qpos, kpos, **kw)
+    ctx, lse, _, _ = k3_slab_tiles(q, k, v, qpos, kpos, **kw)
     ref, ref_lse = chunked_window_attn_fwd_plain(q, k, v, qpos, kpos, **kw)
     err = (ctx.float() - ref.float()).abs().max()
     if dtype == torch.float32:
@@ -844,12 +953,13 @@ def test_k3_slab_walk_matches_plain(G, T, D, chunk, perm, pads, scale, self_bias
 
 
 def test_k3_slab_rescores_own_keys_over_the_whole_head_dim():
-    """LSH at D 256 (four slabs): every row's own key is rescored, and a row
-    that sees only its own key keeps lse = fl(fl(chain(q, k) * scale) +
-    self_bias) exactly, the chain running over all 256 columns in order."""
+    """LSH at D 256 (four slabs): every row's own key takes the chained
+    score, and a row that sees only its own key keeps lse = fl(fl(chain(q,
+    k) * scale) + self_bias) exactly, the chain running over all 256
+    columns in order, a slab at a time from the staged tiles."""
     G, T, D, chunk = 2, 384, 256, 64
     q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, True, 0, 23, torch.float32)
-    _, lse, own = k3_slab_tiles(q, k, v, qpos, kpos, chunk=chunk, scale=1.0, self_bias=-1e5)
+    _, lse, own, _ = k3_slab_tiles(q, k, v, qpos, kpos, chunk=chunk, scale=1.0, self_bias=-1e5)
     assert sorted(own) == [(g, r) for g in range(G) for r in range(T)]
     qp = qpos.reshape(G, T // chunk, chunk)
     kwin = torch.cat([torch.full_like(qp[:, :1], INT32_MAX), qp[:, :-1]], 1)
@@ -859,3 +969,65 @@ def test_k3_slab_rescores_own_keys_over_the_whole_head_dim():
     assert len(g_i) > 0
     want = (k3_chain(q[g_i, r_i], k[g_i, r_i]) + -1e5).float()
     assert torch.equal(lse[g_i, r_i], want)
+
+
+@pytest.mark.parametrize('D,dtype', [(64, torch.float32), (256, torch.float32),
+                                     (128, torch.bfloat16)])
+def test_k3_slab_own_chain_a_slab_at_a_time_is_the_whole_chain(D, dtype):
+    """The own-key chain continued slab by slab over the staged tiles' rows
+    (own_chain inside the product loop, the chain carried between slabs and
+    restarted per tile pair only) is bit for bit the sequential chain over
+    the whole head dim that lse of a row that sees only its own key holds."""
+    W, _ = slab_config('chunked_window_attn_fwd', max(D, 256), dtype)
+    q, k = (torch.randn(40, D, generator=torch.Generator().manual_seed(D + i)).to(dtype).float()
+            for i in range(2))
+    acc = torch.zeros(40)
+    for c0 in range(0, D, W):
+        acc = chain_from(acc, q[:, c0:c0 + W], k[:, c0:c0 + W])
+    assert torch.equal(acc, k3_chain(q, k))
+
+
+@pytest.mark.parametrize('name', ['flash_rel_attn_fwd', 'chunked_window_attn_fwd'])
+@pytest.mark.parametrize('H,dtype', [(16, torch.float32), (64, torch.float32),
+                                     (128, torch.float32), (256, torch.float32),
+                                     (384, torch.float32), (640, torch.float32),
+                                     (256, torch.bfloat16), (384, torch.float16),
+                                     (512, torch.bfloat16)])
+def test_fwd_slab_items_score_once_and_apply_each_output_slab_once(name, H, dtype):
+    """Each block's items per tile pair: the head dim's slabs scored once,
+    in order, then each of its output slabs applied once (k3_slab: the last
+    from the last score slab's stage); the blocks of a tile together apply
+    every output slab once; up to H 512 one block scores each tile pair
+    (f32 at H 256: grid z 1), above it grid z splits the output slabs."""
+    W, ZS = slab_config(name, H, dtype)
+    ns = H // W
+    applied = []
+    for z0 in range(0, ns, ZS):
+        nz = min(ZS, ns - z0)
+        v_in = name == 'chunked_window_attn_fwd'
+        items = fwd_slab_items(ns, nz, v_in)
+        assert [i for kind, i in items if kind == 'score'] == list(range(ns))
+        assert items[:ns] == [('score', i) for i in range(ns)]
+        outs = [z for kind, z in items if kind == 'out']
+        if v_in:
+            outs.append(nz - 1)
+        assert sorted(outs) == list(range(nz))
+        applied += [z0 + z for z in outs]
+    assert sorted(applied) == list(range(ns))
+    assert (ns + ZS - 1) // ZS == (1 if H <= 512 else 2)
+
+
+def test_k3_slab_walk_matches_the_pallas_forward():
+    """At one small case (f32, D 128 in two slabs, chunk 16, LSH-permuted
+    and padded positions) the emulated slab walk gives the Pallas kernel's
+    ctx and lse in interpret mode (tests/test_torch_chunked.py's tolerance:
+    the TPU kernel sums in another order)."""
+    G, T, D, chunk, scale, self_bias = 1, 128, 128, 16, 1.0, -1e5
+    q, k, v, qpos, kpos = _k3_union_inputs(G, T, D, True, 24, 6, torch.float32)
+    want, want_lse = pallas_chunked_window_attn(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, qpos, kpos)), chunk=chunk, scale=scale,
+        self_bias=self_bias, interpret=True, form='windows')
+    got, got_lse, _, _ = k3_slab_tiles(q, k, v, qpos, kpos, chunk=chunk, scale=scale,
+                                       self_bias=self_bias)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=2e-4, atol=2e-4)
