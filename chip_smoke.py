@@ -196,7 +196,19 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      CPU, melody grids of 8 rendered .mxl songs and `PitchEmbedding` trained
      on them on the card and on the CPU from one seed (emb_in within 1e-4
      of its max); `download` listing the registry, an artifact fetched from
-     a `file://` zip with its sha256 pin, a wrong pin refused.
+     a `file://` zip with its sha256 pin, a wrong pin refused;
+ 12. multi-GPU training (`parallel/mesh.py`) on the one card: (a) a world
+     of one process on NCCL (`init_distributed` from the launcher's
+     environment), mesh (1, 1), 2 bf16 22-11 steps at 4 x 1024 against the
+     mesh-free Trainer from one seed (losses, parameters), the step ms side
+     by side, a traced step naming K1 / K2 12 times; (b) two spawned ranks
+     on the card over gloo (NCCL takes one rank per device), mesh (data 1,
+     model 2), f32, dropout 0, each check run on one device first and then
+     at model 2 on its relu / LSH branches (`ShardedBranches`): a 22-11 step
+     at 2 x 1024 (K1 / K2 on 6 local heads), a 22-04 step at 2 x 2048 (K3 /
+     K4 on 6 local heads) -- loss, grad norm, every gradient, parameters --
+     and `shard_vocab` over the 262k table (depth 2, 2 x 1024): loss, preds,
+     gradients.
 The line before the last holds the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json;
 training runs write under build/chip_smoke_runs/, removed at the end.
@@ -3234,6 +3246,360 @@ def analysis_phase(dev, report):
     log(f'[phase 11] seconds: {json.dumps(report["phase11_seconds"])}')
 
 
+# ------------------------------------- multi-GPU training on the one card (phase 12)
+P12_B = 4                                        # (a)'s 22-11 batch (x 1024)
+P12_STEPS = 2                                    # (a)'s steps per Trainer
+P12_TIMEOUT_S = 300                              # (b)'s two ranks, all three checks
+# (b), two ranks at model 2 against one device, f32: the loss and the grad
+# norm within TOL_GRAD (relative), each gradient within TOL_GRAD of its
+# largest entry (as phase 5 holds the card against the CPU); the parameters
+# after the AdamW step within 2 lr of each other (Adam's first step moves
+# each entry by lr * g / |g|: an entry whose gradient is near 0 may move
+# either way, as in phase 3's resume check); the vocab-sharded head's loss
+# within P12_HEAD_LOSS (one f32 logsumexp combined over two blocks)
+P12_HEAD_LOSS = 1e-5
+
+
+def _p12_env(rank: int, world: int, port: int) -> dict:
+    """The environment `python -m torch.distributed.run` gives a rank."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                MASTER_ADDR='localhost', MASTER_PORT=str(port))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def _p12_step(trainer, flat, batch, dev):
+    """`Trainer.train_step`'s parts -- gradients summed over the data ranks,
+    the logical norm, AdamW -- from `flat` (full parameters, sharded by the
+    Trainer) on this rank's rows -> (metrics, gathered grads, gathered
+    params, counts, ms); raises unless the rank holds its share of the heads."""
+    params = trainer.shard(params_from_jax(flat, dev))
+    heads = params['layers'][0]['attn']['o'].shape[0]
+    if heads * trainer.mesh.n_model != trainer.model.cfg.n_head:
+        raise AssertionError(f'{heads} local heads of {trainer.model.cfg.n_head} at model '
+                             f'{trainer.mesh.n_model}')
+    for t in flatten(params).values():
+        t.requires_grad_(True)
+    state = trainer.opt.init(params)
+    i, n = trainer.mesh.batch_index, trainer.mesh.n_batch
+    per = len(batch['input_ids']) // n
+    rows = tr._to_device({k: v[i * per:(i + 1) * per] for k, v in batch.items()}, dev)
+
+    def step():
+        loss, mets, grads = trainer.loss_and_grads(params, rows)
+        norm = trainer.opt.norm(grads)
+        trainer.opt.step(params, grads, state)
+        return dict(loss=float(loss.detach()), grad_norm=float(norm), local_heads=heads), grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (mets, grads), counts = counted(step)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (mets, flatten(trainer.gather(grads)), flatten(trainer.gather(params)), counts, ms)
+
+
+def _p12_compare(tag, got, want, lr):
+    """(b)'s step check against one device (the constants' comment)."""
+    (g_mets, g_grads, g_params), (w_mets, w_grads, w_params) = got, want
+    grad_err = {k: rel_max(g_grads[k], w_grads[k]) for k in w_grads}
+    worst = max(grad_err, key=grad_err.get)
+    p_err = max(float((g_params[k].detach() - w_params[k].detach()).abs().max())
+                for k in w_params)
+    rec = dict(loss=g_mets['loss'], loss_one_device=w_mets['loss'],
+               loss_rel=abs(g_mets['loss'] - w_mets['loss']) / abs(w_mets['loss']),
+               grad_norm_rel=abs(g_mets['grad_norm'] - w_mets['grad_norm']) / w_mets['grad_norm'],
+               grad_err=grad_err[worst], worst=worst, params_abs_err=p_err, lr=lr)
+    if not (rec['loss_rel'] <= TOL_GRAD and rec['grad_norm_rel'] <= TOL_GRAD
+            and grad_err[worst] <= TOL_GRAD and p_err <= 2 * lr):
+        raise AssertionError(f'[phase 12] {tag}: model 2 vs one device: {rec}')
+    return rec
+
+
+class ShardedBranches(SharedBranches):
+    """`SharedBranches` across tensor parallelism: the one-device run records
+    its relu and LSH branches at full width, and a rank at model size n
+    replays its block of them (its FFN columns; its heads of each [R, B * N,
+    T] bucket tensor)."""
+
+    def __init__(self, mesh, n_head):
+        super().__init__()
+        self.k, self.n, self.n_head = mesh.model_index, mesh.n_model, n_head
+
+    def _share(self, kind, value):
+        if self.replaying and self.recorded[kind][0].shape != value.shape:
+            full = self.recorded[kind][0]
+            if kind == 'relu':
+                w = value.shape[-1]
+                block = full.narrow(-1, self.k * w, w)
+            else:
+                R, G, T = full.shape
+                hl = self.n_head // self.n
+                block = full.reshape(R, G // self.n_head, self.n_head, T).narrow(
+                    2, self.k * hl, hl).reshape(R, -1, T)
+            self.recorded[kind][0] = block
+        return super()._share(kind, value)
+
+
+def _p12_pair(mesh, one, n_head, run):
+    """run(mesh) on one device and then at model 2 on the one device's
+    branches -> (one device's result, model 2's result, branches that differ)."""
+    with ShardedBranches(mesh, n_head) as shared:
+        want = run(one)
+        shared.replay()
+        got = run(mesh)
+    return want, got, {k: f'{shared.differ[k]} of {shared.total[k]}' for k in shared.total}
+
+
+def _p12_worker(rank: int, port: int, dev_name: str, head_rows, out) -> None:
+    """(b): one of two ranks on one card over gloo, mesh (data 1, model 2),
+    f32, dropout 0.  Each rank runs each check on one device first (the
+    reference, whose relu and LSH branches the model-2 run then takes:
+    `ShardedBranches`), then at model 2; rank 0 compares."""
+    import torch.distributed as dist
+    from musicnlp_tpu_torch.parallel import mesh as mesh_lib
+    os.environ.update(_p12_env(rank, 2, port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.init_distributed(backend='gloo', device=dev_name, timeout_s=P12_TIMEOUT_S)
+    try:
+        mesh = mesh_lib.make_mesh(n_data=1, n_model=2, device=dev_name)
+        dev = mesh.device
+        if dev.type != 'cuda':
+            raise AssertionError(f'rank {rank} runs on {dev}, not the card')
+        one = mesh_lib.Mesh(mesh.axis_names, (1, 1), dev)       # the one-device reference
+        rec, t0 = dict(rank_device=str(dev)), time.perf_counter()
+
+        def step_check(tag, make_model, tok, rows, args, want_counts):
+            batch = next(rows.batches(2, shuffle=False))
+            flat = make_model().init_flat(SEED + 121)
+            (w_mets, w_grads, w_params, _, w_ms), (mets, grads, params, counts, ms), flips = \
+                _p12_pair(mesh, one, make_model().cfg.n_head, lambda m: _p12_step(
+                    tr.Trainer(make_model(), tok, rows, None, args=args, mesh=m), flat, batch,
+                    dev))
+            expect(counts, **want_counts)
+            if rank == 0:
+                rec[tag] = dict(_p12_compare(tag, (mets, grads, params),
+                                             (w_mets, w_grads, w_params), args.learning_rate),
+                                counts=counts, step_ms=ms, one_device_step_ms=w_ms,
+                                local_heads=mets['local_heads'], branches_differing=flips)
+            dist.barrier()
+            torch.cuda.empty_cache()
+
+        # TF-XL at the 22-11 widths, 2 x 1024: K1 / K2 on 6 local heads per rank
+        tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
+        cfg = base_config(dtype='float32')
+        step_check('tfxl', lambda: TransfoXL(cfg), tok, SyntheticSongs(tok, 2, SEED + 122),
+                   train_args(batch_size=2, lr_scheduler_type='constant', seed=SEED),
+                   dict(flash_rel_attn_fwd=cfg.n_layer, flash_rel_attn_bwd=cfg.n_layer))
+
+        # the Reformer at the 22-04 widths, 2 x 2048: K3 / K4 on 6 local heads
+        rcfg = reformer_config(dtype='float32', dropout=0.0)
+        rtok = MusicTokenizer(pitch_kind='midi', model_max_length=rcfg.max_length)
+        n = len(rcfg.attn_layers)
+        step_check('reformer', lambda: Reformer(rcfg), rtok,
+                   SyntheticSongs(rtok, 2, SEED + 124, length=rcfg.max_length, insert_key=False),
+                   reformer_train_args(batch_size=2, lr_scheduler_type='constant', seed=SEED),
+                   dict(chunked_window_attn_fwd=n, chunked_window_attn_bwd=n))
+
+        # shard_vocab over the 262k table, 22-11 widths at depth 2: model 2 vs model 1
+        V = 262144
+        vcfg = base_config(vocab_size=V, n_layer=2, dtype='float32', shard_vocab=True,
+                           head_chunk=HEAD_CHUNK)
+        flat = TransfoXL(vcfg).init_flat(SEED + 125)
+        ids = torch.from_numpy(head_rows).to(dev)
+        labels = torch.where(ids == tok.pad_token_id, -100, ids)
+
+        def head(m):
+            trainer = tr.Trainer(TransfoXL(vcfg), tok, (), mesh=m)
+            params = trainer.shard(params_from_jax(flat, dev))
+            for t in flatten(params).values():
+                t.requires_grad_(True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (loss, mets, grads), counts = counted(
+                lambda: trainer.loss_and_grads(params, dict(input_ids=ids, labels=labels)))
+            ms = (time.perf_counter() - t1) * 1e3
+            return (float(loss.detach()), mets['preds'], flatten(trainer.gather(grads)), counts,
+                    ms, tuple(params['embed']['weight'].shape))
+        (w_loss, w_preds, w_grads, _, w_ms, _), (loss, preds, grads, counts, ms, held), flips = \
+            _p12_pair(mesh, one, vcfg.n_head, head)
+        expect(counts, flash_rel_attn_fwd=vcfg.n_layer, flash_rel_attn_bwd=vcfg.n_layer)
+        if held != (V // 2, vcfg.d_model):
+            raise AssertionError(f'rank {rank} holds embedding rows {held}')
+        if rank == 0:
+            err = {k: rel_max(grads[k], w_grads[k]) for k in w_grads}
+            worst = max(err, key=err.get)
+            h = dict(loss=loss, loss_one_device=w_loss, loss_rel=abs(loss - w_loss) / w_loss,
+                     preds_equal=bool(torch.equal(preds, w_preds)),
+                     preds_in_upper_block=int((preds >= V // 2).sum()),
+                     grad_err=err[worst], worst=worst, counts=counts, ms=ms,
+                     one_device_ms=w_ms, embed_rows_per_rank=held[0],
+                     branches_differing=flips)
+            rec['shard_vocab'] = h
+            if not (h['loss_rel'] <= P12_HEAD_LOSS and h['preds_equal']
+                    and err[worst] <= TOL_GRAD):
+                raise AssertionError(f'[phase 12] shard_vocab model 2 vs model 1: {h}')
+            rec['seconds'] = time.perf_counter() - t0
+            out.put(rec)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_on_one_card(dev, report):
+    """Phase 12 (b): two spawned ranks on the one card over gloo (NCCL takes
+    one rank per device); any rank's failure fails the phase."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    tok = WordPieceMusicTokenizer.from_file(TABLE_262K, model_max_length=1024)
+    ds = StringAugmentedDataset(synthetic_songs(1, 150, SEED + 126), tok, random_crop=False,
+                                dataset_split='test', insert_key=True, pitch_shift=True)
+    song = next(ds.batches(1, shuffle=False))['input_ids']
+    # a song through the table, and seeded ids over all of it, so each rank's
+    # block of rows is looked up
+    rand = np.random.default_rng(SEED + 127).integers(0, tok.vocab_size, song.shape)
+    head_rows = np.concatenate([song, rand]).astype(np.int64)
+    ctx = mp.get_context('spawn')
+    out = ctx.Queue()
+    port = _free_port()
+    card = str(torch.device('cuda', torch.cuda.current_device()))    # both ranks' device
+    procs = [ctx.Process(target=_p12_worker, args=(r, port, card, head_rows, out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    rec = None
+    deadline = time.perf_counter() + P12_TIMEOUT_S
+    try:
+        while rec is None:
+            if any(p.exitcode not in (None, 0) for p in procs) or \
+                    time.perf_counter() > deadline or \
+                    (all(p.exitcode == 0 for p in procs) and out.empty()):
+                break
+            try:
+                rec = out.get(timeout=1.0)
+            except queue_mod.Empty:
+                pass
+        if rec is not None:                   # the ranks end after a last barrier
+            for p in procs:
+                p.join(timeout=max(deadline - time.perf_counter(), 1.0))
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if rec is None or codes != [0, 0]:
+        raise AssertionError(f'[phase 12] the two ranks failed: exit codes {codes}')
+    log(f'[phase 12] (b) two ranks on one card, gloo, mesh (data 1, model 2), f32: '
+        f'{json.dumps(rec)}')
+    report['phase12_two_ranks'] = rec
+
+
+def _p12_param_errs(a, w):
+    """(largest error of every leaf but W_r over the largest entry of them
+    all, of the W_r leaves over theirs, largest absolute error)."""
+    rest = [k for k in w if not k.endswith('attn/r')]
+    w_r = [k for k in w if k.endswith('attn/r')]
+
+    def err(keys):
+        scale = max(float(w[k].abs().max()) for k in keys)
+        return max(float((a[k] - w[k]).abs().max()) for k in keys) / scale
+    return err(rest), err(w_r), max(float((a[k] - w[k]).abs().max()) for k in w)
+
+
+def world_of_one(dev, report):
+    """Phase 12 (a): a world of one process on NCCL, mesh (1, 1), against
+    the mesh-free Trainer: 22-11 widths, bf16, dropout 0.1, B 4 x 1024, 2
+    steps from one seed; then a traced step (12 K1 / K2 by kernel name).
+    K2 sums W_r's gradient with atomics, in an order that changes from run to
+    run: after step 1 every other parameter is held to 1e-4 of the largest
+    (it is computed alike), W_r to TOL_W_R; after step 2, whose forward reads
+    the moved W_r, every entry within 2 * (lr summed over the steps), phase
+    3's resume limit, and W_r within TOL_W_R."""
+    import torch.distributed as dist
+    from musicnlp_tpu_torch.parallel import mesh as mesh_lib
+    tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
+    cfg = base_config(dropout=0.1)
+    rows = SyntheticSongs(tok, P12_B * P12_STEPS, SEED + 120)
+    flat = TransfoXL(cfg).init_flat(SEED)
+    batches = [tr._to_device(b, dev) for b in rows.batches(P12_B, seed=1)]
+    args = train_args(batch_size=P12_B, lr_scheduler_type='constant', seed=SEED)
+
+    def run(trainer):
+        params = params_from_jax(flat, dev)
+        for t in flatten(params).values():
+            t.requires_grad_(True)
+        state = trainer.opt.init(params)
+        losses, ms, after = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(params, state, b)['loss']))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after.append({k: t.detach().clone() for k, t in flatten(params).items()})
+        return params, state, losses, ms, after
+
+    free = tr.Trainer(TransfoXL(cfg), tok, rows, None, args=args)
+    _, _, l_free, ms_free, after_free = run(free)
+    saved = {k: os.environ.get(k) for k in _p12_env(0, 1, 0)}
+    os.environ.update(_p12_env(0, 1, _free_port()))
+    try:
+        world = mesh_lib.init_distributed()
+        if world != 1 or dist.get_backend() != 'nccl':
+            raise AssertionError(f'init_distributed: world {world}, {dist.get_backend()}')
+        mesh = mesh_lib.make_mesh()
+        one = tr.Trainer(TransfoXL(cfg), tok, rows, None, args=args, mesh=mesh)
+        p_one, s_one, l_one, ms_one, after_one = run(one)
+        b = batches[0]
+        counts, kernels, traced_ms = traced_step(os.path.join(RUN_DIR, 'p12'),
+                                                 lambda: one.train_step(p_one, s_one, b))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    errs = [_p12_param_errs(a, w) for a, w in zip(after_one, after_free)]
+    lr_sum = args.learning_rate * P12_STEPS
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(l_one, l_free))
+    names = named(kernels, 'k1_tc', 'k2_dkdv_tc', 'k2_dq_tc')
+    rec = dict(mesh=mesh.shape, backend='nccl', losses=l_one, losses_mesh_free=l_free,
+               loss_rel=loss_rel, step1=dict(zip(('params_err', 'w_r_err', 'abs_err'), errs[0])),
+               step2=dict(zip(('params_err', 'w_r_err', 'abs_err'), errs[-1])),
+               lr_sum=lr_sum, step_ms=ms_one, step_ms_mesh_free=ms_free, counts=counts,
+               traced_kernels=names, traced_step_ms=traced_ms)
+    log(f'[phase 12] (a) world of one on NCCL vs the mesh-free Trainer, 22-11 bf16 '
+        f'{P12_B} x 1024, {P12_STEPS} steps: losses {l_one} vs {l_free} (rel {loss_rel:.2e}); '
+        f'params after step 1 / 2 (rest of max, W_r of max, largest abs): {errs}; step ms '
+        f'{[round(x, 1) for x in ms_one]} vs mesh-free {[round(x, 1) for x in ms_free]}; '
+        f'traced step {names}, counts {counts}')
+    expect(counts, flash_rel_attn_fwd=cfg.n_layer, flash_rel_attn_bwd=cfg.n_layer)
+    if not (loss_rel <= 1e-4 and errs[0][0] <= 1e-4 and all(e[1] <= TOL_W_R for e in errs)
+            and errs[-1][2] <= 2 * lr_sum and set(names.values()) == {cfg.n_layer}):
+        raise AssertionError(f'[phase 12] (a) the world of one differs: {rec}')
+    report['phase12_world_of_one'] = rec
+
+
+def multi_gpu_phase(dev, report):
+    """Phase 12, each part timed."""
+    t0 = time.perf_counter()
+    seconds = {}
+    for name, fn in (('world of one', lambda: world_of_one(dev, report)),
+                     ('two ranks', lambda: two_ranks_on_one_card(dev, report))):
+        t1 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    report['phase12_seconds'] = dict(seconds, total=time.perf_counter() - t0)
+    log(f'[phase 12] seconds: {json.dumps(report["phase12_seconds"])}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
@@ -3525,6 +3891,10 @@ def main() -> int:
     # 11. C.1's widened kernels through the models, the presets traced, the
     # analysis modules on phase 8's run, the download
     analysis_phase(dev, report)
+
+    # 12. multi-GPU training on the one card: a world of one on NCCL, two
+    # ranks at model 2 over gloo (TF-XL, the Reformer, the 262k sharded head)
+    multi_gpu_phase(dev, report)
     report.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                   seconds=time.perf_counter() - t_start)
     shutil.rmtree(RUN_DIR, ignore_errors=True)

@@ -22,6 +22,12 @@ versions); decode was never a kernel and is plain torch.  The LSH rotations
 are the JAX model's own draws (`ops/chunked_attention.lsh_rotations`), so
 a recomputed block buckets as its forward did.  Dropout draws come from an
 explicit `torch.Generator`, not JAX's.
+
+Training on a device mesh (`parallel/mesh.py`, `Reformer(cfg, mesh=...)` or
+the mesh a `Trainer` attaches): each rank runs K3 / K4 on its own heads and
+the feed-forward on its own columns (Megatron tensor parallelism over
+`model`), on its own rows of the batch; `loss` returns the global batch's
+loss and metrics.  Decode is mesh-free, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from musicnlp_tpu_torch.ops.chunked_attention import (
 )
 from musicnlp_tpu_torch.ops.layers import Params, dense, dropout, layer_norm, remat
 from musicnlp_tpu_torch.ops.losses import ntp_accuracy, shifted_ce_loss
+from musicnlp_tpu_torch.parallel.mesh import Mesh, copy_to_model, global_loss, sum_over_model
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax
 
 __all__ = ['ReformerConfig', 'Reformer', 'ReformerDecodeState', 'ReformerExactDecodeState']
@@ -182,9 +189,10 @@ class Reformer:
     """Model namespace over explicit parameters, as in the JAX package."""
 
     def __init__(self, config: ReformerConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
         self.cfg = config
         self.device = resolve_device(device)
+        self.mesh = mesh         # training only; a Trainer attaches its own when None
 
     # ------------------------------------------------------------------ init
     def init_flat(self, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -309,7 +317,7 @@ class Reformer:
     def _attn_block(self, p: Params, kind: str, layer_idx: int, h: torch.Tensor,
                     pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
-        x = layer_norm(p['ln'], h, eps=cfg.ln_eps)
+        x = copy_to_model(layer_norm(p['ln'], h, eps=cfg.ln_eps), self.mesh)
         v = self._proj(x, p['v'])
         if kind == 'local':
             # HF's local layers have their own query; native ones share 'qk'
@@ -325,11 +333,11 @@ class Reformer:
                                 n_buckets=nb, rots=rots, pad_mask=pad_mask)
         B, N, T, H = ctx.shape
         o = p['o'].to(h.dtype).reshape(N * H, -1)
-        return ctx.transpose(1, 2).reshape(B, T, N * H) @ o
+        return sum_over_model(ctx.transpose(1, 2).reshape(B, T, N * H) @ o, self.mesh)
 
     def _ffn_block(self, p: Params, h: torch.Tensor) -> torch.Tensor:
-        x = layer_norm(p['ln'], h, eps=self.cfg.ln_eps)
-        return dense(p['w2'], torch.relu(dense(p['w1'], x)))
+        x = copy_to_model(layer_norm(p['ln'], h, eps=self.cfg.ln_eps), self.mesh)
+        return dense(p['w2'], torch.relu(dense(p['w1'], x)), self.mesh)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Params, input_ids: torch.Tensor, labels: torch.Tensor,
@@ -343,7 +351,8 @@ class Reformer:
                               deterministic=deterministic)
         loss, n_tok = shifted_ce_loss(logits, labels)
         preds = logits.argmax(dim=-1)
-        return loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok, preds=preds)
+        return global_loss(loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok,
+                                      preds=preds), labels, self.mesh)
 
     # ---------------------------------------------------------------- decode
     def _n_kind(self) -> Tuple[int, int]:

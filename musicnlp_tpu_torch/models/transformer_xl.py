@@ -22,6 +22,14 @@ each layer's fused attention is recomputed in the backward
 `torch.Generator`.  HF `TransfoXLLMHeadModel` checkpoints come in
 through `utils/hf_import.from_hf_transfo_xl` (the adaptive head, HF's
 `same_length` window as `attn_window`).
+
+Training on a device mesh (`parallel/mesh.py`, `TransfoXL(cfg, mesh=...)`
+or the mesh a `Trainer` attaches): each rank computes with its own heads and
+FFN columns (Megatron tensor parallelism over `model`, the parameters'
+blocks from `mesh.shard_pytree`), on its own rows of the batch, and `loss`
+returns the global batch's loss and metrics.  `shard_vocab` row-shards the
+tied table and its bias over `model` (`ops/sharded_head.py`).  Decode and
+generation are mesh-free, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,6 +49,8 @@ from musicnlp_tpu_torch.ops.layers import Params, dropout, ffn, remat
 from musicnlp_tpu_torch.ops.losses import (
     PT_LOSS_PAD, chunked_shifted_ce_loss, ntp_accuracy, shifted_ce_loss,
 )
+from musicnlp_tpu_torch.ops.sharded_head import vocab_sharded_ce_loss, vocab_sharded_embed
+from musicnlp_tpu_torch.parallel.mesh import Mesh, global_loss, global_mean, valid_count
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax
 
 __all__ = ['TransfoXLConfig', 'TransfoXL', 'DecodeState']
@@ -51,9 +61,13 @@ _DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32, 'float16': torc
 @dataclass(frozen=True)
 class TransfoXLConfig:
     """The JAX package's config less the knobs of its TPU execution (flash
-    block sizes and use) and of its device mesh (`shard_vocab`), which
-    change how a result is computed there but not the result;
-    `load_trained` drops them.
+    block sizes and use), which change how a result is computed there but
+    not the result; `load_trained` drops them.
+
+    shard_vocab: row-shard the tied [V, d] embedding / head and its bias
+    over the mesh's `model` axis (`ops/sharded_head.py`), for the 262k
+    tier; training only (n_seg 1), and needs a mesh (`TransfoXL(cfg,
+    mesh=...)` or the Trainer's).  Not with `adaptive_cutoffs`.
 
     remat_attn: recompute each layer's fused attention (K1 and the layer's
     projections) in the backward instead of keeping its activations: one
@@ -83,6 +97,7 @@ class TransfoXLConfig:
     decode_cache_quant: Optional[str] = None    # None | 'int8'
     attn_window: Optional[int] = None
     remat_attn: bool = False
+    shard_vocab: bool = False
 
     presets = {
         'debug': dict(d_model=128, n_head=8, n_layer=4),
@@ -138,9 +153,18 @@ class TransfoXL:
     """Model namespace over explicit parameters, as in the JAX package."""
 
     def __init__(self, config: TransfoXLConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh: Optional[Mesh] = None):
         self.cfg = config
         self.device = resolve_device(device)
+        # consulted by training only (tensor parallelism, shard_vocab); a
+        # Trainer attaches its own when this is None
+        self.mesh = mesh
+
+    def _require_mesh(self) -> Mesh:
+        if self.mesh is None:
+            raise ValueError('shard_vocab=True needs a mesh: pass TransfoXL(cfg, mesh=mesh) or '
+                             'set model.mesh before the first forward (a Trainer does this)')
+        return self.mesh
 
     def unread_leaves(self) -> frozenset:
         """Flat keys of the leaves the loss never reads: none."""
@@ -228,7 +252,11 @@ class TransfoXL:
         plain = attn_mask is not None or cfg.dropatt > 0
         dtype = cfg.compute_dtype
         B, Q = input_ids.shape
-        h = params['embed']['weight'].to(dtype)[input_ids.long()]
+        if cfg.shard_vocab:
+            h = vocab_sharded_embed(input_ids, params['embed']['weight'],
+                                    mesh=self._require_mesh(), dtype=dtype)
+        else:
+            h = params['embed']['weight'].to(dtype)[input_ids.long()]
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=h.device)
         h = dropout(h, cfg.dropout, generator, deterministic)
 
@@ -246,19 +274,20 @@ class TransfoXL:
                     layer['attn'], h, layer_mems, mem_valid, clamp_len=cfg.clamp_len,
                     pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
                     dropatt_rate=cfg.dropatt, generator=generator,
-                    deterministic=deterministic, attn_mask=attn_mask, window=cfg.attn_window)
+                    deterministic=deterministic, attn_mask=attn_mask, window=cfg.attn_window,
+                    mesh=self.mesh)
             else:
                 attn = functools.partial(
                     fused_rel_attn, clamp_len=cfg.clamp_len, pre_lnorm=cfg.pre_lnorm,
                     dropout_rate=cfg.dropout, generator=generator,
-                    deterministic=deterministic, window=cfg.attn_window)
+                    deterministic=deterministic, window=cfg.attn_window, mesh=self.mesh)
                 if cfg.remat_attn:
                     h = remat(attn, layer['attn'], h, layer_mems, mem_valid,
                               generator=generator)
                 else:
                     h = attn(layer['attn'], h, layer_mems, mem_valid)
             h = ffn(layer['ffn'], h, pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
-                    generator=generator, deterministic=deterministic)
+                    generator=generator, deterministic=deterministic, mesh=self.mesh)
 
         if mems is not None:
             new_valid = torch.clamp(torch.as_tensor(mem_valid, device=h.device) + Q,
@@ -272,6 +301,9 @@ class TransfoXL:
         ProjectedAdaptiveLogSoftmax with div_val 1 and no projection): a
         head softmax over the first cutoff's tokens and one logit per tail
         cluster, plus each cluster's own softmax over its tokens."""
+        if self.cfg.shard_vocab and self.mesh is not None and self.mesh.n_model > 1:
+            raise ValueError('the vocab-sharded head trains through loss(); score or decode '
+                             'with the gathered parameters (load_trained)')
         w = params['embed']['weight'].to(h.dtype).float()
         bias = params['out_bias'].float()
         hf = h.float()
@@ -298,28 +330,40 @@ class TransfoXL:
         through the tiled CE (no [B, T, V] logits).  n_seg > 1 trains segment
         by segment with the memory carried across segments (`_loss_segments`)."""
         cfg = self.cfg
-        if cfg.head_chunk and cfg.adaptive_cutoffs:
-            raise ValueError('head_chunk trains over the dense tied head while forward and '
-                             'decode score through the adaptive clusters: training and '
-                             'scoring would disagree for an adaptive checkpoint')
+        if (cfg.head_chunk or cfg.shard_vocab) and cfg.adaptive_cutoffs:
+            raise ValueError('head_chunk / shard_vocab train over the dense tied head while '
+                             'forward and decode score through the adaptive clusters: training '
+                             'and scoring would disagree for an adaptive checkpoint')
         if n_seg > 1:
-            if cfg.head_chunk:
-                raise ValueError('head_chunk (the tiled large-vocab CE) requires n_seg == 1; '
-                                 'segment training materializes per-segment logits')
-            return self._loss_segments(params, input_ids, labels, n_seg=n_seg,
-                                       generator=generator, deterministic=deterministic)
+            if cfg.head_chunk or cfg.shard_vocab:
+                raise ValueError('head_chunk / shard_vocab (the tiled large-vocab CE) requires '
+                                 'n_seg == 1; segment training materializes per-segment logits')
+            return global_loss(*self._loss_segments(
+                params, input_ids, labels, n_seg=n_seg, generator=generator,
+                deterministic=deterministic), labels, self.mesh)
+        if cfg.shard_vocab:
+            h, _, _ = self.forward_hidden(params, input_ids, generator=generator,
+                                          deterministic=deterministic)
+            loss, n_tok, preds = vocab_sharded_ce_loss(
+                h, labels, params['embed']['weight'], params['out_bias'],
+                mesh=self._require_mesh(), chunk=cfg.head_chunk)
+            acc = global_mean(ntp_accuracy(preds, labels), valid_count(labels), self.mesh,
+                              total=n_tok)
+            return loss, dict(ntp_acc=acc, n_tok=n_tok, preds=preds)
         if cfg.head_chunk:
             h, _, _ = self.forward_hidden(params, input_ids, generator=generator,
                                           deterministic=deterministic)
             loss, n_tok, preds = chunked_shifted_ce_loss(
                 h, labels, params['embed']['weight'].to(h.dtype), params['out_bias'],
                 chunk=cfg.head_chunk)
-            return loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok, preds=preds)
+            return global_loss(loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok,
+                                           preds=preds), labels, self.mesh)
         logits, _, _ = self.forward(params, input_ids, generator=generator,
                                     deterministic=deterministic)
         loss, n_tok = shifted_ce_loss(logits, labels)
         preds = logits.argmax(dim=-1)
-        return loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok, preds=preds)
+        return global_loss(loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok,
+                                       preds=preds), labels, self.mesh)
 
     def _segments(self, x: torch.Tensor, n_seg: int) -> Tuple[torch.Tensor, ...]:
         B, T = x.shape

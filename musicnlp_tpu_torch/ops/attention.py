@@ -17,6 +17,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from musicnlp_tpu_torch.ops.layers import Params, dropout, layer_norm, sinusoid_pos_emb
+from musicnlp_tpu_torch.parallel.mesh import Mesh, copy_to_model, model_shard, sum_over_model
 
 __all__ = ['rel_attn', 'rel_attn_decode_step', 'rel_shift', 'quantize_kv_rows',
            'project_qkv', 'NEG_INF']
@@ -58,12 +59,15 @@ def rel_attn(
         dropout_rate: float = 0.0, dropatt_rate: float = 0.0,
         generator: Optional[torch.Generator] = None, deterministic: bool = True,
         attn_mask: Optional[torch.Tensor] = None, window: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Full-sequence relative attention with optional fixed-size memory.
 
     x [B, Q, d_model]; mems [B, M, d_model] or None; attn_mask [B, Q] bool
     (True = real token); window masks keys at distance >= window.
-    Returns [B, Q, d_model] (residual + layer norm applied)."""
+    Returns [B, Q, d_model] (residual + layer norm applied).  Over `mesh`'s
+    model axis the heads are this rank's (the leaves' shapes say how many)
+    and the output projection's partial products are summed over `model`."""
     dtype, dev = x.dtype, x.device
     B, Q, d_model = x.shape
     n_head, d_head = p['r_w_bias'].shape
@@ -79,7 +83,7 @@ def rel_attn(
         M = 0
         cat = x
     K = M + Q
-    q, k, v = project_qkv(p, cat, Q, dtype)
+    q, k, v = project_qkv(p, copy_to_model(cat, mesh), Q, dtype)
 
     pos_seq = torch.arange(K - 1, -1, -1, dtype=torch.float32, device=dev)
     if clamp_len > 0:
@@ -106,9 +110,11 @@ def rel_attn(
     score = torch.where(mask, score, torch.full_like(score, NEG_INF))
 
     probs = torch.softmax(score, dim=-1)
-    probs = dropout(probs, dropatt_rate, generator, deterministic).to(dtype)
+    probs = dropout(probs, dropatt_rate, generator, deterministic,
+                    shard=model_shard(mesh, 1)).to(dtype)
     ctx = torch.einsum('bnqk,bknh->bqnh', probs.float(), v.float()).to(dtype)
-    out = (ctx.reshape(B, Q, -1) @ p['o'].to(dtype).reshape(-1, d_model)).to(dtype)
+    out = sum_over_model((ctx.reshape(B, Q, -1) @ p['o'].to(dtype).reshape(-1, d_model))
+                         .to(dtype), mesh)
     out = dropout(out, dropout_rate, generator, deterministic)
     out = inp + out
     if not pre_lnorm:

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from musicnlp_tpu_torch.ops.attention import NEG_INF, project_qkv
 from musicnlp_tpu_torch.ops.layers import Params, dropout, layer_norm, sinusoid_pos_emb
+from musicnlp_tpu_torch.parallel.mesh import Mesh, copy_to_model, sum_over_model
 
 __all__ = ['flash_rel_attn_fwd', 'flash_rel_attn_fwd_plain', 'flash_rel_attn_bwd',
            'flash_rel_attn_bwd_plain', 'FlashRelAttn', 'fused_rel_attn', 'distance_table',
@@ -321,9 +322,12 @@ def fused_rel_attn(
         *, clamp_len: int, pre_lnorm: bool = False, scale: Optional[float] = None,
         dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
         deterministic: bool = True, window: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Drop-in fused replacement for ops.attention.rel_attn, differentiable
-    through K1 / K2.  Like the TPU kernels it has no attention-probability
+    through K1 / K2.  Over `mesh`'s model axis K1 / K2 run this rank's
+    heads (the leaves' shapes say how many) and the output projection's
+    partial products are summed over `model`, as in `rel_attn`.  Like the TPU kernels it has no attention-probability
     dropout and no key padding mask (the JAX model sends those cases to the
     plain `rel_attn`).  A head dim the kernels do not take runs zero-padded
     to `kernel_head_dim` at the layer's own scale 1/sqrt(d_head): the padded
@@ -344,7 +348,7 @@ def fused_rel_attn(
         M = 0
         cat = x
     S = M + T
-    q, k, v = project_qkv(p, cat, T, dtype)
+    q, k, v = project_qkv(p, copy_to_model(cat, mesh), T, dtype)
     rw = q + p['r_w_bias'].to(dtype)
     rr = q + p['r_r_bias'].to(dtype)
 
@@ -363,7 +367,7 @@ def fused_rel_attn(
     if pad:
         ctx3 = ctx3[..., :d_head]
     ctx = ctx3.reshape(B, n_head, T, d_head).transpose(1, 2).reshape(B, T, -1)
-    out = (ctx @ p['o'].to(dtype).reshape(-1, d_model)).to(dtype)
+    out = sum_over_model((ctx @ p['o'].to(dtype).reshape(-1, d_model)).to(dtype), mesh)
     out = dropout(out, dropout_rate, generator, deterministic)
     out = inp + out
     if not pre_lnorm:

@@ -3,22 +3,30 @@
 Counterpart of `musicnlp_tpu/ops/layers.py`.  Parameters live in float32 in
 the JAX package's layouts (dense `w` [d_in, d_out], `b` [d_out]; layer norm
 `scale`/`bias`); compute runs at the dtype of the activations, with float32
-layer norms and float32 bias adds.
+layer norms and float32 bias adds.  Given a `Mesh` whose `model` axis is
+larger than 1 (`parallel/mesh.py`), `ffn` runs Megatron-style: its w1
+columns and w2 rows are this rank's block, the partial w2 products are
+summed over `model` before the replicated bias, and the dropout of the
+sharded hidden draws the full width and keeps its block.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from musicnlp_tpu_torch.parallel.mesh import Mesh, copy_to_model, model_shard, sum_over_model
 
 __all__ = ['Params', 'dense', 'layer_norm', 'ffn', 'sinusoid_pos_emb', 'dropout', 'remat']
 
 Params = Dict[str, Any]
 
 
-def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p['w'].to(x.dtype)
+def dense(p: Params, x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """x @ w + b.  With `mesh`, a row-parallel product: the partial products
+    are summed over `model` before the bias is added once."""
+    y = sum_over_model(x @ p['w'].to(x.dtype), mesh)
     if 'b' in p:
         y = y.float() + p['b'].float()
     return y.to(x.dtype)
@@ -34,11 +42,24 @@ def layer_norm(p: Params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            deterministic: bool) -> torch.Tensor:
-    """Inverted dropout; draws come only from the explicit `generator`."""
+            deterministic: bool, shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """Inverted dropout; draws come only from the explicit `generator`.
+    `shard` = (dim, index, count): x is block `index` of `count` along
+    `dim` of a wider activation; the mask is drawn at the full width and
+    this block kept, so every rank's generator stays in step and the masks
+    are those of the unsharded activation."""
     if deterministic or rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    if shard is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        dim, index, count = shard
+        dim %= x.dim()
+        full = list(x.shape)
+        full[dim] *= count
+        u = torch.rand(full, generator=generator, device=x.device).narrow(
+            dim, index * x.shape[dim], x.shape[dim])
+    keep = u < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -76,15 +97,16 @@ def remat(fn: Callable[..., torch.Tensor], *args,
 
 def ffn(p: Params, x: torch.Tensor, *, pre_lnorm: bool = False,
         dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
-        deterministic: bool = True) -> torch.Tensor:
-    """Position-wise relu FFN with residual + layer norm (post-norm by default)."""
+        deterministic: bool = True, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Position-wise relu FFN with residual + layer norm (post-norm by
+    default); tensor-parallel over `mesh`'s model axis (module docstring)."""
     inp = x
     if pre_lnorm:
         x = layer_norm(p['ln'], x)
-    h = dense(p['w1'], x)
+    h = dense(p['w1'], copy_to_model(x, mesh))
     h = torch.relu(h)
-    h = dropout(h, dropout_rate, generator, deterministic)
-    h = dense(p['w2'], h)
+    h = dropout(h, dropout_rate, generator, deterministic, shard=model_shard(mesh, -1))
+    h = dense(p['w2'], h, mesh)
     h = dropout(h, dropout_rate, generator, deterministic)
     out = inp + h
     if not pre_lnorm:

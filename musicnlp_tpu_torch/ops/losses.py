@@ -175,10 +175,11 @@ def ntp_accuracy(logits_or_preds: torch.Tensor, labels: torch.Tensor) -> torch.T
 
 def ikr_from_ids(ids: torch.Tensor, key_scores: torch.Tensor, id_pitch_class: torch.Tensor,
                  key_inkey_mask: torch.Tensor, *, valid: Optional[torch.Tensor] = None,
-                 key_ordinal: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 key_ordinal: Optional[torch.Tensor] = None, with_count: bool = False):
     """Batched in-key ratio: mean over songs with >= 1 pitch of the per-song
     share of pitches diatonic to the song's key ('ins-key': `key_ordinal`
-    [B]; 'vanilla': confidence-weighted over the 24 `key_scores`)."""
+    [B]; 'vanilla': confidence-weighted over the 24 `key_scores`).  With
+    `with_count`, (ratio, number of songs with a pitch)."""
     V = id_pitch_class.shape[0]
     pc = id_pitch_class[torch.clamp(ids, 0, V - 1).long()]                # [B, T]
     is_pitch = pc >= 0
@@ -196,4 +197,5 @@ def ikr_from_ids(ids: torch.Tensor, key_scores: torch.Tensor, id_pitch_class: to
         ratio = (per_key * w).sum(dim=1)
     has_pitch = n_pitch > 0
     n_song = torch.clamp(has_pitch.sum(), min=1).float()
-    return torch.where(has_pitch, ratio, torch.zeros_like(ratio)).sum() / n_song
+    ikr = torch.where(has_pitch, ratio, torch.zeros_like(ratio)).sum() / n_song
+    return (ikr, has_pitch.sum().float()) if with_count else ikr

@@ -51,8 +51,9 @@ class IkrMetric:
         return self.key_ordinals(_t(labels)).cpu().numpy().astype(np.int32)
 
     def on_device(self, preds: torch.Tensor, labels: torch.Tensor,
-                  key_scores: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """IKR as a 0-d tensor on the inputs' device (no host sync)."""
+                  key_scores: Optional[torch.Tensor] = None, with_count: bool = False):
+        """IKR as a 0-d tensor on the inputs' device (no host sync); with
+        `with_count`, (IKR, the number of songs it averages over)."""
         dev = preds.device
         p, l = preds[:, :-1], labels[:, 1:]
         key_ordinal = None
@@ -63,7 +64,8 @@ class IkrMetric:
             raise ValueError('vanilla IKR needs key_scores')
         return ikr_from_ids(p, key_scores.to(dev), torch.as_tensor(self.id_pitch_class, device=dev),
                             torch.as_tensor(self.key_inkey_mask, device=dev),
-                            valid=l != PT_LOSS_PAD, key_ordinal=key_ordinal)
+                            valid=l != PT_LOSS_PAD, key_ordinal=key_ordinal,
+                            with_count=with_count)
 
     def __call__(self, preds, labels, key_scores=None) -> float:
         """preds [B, T] argmaxed ids, labels [B, T] with -100 pads, key_scores [B, 24]."""

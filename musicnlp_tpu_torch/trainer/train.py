@@ -1,7 +1,12 @@
-"""Training loop on one GPU: optimizer presets, train step, eval, checkpoints.
+"""Training loop: optimizer presets, train step, eval, checkpoints.
 
-Counterpart of `musicnlp_tpu/trainer/train.py` without the device mesh (no
-`n_model`, no multi-host sharding).  One train step is the loss forward
+Counterpart of `musicnlp_tpu/trainer/train.py`, on one GPU or on a
+(data, model) mesh of processes, one GPU each (`parallel/mesh.py`): each
+rank loads its rows of every global batch (`host_shard`), computes with its
+heads and FFN columns (`n_model` > 1), and sums its gradients with the
+other data ranks'; the loss, metrics, gradient norm and clip are those of
+the global batch and the logical parameters.  Rank 0 writes the logs and
+checkpoints (the gathered parameters).  One train step is the loss forward
 (TF-XL through K1, the Reformer through K3), its backward (through K2 or
 K4), the global-norm clip and the AdamW update, with next-token accuracy
 and the in-key ratio computed in the step, as the JAX Trainer does.  The dataset contract is the JAX Trainer's:
@@ -12,10 +17,12 @@ yielding numpy `input_ids`, `labels` (pads -100) and `key_scores` [B, 24].
 `adamw` on a warmup-cosine schedule, inside `optax.MultiSteps` when
 gradients accumulate) and updates the parameters in place.  Dropout draws
 come from one `torch.Generator` on the device, seeded from `args.seed` (and
-from `seed + 104729 * epoch` on resume); they are not JAX's draws.
+from `seed + 104729 * epoch` on resume; data rank d adds `7919 * d`, the
+ranks of one model group draw alike); they are not JAX's draws.
 """
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import math
@@ -31,7 +38,8 @@ import torch
 
 from musicnlp_tpu_torch.models.reformer import Reformer
 from musicnlp_tpu_torch.ops.losses import PT_LOSS_PAD
-from musicnlp_tpu_torch.trainer.eval import MODEL_FAMILIES, Model, score_batch
+from musicnlp_tpu_torch.parallel import mesh as mesh_lib
+from musicnlp_tpu_torch.trainer.eval import MODEL_FAMILIES, Model
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
 from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizer
 from musicnlp_tpu_torch.trainer.wordpiece_tokenizer import WordPieceMusicTokenizer
@@ -152,6 +160,9 @@ class AdamW:
         self.sched, self.b1, self.b2, self.eps = sched, b1, b2, eps
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
         self.accum_steps = accum_steps
+        # {flat key: grad} -> the clip's norm; a Trainer on a mesh sets the
+        # logical parameters' norm (sharded leaves summed over `model`)
+        self.norm: Callable[[Dict[str, torch.Tensor]], torch.Tensor] = mesh_lib.global_norm
 
     def init(self, params) -> Dict[str, Any]:
         def zeros():
@@ -178,7 +189,7 @@ class AdamW:
                 return
             grads = acc
         p, mu, nu = ckpt.flatten(params), ckpt.flatten(state['mu']), ckpt.flatten(state['nu'])
-        g_norm = global_norm(list(grads.values()))
+        g_norm = self.norm(grads)
         keep = g_norm < self.max_grad_norm
         count = int(state['count']) + 1
         # bias corrections and the step size in f32, as optax computes them
@@ -195,11 +206,6 @@ class AdamW:
         if self.accum_steps > 1:
             for t in grads.values():
                 t.zero_()
-
-
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every entry, in f32 (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
 def make_optimizer(args: TrainArgs, total_steps: int) -> Tuple[AdamW, Callable[[int], float]]:
@@ -232,11 +238,20 @@ def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 class Trainer:
     """Epoch loop with per-step metrics, per-epoch eval + checkpoint,
-    best-model-at-end on eval_loss, on the model's device."""
+    best-model-at-end on eval_loss, on the model's device.
+
+    On a mesh (`mesh=`, or `n_model=` over the processes of the world that
+    `parallel.mesh.init_distributed` joined) every rank runs this loop: the
+    parameters and optimizer state it holds are its blocks, it loads its
+    rows of each global batch (`host_shard`, the data index: the ranks of a
+    model group load the same rows), and rank 0 writes the logs and the
+    checkpoints, which hold the gathered (logical) arrays.  A world of one
+    process is the trivial mesh, and the loop is the single-GPU one."""
 
     def __init__(self, model: Model, tokenizer: MusicTokenizer, train_dataset,
                  eval_dataset=None, args: TrainArgs = None, out_dir: str = None,
-                 ikr_mode: str = 'vanilla'):
+                 ikr_mode: str = 'vanilla', mesh: Optional[mesh_lib.Mesh] = None,
+                 n_model: int = 1, host_shard: Optional[Tuple[int, int]] = None):
         self.model = model
         self.tokenizer = tokenizer
         self.train_dataset = train_dataset
@@ -244,24 +259,58 @@ class Trainer:
         self.args = args or TrainArgs()
         self.out_dir = out_dir or os.path.join('models', f'run_{int(time.time())}')
         self.device = model.device
+        # the model computes with the mesh (tensor parallelism, shard_vocab):
+        # attach ours when it has none
+        if mesh is None:
+            mesh = model.mesh or mesh_lib.make_mesh(n_model=n_model, device=model.device)
+        if model.mesh is None:
+            model.mesh = mesh
+        self.mesh = mesh
+        self._shard_vocab = bool(getattr(model.cfg, 'shard_vocab', False))
+        self.host_shard = host_shard if host_shard is not None else mesh_lib.host_shard(mesh)
+        self._is_main = mesh_lib.process_index() == 0
         self._saved_ckpts: List[str] = []
         self.steps_per_epoch = max(1, len(train_dataset) // self.args.batch_size)
         total = self.steps_per_epoch * self.args.num_train_epochs
         self.opt, self.lr_sched = make_optimizer(self.args, total)
+        self.opt.norm = functools.partial(mesh_lib.global_norm, mesh=mesh,
+                                          shard_vocab=self._shard_vocab)
         self.ikr = IkrMetric(tokenizer, mode=ikr_mode)
         self.log_path = os.path.join(self.out_dir, 'train_log.jsonl')
-        self.generator = torch.Generator(device=self.device).manual_seed(self.args.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self._seed(0))
+
+    def _seed(self, start_epoch: int) -> int:
+        """Dropout seed: per epoch on resume, per data index on a mesh."""
+        return self.args.seed + 104729 * start_epoch + 7919 * self.mesh.batch_index
+
+    # -------------------------------------------------------- the mesh's blocks
+    def _specs(self, tree) -> Dict[str, Any]:
+        return mesh_lib.param_specs(tree, shard_vocab=self._shard_vocab)
+
+    def shard(self, tree):
+        """Full parameters (or optimizer state) -> this rank's blocks (the
+        tree itself at model size 1)."""
+        if self.mesh.n_model == 1:
+            return tree
+        return mesh_lib.shard_pytree(tree, self._specs(tree), self.mesh)
+
+    def gather(self, tree):
+        """Inverse of `shard`; collective, every rank calls it."""
+        if self.mesh.n_model == 1:
+            return tree
+        return mesh_lib.gather_pytree(tree, self._specs(tree), self.mesh)
 
     # ------------------------------------------------------------------ setup
     def init_state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """(params, opt_state): the model's seeded init and a fresh optimizer."""
-        params = self.model.init(seed=self.args.seed)
+        """(params, opt_state): the model's seeded init, this rank's blocks of
+        it, and a fresh optimizer."""
+        params = self.shard(self.model.init(seed=self.args.seed))
         return params, self.opt.init(params)
 
-    def train_step(self, params, opt_state, batch: Dict[str, torch.Tensor]
-                   ) -> Dict[str, torch.Tensor]:
-        """One micro-batch: loss, gradients, optimizer update (in place),
-        metrics.  `grad_norm` is the raw micro-batch gradient's norm."""
+    def loss_and_grads(self, params, batch: Dict[str, torch.Tensor]):
+        """(loss, metrics, {flat key: gradient}) of one micro-batch; on a mesh
+        the global batch's loss and metrics, and the gradients summed over
+        the data ranks (each rank's block of the global gradient)."""
         flat = ckpt.flatten(params)
         loss, mets = self.model.loss(params, batch['input_ids'], batch['labels'],
                                      generator=self.generator, deterministic=False,
@@ -274,16 +323,30 @@ class Trainer:
         if stray:
             raise RuntimeError(f'the loss reads no path to {sorted(stray)}')
         grads = [torch.zeros_like(v) if g is None else g for v, g in zip(flat.values(), grads)]
-        mets['grad_norm'] = global_norm(grads)
-        self.opt.step(params, dict(zip(flat.keys(), grads)), opt_state)
+        mesh_lib.sum_grads_over_batch(grads, self.mesh)
+        return loss, mets, dict(zip(flat.keys(), grads))
+
+    def _ikr(self, preds, labels, key_scores) -> torch.Tensor:
+        """The global batch's IKR (the mean over its songs with a pitch)."""
+        ikr, n_song = self.ikr.on_device(preds, labels, key_scores, with_count=True)
+        return mesh_lib.global_mean(ikr, n_song, self.mesh)
+
+    def train_step(self, params, opt_state, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """One micro-batch: loss, gradients, optimizer update (in place),
+        metrics.  `grad_norm` is the raw micro-batch gradient's norm."""
+        loss, mets, grads = self.loss_and_grads(params, batch)
+        mets['grad_norm'] = self.opt.norm(grads)
+        self.opt.step(params, grads, opt_state)
         with torch.no_grad():
-            mets['ikr'] = self.ikr.on_device(mets.pop('preds'), batch['labels'],
-                                             batch['key_scores'])
+            mets['ikr'] = self._ikr(mets.pop('preds'), batch['labels'], batch['key_scores'])
         mets['loss'] = loss.detach()
         return mets
 
     # ------------------------------------------------------------------ loops
     def _log(self, record: Dict):
+        if not self._is_main:
+            return
         os.makedirs(self.out_dir, exist_ok=True)
         with open(self.log_path, 'a') as f:
             f.write(json.dumps({k: (float(v) if hasattr(v, 'item') else v)
@@ -292,20 +355,23 @@ class Trainer:
     def train(self, params=None, opt_state=None, resume_from: Optional[str] = None
               ) -> Dict[str, Any]:
         """Run the epoch loop.  `resume_from` restores params + optimizer
-        state + epoch counter from an epoch checkpoint directory."""
+        state + epoch counter from an epoch checkpoint directory.  `params`
+        and `opt_state`, when given, are full trees (each rank keeps its
+        blocks); the result holds this rank's."""
         args = self.args
         start_epoch = 0
-        if os.path.isdir(self.out_dir):
+        if self._is_main and os.path.isdir(self.out_dir):
             # a kill between the writes and the rename strands a checkpoint-ep*.tmp
             for d in os.listdir(self.out_dir):
                 if d.startswith('checkpoint-ep') and d.endswith('.tmp'):
                     shutil.rmtree(os.path.join(self.out_dir, d), ignore_errors=True)
         if resume_from is not None:
             params, opt_state, epoch = ckpt.load_checkpoint(resume_from, self.device)
+            params, opt_state = self.shard(params), self.shard(opt_state)
             for key in ('count', 'mini_step'):
                 opt_state[key] = opt_state[key].cpu()
             start_epoch = epoch + 1
-            self.generator.manual_seed(args.seed + 104729 * start_epoch)
+            self.generator.manual_seed(self._seed(start_epoch))
             # adopt the interrupted run's epoch checkpoints so rotation prunes them too
             old = sorted((int(m.group(1)), os.path.join(self.out_dir, d))
                          for d in os.listdir(self.out_dir)
@@ -314,22 +380,25 @@ class Trainer:
             self._saved_ckpts = [p for _, p in old]
         elif params is None:
             params, opt_state = self.init_state()
-        elif opt_state is None:
-            opt_state = self.opt.init(params)
+        else:
+            params = self.shard(params)
+            opt_state = self.opt.init(params) if opt_state is None else self.shard(opt_state)
         for t in ckpt.flatten(params).values():
             t.requires_grad_(True)
         best_loss, best_path = float('inf'), None
         global_step = start_epoch * self.steps_per_epoch
         history: List[Dict] = []
+        bkw = dict(shard=self.host_shard) if self.host_shard else {}
         for epoch in range(start_epoch, args.num_train_epochs):
             if hasattr(self.train_dataset, 'resample'):
                 self.train_dataset.resample()        # proportional mixing, per epoch
             t_ep = time.time()
             n_tok_ep = 0
             for batch in prefetch(self.train_dataset.batches(
-                    args.batch_size, shuffle=True, seed=args.seed + epoch)):
+                    args.batch_size, shuffle=True, seed=args.seed + epoch, **bkw)):
                 n_tok_ep += int((batch['labels'] != PT_LOSS_PAD).sum())
-                mets = self.train_step(params, opt_state, _to_device(batch, self.device))
+                mets = self.train_step(params, opt_state,
+                                       mesh_lib.make_global_batch(batch, self.mesh))
                 global_step += 1
                 if global_step % args.logging_steps == 0:
                     opt_step = global_step // args.gradient_accumulation_steps
@@ -342,6 +411,11 @@ class Trainer:
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
             dt = time.time() - t_ep
+            if self.mesh.n_batch > 1:
+                # each data rank counted its rows only: the rate is the global batch's
+                n_tok_ep = int(mesh_lib.batch_sum(
+                    torch.tensor(n_tok_ep, dtype=torch.int64, device=self.mesh.device),
+                    self.mesh))
             ep_rec = dict(epoch=epoch, train_tokens_per_sec=n_tok_ep / max(dt, 1e-9))
             logger.info('epoch %d done: %.0f tokens/sec', epoch, ep_rec['train_tokens_per_sec'])
             do_save = args.save_per_epoch and (
@@ -361,23 +435,31 @@ class Trainer:
             self._log(ep_rec)
             history.append(ep_rec)
         if args.load_best_model_at_end and best_path is not None:
-            best = ckpt.flatten(ckpt.restore_pytree(os.path.join(best_path, 'params'),
-                                                    self.device))
+            best = ckpt.flatten(self.shard(ckpt.restore_pytree(os.path.join(best_path, 'params'),
+                                                               self.device)))
             with torch.no_grad():
                 for key, t in ckpt.flatten(params).items():
                     t.copy_(best[key])
-        final = ckpt.save_pytree(os.path.join(self.out_dir, 'trained'), params)
-        ckpt.save_meta(os.path.join(self.out_dir, 'meta.json'), dict(
-            model_name=_model_name(self.model), config=asdict(self.model.cfg),
-            train_args=asdict(args),
-            tokenizer=describe_tokenizer(self.tokenizer, self.out_dir),
-            best_eval_loss=best_loss, final_checkpoint=final))
+        full = self.gather(params)
+        if self._is_main:
+            final = ckpt.save_pytree(os.path.join(self.out_dir, 'trained'), full)
+            ckpt.save_meta(os.path.join(self.out_dir, 'meta.json'), dict(
+                model_name=_model_name(self.model), config=asdict(self.model.cfg),
+                train_args=asdict(args),
+                tokenizer=describe_tokenizer(self.tokenizer, self.out_dir),
+                best_eval_loss=best_loss, final_checkpoint=final))
+        mesh_lib.barrier('trained')
         return dict(params=params, opt_state=opt_state, history=history,
                     best_eval_loss=best_loss)
 
     def _save_checkpoint(self, epoch: int, params, opt_state) -> str:
-        d = ckpt.save_checkpoint(os.path.join(self.out_dir, f'checkpoint-ep{epoch}'), epoch,
-                                 params, opt_state)
+        """Rank 0 writes the gathered arrays; the barrier keeps every rank
+        from reading (the best-model restore) before the files are whole."""
+        d = os.path.join(self.out_dir, f'checkpoint-ep{epoch}')
+        full_params, full_state = self.gather(params), self.gather(opt_state)
+        if self._is_main:
+            ckpt.save_checkpoint(d, epoch, full_params, full_state)
+        mesh_lib.barrier(f'ckpt-ep{epoch}')
         self._saved_ckpts.append(d)
         return d
 
@@ -391,13 +473,14 @@ class Trainer:
         if best_path:
             keep.add(best_path)
         for d in [p for p in self._saved_ckpts if p not in keep]:
-            if os.path.isdir(d):
+            if self._is_main and os.path.isdir(d):
                 shutil.rmtree(d)
             self._saved_ckpts.remove(d)
 
     def evaluate(self, params) -> Dict[str, float]:
         """Mean loss / NTP accuracy / IKR over the eval set, the final partial
-        batch padded to the fixed size with rows that count nothing."""
+        batch padded to the fixed size with rows that count nothing.  On a
+        mesh every rank loads the full eval batch and takes its rows."""
         bsz = self.args.eval_batch_size or self.args.batch_size
         tot: Dict[str, float] = {}
         n = 0.0
@@ -409,9 +492,20 @@ class Trainer:
                          for k, v in batch.items()}
                 batch['labels'][n_real:] = PT_LOSS_PAD
                 batch['key_scores'][n_real:] = 0.0
-            batch = _to_device(batch, self.device)
-            mets = score_batch(self.model, params, batch['input_ids'], batch['labels'], self.ikr,
-                               batch['key_scores'], n_seg=self.args.n_seg)
+            if self.host_shard:
+                i, n_shards = self.host_shard
+                if bsz % n_shards:
+                    raise ValueError(f'eval batch size {bsz} must divide by the {n_shards} '
+                                     f'data ranks')
+                per = bsz // n_shards
+                batch = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            batch = mesh_lib.make_global_batch(batch, self.mesh)
+            with torch.no_grad():
+                loss, mets = self.model.loss(params, batch['input_ids'], batch['labels'],
+                                             deterministic=True, n_seg=self.args.n_seg)
+                mets['ikr'] = self._ikr(mets.pop('preds'), batch['labels'],
+                                        batch['key_scores'])
+            mets['loss'] = loss
             for k in ('loss', 'ntp_acc', 'ikr'):
                 tot[k] = tot.get(k, 0.0) + n_real * float(mets[k])
             n += n_real
@@ -490,12 +584,15 @@ def get_model_n_tokenizer(model_name: str, model_size: str, vocab_size: int = No
 def get_all_setup(model_name: str, model_size: str, train_dataset=None, eval_dataset=None,
                   train_args: Dict = None, out_dir: str = None, pitch_kind: str = 'degree',
                   model_config: Dict = None,
-                  device: Optional[Union[str, torch.device]] = None) -> Trainer:
-    """One call: tokenizer + model + Trainer (reference train.py:287-368)."""
+                  device: Optional[Union[str, torch.device]] = None,
+                  n_model: int = 1) -> Trainer:
+    """One call: tokenizer + model + Trainer (reference train.py:287-368);
+    `n_model` > 1 splits the heads and FFN columns over that many ranks."""
     model, tokenizer = get_model_n_tokenizer(model_name, model_size, pitch_kind=pitch_kind,
                                              model_config=model_config, device=device)
     args = TrainArgs.from_preset(model_name, model_size, **(train_args or {}))
-    return Trainer(model, tokenizer, train_dataset, eval_dataset, args=args, out_dir=out_dir)
+    return Trainer(model, tokenizer, train_dataset, eval_dataset, args=args, out_dir=out_dir,
+                   n_model=n_model)
 
 
 # The reference's published training recipes (reference generated-samples/
@@ -535,7 +632,7 @@ RECIPES: Dict[str, Dict] = {
 
 def setup_recipe(name: str, song_datasets, eval_datasets=None, out_dir: str = None,
                  train_args: Dict = None, overrides: Dict = None,
-                 device: Optional[Union[str, torch.device]] = None) -> Trainer:
+                 device: Optional[Union[str, torch.device]] = None, n_model: int = 1) -> Trainer:
     """Wire a named recipe end to end: model + tokenizer + augmented datasets
     (+ proportional mixing when the recipe uses it) + Trainer (reference
     train.py:590-626).
@@ -568,4 +665,4 @@ def setup_recipe(name: str, song_datasets, eval_datasets=None, out_dir: str = No
     args = TrainArgs.from_preset(r['model_name'], r['model_size'],
                                  **dict(r.get('train_args', {}), **(train_args or {})))
     return Trainer(model, tokenizer, train, evald, args=args, out_dir=out_dir,
-                   ikr_mode=r.get('ikr_mode', 'vanilla'))
+                   ikr_mode=r.get('ikr_mode', 'vanilla'), n_model=n_model)

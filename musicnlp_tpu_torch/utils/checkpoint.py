@@ -8,6 +8,13 @@ packages read each other's checkpoints.  The port keeps the JAX layouts
 (qkv [d_model, 3, N, H], r [d_model, N, H], o [N, H, d_model], dense w
 [d_in, d_out]), so the bridge only changes containers: numpy arrays under flat
 keys <-> nested dicts (lists for numbered levels) of torch tensors.
+
+On a device mesh the Trainer's npz files hold the gathered (logical) arrays,
+written by rank 0, so a single-device `load_trained` reads them unchanged.
+The sharded backend (`backend='dcp'`, the counterpart of the JAX package's
+orbax backend) writes each rank's own blocks with
+`torch.distributed.checkpoint` into a directory and restores them into a
+template of the same blocks; no rank ever holds the full arrays.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ from musicnlp_tpu_torch import resolve_device
 
 __all__ = ['flatten', 'params_from_jax', 'params_to_jax', 'save_pytree', 'load_flat',
            'restore_pytree', 'save_meta', 'load_meta', 'save_checkpoint', 'load_checkpoint']
+# the sharded backend's directory marker
+_DCP_META = '.metadata'
 
 
 def flatten(tree, prefix: str = '') -> Dict[str, Any]:
@@ -74,8 +83,34 @@ def params_to_jax(params) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in flatten(params).items()}
 
 
-def save_pytree(path: str, params) -> str:
-    """Write the port's parameters as an npz (.npz appended), atomically."""
+def _block_keys(tree, specs, mesh) -> Dict[str, Any]:
+    """{key: leaf} for the sharded backend: a leaf sharded over some axes is
+    stored under its flat key and its block, e.g. `layers/0/attn/o@model:1/2`
+    (one entry per rank holding it; replicas write once), any other under its
+    flat key."""
+    out = {}
+    for key, leaf in flatten(tree).items():
+        axes = [a for e in specs.get(key, ()) if e is not None
+                for a in ((e,) if isinstance(e, str) else e)]
+        blocks = ','.join(f'{a}:{mesh.coords[a]}/{mesh.shape[a]}' for a in axes
+                          if mesh.shape[a] > 1)
+        out[f'{key}@{blocks}' if blocks else key] = leaf
+    return out
+
+
+def save_pytree(path: str, params, backend: str = 'npz', *, mesh=None, specs=None) -> str:
+    """Write the port's parameters as an npz (.npz appended), atomically; or,
+    with backend='dcp', each rank's blocks (`params` this rank's tree,
+    `specs` from `parallel.mesh.param_specs`) into the directory `path`
+    (collective: every rank calls it)."""
+    if backend == 'dcp':
+        import torch.distributed.checkpoint as dcp
+        path = os.path.abspath(path)
+        dcp.save({k: v.detach() for k, v in _block_keys(params, specs, mesh).items()},
+                 checkpoint_id=path)
+        return path
+    if backend != 'npz':
+        raise ValueError(f'unknown checkpoint backend {backend!r}')
     if not path.endswith('.npz'):
         path = path + '.npz'
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
@@ -93,9 +128,20 @@ def load_flat(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def restore_pytree(path: str, device: Optional[Union[str, torch.device]] = None):
-    """Read an npz written by either package into the port's parameters."""
-    return params_from_jax(load_flat(path), device)
+def restore_pytree(path: str, device: Optional[Union[str, torch.device]] = None, *,
+                   template=None, mesh=None, specs=None):
+    """Read an npz written by either package into the port's parameters.  A
+    directory is a sharded checkpoint: this rank's blocks are read into a
+    copy of `template` (its tree of blocks, as `save_pytree` was given)."""
+    if not os.path.isdir(path):
+        return params_from_jax(load_flat(path), device)
+    import torch.distributed.checkpoint as dcp
+    if not os.path.exists(os.path.join(path, _DCP_META)):
+        raise ValueError(f'{path} is a directory but no sharded checkpoint')
+    state = {k: torch.empty_like(v) for k, v in _block_keys(template, specs, mesh).items()}
+    dcp.load(state, checkpoint_id=os.path.abspath(path))
+    by_key = dict(zip(flatten(template), state.values()))
+    return _unflatten(by_key)
 
 
 def save_meta(path: str, meta: Dict):
