@@ -46,6 +46,7 @@ from musicnlp_tpu_torch.ops.layers import Params, dense, dropout, layer_norm, re
 from musicnlp_tpu_torch.ops.losses import ntp_accuracy, shifted_ce_loss
 from musicnlp_tpu_torch.parallel.mesh import Mesh, copy_to_model, global_loss, sum_over_model
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax
+from musicnlp_tpu_torch.utils.profiling import span
 
 __all__ = ['ReformerConfig', 'Reformer', 'ReformerDecodeState', 'ReformerExactDecodeState']
 
@@ -273,6 +274,14 @@ class Reformer:
                 deterministic: bool = True) -> torch.Tensor:
         """input_ids [B, T] (T a multiple of the chunk sizes; pad with
         pad_mask False beyond the real length) -> logits f32 [B, T, V]."""
+        h = self._trunk(params, input_ids, pad_mask, generator, deterministic)
+        with span('model.head'):
+            return self._lm_head(params, layer_norm(params['ln_f'], h, eps=self.cfg.ln_eps))
+
+    def _trunk(self, params: Params, input_ids: torch.Tensor, pad_mask: Optional[torch.Tensor],
+               generator: Optional[torch.Generator], deterministic: bool) -> torch.Tensor:
+        """The embedding and the layers: hidden states [B, T, d] (both
+        streams, [B, T, 2d], with `hf_compat`) before the final norm."""
         cfg = self.cfg
         dtype = cfg.compute_dtype
         B, T = input_ids.shape
@@ -289,18 +298,22 @@ class Reformer:
             # ff(LN Y1); autograd runs through them, as in the JAX model
             x1 = x2 = h
             for li, layer in enumerate(params['layers']):
-                a = block(self._attn_block, layer['attn'], cfg.attn_layers[li], li, x2, pad_mask)
-                x1 = x1 + dropout(a, cfg.dropout, generator, deterministic)
-                f = block(self._ffn_block, layer['ffn'], x1)
-                x2 = x2 + dropout(f, cfg.dropout, generator, deterministic)
-            h = torch.cat([x1, x2], dim=-1)
-        else:
-            for li, layer in enumerate(params['layers']):
+                with span('model.attn'):
+                    a = block(self._attn_block, layer['attn'], cfg.attn_layers[li], li, x2,
+                              pad_mask)
+                    x1 = x1 + dropout(a, cfg.dropout, generator, deterministic)
+                with span('model.ffn'):
+                    f = block(self._ffn_block, layer['ffn'], x1)
+                    x2 = x2 + dropout(f, cfg.dropout, generator, deterministic)
+            return torch.cat([x1, x2], dim=-1)
+        for li, layer in enumerate(params['layers']):
+            with span('model.attn'):
                 a = block(self._attn_block, layer['attn'], cfg.attn_layers[li], li, h, pad_mask)
                 h = h + dropout(a, cfg.dropout, generator, deterministic)
+            with span('model.ffn'):
                 f = block(self._ffn_block, layer['ffn'], h)
                 h = h + dropout(f, cfg.dropout, generator, deterministic)
-        return self._lm_head(params, layer_norm(params['ln_f'], h, eps=cfg.ln_eps))
+        return h
 
     def _lm_head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         """Untied dense head; f32 logits from compute-dtype operands."""
@@ -347,12 +360,13 @@ class Reformer:
         """CLM loss + aux metrics.  n_seg is the Trainer's TF-XL knob and is
         ignored here, as in the JAX model; pad_id masks pad keys."""
         pad_mask = (input_ids != pad_id) if pad_id is not None else None
-        logits = self.forward(params, input_ids, pad_mask=pad_mask, generator=generator,
-                              deterministic=deterministic)
-        loss, n_tok = shifted_ce_loss(logits, labels)
-        preds = logits.argmax(dim=-1)
-        return global_loss(loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok,
-                                      preds=preds), labels, self.mesh)
+        h = self._trunk(params, input_ids, pad_mask, generator, deterministic)
+        with span('model.head'):
+            logits = self._lm_head(params, layer_norm(params['ln_f'], h, eps=self.cfg.ln_eps))
+            loss, n_tok = shifted_ce_loss(logits, labels)
+            preds = logits.argmax(dim=-1)
+            return global_loss(loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok,
+                                          preds=preds), labels, self.mesh)
 
     # ---------------------------------------------------------------- decode
     def _n_kind(self) -> Tuple[int, int]:

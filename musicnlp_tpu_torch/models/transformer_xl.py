@@ -52,6 +52,7 @@ from musicnlp_tpu_torch.ops.losses import (
 from musicnlp_tpu_torch.ops.sharded_head import vocab_sharded_ce_loss, vocab_sharded_embed
 from musicnlp_tpu_torch.parallel.mesh import Mesh, global_loss, global_mean, valid_count
 from musicnlp_tpu_torch.utils.checkpoint import params_from_jax
+from musicnlp_tpu_torch.utils.profiling import span
 
 __all__ = ['TransfoXLConfig', 'TransfoXL', 'DecodeState']
 
@@ -237,7 +238,9 @@ class TransfoXL:
         h, new_mems, new_valid = self.forward_hidden(
             params, input_ids, mems=mems, mem_valid=mem_valid, attn_mask=attn_mask,
             generator=generator, deterministic=deterministic)
-        return self._lm_head(params, h), new_mems, new_valid
+        with span('model.head'):
+            logits = self._lm_head(params, h)
+        return logits, new_mems, new_valid
 
     def forward_hidden(self, params: Params, input_ids: torch.Tensor,
                        mems: Optional[torch.Tensor] = None, mem_valid=0,
@@ -269,25 +272,27 @@ class TransfoXL:
                 # memory stores this layer's INPUT hiddens (TF-XL semantics)
                 new_mems.append(torch.cat([mems[li], h], dim=1)[:, -cfg.mem_len:].detach())
                 layer_mems = mems[li]
-            if plain:
-                h = rel_attn(
-                    layer['attn'], h, layer_mems, mem_valid, clamp_len=cfg.clamp_len,
-                    pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
-                    dropatt_rate=cfg.dropatt, generator=generator,
-                    deterministic=deterministic, attn_mask=attn_mask, window=cfg.attn_window,
-                    mesh=self.mesh)
-            else:
-                attn = functools.partial(
-                    fused_rel_attn, clamp_len=cfg.clamp_len, pre_lnorm=cfg.pre_lnorm,
-                    dropout_rate=cfg.dropout, generator=generator,
-                    deterministic=deterministic, window=cfg.attn_window, mesh=self.mesh)
-                if cfg.remat_attn:
-                    h = remat(attn, layer['attn'], h, layer_mems, mem_valid,
-                              generator=generator)
+            with span('model.attn'):
+                if plain:
+                    h = rel_attn(
+                        layer['attn'], h, layer_mems, mem_valid, clamp_len=cfg.clamp_len,
+                        pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
+                        dropatt_rate=cfg.dropatt, generator=generator,
+                        deterministic=deterministic, attn_mask=attn_mask,
+                        window=cfg.attn_window, mesh=self.mesh)
                 else:
-                    h = attn(layer['attn'], h, layer_mems, mem_valid)
-            h = ffn(layer['ffn'], h, pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
-                    generator=generator, deterministic=deterministic, mesh=self.mesh)
+                    attn = functools.partial(
+                        fused_rel_attn, clamp_len=cfg.clamp_len, pre_lnorm=cfg.pre_lnorm,
+                        dropout_rate=cfg.dropout, generator=generator,
+                        deterministic=deterministic, window=cfg.attn_window, mesh=self.mesh)
+                    if cfg.remat_attn:
+                        h = remat(attn, layer['attn'], h, layer_mems, mem_valid,
+                                  generator=generator)
+                    else:
+                        h = attn(layer['attn'], h, layer_mems, mem_valid)
+            with span('model.ffn'):
+                h = ffn(layer['ffn'], h, pre_lnorm=cfg.pre_lnorm, dropout_rate=cfg.dropout,
+                        generator=generator, deterministic=deterministic, mesh=self.mesh)
 
         if mems is not None:
             new_valid = torch.clamp(torch.as_tensor(mem_valid, device=h.device) + Q,
@@ -341,29 +346,26 @@ class TransfoXL:
             return global_loss(*self._loss_segments(
                 params, input_ids, labels, n_seg=n_seg, generator=generator,
                 deterministic=deterministic), labels, self.mesh)
-        if cfg.shard_vocab:
-            h, _, _ = self.forward_hidden(params, input_ids, generator=generator,
-                                          deterministic=deterministic)
-            loss, n_tok, preds = vocab_sharded_ce_loss(
-                h, labels, params['embed']['weight'], params['out_bias'],
-                mesh=self._require_mesh(), chunk=cfg.head_chunk)
-            acc = global_mean(ntp_accuracy(preds, labels), valid_count(labels), self.mesh,
-                              total=n_tok)
-            return loss, dict(ntp_acc=acc, n_tok=n_tok, preds=preds)
-        if cfg.head_chunk:
-            h, _, _ = self.forward_hidden(params, input_ids, generator=generator,
-                                          deterministic=deterministic)
-            loss, n_tok, preds = chunked_shifted_ce_loss(
-                h, labels, params['embed']['weight'].to(h.dtype), params['out_bias'],
-                chunk=cfg.head_chunk)
+        h, _, _ = self.forward_hidden(params, input_ids, generator=generator,
+                                      deterministic=deterministic)
+        with span('model.head'):
+            if cfg.shard_vocab:
+                loss, n_tok, preds = vocab_sharded_ce_loss(
+                    h, labels, params['embed']['weight'], params['out_bias'],
+                    mesh=self._require_mesh(), chunk=cfg.head_chunk)
+                acc = global_mean(ntp_accuracy(preds, labels), valid_count(labels), self.mesh,
+                                  total=n_tok)
+                return loss, dict(ntp_acc=acc, n_tok=n_tok, preds=preds)
+            if cfg.head_chunk:
+                loss, n_tok, preds = chunked_shifted_ce_loss(
+                    h, labels, params['embed']['weight'].to(h.dtype), params['out_bias'],
+                    chunk=cfg.head_chunk)
+            else:
+                logits = self._lm_head(params, h)
+                loss, n_tok = shifted_ce_loss(logits, labels)
+                preds = logits.argmax(dim=-1)
             return global_loss(loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok,
                                            preds=preds), labels, self.mesh)
-        logits, _, _ = self.forward(params, input_ids, generator=generator,
-                                    deterministic=deterministic)
-        loss, n_tok = shifted_ce_loss(logits, labels)
-        preds = logits.argmax(dim=-1)
-        return global_loss(loss, dict(ntp_acc=ntp_accuracy(preds, labels), n_tok=n_tok,
-                                       preds=preds), labels, self.mesh)
 
     def _segments(self, x: torch.Tensor, n_seg: int) -> Tuple[torch.Tensor, ...]:
         B, T = x.shape

@@ -38,6 +38,7 @@ from musicnlp_tpu_torch.preprocess import transform as tsf
 from musicnlp_tpu_torch.preprocess.music_converter import MusicConverter
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
 from musicnlp_tpu_torch.utils.checkpoint import load_meta, restore_pytree
+from musicnlp_tpu_torch.utils.profiling import span
 from musicnlp_tpu_torch.vocab import MusicTokenizer, MusicVocabulary, VocabType
 
 __all__ = ['DecodableModel', 'MusicGenerator', 'MODEL_FAMILIES', 'load_trained', 'score_batch',
@@ -362,10 +363,11 @@ def score_batch(model: Model, params: Dict[str, Any], input_ids: torch.Tensor,
     """Forward-only CLM loss with NTP accuracy and IKR, as the JAX Trainer's
     eval step computes them (the Trainer's eval step); every value stays a
     device tensor."""
-    loss, mets = model.loss(params, input_ids, labels, deterministic=True, n_seg=n_seg)
-    preds = mets.pop('preds')
-    mets['ikr'] = ikr.on_device(preds, labels, key_scores)
-    mets['loss'] = loss
+    with span('score.batch'):
+        loss, mets = model.loss(params, input_ids, labels, deterministic=True, n_seg=n_seg)
+        preds = mets.pop('preds')
+        mets['ikr'] = ikr.on_device(preds, labels, key_scores)
+        mets['loss'] = loss
     return mets
 
 

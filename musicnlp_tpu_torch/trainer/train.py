@@ -45,6 +45,7 @@ from musicnlp_tpu_torch.trainer.pair_merge_tokenizer import PairMergeTokenizer
 from musicnlp_tpu_torch.trainer.wordpiece_tokenizer import WordPieceMusicTokenizer
 from musicnlp_tpu_torch.utils import checkpoint as ckpt
 from musicnlp_tpu_torch.utils.prefetch import prefetch
+from musicnlp_tpu_torch.utils.profiling import span
 from musicnlp_tpu_torch.vocab import MusicTokenizer
 
 __all__ = ['TrainArgs', 'AdamW', 'make_optimizer', 'Trainer', 'describe_tokenizer',
@@ -312,18 +313,21 @@ class Trainer:
         the global batch's loss and metrics, and the gradients summed over
         the data ranks (each rank's block of the global gradient)."""
         flat = ckpt.flatten(params)
-        loss, mets = self.model.loss(params, batch['input_ids'], batch['labels'],
-                                     generator=self.generator, deterministic=False,
-                                     n_seg=self.args.n_seg)
-        # a leaf the model names as unread (an HF-imported Reformer's local
-        # 'qk', kept for the JAX layout) gets a zero gradient, as under
-        # jax.grad; any other leaf cut off from the loss is a wiring fault
-        grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
-        stray = {k for k, g in zip(flat, grads) if g is None} - self.model.unread_leaves()
-        if stray:
-            raise RuntimeError(f'the loss reads no path to {sorted(stray)}')
-        grads = [torch.zeros_like(v) if g is None else g for v, g in zip(flat.values(), grads)]
-        mesh_lib.sum_grads_over_batch(grads, self.mesh)
+        with span('train.forward'):
+            loss, mets = self.model.loss(params, batch['input_ids'], batch['labels'],
+                                         generator=self.generator, deterministic=False,
+                                         n_seg=self.args.n_seg)
+        with span('train.backward'):
+            # a leaf the model names as unread (an HF-imported Reformer's local
+            # 'qk', kept for the JAX layout) gets a zero gradient, as under
+            # jax.grad; any other leaf cut off from the loss is a wiring fault
+            grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+            stray = {k for k, g in zip(flat, grads) if g is None} - self.model.unread_leaves()
+            if stray:
+                raise RuntimeError(f'the loss reads no path to {sorted(stray)}')
+            grads = [torch.zeros_like(v) if g is None else g
+                     for v, g in zip(flat.values(), grads)]
+            mesh_lib.sum_grads_over_batch(grads, self.mesh)
         return loss, mets, dict(zip(flat.keys(), grads))
 
     def _ikr(self, preds, labels, key_scores) -> torch.Tensor:
@@ -335,12 +339,16 @@ class Trainer:
                    ) -> Dict[str, torch.Tensor]:
         """One micro-batch: loss, gradients, optimizer update (in place),
         metrics.  `grad_norm` is the raw micro-batch gradient's norm."""
-        loss, mets, grads = self.loss_and_grads(params, batch)
-        mets['grad_norm'] = self.opt.norm(grads)
-        self.opt.step(params, grads, opt_state)
-        with torch.no_grad():
-            mets['ikr'] = self._ikr(mets.pop('preds'), batch['labels'], batch['key_scores'])
-        mets['loss'] = loss.detach()
+        with span('train.step'):
+            loss, mets, grads = self.loss_and_grads(params, batch)
+            with span('train.optimizer'):
+                mets['grad_norm'] = self.opt.norm(grads)
+                self.opt.step(params, grads, opt_state)
+            with torch.no_grad():
+                mets['ikr'] = self._ikr(mets.pop('preds'), batch['labels'], batch['key_scores'])
+            mets['loss'] = loss.detach()
+            # the autograd graph goes with the loss: free it inside the step
+            del loss, grads
         return mets
 
     # ------------------------------------------------------------------ loops
@@ -393,9 +401,11 @@ class Trainer:
             if hasattr(self.train_dataset, 'resample'):
                 self.train_dataset.resample()        # proportional mixing, per epoch
             t_ep = time.time()
-            n_tok_ep = 0
+            n_tok_ep, data_wait = 0, 0.0
+            t_wait = time.perf_counter()
             for batch in prefetch(self.train_dataset.batches(
                     args.batch_size, shuffle=True, seed=args.seed + epoch, **bkw)):
+                data_wait += time.perf_counter() - t_wait
                 n_tok_ep += int((batch['labels'] != PT_LOSS_PAD).sum())
                 mets = self.train_step(params, opt_state,
                                        mesh_lib.make_global_batch(batch, self.mesh))
@@ -408,6 +418,7 @@ class Trainer:
                     logger.info('step %d ep %d | loss %.4f acc %.4f ikr %.4f lr %.2e',
                                 global_step, epoch, rec['loss'], rec['ntp_acc'], rec['ikr'],
                                 rec['lr'])
+                t_wait = time.perf_counter()
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
             dt = time.time() - t_ep
@@ -416,7 +427,9 @@ class Trainer:
                 n_tok_ep = int(mesh_lib.batch_sum(
                     torch.tensor(n_tok_ep, dtype=torch.int64, device=self.mesh.device),
                     self.mesh))
-            ep_rec = dict(epoch=epoch, train_tokens_per_sec=n_tok_ep / max(dt, 1e-9))
+            # data_wait_s: host seconds the loop waited for its next batch
+            ep_rec = dict(epoch=epoch, train_tokens_per_sec=n_tok_ep / max(dt, 1e-9),
+                          data_wait_s=data_wait)
             logger.info('epoch %d done: %.0f tokens/sec', epoch, ep_rec['train_tokens_per_sec'])
             do_save = args.save_per_epoch and (
                 (epoch + 1) % max(args.save_every, 1) == 0

@@ -4,22 +4,123 @@ Counterpart of `musicnlp_tpu/utils/profiling.py`: `device_trace` is rebuilt
 on `torch.profiler` (CPU and, on the card, CUDA activities through CUPTI)
 and writes a Chrome-trace JSON (chrome://tracing or Perfetto; no TensorBoard
 package needed) that names every kernel that ran (`step_kernels` counts
-one step's); `StepTimer` and `profile_fn` are the JAX package's, unchanged.
+one step's, `span_kernels` sums them by program span); `StepTimer` and
+`profile_fn` are the JAX package's, unchanged.
+
+The program's spans (`span`, at the names of `SPANS`) mark where a training
+step or a scored batch spends its time.  A span is off unless a
+`torch.profiler` recording is active: then it is one shared no-op context
+and costs one flag read.  On, it is a `record_function` in the recording's
+trace (on the profiler's clock, beside the device's events) and a record in
+a bounded log (`span_log`) with its host time and, on CUDA, the stream's
+time between a start and an end event.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from collections import Counter
+from collections import Counter, defaultdict, deque
 from typing import Dict, Iterator, List, Optional, Union
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from musicnlp_tpu_torch import resolve_device
 
-__all__ = ['device_trace', 'step_kernels', 'StepTimer', 'profile_fn']
+__all__ = ['device_trace', 'step_kernels', 'span', 'span_log', 'clear_span_log', 'span_kernels',
+           'SPANS', 'StepTimer', 'profile_fn']
+
+# the program's spans: roots (a training step, a scored batch), the step's
+# phases and the model's sections
+SPANS = ('train.step', 'train.forward', 'train.backward', 'train.optimizer', 'score.batch',
+         'model.attn', 'model.ffn', 'model.head')
+LOG_SIZE = 4096                 # closed spans kept, newest last
+
+if hasattr(_autograd_profiler, '_is_profiler_enabled'):
+    def _recording() -> bool:
+        return _autograd_profiler._is_profiler_enabled
+else:                           # a torch without the module flag
+    _recording = torch._C._autograd._profiler_enabled
+
+_OFF = contextlib.nullcontext()
+_log: deque = deque(maxlen=LOG_SIZE)
+_ids = itertools.count(1)
+_open = threading.local()       # .stack: this thread's open spans, innermost last
+
+
+class _Span:
+    """One open span: a `record_function` and, on CUDA, a pair of timing
+    events on the current stream; appended to the log when it closes."""
+    __slots__ = ('id', 'name', 'parent', 'root', 'thread', 't0', 't1', 'events', 'device_ms',
+                 '_rf')
+
+    def __init__(self, name: str):
+        self.name = name
+        self.events, self.device_ms = None, None
+
+    def __enter__(self):
+        stack = getattr(_open, 'stack', None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        self.parent = stack[-1].id if stack else None
+        self.root = stack[0].id if stack else self.id
+        self.thread = threading.get_ident()
+        stack.append(self)
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        if torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record()
+        self._rf.__exit__(*exc)
+        self._rf = None
+        _open.stack.pop()
+        _log.append(self)
+        return False
+
+
+def span(name: str):
+    """A context that marks `name` (one of `SPANS`) while a `torch.profiler`
+    recording is active, and does nothing otherwise.  Spans nest per
+    thread: a span opened with none open on its thread (as on autograd's
+    device thread) is the root of its own tree."""
+    if not _recording():
+        return _OFF
+    return _Span(name)
+
+
+def span_log() -> List[Dict]:
+    """The closed spans in the order they closed (children before their
+    parent), at most `LOG_SIZE`: {id, name, parent, root (the outermost
+    open span's id on its thread, its own for a root), thread, host_ms,
+    device_ms}.  device_ms is the stream's time from the span's first work
+    to its last, idle inside it included (None without CUDA); it waits for
+    the span's end event, so read the log once the work has been launched."""
+    out = []
+    for s in list(_log):
+        if s.events is not None:
+            start, end = s.events
+            end.synchronize()
+            s.device_ms, s.events = start.elapsed_time(end), None
+        out.append(dict(id=s.id, name=s.name, parent=s.parent, root=s.root, thread=s.thread,
+                        host_ms=(s.t1 - s.t0) / 1e6, device_ms=s.device_ms))
+    return out
+
+
+def clear_span_log() -> None:
+    _log.clear()
 
 
 @contextlib.contextmanager
@@ -59,6 +160,62 @@ def step_kernels(path: str) -> Dict[str, int]:
                   key=lambda i: kern[i + 1]['ts'] - kern[i]['ts'] - kern[i].get('dur', 0))
         kern = kern[gap + 1:]
     return dict(Counter(e['name'] for e in kern))
+
+
+def span_kernels(path: str, units: Optional[int] = None) -> Dict[Optional[str], Dict[str, float]]:
+    """Device ms per kernel name (and copy or fill) under each program span
+    of a `device_trace` file: {span name: {kernel name: ms}}, None for work
+    launched outside every span.  Each kernel is matched to the runtime call
+    that launched it by correlation id, and goes to the innermost span open
+    on the launching thread at that moment; a launch on a thread with none
+    open (autograd's device thread in a backward) goes to the innermost
+    span open on another thread, i.e. `train.backward` on the main one.
+    `units`: only the work launched inside the last `units` outermost
+    spans (past a traced warm-up, as `step_kernels` reads)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
+    spans = sorted(((float(e['ts']), float(e['ts']) + float(e.get('dur', 0)), e['tid'],
+                     e['name']) for e in events
+                    if e.get('cat') == 'user_annotation' and e['name'] in SPANS),
+                   key=lambda s: (s[0], -s[1]))
+    device = {}
+    for e in events:
+        corr = e.get('args', {}).get('correlation')
+        if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset') and corr is not None:
+            device.setdefault(corr, []).append((e['name'], float(e.get('dur', 0)) / 1e3))
+    launches = sorted((float(e['ts']), e['tid'], e['args']['correlation']) for e in events
+                      if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                      and e.get('args', {}).get('correlation') in device)
+    if units is not None:
+        outer, end = [], float('-inf')
+        for s in spans:
+            if s[0] >= end:
+                outer.append(s)
+                end = s[1]
+        t_from = outer[-units][0] if 0 < units <= len(outer) else float('inf')
+        launches = [x for x in launches if x[0] >= t_from]
+    out: Dict[Optional[str], Dict[str, float]] = defaultdict(lambda: defaultdict(float))
+    stacks: Dict[object, list] = defaultdict(list)
+    j = 0
+    for ts, tid, corr in launches:
+        while j < len(spans) and spans[j][0] <= ts:
+            st = stacks[spans[j][2]]
+            while st and st[-1][1] < spans[j][0]:
+                st.pop()
+            st.append(spans[j])
+            j += 1
+        for st in stacks.values():
+            while st and st[-1][1] < ts:
+                st.pop()
+        own = stacks.get(tid)
+        if own:
+            name = own[-1][3]
+        else:
+            tops = [st[-1] for st in stacks.values() if st]
+            name = max(tops)[3] if tops else None
+        for kernel, ms in device[corr]:
+            out[name][kernel] += ms
+    return {k: dict(v) for k, v in out.items()}
 
 
 class StepTimer:
