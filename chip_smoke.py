@@ -46,6 +46,12 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      f32 (six output slabs in one block); the
      f32 cases' bounds at the FMA peak and at the 3xTF32 rate (495 / 3
      TFLOP/s) side by side;
+  2c. the dense layers' epilogue kernel (`bias_act`: f32 bias, relu, one
+     rounding) against its plain version at the FFN's shapes (w1 and w2 at
+     65,536 tokens, w1 at 21,504) in bf16 with and without the relu and in
+     f32, bit-equal; its time beside its byte bound and the plain version's,
+     and the whole dense (f32 product + kernel) beside the chain it replaced
+     and `torch.addmm`'s bias epilogue;
   3. the training path, counts set to 0 before and read after:
      `Trainer.train` for one epoch of 6 steps of 21 x 1024 seeded synthetic
      songs (dropout 0.1, warmup-cosine AdamW, eval with a padded final batch,
@@ -54,7 +60,8 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      uninterrupted run (dropout 0); one step at n_seg 2 (memory 512);
      step time, tokens/s, peak memory and a torch.profiler split of a step;
   4. the scoring and generation paths, counts set to 0 before and read
-     after: `score_batch` (loss, NTP accuracy, IKR) on 8 x 1024 ids, then
+     after: `score_batch` (loss, NTP accuracy, IKR) on 8 x 1024 ids (12 K1,
+     24 `bias_act`), then
      `MusicGenerator.generate` for 4 key-augmented unconditional prompts
      (sample, top_k 8, max_length 1024) with a bf16 and an int8 KV cache, and
      one greedy request with early exit, checked against the full-length run;
@@ -245,6 +252,7 @@ from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops import chunked_attention as ca
 from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
 from musicnlp_tpu_torch.ops import flash_attention as fa
+from musicnlp_tpu_torch.ops import layers
 from musicnlp_tpu_torch.ops import roofline_kernels as rk
 from musicnlp_tpu_torch.ops.losses import chunked_shifted_ce_loss
 from musicnlp_tpu_torch.postprocess import MusicStats, MusicVisualize, summarize_run
@@ -309,6 +317,13 @@ GEN_LEN = 1024                                   # Reformer generation length (t
 K5_REPLACES = 'scripts/vpu_roofline.py:39 (_mask_chain_kernel, via run_chain :90)'
 K6_REPLACES = 'scripts/vpu_roofline.py:63 (_muladd_kernel, via run_muladd :111)'
 ROOFLINE_K = 1024                                # passes of the timed K5 / K6 calls
+BIAS_ACT_REPLACES = ('none: the f32 bias add, relu and one rounding after a dense product '
+                     '(musicnlp_tpu/ops/layers.py:35 dense, :70 ffn), which '
+                     'XLA fuses into the product on the TPU')
+# the dense layers' epilogue at the main path's shapes: (rows, d_in, d_out)
+# of the FFN's w1 and w2 at 65,536 tokens (scoring) and w1 at 21,504 (TF-XL
+# training)
+BIAS_ACT_SHAPES = ((65536, 768, 3072), (65536, 3072, 768), (21504, 768, 3072))
 # K5 vs plain: each entry within one bf16 ulp (f32 sums in other orders,
 # ex2.approx and one approximate reciprocal per row may flip a bf16
 # rounding; an exact zero stays exact); K6 vs plain: bit-equal (the plain
@@ -1242,7 +1257,8 @@ def reformer_training_path(dev, tok, report):
 class SharedBranches:
     """Within the block, the two places where the Reformer branches on a
     computed value -- the LSH bucket argmax (`lsh_buckets`, in the forward and
-    in the decode step) and the FFN relu (`torch.relu`) -- keep what they
+    in the decode step) and the FFN relu (`dense(..., act='relu')`, taken
+    here as `dense` without the relu and then the relu) -- keep what they
     compute in `seen`; with `replaying` set they use `recorded` instead (in
     order, moved to the run's device) and count the entries their own
     arithmetic would have changed.  The card and
@@ -1257,7 +1273,7 @@ class SharedBranches:
         self.recorded = dict(buckets=[], relu=[])
         self.replaying = False
         self.differ, self.total = dict(buckets=0, relu=0), dict(buckets=0, relu=0)
-        self.real = (ca.lsh_buckets, torch.relu)
+        self.real = (ca.lsh_buckets, layers.dense)
 
     def _share(self, kind, value):
         if not self.replaying:
@@ -1274,6 +1290,10 @@ class SharedBranches:
     def relu(self, x):
         return torch.where(self._share('relu', x > 0), x, torch.zeros_like(x))
 
+    def dense(self, p, x, mesh=None, *, act=None):
+        y = self.real[1](p, x, mesh)
+        return self.relu(y) if act == 'relu' else y
+
     def replay(self):
         """Replay what the first run saw (again, for each later run)."""
         self.recorded = {k: list(v) for k, v in self.seen.items()}
@@ -1281,12 +1301,12 @@ class SharedBranches:
 
     def __enter__(self):
         ca.lsh_buckets = reformer_module.lsh_buckets = self.buckets
-        torch.relu = self.relu
+        layers.dense = reformer_module.dense = self.dense
         return self
 
     def __exit__(self, *exc):
         ca.lsh_buckets = reformer_module.lsh_buckets = self.real[0]
-        torch.relu = self.real[1]
+        layers.dense = reformer_module.dense = self.real[1]
 
 
 def reformer_card_vs_cpu(dev, report, key='reformer_grads_card_vs_cpu', **cfg_kw):
@@ -1419,6 +1439,62 @@ def reformer_score_and_generate(dev, tok, report):
 
 
 # ------------------------------------------------------------ K5 / K6 (phase 7)
+def bias_act_phase(dev, report):
+    """Phase 2c: the dense layers' epilogue kernel (`csrc/bias_act.cu`)
+    against its plain version at the main path's shapes (`BIAS_ACT_SHAPES`)
+    in bf16 with and without the relu, and in f32, on a nonzero bias: the
+    same f32 add and one rounding, so bit-equal.  Times of the kernel, its
+    bound (the f32 product read once, the output written once), the plain
+    version, and the whole dense: the f32 product + the kernel, the chain it
+    replaced (a bf16 product upcast, the f32 bias add, the cast back, relu)
+    and `torch.addmm`'s bias epilogue (cuBLASLt; a bf16 bias), a library
+    yardstick the port never calls."""
+    g = torch.Generator(device='cpu').manual_seed(SEED + 60)
+    saved = dict(layers.LAUNCHES)
+    cases = []
+    for n, d_in, d_out in BIAS_ACT_SHAPES:
+        x = torch.randn(n, d_in, generator=g).to(dev, torch.bfloat16)
+        w = (torch.randn(d_in, d_out, generator=g) * 0.02).to(dev)
+        b = (torch.randn(d_out, generator=g) * 0.02).to(dev)
+        wc = w.to(torch.bfloat16)
+        y = layers.f32_product(x, wc)
+        for dtype, act in ((torch.bfloat16, 'relu'), (torch.bfloat16, None),
+                           (torch.float32, 'relu')):
+            got = layers.bias_act(y, b, act, dtype)
+            want = layers.bias_act_plain(y, b, act, dtype)
+            torch.cuda.synchronize()
+            rec = dict(case=f'{n}x{d_out}-{str(dtype).split(".")[-1]}-{act or "none"}',
+                       max_abs_err=float((got.float() - want.float()).abs().max()),
+                       bit_equal=bool(torch.equal(got, want)))
+            del got, want
+            if not rec['bit_equal']:
+                raise AssertionError(f'bias_act disagrees with its plain version: {rec}')
+            if dtype == torch.bfloat16:
+                # y read once, the output written once (the bias: d_out f32)
+                nbytes = n * d_out * (4 + 2) + 4 * d_out
+                rec.update(bytes=nbytes, **bounds(0, nbytes, dtype))
+                rec['ms'] = time_ms(lambda: layers.bias_act(y, b, act, dtype), iters=20)
+                rec['plain_ms'] = time_ms(lambda: layers.bias_act_plain(y, b, act, dtype))
+                rec['share_of_bound'] = rec['bound_ms'] / rec['ms']
+                relu = torch.relu if act else (lambda t: t)
+                fused = lambda: layers.dense(dict(w=w, b=b), x, act=act)
+                old = lambda: relu(((x @ wc).float() + b).to(torch.bfloat16))
+                bb = b.to(torch.bfloat16)
+                rec.update(product_ms=time_ms(lambda: layers.f32_product(x, wc), iters=20),
+                           dense_ms=time_ms(fused, iters=20),
+                           old_chain_ms=time_ms(old, iters=20),
+                           library_ms=time_ms(lambda: relu(torch.addmm(bb, x, wc)), iters=20))
+                if rec['share_of_bound'] > 1:
+                    raise AssertionError(f'bias_act faster than its bound: {rec}')
+            log(f'[bias_act] {json.dumps(rec)}')
+            cases.append(rec)
+        del x, y
+        torch.cuda.empty_cache()
+    layers.LAUNCHES.update(saved)                # comparison launches do not count
+    report['bias_act_cases'] = cases
+    return cases
+
+
 def roofline_phase(dev, k3_ms, report):
     """Phase 7: K5 and K6 against their plain versions, their times and
     bounds at K = ROOFLINE_K, K5's registers, spills, occupancy and the SASS
@@ -3763,6 +3839,10 @@ def main() -> int:
     ]
     report.update(k3_cases=k3, k4_cases=k4)
 
+    # 2c. the dense layers' epilogue (bias, relu, one rounding) against its
+    # plain version on the card
+    bias_act_cases = bias_act_phase(dev, report)
+
     # 3. the training path, counted
     tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)
     train_launches = training_path(dev, tok, report)
@@ -3775,14 +3855,20 @@ def main() -> int:
     ids, labels = score_inputs(cfg.vocab_size, 8, 1024, SEED + 1, dev)
 
     fa.LAUNCHES.update(flash_rel_attn_fwd=0, flash_rel_attn_bwd=0)
+    layers.LAUNCHES['bias_act'] = 0
     mets = score_batch(model, params, ids, labels, ikr)
     torch.cuda.synchronize()
     per_forward = fa.LAUNCHES['flash_rel_attn_fwd']
+    bias_act_per_forward = layers.LAUNCHES['bias_act']
     mets = {k: float(v) for k, v in mets.items()}
-    log(f'[score] base bf16 8x1024: {json.dumps(mets)} K1 launches {per_forward}')
+    log(f'[score] base bf16 8x1024: {json.dumps(mets)} K1 launches {per_forward}, '
+        f'bias_act {bias_act_per_forward}')
     if per_forward != cfg.n_layer or fa.LAUNCHES['flash_rel_attn_bwd']:
         raise AssertionError(f'K1 launched {per_forward} times in one forward, '
                              f'expected {cfg.n_layer} (and no K2): {fa.LAUNCHES}')
+    if bias_act_per_forward != 2 * cfg.n_layer:
+        raise AssertionError(f'bias_act launched {bias_act_per_forward} times in one forward, '
+                             f'expected {2 * cfg.n_layer} (two dense layers a FFN)')
     if not all(math.isfinite(v) for v in mets.values()) or \
             abs(mets['loss'] - math.log(cfg.vocab_size)) > 0.5 or not 0 <= mets['ikr'] <= 1:
         raise AssertionError(f'scoring metrics out of range: {mets}')
@@ -3918,7 +4004,10 @@ def main() -> int:
                row('mask_chain', roofline_rows['mask_chain'], K5_REPLACES,
                    roofline_launches['mask_chain']),
                row('muladd_chain', roofline_rows['muladd_chain'], K6_REPLACES,
-                   roofline_launches['muladd_chain'])]
+                   roofline_launches['muladd_chain']),
+               # the FFN's w1 epilogue at scoring's 65,536 tokens, bf16, relu;
+               # launches of one 12-layer forward (phase 4)
+               row('bias_act', bias_act_cases[0], BIAS_ACT_REPLACES, bias_act_per_forward)]
     report['kernels'] = kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:

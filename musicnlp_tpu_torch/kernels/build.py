@@ -24,7 +24,7 @@ __all__ = ['SOURCES', 'build', 'build_all', 'lib_path', 'load']
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 SOURCES = ('flash_rel_attn_fwd', 'flash_rel_attn_bwd', 'chunked_window_attn_fwd',
-           'chunked_window_attn_bwd', 'mask_chain', 'muladd_chain')
+           'chunked_window_attn_bwd', 'mask_chain', 'muladd_chain', 'bias_act')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

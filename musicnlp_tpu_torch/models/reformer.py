@@ -350,7 +350,7 @@ class Reformer:
 
     def _ffn_block(self, p: Params, h: torch.Tensor) -> torch.Tensor:
         x = copy_to_model(layer_norm(p['ln'], h, eps=self.cfg.ln_eps), self.mesh)
-        return dense(p['w2'], torch.relu(dense(p['w1'], x)), self.mesh)
+        return dense(p['w2'], dense(p['w1'], x, act='relu'), self.mesh)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params: Params, input_ids: torch.Tensor, labels: torch.Tensor,
@@ -501,7 +501,7 @@ class Reformer:
             else:
                 h = h + a
                 xf = layer_norm(fp['ln'], h, eps=cfg.ln_eps)
-            h = h + dense(fp['w2'], torch.relu(dense(fp['w1'], xf)))
+            h = h + dense(fp['w2'], dense(fp['w1'], xf, act='relu'))
         if cfg.hf_compat:
             h = torch.cat([x1, h], dim=-1)
         h = layer_norm(params['ln_f'], h, eps=cfg.ln_eps)

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from musicnlp_tpu_torch.ops.layers import f32_product
+
 __all__ = ['PT_LOSS_PAD', 'BIG_ARG', 'shifted_ce_loss', 'ce_tile_scan',
            'chunked_shifted_ce_loss', 'ntp_accuracy', 'ikr_from_ids']
 
@@ -37,18 +39,6 @@ def shifted_ce_loss(logits: torch.Tensor, labels: torch.Tensor
     return loss, n
 
 
-def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [n, d] @ b [d, m] with f32 accumulation and an f32 result, operands
-    in a's dtype: on the card a bf16 / f16 product runs on the tensor cores
-    with an f32 output (`torch.mm(..., out_dtype=float32)`, which has no CPU
-    kernel); on the CPU the same products are taken in f32, where a product
-    of two bf16 values is exact.  Never a rounded bf16 result upcast."""
-    b = b.to(a.dtype)
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
 def _tile(hq: torch.Tensor, w: torch.Tensor, b: torch.Tensor, lo: int, chunk: int):
     """Rows [lo, lo + chunk) of the head: (f32 logits [n, chunk], the tile's
     rows [chunk, d]); a tile past the last row is padded
@@ -59,7 +49,7 @@ def _tile(hq: torch.Tensor, w: torch.Tensor, b: torch.Tensor, lo: int, chunk: in
     if pad:
         w_c = torch.cat([w_c, w_c.new_zeros(pad, w_c.shape[1])])
         b_c = torch.cat([b_c, b_c.new_full((pad,), _PAD_BIAS)])
-    return _f32_product(hq, w_c.T) + b_c, w_c
+    return f32_product(hq, w_c.T) + b_c, w_c
 
 
 class _TiledHead(torch.autograd.Function):
@@ -115,9 +105,9 @@ class _TiledHead(torch.autograd.Function):
             idx = torch.clamp(lb - glo, 0, chunk - 1)
             dlg.scatter_add_(1, idx[:, None], torch.where(in_c, g_tgt, 0.0)[:, None])
             dlg_c = dlg.to(hq.dtype)
-            dh += _f32_product(dlg_c, w_c)
+            dh += f32_product(dlg_c, w_c)
             hi = min(lo + chunk, vl)
-            dw[lo:hi] = _f32_product(dlg_c.T, hq)[:hi - lo].to(w.dtype)
+            dw[lo:hi] = f32_product(dlg_c.T, hq)[:hi - lo].to(w.dtype)
             db[lo:hi] = dlg[:, :hi - lo].sum(0).to(b.dtype)
         return dh.to(hq.dtype), dw, db, None, None, None
 

@@ -49,6 +49,13 @@ def test_build_all_reuses_a_built_library(csrc):
         kb.build_all(('k',))
 
 
+def test_sources_name_every_kernel_source():
+    """`build_all()` builds every `csrc/*.cu` (the dense epilogue `bias_act`
+    among them), so one call before a run leaves nothing to build inside it."""
+    assert sorted(kb.SOURCES) == sorted(p.stem for p in kb.CSRC.glob('*.cu'))
+    assert 'bias_act' in kb.SOURCES and len(set(kb.SOURCES)) == len(kb.SOURCES)
+
+
 def test_count_mma_counts_tensor_core_instructions_per_function():
     sass = '''
         Function : _ZN12_GLOBAL__N_12tc8k2_dq_tcILi64EEEvPK13__nv_bfloat16

@@ -2,7 +2,9 @@
 128, in f16 and, for K3 / K4, at chunks other than 32 / 64: ROADMAP C.1;
 K1-K4 run every bf16 and f16 call on their tensor-core kernels),
 the tiled CE's card path (bf16 tiles on the tensor cores) against the dense
-CE, C.1's three model configurations launching K1-K4, a `device_trace` that
+CE, the dense layers' epilogue (`bias_act`) against its plain version at the
+FFN's shapes, forward and backward, and twice per FFN in both models,
+C.1's three model configurations launching K1-K4, a `device_trace` that
 names K1 / K2, and `PitchEmbedding` on the card against the CPU (needs an
 NVIDIA GPU and nvcc).
 
@@ -19,6 +21,7 @@ import torch
 from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
 from musicnlp_tpu_torch.ops import chunked_attention_kernel as ck
+from musicnlp_tpu_torch.ops import layers as tl
 from musicnlp_tpu_torch.ops import roofline_kernels as rk
 from musicnlp_tpu_torch.ops.flash_attention import (
     LAUNCHES, FlashRelAttn, distance_table, flash_rel_attn_bwd, flash_rel_attn_bwd_plain,
@@ -576,7 +579,10 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take(dev):
 def test_device_trace_names_k1_and_k2(dev, tmp_path):
     """A bf16 TF-XL step (d_head 64) inside `device_trace`, after a warm-up
     step, a synchronise and a pause: the Chrome trace names k1_tc,
-    k2_dkdv_tc and k2_dq_tc once per layer in the step `step_kernels` reads."""
+    k2_dkdv_tc and k2_dq_tc once per layer in the step `step_kernels` reads.
+    One step runs before the recording, so the first use of each product
+    shape (cuBLAS's choice of kernel, 65-184 ms on an H100) leaves no gap in
+    the traced warm-up step longer than the pause."""
     cfg = TransfoXLConfig.from_size('debug', vocab_size=422, d_model=128, n_head=2, d_head=64,
                                     n_layer=2)
     model = TransfoXL(cfg)
@@ -587,6 +593,8 @@ def test_device_trace_names_k1_and_k2(dev, tmp_path):
     def step():
         loss, _ = model.loss(params, ids, ids)
         torch.autograd.grad(loss, [leaf])
+    step()
+    torch.cuda.synchronize()
     with device_trace(str(tmp_path)) as path:
         step()
         torch.cuda.synchronize()
@@ -608,3 +616,79 @@ def test_pitch_embedding_on_the_card_matches_the_cpu(dev):
     got, want = card(songs, epochs=2, batch_size=1024), cpu(songs, epochs=2, batch_size=1024)
     assert float(np.abs(got - want).max()) <= 1e-4 * float(np.abs(want).max())
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-5)
+
+
+# (rows, d_in, d_out): the FFN's w1 and w2 at scoring's 65,536 tokens, w1 at
+# TF-XL training's 21,504
+BIAS_ACT_SHAPES = [(65536, 768, 3072), (65536, 3072, 768), (21504, 768, 3072)]
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('n,d_in,d_out', BIAS_ACT_SHAPES)
+def test_bias_act_matches_plain_at_the_ffn_shapes(dev, n, d_in, d_out, dtype):
+    """The kernel against its plain version on the f32 product, with a
+    nonzero bias, with and without the relu: the same f32 add and one
+    rounding, bit for bit, one launch each.  Then `dense`'s backward
+    against the f32 arithmetic it stands for on the same relu branches:
+    dx and dw in the activations' dtype (one bf16 rounding of a sum), db
+    summed in f32."""
+    g = torch.Generator().manual_seed(n + d_out)
+    x = torch.randn(n, d_in, generator=g).to(dev, dtype)
+    w = (torch.randn(d_in, d_out, generator=g) * 0.02).to(dev)
+    b = (torch.randn(d_out, generator=g) * 0.02).to(dev)
+    y = tl.f32_product(x, w.to(dtype))
+    for act in (None, 'relu'):
+        launches = tl.LAUNCHES['bias_act']
+        got = tl.bias_act(y, b, act, dtype)
+        assert tl.LAUNCHES['bias_act'] == launches + 1
+        assert torch.equal(got, tl.bias_act_plain(y, b, act, dtype)), act
+    leaves = [t.requires_grad_(True) for t in (x, w, b)]
+    out = tl.dense(dict(w=w, b=b), x, act='relu')
+    assert torch.equal(out, tl.bias_act_plain(y, b.detach(), 'relu', dtype))
+    cot = torch.randn(n, d_out, generator=g).to(dev, dtype)
+    dx, dw, db = torch.autograd.grad(out, leaves, cot)
+    assert (dx.dtype, dw.dtype, db.dtype) == (dtype, torch.float32, torch.float32)
+    gm = torch.where(out > 0, cot, torch.zeros_like(cot)).float()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, a, e in (('dx', dx, gm @ w.detach().to(dtype).float().T),
+                       ('dw', dw, x.detach().float().T @ gm), ('db', db, gm.sum(0))):
+        assert _rel_err(a.float(), e) <= tol, (name, _rel_err(a.float(), e))
+
+
+def test_bias_act_takes_ragged_widths_views_and_every_dtype(dev):
+    """Widths that are not a multiple of 8 and a bias at an address off 16
+    bytes take the kernel's scalar loop; a strided product is made
+    contiguous; f16 output, no bias, zero rows; every case bit-equal to the
+    plain version."""
+    g = torch.Generator().manual_seed(3)
+    big = torch.randn(300, 104, generator=g).to(dev)
+    bias = torch.randn(105, generator=g).to(dev) * 0.02
+    cases = [(big[:, :100], bias[:100]), (big[:, :100].contiguous(), bias[1:101]),
+             (big[:, 1:], bias[:103]), (big, bias[1:]), (big, None), (big[:0], bias[:104])]
+    for y, b in cases:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for act in (None, 'relu'):
+                got = tl.bias_act(y, b, act, dtype)
+                assert got.shape == y.shape and got.dtype == dtype
+                assert torch.equal(got, tl.bias_act_plain(y, b, act, dtype)), \
+                    (tuple(y.shape), b is None, dtype, act)
+
+
+@pytest.mark.parametrize('family', ['transf-xl', 'reformer'])
+def test_bias_act_launches_twice_per_ffn(dev, family):
+    """A 12-layer forward in bf16 launches `bias_act` 24 times: w1 with the
+    relu and w2, once each in every FFN."""
+    if family == 'transf-xl':
+        model = TransfoXL(TransfoXLConfig.from_size('debug', vocab_size=422, n_layer=12))
+        T = 64
+    else:
+        cfg = ReformerConfig.from_size('debug-large', vocab_size=422,
+                                       attn_layers=('local', 'lsh') * 6)
+        model = Reformer(cfg)
+        T = 512
+    params = model.init(seed=0)
+    ids = torch.randint(0, 422, (2, T), device=dev)
+    tl.LAUNCHES['bias_act'] = 0
+    with torch.no_grad():
+        model.forward(params, ids)
+    assert tl.LAUNCHES['bias_act'] == 24

@@ -28,6 +28,7 @@ from musicnlp_tpu.trainer import train as jtrain
 from musicnlp_tpu.utils import checkpoint as jckpt
 from musicnlp_tpu.vocab import MusicTokenizer as JTok, MusicVocabulary as JVocab, N_KEY
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
+from musicnlp_tpu_torch.ops import layers as tl
 from musicnlp_tpu_torch.parallel import mesh as tmesh
 from musicnlp_tpu_torch.tools.dryrun_multichip import dryrun_multichip
 from musicnlp_tpu_torch.trainer import train as ttrain
@@ -234,6 +235,35 @@ def test_world_coords_and_shard_roundtrip(world):
         assert r['local']['embed/weight'] == (256, 128)
         assert r['local']['layers/0/attn/qkv'] == (128, 3, 4, 16)
         assert r['local']['layers/0/ffn/w2/w'] == (256, 128)
+
+
+def test_row_parallel_dense_sums_f32_partials(world):
+    """The row-parallel `dense` on (2, 2) in bf16 sums the two ranks' f32
+    partial products over `model` in f32 and rounds once after the bias,
+    as the JAX `dense` under sharding: every rank's output is exactly
+    bf16(p0 + p1 + b), where rounding each partial first (the unfused
+    form) differs in over 5% of outputs.  In f32 each rank's x and w block
+    gradients and b's equal the unsharded layer's."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((64, 96)).astype(np.float32)).bfloat16().float()
+    w = torch.from_numpy((rng.standard_normal((96, 48)) * 0.05).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(48) * 0.05).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32))
+    got = world.run('dense_row_parallel', shape=(2, 2), x=x.numpy(), w=w.numpy(), b=b.numpy(),
+                    g=g.numpy())
+    part = {r['k']: torch.from_numpy(r['part']) for r in got}
+    want = ((part[0] + part[1]) + b).bfloat16().float()
+    rounded = (part[0].bfloat16().float() + part[1].bfloat16().float()).bfloat16()
+    unfused = (rounded.float() + b).bfloat16().float()
+    assert float((unfused != want).float().mean()) > 0.05
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    full = torch.autograd.grad(tl.dense(dict(w=leaves[1], b=leaves[2]), leaves[0]), leaves, g)
+    for r in got:
+        assert torch.equal(torch.from_numpy(r['out']), want)
+        k = slice(r['k'] * 48, (r['k'] + 1) * 48)
+        for name, a, e in zip(('dx', 'dw', 'db'), r['grads'], (full[0][:, k], full[1][k],
+                                                               full[2])):
+            np.testing.assert_allclose(a, e.numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
 
 
 def _jax_step(jm, jp, tok, batch, mesh):

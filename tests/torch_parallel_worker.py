@@ -12,6 +12,7 @@ import torch.distributed as dist
 
 from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
 from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
+from musicnlp_tpu_torch.ops import layers
 from musicnlp_tpu_torch.parallel import mesh as mesh_lib
 from musicnlp_tpu_torch.preprocess.dataset import AugmentedDataset, SongDataset
 from musicnlp_tpu_torch.trainer.train import TrainArgs, Trainer
@@ -72,6 +73,23 @@ def shard_roundtrip(shape, flat, shard_vocab):
     back = mesh_lib.gather_pytree(local, specs, mesh)
     return dict(full=ckpt.params_to_jax(back),
                 local={k: tuple(v.shape) for k, v in ckpt.flatten(local).items()})
+
+
+def dense_row_parallel(shape, x, w, b, g):
+    """`ops.layers.dense` as a FFN's row-parallel w2 on this rank's block of
+    x's columns and w's rows: in bf16, its f32 partial product and the
+    output; in f32, the gradients of this rank's x and w blocks and of b
+    for the cotangent g."""
+    mesh = _mesh(shape)
+    k, h = mesh.model_index, x.shape[-1] // mesh.n_model
+    xb, wb = torch.from_numpy(x[:, k * h:(k + 1) * h]), torch.from_numpy(w[k * h:(k + 1) * h])
+    bt = torch.from_numpy(b)
+    out = layers.dense(dict(w=wb, b=bt), xb.bfloat16(), mesh)
+    ins = [t.clone().requires_grad_(True) for t in (xb, wb, bt)]
+    y = layers.dense(dict(w=ins[1], b=ins[2]), ins[0], mesh)
+    grads = torch.autograd.grad(y, ins, torch.from_numpy(g))
+    return dict(k=k, part=layers.f32_product(xb.bfloat16(), wb).numpy(),
+                out=out.float().numpy(), grads=[t.numpy() for t in grads])
 
 
 def train_step(shape, family, cfg, flat, batch, args, tok):
