@@ -1,18 +1,12 @@
 """Shared pieces of the benchmark's CPU tests: its cells cut to a tiny
-width and depth, with the program on the CPU (its kernels' plain paths)."""
+width and depth (each family's `TINY`), with the program on the CPU (its
+kernels' plain paths)."""
 import copy
 
 import pytest
 import torch
 
-from benchmark.harness import manifest
-
-TINY_MODEL = {
-    'transfo_xl': dict(d_model=64, n_head=4, d_head=16, d_inner=128, n_layer=2, max_length=64,
-                       clamp_len=64, mem_len=32),
-    'reformer': dict(d_model=64, n_head=4, d_head=16, d_ff=128, attn_layers=['local', 'lsh'],
-                     max_length=128, axial_pos_shape=[8, 16], local_chunk=16, lsh_chunk=16),
-}
+from benchmark.harness import families, manifest
 
 
 def tiny_cell(name: str, dtype: str = None, **limits) -> manifest.Cell:
@@ -20,7 +14,7 @@ def tiny_cell(name: str, dtype: str = None, **limits) -> manifest.Cell:
     overrides the configuration's, `limits` its limits."""
     cell = manifest.find_cell(name)
     cfg = copy.deepcopy(cell.config)
-    cfg['model'].update(TINY_MODEL[cfg['family']])
+    cfg['model'].update(families.get(cfg['family']).TINY)
     if dtype:
         cfg['model']['dtype'] = dtype
     cfg['reference_block_rows'] = 2

@@ -21,17 +21,16 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchmark.harness import gaps
+from benchmark.harness import families, gaps
 from benchmark.harness.seeds import sub_seed
 from benchmark.harness.traffic import make_pool, vocab
 from benchmark.harness.weights import make_flat, nest
-from benchmark.reference import common, reformer, transfo_xl
+from benchmark.reference import common
 
 SAMPLE = 3
 WARM = 2
 NUMBERS = ('loss_gap', 'logit_gap', 'pred_logit_gap', 'far_pred_count', 'acc_count_gap',
            'ikr_count_gap')
-REFERENCES = {'transfo_xl': transfo_xl, 'reformer': reformer}
 RATE = 'score_tokens_per_s'       # the end-to-end rate of this entry's units
 BACKWARD = False                  # a unit runs the forward alone
 CHECK_UNITS = 6                   # window units a calibration reading runs past set-up
@@ -126,9 +125,9 @@ def reference_outputs(cell, seed: int, device, prec: str = 'f32', outputs: Dict 
     pools = (sorted({b['pool'] for b in outputs['batches']}) if outputs is not None
              else range(min(CONTROL_POOLS, cell.traffic['pool'])))
     cfg = cell.config
-    m, fam = cfg['model'], cfg['family']
+    m, ref = cfg['model'], families.reference(cfg)
     common.no_tf32()
-    flat = make_flat(fam, m, sub_seed(seed, 'weights'), device)
+    flat = make_flat(cfg['family'], m, sub_seed(seed, 'weights'), device)
     pool = make_pool(cell.traffic, cfg, sub_seed(seed, 'rows'))
     block = cfg['reference_block_rows']
     out = []
@@ -137,7 +136,7 @@ def reference_outputs(cell, seed: int, device, prec: str = 'f32', outputs: Dict 
         labels = torch.from_numpy(np.ascontiguousarray(pool[p]['labels'])).to(device)
         nll, n, logits = 0.0, 0, []
         for r0 in range(0, len(ids), block):
-            lg = REFERENCES[fam].logits(flat, ids[r0:r0 + block], m, prec)
+            lg = ref.logits(flat, ids[r0:r0 + block], m, prec)
             s, k = common.nll_sum(lg, labels[r0:r0 + block])
             nll, n = nll + float(s), n + k
             logits.append(lg.cpu())

@@ -23,15 +23,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchmark.harness import gaps
+from benchmark.harness import families, gaps
 from benchmark.harness.seeds import sub_seed
 from benchmark.harness.traffic import make_pool
 from benchmark.harness.weights import flatten, make_flat, nest
-from benchmark.reference import common, reformer, transfo_xl
+from benchmark.reference import common
 
 CHECKED = 3
 NUMBERS = ('loss_gap', 'logit_gap', 'grad_gap', 'lookup_grad_gap', 'update_gap')
-REFERENCES = {'transfo_xl': transfo_xl, 'reformer': reformer}
 RATE = 'train_tokens_per_s'       # the end-to-end rate of this entry's units
 BACKWARD = True                   # a unit runs the backward (work counts, kernels)
 CHECK_UNITS = 0                   # window units a calibration reading runs past set-up
@@ -134,10 +133,9 @@ def reference_outputs(cell, seed: int, device, prec: str = 'f32', outputs: Dict 
     the recipe's (planted faults); `lookup` 'bf16' sums the embedding's
     gradient rows as the program's bfloat16 lookup does (a witness)."""
     cfg = cell.config
-    m, rec, fam = cfg['model'], cfg['recipe'], cfg['family']
-    ref = REFERENCES[fam]
+    m, rec, ref = cfg['model'], cfg['recipe'], families.reference(cfg)
     common.no_tf32()
-    flat = make_flat(fam, m, sub_seed(seed, 'weights'), device)
+    flat = make_flat(cfg['family'], m, sub_seed(seed, 'weights'), device)
     start = {k: v.clone() for k, v in flat.items()}
     for t in flat.values():
         t.requires_grad_(True)
@@ -201,7 +199,7 @@ def numbers(cell, pool, prog: Dict, ref: Dict) -> Dict[str, float]:
 
 
 def _leaf_gaps(cell, prog: Dict, ref: Dict) -> Dict[str, tuple]:
-    tables = REFERENCES[cell.config['family']].LOOKUP_LEAVES
+    tables = families.reference(cell.config).LOOKUP_LEAVES
     g = ref['grad_norms']
     others = [k for k in g if k not in tables]
     return dict(grad_gap=gaps.worst_leaf(prog['grad_norms'], g, others, med_of=g),

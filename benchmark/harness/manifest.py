@@ -4,9 +4,11 @@ A cell (`workloads` entry) names a configuration (`configs/<file>`, listed
 under `configs`), a traffic mix (`traffic/<mix>.json`) and holds limits of
 its own (`limits/<cell>.json`).  A per-layer metric is read by
 `metrics/<metric>.py`; an attention op's kernel names are every
-`kernels/*.json` whose `op` names it, and its work is `work.OPS[op]`.  A
-later cell, mix, configuration, metric or kernel name comes in as new files
-and entries; nothing here names one.
+`kernels/*.json` whose `op` names it, and its calls and their work come
+from the `attention_calls` of the configuration's family
+(`families/<family>.py`, found by `harness/families.py`).  A later cell,
+mix, configuration, model family, metric or kernel name comes in as new
+files and entries; nothing here names one.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 """What the benchmark takes from the program: its models, its Trainer, its
 `score_batch`, its tokenizer and IKR metric, and its feed.  Nothing else in
-the harness imports the program."""
+the harness imports the program; a family module names its model's classes
+as dotted paths (`PROGRAM`), which only `model` here resolves."""
 from __future__ import annotations
 
+import importlib
 from typing import Dict
 
-from musicnlp_tpu_torch.models.reformer import Reformer, ReformerConfig
-from musicnlp_tpu_torch.models.transformer_xl import TransfoXL, TransfoXLConfig
+from benchmark.harness import families
 from musicnlp_tpu_torch.parallel.mesh import make_global_batch, make_mesh
 from musicnlp_tpu_torch.trainer.eval import score_batch
 from musicnlp_tpu_torch.trainer.metrics import IkrMetric
@@ -16,15 +17,20 @@ from musicnlp_tpu_torch.vocab import MusicTokenizer
 __all__ = ['model', 'tokenizer', 'trainer', 'mesh', 'IkrMetric', 'score_batch', 'make_global_batch',
            'HeadOutputs']
 
-_FAMILIES = {'transfo_xl': (TransfoXL, TransfoXLConfig), 'reformer': (Reformer, ReformerConfig)}
 _TRAIN_ARGS = ('batch_size', 'learning_rate', 'weight_decay', 'lr_scheduler_type',
                'num_train_epochs', 'warmup_ratio', 'adam_beta1', 'adam_beta2', 'adam_epsilon',
                'max_grad_norm')
 
 
+def _resolve(path: str):
+    module, _, name = path.rpartition('.')
+    return getattr(importlib.import_module(module), name)
+
+
 def model(config: Dict, device):
-    """The configuration's model (its fields as the program's config takes them)."""
-    cls, cfg_cls = _FAMILIES[config['family']]
+    """The configuration's model (its fields as the program's config takes
+    them), of the classes its family's `PROGRAM` names."""
+    cls, cfg_cls = (_resolve(p) for p in families.get(config['family']).PROGRAM)
     fields = cfg_cls.__dataclass_fields__
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in config['model'].items()
           if k in fields}

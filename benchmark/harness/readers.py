@@ -8,7 +8,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional
 
-from benchmark.harness import work
+from benchmark.harness import families, work
 from benchmark.harness.manifest import op_kernels
 from benchmark.harness.trace import Slice
 
@@ -47,9 +47,9 @@ def mfu_pct(r: Readings) -> Optional[float]:
 
 
 def attn_roofline_pct(r: Readings) -> Optional[float]:
-    """The attention ops' least time (`work.bound_s` of every call in the
-    traced steps) over the device time of the kernels that `kernels/*.json`
-    names for those ops."""
+    """The attention ops' least time (`work.bound_s` of every call that the
+    family's `attention_calls` counts in the traced steps) over the device
+    time of the kernels that `kernels/*.json` names for those ops."""
     if r.slice is None:
         return None
     B, T = r.shape
@@ -59,9 +59,8 @@ def attn_roofline_pct(r: Readings) -> Optional[float]:
     t = r.slice.time_of(kernels) if kernels else 0.0
     if t <= 0.0:
         return None
-    if r.cell.config['family'] == 'reformer' and not all(
-            work.bytes_bound_lsh(c) for cs in calls.values() for c in cs):
-        return None                 # the LSH pair estimate could move the bound
+    if not families.get(r.cell.config['family']).roofline_readable(calls):
+        return None                 # an estimated pair count could move the bound
     bound = sum(work.bound_s(*c) for cs in calls.values() for c in cs) * r.slice.steps
     return bound / t * 100.0
 

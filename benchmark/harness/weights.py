@@ -12,42 +12,27 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from benchmark.harness import families
 
-def layout(family: str, m: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
-    """[(flat key, shape, 'normal' | 'zeros' | 'ones')] in a fixed order."""
-    D, N, H, V = m['d_model'], m['n_head'], m['d_head'], m['vocab_size']
+Layout = List[Tuple[str, Tuple[int, ...], str]]
 
-    def ln(prefix, width=D):
-        return [(f'{prefix}/scale', (width,), 'ones'), (f'{prefix}/bias', (width,), 'zeros')]
 
-    def ffn(prefix, F):
-        return [(f'{prefix}/w1/w', (D, F), 'normal'), (f'{prefix}/w1/b', (F,), 'zeros'),
-                (f'{prefix}/w2/w', (F, D), 'normal'), (f'{prefix}/w2/b', (D,), 'zeros'),
-                *ln(f'{prefix}/ln')]
-    if family == 'transfo_xl':
-        out = [('embed/weight', (V, D), 'normal'), ('out_bias', (V,), 'zeros')]
-        for li in range(m['n_layer']):
-            a = f'layers/{li}/attn'
-            out += [(f'{a}/qkv', (D, 3, N, H), 'normal'), (f'{a}/r', (D, N, H), 'normal'),
-                    (f'{a}/o', (N, H, D), 'normal'), (f'{a}/r_w_bias', (N, H), 'zeros'),
-                    (f'{a}/r_r_bias', (N, H), 'zeros'), *ln(f'{a}/ln'),
-                    *ffn(f'layers/{li}/ffn', m['d_inner'])]
-        return out
-    if family == 'reformer':
-        n1, n2 = m['axial_pos_shape']
-        d1 = D // 4
-        out = [('embed/weight', (V, D), 'normal'), ('axial1', (n1, 1, d1), 'normal'),
-               ('axial2', (1, n2, D - d1), 'normal'), ('lm_head/w', (D, V), 'normal'),
-               ('lm_head/b', (V,), 'zeros'), *ln('ln_f')]
-        for li, kind in enumerate(m['attn_layers']):
-            a = f'layers/{li}/attn'
-            out += [(f'{a}/qk', (D, N, H), 'normal'), (f'{a}/v', (D, N, H), 'normal'),
-                    (f'{a}/o', (N, H, D), 'normal'), *ln(f'{a}/ln'),
-                    *ffn(f'layers/{li}/ffn', m['d_ff'])]
-            if kind == 'local':
-                out.append((f'{a}/k', (D, N, H), 'normal'))
-        return out
-    raise ValueError(f'unknown model family {family!r}')
+def norm(prefix: str, width: int) -> Layout:
+    """A layer norm's scale and bias."""
+    return [(f'{prefix}/scale', (width,), 'ones'), (f'{prefix}/bias', (width,), 'zeros')]
+
+
+def ffn(prefix: str, D: int, F: int) -> Layout:
+    """A feed-forward block: w1 [D, F], w2 [F, D], their biases, its norm."""
+    return [(f'{prefix}/w1/w', (D, F), 'normal'), (f'{prefix}/w1/b', (F,), 'zeros'),
+            (f'{prefix}/w2/w', (F, D), 'normal'), (f'{prefix}/w2/b', (D,), 'zeros'),
+            *norm(f'{prefix}/ln', D)]
+
+
+def layout(family: str, m: Dict) -> Layout:
+    """[(flat key, shape, 'normal' | 'zeros' | 'ones')] in a fixed order:
+    `layout` of `families/<family>.py`."""
+    return families.get(family).layout(m)
 
 
 def make_flat(family: str, m: Dict, seed: int, device) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,7 @@
 """The yardstick: published peaks, the least time of a call, the operations
 and bytes of each attention op at a cell's shapes, and a step's model FLOPs.
+Which calls a forward makes and what it multiplies are its family's
+(`families/<family>.py`); the functions here delegate to it.
 
 The peaks and `bounds` are copied from the bring-up smoke test
 (`chip_smoke.py`), K1's and K2's work from its `k1_work` / `k2_work`, K3's
@@ -11,6 +13,8 @@ move them.
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
+
+from benchmark.harness import families
 
 # NVIDIA H100 SXM data sheet, dense: bf16 / f16 tensor cores, f32 outside
 # them, HBM3; an f32 call also gets the 3xTF32 rate its kernels can reach
@@ -89,34 +93,10 @@ def window_attn_bwd(G: int, T: int, D: int, chunk: int, dtype: str) -> Call:
     return 5 * 2 * D * window_pairs(T, chunk) * G, (6 * e * D + 4 * 4 + 2 * 4 * D) * G * T, dtype
 
 
-OPS = {'rel_attn_fwd': rel_attn_fwd, 'rel_attn_bwd': rel_attn_bwd,
-       'window_attn_fwd': window_attn_fwd, 'window_attn_bwd': window_attn_bwd}
-
-
 def attention_calls(config: Dict, B: int, T: int, backward: bool) -> Dict[str, List[Call]]:
-    """{op: its calls in one forward (and backward)} at batch B, length T.
-    The LSH layers' calls are counted with positions in order within the
-    sorted rows, an estimate of the pairs the hash leaves visible; their
-    bound is the bytes' in either case (`bytes_bound_lsh`)."""
-    m, fam = config['model'], config['family']
-    dt = m['dtype']
-    out: Dict[str, List[Call]] = {}
-    if fam == 'transfo_xl':
-        args = (B * m['n_head'], T, T, 0, m['d_head'], m['n_head'], dt)
-        out['rel_attn_fwd'] = [rel_attn_fwd(*args)] * m['n_layer']
-        if backward:
-            out['rel_attn_bwd'] = [rel_attn_bwd(*args)] * m['n_layer']
-        return out
-    calls_f, calls_b = [], []
-    for kind in m['attn_layers']:
-        G = B * m['n_head'] * (1 if kind == 'local' else m['n_hashes'])
-        chunk = m['local_chunk'] if kind == 'local' else m['lsh_chunk']
-        calls_f.append(window_attn_fwd(G, T, m['d_head'], chunk, dt))
-        calls_b.append(window_attn_bwd(G, T, m['d_head'], chunk, dt))
-    out['window_attn_fwd'] = calls_f
-    if backward:
-        out['window_attn_bwd'] = calls_b
-    return out
+    """{op: its calls in one forward (and backward)} at batch B, length T:
+    `attention_calls` of the configuration's family."""
+    return families.get(config['family']).attention_calls(config, B, T, backward)
 
 
 def bytes_bound_lsh(call: Call) -> bool:
@@ -129,29 +109,26 @@ def bytes_bound_lsh(call: Call) -> bool:
 
 # ------------------------------------------------------------ model FLOPs
 def matmul_params(config: Dict) -> int:
-    """Weights that multiply every token: projections, feed-forwards, head."""
-    m, fam = config['model'], config['family']
-    D, NH, V = m['d_model'], m['n_head'] * m['d_head'], m['vocab_size']
-    if fam == 'transfo_xl':
-        per = D * 3 * NH + NH * D + 2 * D * m['d_inner']
-        return m['n_layer'] * per + D * V
-    n = 0
-    for kind in m['attn_layers']:
-        n += D * NH * (3 if kind == 'local' else 2) + NH * D + 2 * D * m['d_ff']
-    return n + D * V
+    """Weights that multiply every token (projections, feed-forwards, head):
+    `matmul_params` of the configuration's family."""
+    return families.get(config['family']).matmul_params(config)
 
 
 def forward_flops(config: Dict, B: int, T: int) -> float:
-    """One forward at batch B, length T: 2 per weight and token, the
-    attention's products over its visible pairs (counted as the kernels'
-    ops count them, less K2's recomputed scores), and TF-XL's distance
-    tables (one [2T, d] x [d, N H] product per layer and batch)."""
-    m = config['model']
-    flops = 2.0 * matmul_params(config) * B * T
-    for calls in attention_calls(config, B, T, backward=False).values():
-        flops += sum(c[0] for c in calls)
-    if config['family'] == 'transfo_xl':
-        flops += m['n_layer'] * 2.0 * 2 * T * m['d_model'] * m['n_head'] * m['d_head']
+    """One forward at batch B, length T: `forward_flops` of the
+    configuration's family."""
+    return families.get(config['family']).forward_flops(config, B, T)
+
+
+def weight_and_attention_flops(params: int, calls: Dict[str, List[Call]], B: int, T: int
+                               ) -> float:
+    """2 per weight and token, and the attention's products over their
+    visible pairs (`calls` of one forward, counted as the kernels' ops count
+    them, less K2's recomputed scores): the part of a forward that every
+    family has."""
+    flops = 2.0 * params * B * T
+    for cs in calls.values():
+        flops += sum(c[0] for c in cs)
     return flops
 
 

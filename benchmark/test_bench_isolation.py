@@ -57,6 +57,8 @@ def test_sources_import_nothing_forbidden():
     for path in manifest.BENCH_DIR.rglob('*.py'):
         tops = isolation.imported_tops(path)
         assert not tops & set(isolation.FORBIDDEN_RUN), path
+        if 'families' in path.parts:        # the program's classes only as strings
+            assert 'musicnlp_tpu_torch' not in tops, path
         if 'reference' in path.parts:
             assert not tops & set(isolation.FORBIDDEN_REFERENCE), path
             assert not any(t == 'benchmark' for t in tops) or all(

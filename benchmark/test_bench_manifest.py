@@ -54,10 +54,28 @@ def test_each_cell_finds_its_files(cell):
     assert {'rel_attn_fwd', 'rel_attn_bwd', 'window_attn_fwd', 'window_attn_bwd'} <= set(ops)
 
 
-def test_configs_state_no_cut_and_their_recipe():
-    for c in M['configs']:
-        assert c['reduced'] == []
-        with open(manifest.ROOT / c['file']) as f:
+# the configurations measured at full size, in bfloat16 and uncut; a later
+# configuration states its own widths, dtype and cuts
+UNCUT = {'tfxl-base-22-11': (768, 12), 'reformer-base-22-04': (768, 12)}
+
+
+def config_problems(m=M, root=manifest.ROOT):
+    """Each configuration's file names it; those in `UNCUT` state no cut,
+    bfloat16 and their widths."""
+    found = []
+    for c in m['configs']:
+        with open(root / c['file']) as f:
             cfg = json.load(f)
-        assert cfg['name'] == c['name'] and cfg['model']['dtype'] == 'bfloat16'
-        assert cfg['model']['d_model'] == 768 and cfg['model']['n_head'] == 12
+        if cfg['name'] != c['name']:
+            found.append(f"{c['file']} names {cfg['name']}")
+        if c['name'] in UNCUT:
+            model = cfg['model']
+            if (c['reduced'], model['dtype'], (model['d_model'], model['n_head'])) != (
+                    [], 'bfloat16', UNCUT[c['name']]):
+                found.append(f"{c['name']} is not its uncut bfloat16 recipe")
+    return found
+
+
+def test_configs_state_no_cut_and_their_recipe():
+    assert set(UNCUT) <= {c['name'] for c in M['configs']}
+    assert config_problems() == []

@@ -71,6 +71,17 @@ def test_matmul_params_by_hand_and_from_the_programs_leaves(name, params):
     assert sum(int(np.prod(flat[k].shape)) for k in per_token) == params
 
 
+@pytest.mark.parametrize('name, B, T, params, forward', [   # the parent's counts (ef536802)
+    ('tfxl-base-22-11', 21, 1024, 85_848_576, 4_330_572_742_656.0),
+    ('tfxl-base-22-11', 64, 1024, 85_848_576, 13_138_573_393_920.0),
+    ('reformer-base-22-04', 32, 2048, 81_719_808, 11_053_635_207_168.0)])
+def test_model_flops_at_the_cells_shapes_are_pinned(name, B, T, params, forward):
+    cfg = _config(name)
+    assert work.matmul_params(cfg) == params
+    assert work.forward_flops(cfg, B, T) == forward
+    assert work.train_flops(cfg, B, T) == 3.0 * forward
+
+
 def test_step_flops_at_the_cells_shapes():
     tf, rf = _config('tfxl-base-22-11'), _config('reformer-base-22-04')
     per_tok_tf = work.train_flops(tf, 21, 1024) / (21 * 1024)
