@@ -52,6 +52,14 @@ Phases (each prints a line; any failure raises and the exit code is not 0):
      f32, bit-equal; its time beside its byte bound and the plain version's,
      and the whole dense (f32 product + kernel) beside the chain it replaced
      and `torch.addmm`'s bias epilogue;
+  2d. the grouped-query form of K1 / K2 (`gqa_attn_fwd` / `gqa_attn_bwd`,
+     Trinity-Mini's attention) against its plain version at small shapes
+     (groups 2 / 4 / 8, head dims 16-384, windows and none, ragged T, bf16,
+     f16 and f32: the slab forms), and at the training cell's shapes (B·N 128 query heads over
+     16 key heads of 8,192, head dim 128, window 2,048 and 0, bf16) timed
+     beside its bound, its plain version (on 16 of the 128 rows, scaled)
+     and SDPA with `enable_gqa` and the mask; TF-XL's training-shape K1 /
+     K2 timed again beside them;
   3. the training path, counts set to 0 before and read after:
      `Trainer.train` for one epoch of 6 steps of 21 x 1024 seeded synthetic
      songs (dropout 0.1, warmup-cosine AdamW, eval with a padded final batch,
@@ -339,6 +347,12 @@ SLAB_KERNELS = {'flash_rel_attn_fwd': ('k1_slab',),
                 'flash_rel_attn_bwd': ('k2_dkdv_slab', 'k2_dq_slab'),
                 'chunked_window_attn_fwd': ('k3_slab',),
                 'chunked_window_attn_bwd': ('k4_dq_slab', 'k4_dkdv_slab')}
+# K1 / K2's grouped-query form (Trinity's attention), in K1's and K2's
+# libraries: the same split, tensor-core kernels up to head dim 128 in 16
+# bits and slab kernels for f32 and above 128
+GQA_KERNELS = {'flash_rel_attn_fwd': ('k1_gqa_tc', 'k1_gqa_slab'),
+               'flash_rel_attn_bwd': ('k2_gqa_dkdv_tc', 'k2_gqa_dq_tc', 'k2_gqa_dkdv_slab',
+                                      'k2_gqa_dq_slab')}
 TC_KERNELS = {'flash_rel_attn_fwd': ('k1_tc',) + SLAB_KERNELS['flash_rel_attn_fwd'],
               'flash_rel_attn_bwd': ('k2_dkdv_tc', 'k2_dq_tc') + SLAB_KERNELS['flash_rel_attn_bwd'],
               'chunked_window_attn_fwd': ('k3_tc', 'k3_union_tc')
@@ -443,12 +457,13 @@ def tensor_core_check(report):
     instructions."""
     for lib, tc_names in TC_KERNELS.items():
         SASS_MMA[lib] = counts = vr.tensor_core_counts(lib)
+        tc_names = tc_names + GQA_KERNELS.get(lib, ())
         for name in tc_names:
             fns = [c for f, c in counts.items() if name in f]
             if not fns or min(fns) == 0:
                 raise AssertionError(f'{lib}: tensor-core instructions of {name}: {counts}')
             dtypes = (torch.bfloat16, torch.float16) + \
-                ((torch.float32,) if name in SLAB_KERNELS[lib] else ())
+                ((torch.float32,) if name.endswith('_slab') else ())
             if lib in BOTH_16_BIT and not all(
                     any(name in f and DTYPE_MANGLED[d] in f for f in counts) for d in dtypes):
                 raise AssertionError(f'{lib}: {name} is not built for {dtypes}: {counts}')
@@ -496,6 +511,10 @@ def kernel_resources(report, built):
         libs[name] = ctypes.CDLL(str(lib_path(name)))
         fn = getattr(libs[name], f'{name}_resources')
         fn.argtypes = [ctypes.c_int] * (2 if name.startswith('flash') else 3) + [ctypes.c_void_p]
+    libs['flash_rel_attn_fwd'].gqa_attn_fwd_resources.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    libs['flash_rel_attn_bwd'].gqa_attn_bwd_resources.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     k1, k2 = libs['flash_rel_attn_fwd'], libs['flash_rel_attn_bwd']
     k3, k4 = libs['chunked_window_attn_fwd'], libs['chunked_window_attn_bwd']
     rows = []
@@ -515,6 +534,11 @@ def kernel_resources(report, built):
             read(k2.flash_rel_attn_bwd_resources(H, code, out),
                  ('k2_dkdv_slab', 'k2_dq_slab') if slab else ('k2_dkdv_tc', 'k2_dq_tc'),
                  dtype=dt, H=H)
+            read(k1.gqa_attn_fwd_resources(H, code, out),
+                 ('k1_gqa_slab',) if slab else ('k1_gqa_tc',), dtype=dt, H=H)
+            read(k2.gqa_attn_bwd_resources(H, code, out),
+                 ('k2_gqa_dkdv_slab', 'k2_gqa_dq_slab') if slab
+                 else ('k2_gqa_dkdv_tc', 'k2_gqa_dq_tc'), dtype=dt, H=H)
         for chunk, D in CHUNK_RESOURCE_SHAPES:
             per_chunk = chunk in (32, 64) and D <= 64
             slab = code == 0 or D > 128          # every f32 call on the slab kernels
@@ -532,7 +556,7 @@ def kernel_resources(report, built):
             log(f'[resources] {lib}: built before this run, ptxas spills not read')
             continue
         spills.update({f: sp for f, sp in ptxas_spills(built[lib]['ptxas']).items()
-                       if any(n in f for n in TC_KERNELS[lib])})
+                       if any(n in f for n in TC_KERNELS[lib] + GQA_KERNELS.get(lib, ()))})
     log(f'[resources] ptxas spill bytes (stores, loads) of {len(spills)} tensor-core K1-K4 '
         f'functions: {sorted(set(spills.values()))}')
     report['tensor_core_resources'] = dict(rows=rows, spills=spills)
@@ -718,6 +742,128 @@ def k2_case(dev, name, dtype, B, N, T, M, H, clamp, mem_valid, window, seed, tim
         raise AssertionError(f'K2 disagrees with its plain version in case {name}: {rel} '
                              f'(tol {TOL_K2[dtype]})')
     return rec
+
+
+# ------------------------------------------------------- grouped-query K1 / K2
+def gqa_work(BN, G, T, H, window, dtype, backward):
+    """(flops, bytes) of a grouped-query call: 2 H-long products per
+    visible pair forward (QK, PV), 5 backward (the scores, dP, dV, dK, dQ);
+    forward q, k, v read once (k, v at BN / G rows), ctx and lse written
+    once; backward q, out, dO, k, v and lse read, dq and f32 dk, dv written."""
+    visible = int(fa._key_mask(T, T, 0, 0, window, 'cpu').sum())
+    e = torch.tensor([], dtype=dtype).element_size()
+    kv = BN // G * T * H
+    if not backward:
+        return 2 * 2 * H * visible * BN, e * (2 * BN * T * H + 2 * kv) + 4 * BN * T
+    return 5 * 2 * H * visible * BN, e * (4 * BN * T * H + 2 * kv) + 4 * BN * T + 8 * kv
+
+
+def gqa_case(dev, name, dtype, B, N, G, T, H, window, seed, timed=False, plain_rows=None):
+    """The grouped-query forward and backward against their plain versions
+    (on the first `plain_rows` query rows and their key rows, where given);
+    timed: the kernels, the plain versions (scaled to every row) and SDPA
+    with `enable_gqa` and the mask, beside the bound."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    mk = lambda *sh: torch.randn(*sh, generator=g).to(dev, dtype)
+    BN = B * N
+    q, k, v, d_out = mk(BN, T, H), mk(BN // G, T, H), mk(BN // G, T, H), mk(BN, T, H)
+    sc, kw = H ** -0.5, dict(G=G, scale=H ** -0.5, window=window)
+    saved = dict(fa.LAUNCHES)
+    out, lse = fa.gqa_attn_fwd(q, k, v, **kw)
+    dq, dk, dv = fa.gqa_attn_bwd(q, k, v, out, d_out, lse, **kw)
+    n = plain_rows or BN
+    sub = lambda t, r: t[:r].contiguous()
+    ro, rl = fa.gqa_attn_fwd_plain(sub(q, n), sub(k, n // G), sub(v, n // G), **kw)
+    rq, rk, rv = fa.gqa_attn_bwd_plain(sub(q, n), sub(k, n // G), sub(v, n // G), out[:n],
+                                       d_out[:n], lse[:n], **kw)
+    torch.cuda.synchronize()
+    rel = {nm: float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                 1e-30)
+           for nm, a, b in (('dq', dq[:n], rq), ('dk', dk[:n // G], rk), ('dv', dv[:n // G], rv))}
+    rec = dict(case=name, dtype=str(dtype).split('.')[-1], BN=BN, G=G, T=T, H=H, window=window,
+               compared_rows=n, ctx_max_abs_err=float((out[:n].float() - ro.float()).abs().max()),
+               lse_max_abs_err=float((lse[:n] - rl).abs().max()), bwd_rel_err=rel,
+               tol_ctx=TOL[dtype]['ctx'], tol_lse=TOL[dtype]['lse'], tol_bwd=TOL_K2[dtype])
+    del ro, rl, rq, rk, rv
+    if timed:
+        rec['fwd_ms'] = time_ms(lambda: fa.gqa_attn_fwd(q, k, v, **kw))
+        rec['bwd_ms'] = time_ms(lambda: fa.gqa_attn_bwd(q, k, v, out, d_out, lse, **kw))
+        qs, ks, vs = sub(q, n), sub(k, n // G), sub(v, n // G)
+        rec['plain_fwd_ms'] = time_ms(lambda: fa.gqa_attn_fwd_plain(qs, ks, vs, **kw),
+                                      iters=2, warmup=1) * BN / n
+        rec['plain_bwd_ms'] = time_ms(lambda: fa.gqa_attn_bwd_plain(
+            qs, ks, vs, out[:n], d_out[:n], lse[:n], **kw), iters=2, warmup=1) * BN / n
+        torch.cuda.empty_cache()
+        # SDPA: [B, N, T, H] queries over [B, NK, T, H] keys with `enable_gqa`
+        # and the boolean mask; where no backend takes that (or it does not
+        # fit), over the key heads repeated to N (its error recorded)
+        mask = fa._key_mask(T, T, 0, 0, window, dev)
+        g4 = d_out.view(B, N, T, H)
+        for tag, kv_of, gqa in (('library', lambda t: t.view(B, -1, T, H), True),
+                                ('library_repeated_kv',
+                                 lambda t: t.repeat_interleave(G, 0).view(B, N, T, H), False)):
+            try:
+                ins = [t.detach().requires_grad_(True)
+                       for t in (q.view(B, N, T, H), kv_of(k), kv_of(v))]
+                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *ins, attn_mask=mask, scale=sc, enable_gqa=gqa)
+                rec[f'{tag}_fwd_ms'] = time_ms(sdpa)
+                o4 = sdpa()
+                rec[f'{tag}_bwd_ms'] = time_ms(lambda: torch.autograd.grad(
+                    o4, ins, g4, retain_graph=True))
+                if not window:          # the causal flag (the flash backend) besides the mask
+                    rec[f'{tag}_causal_fwd_ms'] = time_ms(
+                        lambda: torch.nn.functional.scaled_dot_product_attention(
+                            *ins, is_causal=True, scale=sc, enable_gqa=gqa))
+                break
+            except (RuntimeError, torch.OutOfMemoryError) as e:
+                rec[f'{tag}_error'] = repr(e)[:300]
+            finally:
+                o4 = ins = None
+                torch.cuda.empty_cache()
+        for part, bw in (('fwd', False), ('bwd', True)):
+            flops, nbytes = gqa_work(BN, G, T, H, window, dtype, bw)
+            b = bounds(flops, nbytes, dtype)
+            rec[f'{part}_flops'], rec[f'{part}_bytes'] = flops, nbytes
+            rec[f'{part}_bound_ms'] = b['bound_ms']
+            rec[f'{part}_roofline_pct'] = b['bound_ms'] / rec[f'{part}_ms'] * 100
+        torch.cuda.empty_cache()
+    fa.LAUNCHES.update(saved)                    # comparison launches do not count
+    log(f'[gqa] {json.dumps(rec)}')
+    if not (math.isfinite(rec['ctx_max_abs_err']) and rec['ctx_max_abs_err'] <= TOL[dtype]['ctx']
+            and rec['lse_max_abs_err'] <= TOL[dtype]['lse']
+            and all(math.isfinite(e) and e <= TOL_K2[dtype] for e in rel.values())):
+        raise AssertionError(f'the grouped-query K1 / K2 disagree with their plain versions in '
+                             f'case {name}: {rec}')
+    return rec
+
+
+def gqa_phase(dev, report):
+    """Phase 2d: the grouped-query form of K1 / K2 (module docstring)."""
+    cases = [
+        gqa_case(dev, 'g4-h128-w64-bf16', torch.bfloat16, 1, 8, 4, 256, 128, 64, 51),
+        gqa_case(dev, 'g8-h128-ragged-w100-bf16', torch.bfloat16, 1, 8, 8, 333, 128, 100, 52),
+        gqa_case(dev, 'g4-h64-ragged-f16', torch.float16, 2, 8, 4, 333, 64, 0, 53),
+        gqa_case(dev, 'g2-h64-w64-bf16', torch.bfloat16, 2, 8, 2, 200, 64, 64, 54),
+        gqa_case(dev, 'g2-h32-bf16', torch.bfloat16, 1, 4, 2, 130, 32, 0, 55),
+        gqa_case(dev, 'g4-h16-w40-f16', torch.float16, 1, 4, 4, 130, 16, 40, 56),
+        # the slab forms: f32 at every head dim, 16 bits above 128
+        gqa_case(dev, 'g4-h128-w64-f32', torch.float32, 1, 8, 4, 333, 128, 64, 61),
+        gqa_case(dev, 'g2-h64-f32', torch.float32, 2, 4, 2, 200, 64, 0, 62),
+        gqa_case(dev, 'g4-h16-w40-f32', torch.float32, 1, 4, 4, 130, 16, 40, 63),
+        gqa_case(dev, 'g2-h256-w100-bf16', torch.bfloat16, 1, 4, 2, 333, 256, 100, 64),
+        gqa_case(dev, 'g2-h384-f32', torch.float32, 1, 4, 2, 200, 384, 0, 65),
+        # Trinity-Mini's training cell: 4 rows x 32 query heads over 4 key heads
+        gqa_case(dev, 'trinity-sliding-bf16', torch.bfloat16, 4, 32, 8, 8192, 128, 2048, 57,
+                 timed=True, plain_rows=16),
+        gqa_case(dev, 'trinity-full-bf16', torch.bfloat16, 4, 32, 8, 8192, 128, 0, 58,
+                 timed=True, plain_rows=16),
+    ]
+    # TF-XL's training shape again beside them: K1 / K2's own instantiations
+    tfxl = [k1_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 7, True),
+            k2_case(dev, 'train-bf16', torch.bfloat16, 21, 12, 1024, 0, 64, 1024, 0, 0, 21, True)]
+    report.update(gqa_cases=cases, gqa_tfxl_ms=dict(k1=tfxl[0]['ms'], k2=tfxl[1]['ms']))
+    return cases
 
 
 # ---------------------------------------------------------------- main path
@@ -3842,6 +3988,10 @@ def main() -> int:
     # 2c. the dense layers' epilogue (bias, relu, one rounding) against its
     # plain version on the card
     bias_act_cases = bias_act_phase(dev, report)
+
+    # 2d. the grouped-query form of K1 / K2 against its plain version on the
+    # card, and at the Trinity-Mini training cell's shapes
+    gqa_phase(dev, report)
 
     # 3. the training path, counted
     tok = MusicTokenizer(pitch_kind='degree', model_max_length=1024)

@@ -34,6 +34,10 @@
 //   bf16 / f16 up to H 128: k2_dkdv_tc / k2_dq_tc (below);
 //   f32 at every H, bf16 / f16 above 128: k2_dkdv_slab / k2_dq_slab (the
 //   slab kernels, after namespace tc), f32 products in 3xTF32.
+// The grouped-query form (entry point gqa_attn_bwd; k2_gqa_dkdv_tc /
+// k2_gqa_dq_tc, k2_gqa_dkdv_slab / k2_gqa_dq_slab) is the same backward
+// without the distance term (no BD, drr or dG), for G query heads over one
+// key / value head, whose dk / dv sum the group's pairs in the dk / dv kernel.
 //
 // bf16 and f16 (k2_dkdv_tc, k2_dq_tc, templated on the element type), the
 // training path, at H <= 128: every product (AC, BD, dP, dV, dK, dRW, dRR,
@@ -200,8 +204,9 @@ __device__ __forceinline__ void qk_dov(float (&s)[Split<H>::KW / 8][4],
 
 // p and ds of the warp's entries in place of s and dp (f32; `pack` rounds
 // them to E where they enter a product); lse / delta of rows g and g + 8 in
-// l / dl; `full`: every pair of the tile is visible
-template <int H>
+// l / dl; `full`: every pair of the tile is visible.  BD false: the
+// grouped-query form, no distance term (sXw unread)
+template <int H, bool BD = true>
 __device__ __forceinline__ void p_ds(float (&s)[Split<H>::KW / 8][4],
                                      float (&dp)[Split<H>::KW / 8][4], const float* sXw, int q0,
                                      int k0, int p, int c, int lane, const float (&l)[2],
@@ -214,7 +219,7 @@ __device__ __forceinline__ void p_ds(float (&s)[Split<H>::KW / 8][4],
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int qr = g + 8 * (e >> 1), kl = 8 * j + 2 * t + (e & 1);
-            const float bd = sXw[qr * XS + 15 - qr + kl];
+            const float bd = BD ? sXw[qr * XS + 15 - qr + kl] : -0.f;   // s + -0 is s
             const bool ok =
                 full || visible(q0 + 16 * p + qr, k0 + KW * c + kl, T_, S, M, mv, window);
             const float pr = ok ? expf((s[j][e] + bd) * scale - l[e >> 1]) : 0.f;
@@ -618,6 +623,228 @@ k2_dq_tc(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restrict
             *reinterpret_cast<uint32_t*>(r_r + 8 * n + 2 * t) =
                 pack<E>(dra[n][2 * h], dra[n][2 * h + 1]);
         }
+    }
+}
+
+// The grouped-query form: k2_dkdv_tc / k2_dq_tc without the distance term,
+// for G query heads that share one key / value head.  q / dO [BN, T, H]
+// (row bn = b N + h), k / v [BN / G, T, H]; no memory (S = T, M = 0);
+// window > 0 keeps q - k < window.  dk / dv of a key row are the sums over
+// its G query rows' pairs: k2_gqa_dkdv_tc runs one block per (key row,
+// 64-key tile) -- grid x the key row, y the tile, so that the first tiles,
+// which the most queries see, start first -- and walks the (query head, q
+// tile) pairs that see the tile, head by head, with dk / dv in registers, so
+// the sum over the group is taken in the block, with no atomics and in a
+// fixed order.  k2_gqa_dq_tc runs one block per (query row, q tile) over the
+// key tiles it sees, as k2_dq_tc without drr and dG.  S, dP, p, ds and
+// their rounding are k2_dkdv_tc's (p_ds<H, false>).  A group's scratch holds
+// its rows of P and dS (dkdv) or, at H = 128, of dS (dq).  Shared memory at
+// H = 128: dkdv 122 KB, dq 113 KB.
+template <int H>
+constexpr size_t gqa_dkdv_smem_bytes() {
+    // sK, sV; 2 stages of Q, dO, all [.][H+8] b16; each group's P and dS [16][PS2] b16
+    return 2 * (size_t)(2 * BK + 2 * 2 * BQ) * (H + 8) + (size_t)NG * 2 * 16 * PS2 * 2;
+}
+
+template <int H>
+constexpr size_t gqa_dq_smem_bytes() {
+    // sQ, sDO; 2 stages of K, V, all [.][H+8] b16; at SP 2 each group's dS [16][PS2] b16
+    return 2 * (size_t)(2 * BQ + 2 * 2 * BK) * (H + 8) +
+           (Split<H>::SP > 1 ? (size_t)NG * 16 * PS2 * 2 : 0);
+}
+
+template <typename E, int H>
+__global__ void __launch_bounds__(Split<H>::NT, Split<H>::SP == 1 ? 2 : 1)
+k2_gqa_dkdv_tc(const E* __restrict__ qq, const E* __restrict__ kk, const E* __restrict__ vv,
+               const E* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+               int G, int T_, float scale, int window) {
+    using SPL = Split<H>;
+    constexpr int HS = H + 8, KW = SPL::KW, HW = SPL::HW, NT = SPL::NT;
+    constexpr int STAGE = 2 * BQ * HS;              // Q, dO
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sK = reinterpret_cast<E*>(smem_raw);
+    E* sV = sK + BK * HS;
+    E* sQ = sV + BK * HS;                           // stage b: Q, dO
+    E* scratch = sQ + 2 * STAGE;
+    // group v's rows of P and dS
+    auto sP_of = [&](int v) { return scratch + v * 2 * 16 * PS2; };
+    auto sDS_of = [&](int v) { return sP_of(v) + 16 * PS2; };
+
+    const int kvn = blockIdx.x;
+    const int k0 = blockIdx.y * BK;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SPL::SP, c = w % SPL::SP;     // group, warp in the group
+    const int gq = lane >> 2, t = lane & 3;
+
+    // q tiles that see some key of this tile, in each of the G query heads
+    const int k_last = min(k0 + BK, T_) - 1;
+    const int q_hi = window > 0 ? min(T_, window + k_last) : T_;   // exclusive
+    const int qt_begin = k0 / BQ, nq = (q_hi + BQ - 1) / BQ - qt_begin;
+    const int n_items = G * nq;
+    auto load_q = [&](int n) {                       // Q, dO of item n: head n / nq
+        const size_t row = (size_t)(kvn * G + n / nq) * T_ * H;
+        const int q0 = (qt_begin + n % nq) * BQ;
+        E* st = sQ + (n & 1) * STAGE;
+        stage_rows<H>(st, qq + row, q0, BQ, T_, tid, NT);
+        stage_rows<H>(st + BQ * HS, dout + row, q0, BQ, T_, tid, NT);
+        cp_commit();
+    };
+
+    // key rows 16p + g (+8), columns HW c + 8n + 2t
+    float dka[HW / 8][4] = {}, dva[HW / 8][4] = {};
+    if (n_items > 0) {
+        stage_rows<H>(sK, kk + (size_t)kvn * T_ * H, k0, BK, T_, tid, NT);
+        stage_rows<H>(sV, vv + (size_t)kvn * T_ * H, k0, BK, T_, tid, NT);
+        load_q(0);
+    }
+    for (int n = 0; n < n_items; ++n) {
+        const int bn = kvn * G + n / nq, q0 = (qt_begin + n % nq) * BQ;
+        cp_wait<0>();
+        __syncthreads();                 // item n landed; every warp is done with item n - 1
+        if (n + 1 < n_items) load_q(n + 1);
+        const E* sQw = sQ + (n & 1) * STAGE;
+        const E* sDO = sQw + BQ * HS;
+        float l2[2], d2[2];
+        row_stats(l2, d2, lse + (size_t)bn * T_, delta + (size_t)bn * T_, q0, p, lane, T_);
+
+        float s[KW / 8][4], dp[KW / 8][4];
+        qk_dov<E, H>(s, dp, sQw, sDO, sK, sV, p, c, lane);
+        p_ds<H, false>(s, dp, nullptr, q0, k0, p, c, lane, l2, d2, T_, T_, 0, 0, scale, window,
+                       tile_full(q0, k0, T_, T_, 0, 0, window));
+        put_rows<E, H>(sP_of(p), s, c, lane);
+        put_rows<E, H>(sDS_of(p), dp, c, lane);
+        __syncthreads();                 // every group's P / dS rows are written
+
+        // dv += P^T dO, dk += dS^T Q over the item's 64 q rows (16 per
+        // group's scratch): key rows 16p.., columns HW c..
+#pragma unroll
+        for (int kq = 0; kq < NG; ++kq) {
+            uint32_t ap[4], ad[4];
+            load_at(ap, sP_of(kq), PS2, 16 * p, 0, lane);
+            load_at(ad, sDS_of(kq), PS2, 16 * p, 0, lane);
+#pragma unroll
+            for (int np = 0; np < HW / 16; ++np) {
+                uint32_t bo[4], bq[4];
+                load_bt(bo, sDO, HS, HW * c + 16 * np, 16 * kq, lane);
+                load_bt(bq, sQw, HS, HW * c + 16 * np, 16 * kq, lane);
+                mma<E>(dva[2 * np], ap, bo[0], bo[1]);
+                mma<E>(dva[2 * np + 1], ap, bo[2], bo[3]);
+                mma<E>(dka[2 * np], ad, bq[0], bq[1]);
+                mma<E>(dka[2 * np + 1], ad, bq[2], bq[3]);
+            }
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int k = k0 + 16 * p + gq + 8 * h;
+        if (k >= T_) continue;
+        float* dk_r = dk + ((size_t)kvn * T_ + k) * H + HW * c;
+        float* dv_r = dv + ((size_t)kvn * T_ + k) * H + HW * c;
+#pragma unroll
+        for (int n = 0; n < HW / 8; ++n) {
+            *reinterpret_cast<float2*>(dk_r + 8 * n + 2 * t) =
+                make_float2(dka[n][2 * h], dka[n][2 * h + 1]);
+            *reinterpret_cast<float2*>(dv_r + 8 * n + 2 * t) =
+                make_float2(dva[n][2 * h], dva[n][2 * h + 1]);
+        }
+    }
+}
+
+template <typename E, int H>
+__global__ void __launch_bounds__(Split<H>::NT, Split<H>::SP == 1 ? 2 : 1)
+k2_gqa_dq_tc(const E* __restrict__ qq, const E* __restrict__ kk, const E* __restrict__ vv,
+             const E* __restrict__ dout, const float* __restrict__ lse,
+             const float* __restrict__ delta, E* __restrict__ dq, int G, int T_, float scale,
+             int window) {
+    using SPL = Split<H>;
+    constexpr int HS = H + 8, KW = SPL::KW, HW = SPL::HW, SP = SPL::SP, NT = SPL::NT;
+    constexpr int STAGE = 2 * BK * HS;              // K, V
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQw = reinterpret_cast<E*>(smem_raw);
+    E* sDO = sQw + BQ * HS;
+    E* sKV = sDO + BQ * HS;                         // stage b: K, V
+
+    const int bn = blockIdx.y;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP;               // group, warp in the group
+    const int gq = lane >> 2, t = lane & 3;
+    E* dsr = sKV + 2 * STAGE + p * 16 * PS2;        // the group's dS rows (SP 2)
+
+    const E* k_b = kk + (size_t)(bn / G) * T_ * H;
+    const E* v_b = vv + (size_t)(bn / G) * T_ * H;
+
+    // keys any row of this tile can see (k1_gqa_tc's range)
+    const int k_hi = min(q0 + BQ, T_);                  // exclusive
+    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+    auto load_k = [&](int kt) {                      // K, V of tile kt
+        E* st = sKV + ((kt - kt_begin) & 1) * STAGE;
+        stage_rows<H>(st, k_b, kt * BK, BK, T_, tid, NT);
+        stage_rows<H>(st + BK * HS, v_b, kt * BK, BK, T_, tid, NT);
+        cp_commit();
+    };
+
+    float l2[2], d2[2];
+    row_stats(l2, d2, lse + (size_t)bn * T_, delta + (size_t)bn * T_, q0, p, lane, T_);
+    float dwa[HW / 8][4] = {};                      // q rows 16p + g (+8), columns HW c + 8n + 2t
+    stage_rows<H>(sQw, qq + (size_t)bn * T_ * H, q0, BQ, T_, tid, NT);
+    stage_rows<H>(sDO, dout + (size_t)bn * T_ * H, q0, BQ, T_, tid, NT);
+    load_k(kt_begin);
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int it = kt - kt_begin, k0 = kt * BK;
+        cp_wait<0>();
+        __syncthreads();                 // tile kt landed; every warp is done with tile kt - 1
+        if (kt + 1 < kt_end) load_k(kt + 1);
+        const E* sK = sKV + (it & 1) * STAGE;
+        const E* sV = sK + BK * HS;
+
+        float s[KW / 8][4], dp[KW / 8][4];
+        qk_dov<E, H>(s, dp, sQw, sDO, sK, sV, p, c, lane);
+        p_ds<H, false>(s, dp, nullptr, q0, k0, p, c, lane, l2, d2, T_, T_, 0, 0, scale, window,
+                       tile_full(q0, k0, T_, T_, 0, 0, window));
+        if constexpr (SP == 1) {         // dq += dS . K, dS from the accumulators
+#pragma unroll
+            for (int kk2 = 0; kk2 < BK / 16; ++kk2) {
+                uint32_t a[4];
+                c_to_a<E>(a, dp[2 * kk2], dp[2 * kk2 + 1]);
+#pragma unroll
+                for (int np = 0; np < H / 16; ++np) {
+                    uint32_t bk[4];
+                    load_bt(bk, sK, HS, 16 * np, 16 * kk2, lane);
+                    mma<E>(dwa[2 * np], a, bk[0], bk[1]);
+                    mma<E>(dwa[2 * np + 1], a, bk[2], bk[3]);
+                }
+            }
+        } else {                         // dq += dS . K over the group's 64 keys, columns HW c..
+            put_rows<E, H>(dsr, dp, c, lane);
+            group_sync<SP>(p);
+#pragma unroll
+            for (int kk2 = 0; kk2 < BK / 16; ++kk2) {
+                uint32_t a[4];
+                load_a(a, dsr, PS2, 0, 16 * kk2, lane);
+#pragma unroll
+                for (int np = 0; np < HW / 16; ++np) {
+                    uint32_t bk[4];
+                    load_bt(bk, sK, HS, HW * c + 16 * np, 16 * kk2, lane);
+                    mma<E>(dwa[2 * np], a, bk[0], bk[1]);
+                    mma<E>(dwa[2 * np + 1], a, bk[2], bk[3]);
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 16 * p + gq + 8 * h;
+        if (q >= T_) continue;
+        E* w_r = dq + ((size_t)bn * T_ + q) * H + HW * c;
+#pragma unroll
+        for (int n = 0; n < HW / 8; ++n)
+            *reinterpret_cast<uint32_t*>(w_r + 8 * n + 2 * t) =
+                pack<E>(dwa[n][2 * h], dwa[n][2 * h + 1]);
     }
 }
 
@@ -1069,6 +1296,264 @@ k2_dq_slab(const E* __restrict__ rw, const E* __restrict__ rr, const E* __restri
     }
 }
 
+// The grouped-query form of the slab kernels: k2_dkdv_slab / k2_dq_slab's
+// layout, items and products without the distance term (no Qr, no table
+// window, no dSskew, drr or dG), for every f32 call and a 16-bit call above
+// head dim 128; no memory (S = T).  k2_gqa_dkdv_slab runs one block per
+// (key row, 64-key tile, group of output slabs) -- grid x the key row, y
+// the tile -- over the (query head, q tile) pairs that see the tile, head
+// by head: dk / dv sum the key row's G query rows in the block, with no
+// atomics.  k2_gqa_dq_slab runs one block per (query row, q tile) over its
+// key tiles; its output items restage K's slab alone.
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
+k2_gqa_dkdv_slab(const E* __restrict__ qq, const E* __restrict__ kk, const E* __restrict__ vv,
+                 const E* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                 int G, int T_, float scale, int window, int ns) {
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: tile i at ring + (NTILE b + i) TILE
+    E* sP = reinterpret_cast<E*>(smem_raw + L::RING + L::X_BYTES);   // P^T [BK][PS]
+    E* sDS = sP + BK * PS;                                           // dS^T
+
+    const int kvn = blockIdx.x, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
+    const int k0 = blockIdx.y * BK;
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
+    const E* k_b = kk + (size_t)kvn * T_ * H;
+    const E* v_b = vv + (size_t)kvn * T_ * H;
+
+    // q tiles that see some key of this tile, in each of the G query heads
+    const int k_last = min(k0 + BK, T_) - 1;
+    const int q_hi = window > 0 ? min(T_, window + k_last) : T_;     // exclusive
+    const int qt_begin = k0 / BQ, nq = (q_hi + BQ - 1) / BQ - qt_begin;
+    // the items of a (head, q tile) pair: its ns score slabs, then the
+    // block's output slabs but the head dim's last, which the last score
+    // slab's tiles serve
+    const bool last_in = z0 + nz == ns;
+    const int per = ns + nz - last_in, n_items = G * nq * per;
+    auto row_of = [&](int n) { return kvn * G + n / per / nq; };     // the pair's query row
+    auto q0_of = [&](int n) { return (qt_begin + n / per % nq) * BQ; };
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, q0 = q0_of(n);
+        const size_t row = (size_t)row_of(n) * T_ * H;
+        E* st = ring + (n & 1) * L::NTILE * TILE;
+        const int c0 = W * (m < ns ? m : z0 + m - ns);
+        stage<W>(st + L::QW * TILE, qq + row, q0, BQ, T_, H, c0, tid, NT);
+        stage<W>(st + L::DO * TILE, dout + row, q0, BQ, T_, H, c0, tid, NT);
+        if (m < ns) {
+            stage<W>(st + L::KK * TILE, k_b, k0, BK, T_, H, c0, tid, NT);
+            stage<W>(st + L::VV * TILE, v_b, k0, BK, T_, H, c0, tid, NT);
+        }
+        mma_bf16::cp_commit();
+    };
+    if (n_items > 0) issue(0);
+
+    // key rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float dka[ZS][OW / 8][4] = {}, dva[ZS][OW / 8][4] = {};
+    constexpr int PC = ZS <= 2 ? 2 : 1;
+    auto apply = [&](int zi, const E* st) {     // k2_dkdv_slab's
+        if (OW * c >= W) return;
+        const E* tQ = st + L::QW * TILE;
+        const E* tO = st + L::DO * TILE;
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += PC) {
+                float tv[2 * PC][4] = {}, tk[2 * PC][4] = {};
+#pragma unroll 1
+                for (int kq = 0; kq < BQ / K8; ++kq) {
+                    FragA<E> ap, ad;
+                    load_a(ap, sP, PS, 16 * p, K8 * kq, lane);
+                    load_a(ad, sDS, PS, 16 * p, K8 * kq, lane);
+#pragma unroll
+                    for (int j = 0; j < PC && cp + j < OW / 16; ++j) {
+                        FragB<E> bo[2], bq[2];
+                        load_bt(bo, tO, RS, OW * c + 16 * (cp + j), K8 * kq, lane);
+                        load_bt(bq, tQ, RS, OW * c + 16 * (cp + j), K8 * kq, lane);
+                        mma(tv[2 * j], ap, bo[0]);
+                        mma(tk[2 * j], ad, bq[0]);
+                        mma(tv[2 * j + 1], ap, bo[1]);
+                        mma(tk[2 * j + 1], ad, bq[1]);
+                    }
+                }
+                add_pass(dva[zz], tv, cp);
+                add_pass(dka[zz], tk, cp);
+            }
+        }
+    };
+
+    float s[KW / 8][4], dp[KW / 8][4], l2[2], d2[2], unused = 0.f;
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, q0 = q0_of(n), bn = row_of(n);
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m >= ns) {
+            apply(m - ns, st);
+            continue;
+        }
+        if (m == 0) {
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+        if (m == ns - 1)
+            tc::row_stats(l2, d2, lse + (size_t)bn * T_, delta + (size_t)bn * T_, q0, p, lane, T_);
+        pair_product<E, W, false>(s, dp, st + L::QW * TILE, st + L::DO * TILE,
+                                  st + L::KK * TILE, st + L::VV * TILE, 16 * p, KW * c, RS, lane,
+                                  unused, nullptr, nullptr);
+        if (m < ns - 1) continue;
+        tc::p_ds<128, false>(s, dp, nullptr, q0, k0, p, c, lane, l2, d2, T_, T_, 0, 0, scale,
+                             window, tc::tile_full(q0, k0, T_, T_, 0, 0, window));
+        put_frags<E, true>(sP, s, PS, 16 * p, KW * c, lane);
+        put_frags<E, true>(sDS, dp, PS, 16 * p, KW * c, lane);
+        __syncthreads();                         // every warp's P^T / dS^T entries are written
+        if (last_in) apply(ns - 1 - z0, st);
+    }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
+
+#pragma unroll
+    for (int zz = 0; zz < ZS; ++zz) {
+        if (zz >= nz || OW * c >= W) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int k = k0 + 16 * p + gq + 8 * h;
+            if (k >= T_) continue;
+            const size_t o = ((size_t)kvn * T_ + k) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int n = 0; n < OW / 8; ++n) {
+                put2<float>(dk + o + 8 * n + 2 * t, dka[zz][n][2 * h], dka[zz][n][2 * h + 1]);
+                put2<float>(dv + o + 8 * n + 2 * t, dva[zz][n][2 * h], dva[zz][n][2 * h + 1]);
+            }
+        }
+    }
+}
+
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
+k2_gqa_dq_slab(const E* __restrict__ qq, const E* __restrict__ kk, const E* __restrict__ vv,
+               const E* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, E* __restrict__ dq, int G, int T_, float scale,
+               int window, int ns) {
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: tile i at ring + (NTILE b + i) TILE
+    E* sDS = reinterpret_cast<E*>(smem_raw + L::RING + L::X_BYTES);  // dS [BQ][PS]
+
+    const int bn = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
+    const E* q_b = qq + (size_t)bn * T_ * H;
+    const E* do_b = dout + (size_t)bn * T_ * H;
+    const E* k_b = kk + (size_t)(bn / G) * T_ * H;
+    const E* v_b = vv + (size_t)(bn / G) * T_ * H;
+
+    // keys any row of this tile can see (k1_gqa_slab's range)
+    const int k_hi = min(q0 + BQ, T_);                  // exclusive
+    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+    const bool last_in = z0 + nz == ns;
+    const int per = ns + nz - last_in, n_items = (kt_end - kt_begin) * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        E* st = ring + (n & 1) * L::NTILE * TILE;
+        const int c0 = W * (m < ns ? m : z0 + m - ns);
+        stage<W>(st + L::KK * TILE, k_b, k0, BK, T_, H, c0, tid, NT);
+        if (m < ns) {
+            stage<W>(st + L::QW * TILE, q_b, q0, BQ, T_, H, c0, tid, NT);
+            stage<W>(st + L::DO * TILE, do_b, q0, BQ, T_, H, c0, tid, NT);
+            stage<W>(st + L::VV * TILE, v_b, k0, BK, T_, H, c0, tid, NT);
+        }
+        mma_bf16::cp_commit();
+    };
+    if (n_items > 0) issue(0);
+
+    float l2[2], d2[2];
+    tc::row_stats(l2, d2, lse + (size_t)bn * T_, delta + (size_t)bn * T_, q0, p, lane, T_);
+    // q rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float dwa[ZS][OW / 8][4] = {};
+    // slab z0 + zi of the tile pair (staged in st): dq += dS . K, the warp's
+    // columns, the pair's products summed apart
+    auto apply = [&](int zi, const E* st) {
+        const E* tK = st + L::KK * TILE;
+        if (OW * c >= W) return;                 // W 16: the group's second warp has none
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += CH) {
+                float tw[2 * CH][4] = {};
+#pragma unroll 1
+                for (int kb = 0; kb < BK / K8; ++kb) {
+                    FragA<E> a;
+                    load_a(a, sDS, PS, 16 * p, K8 * kb, lane);
+#pragma unroll
+                    for (int j = 0; j < CH && cp + j < OW / 16; ++j) {
+                        FragB<E> b[2];
+                        load_bt(b, tK, RS, OW * c + 16 * (cp + j), K8 * kb, lane);
+                        mma(tw[2 * j], a, b[0]);
+                        mma(tw[2 * j + 1], a, b[1]);
+                    }
+                }
+                add_pass(dwa[zz], tw, cp);
+            }
+        }
+    };
+
+    float s[KW / 8][4], dp[KW / 8][4], unused = 0.f;
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m >= ns) {
+            apply(m - ns, st);
+            continue;
+        }
+        if (m == 0) {
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        }
+        pair_product<E, W, false>(s, dp, st + L::QW * TILE, st + L::DO * TILE,
+                                  st + L::KK * TILE, st + L::VV * TILE, 16 * p, KW * c, RS, lane,
+                                  unused, nullptr, nullptr);
+        if (m < ns - 1) continue;
+        tc::p_ds<128, false>(s, dp, nullptr, q0, k0, p, c, lane, l2, d2, T_, T_, 0, 0, scale,
+                             window, tc::tile_full(q0, k0, T_, T_, 0, 0, window));
+        put_frags<E, false>(sDS, dp, PS, 16 * p, KW * c, lane);
+        __syncthreads();                         // every group's dS rows are written
+        if (last_in) apply(ns - 1 - z0, st);
+    }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
+
+#pragma unroll
+    for (int zz = 0; zz < ZS; ++zz) {
+        if (zz >= nz || OW * c >= W) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int q = q0 + 16 * p + gq + 8 * h;
+            if (q >= T_) continue;
+            const size_t o = ((size_t)bn * T_ + q) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int n = 0; n < OW / 8; ++n)
+                put2<E>(dq + o + 8 * n + 2 * t, dwa[zz][n][2 * h], dwa[zz][n][2 * h + 1]);
+        }
+    }
+}
+
 }  // namespace slabs
 
 struct Args {
@@ -1229,5 +1714,147 @@ extern "C" int flash_rel_attn_bwd_resources(int H, int dtype, int* out) {
     if (dtype == 0) return (int)resources_h<float>(H, out);
     if (dtype == 1) return (int)resources_h<__nv_bfloat16>(H, out);
     if (dtype == 2) return (int)resources_h<__half>(H, out);
+    return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------- the grouped-query form
+struct GqaArgs {
+    const void *q, *k, *v, *dout, *lse, *delta;
+    void *dq, *dk, *dv;
+    int BN, G, T;
+    float scale;
+    int window;
+    cudaStream_t stream;
+};
+
+template <typename E, int H>
+cudaError_t launch_gqa(const GqaArgs& a) {
+    const size_t smem_kv = tc::gqa_dkdv_smem_bytes<H>(), smem_q = tc::gqa_dq_smem_bytes<H>();
+    auto kv = tc::k2_gqa_dkdv_tc<E, H>;
+    auto kq = tc::k2_gqa_dq_tc<E, H>;
+    cudaError_t err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+    if (err != cudaSuccess) return err;
+    const E *q = (const E*)a.q, *k = (const E*)a.k, *v = (const E*)a.v,
+            *dout = (const E*)a.dout;
+    const float *lse = (const float*)a.lse, *delta = (const float*)a.delta;
+    constexpr int NT = tc::Split<H>::NT;
+    kv<<<dim3(a.BN / a.G, (a.T + BK - 1) / BK), NT, smem_kv, a.stream>>>(
+        q, k, v, dout, lse, delta, (float*)a.dk, (float*)a.dv, a.G, a.T, a.scale, a.window);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kq<<<dim3((a.T + BQ - 1) / BQ, a.BN), NT, smem_q, a.stream>>>(
+        q, k, v, dout, lse, delta, (E*)a.dq, a.G, a.T, a.scale, a.window);
+    return cudaGetLastError();
+}
+
+template <typename E, int W, int ZS>
+cudaError_t launch_gqa_slab(const GqaArgs& a, int ns) {
+    using L = slabs::Lay<E, W>;
+    const size_t smem_kv = L::dkdv_bytes(), smem_q = L::dq_bytes();
+    auto kv = slabs::k2_gqa_dkdv_slab<E, W, ZS>;
+    auto kq = slabs::k2_gqa_dq_slab<E, W, ZS>;
+    cudaError_t err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem_kv);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+    if (err != cudaSuccess) return err;
+    const E *q = (const E*)a.q, *k = (const E*)a.k, *v = (const E*)a.v,
+            *dout = (const E*)a.dout;
+    const float *lse = (const float*)a.lse, *delta = (const float*)a.delta;
+    const int nz = (ns + ZS - 1) / ZS;
+    kv<<<dim3(a.BN / a.G, (a.T + BK - 1) / BK, nz), slabs::NT, smem_kv, a.stream>>>(
+        q, k, v, dout, lse, delta, (float*)a.dk, (float*)a.dv, a.G, a.T, a.scale, a.window, ns);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    kq<<<dim3((a.T + BQ - 1) / BQ, a.BN, nz), slabs::NT, smem_q, a.stream>>>(
+        q, k, v, dout, lse, delta, (E*)a.dq, a.G, a.T, a.scale, a.window, ns);
+    return cudaGetLastError();
+}
+
+// bf16 / f16: the tensor-core kernels up to H 128, the slab kernels above;
+// f32: the slab kernels at every H
+template <typename E>
+cudaError_t gqa_launch_h(int H, const GqaArgs& a) {
+    if (!takes(H)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(E) == 2) {
+        switch (H) {
+            case 16: return launch_gqa<E, 16>(a);
+            case 32: return launch_gqa<E, 32>(a);
+            case 64: return launch_gqa<E, 64>(a);
+            case 128: return launch_gqa<E, 128>(a);
+        }
+    }
+    return slabs::with_cfg<E>(H, [&](auto cfg) {
+        using F = decltype(cfg);
+        return launch_gqa_slab<E, F::W, F::ZS>(a, H / F::W);
+    });
+}
+
+// q / dout [BN, T, H], k / v [BN / G, T, H] in one dtype (0 = f32, 1 = bf16,
+// 2 = f16; H 16, 32, 64 or a multiple of 128), lse / delta [BN, T] f32
+// (gqa_attn_fwd's lse, delta = dout . out from flash_rel_attn_bwd_delta).
+// Writes dq [BN, T, H] in that dtype and dk / dv [BN / G, T, H] f32, each
+// key row's sums over its G query rows.  Causal; window > 0 keeps q - k <
+// window.  bf16 and f16 run k2_gqa_dkdv_tc / k2_gqa_dq_tc up to H 128 and
+// the slab kernels above; f32 runs k2_gqa_dkdv_slab / k2_gqa_dq_slab
+// (3xTF32) at every H.  Launches both kernels on `stream`; returns the
+// first cudaGetLastError() that is not cudaSuccess (cudaErrorInvalidValue
+// for another dtype or H, or a BN that G does not divide).
+extern "C" int gqa_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                            int BN, int G, int T, int H, int dtype, float scale, int window,
+                            void* stream) {
+    if (G < 1 || BN % G) return (int)cudaErrorInvalidValue;
+    GqaArgs a{q, k, v, dout, lse, delta, dq, dk, dv, BN, G, T, scale, window,
+              (cudaStream_t)stream};
+    if (dtype == 0) return (int)gqa_launch_h<float>(H, a);
+    if (dtype == 1) return (int)gqa_launch_h<__nv_bfloat16>(H, a);
+    if (dtype == 2) return (int)gqa_launch_h<__half>(H, a);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The resources of the grouped-query dk / dv kernel (out[0..4]) and dq
+// kernel (out[5..9]) a call of this dtype (0 = f32, 1 = bf16, 2 = f16) and H
+// runs, as flash_rel_attn_bwd_resources reports K2's.
+extern "C" int gqa_attn_bwd_resources(int H, int dtype, int* out) {
+    auto one = [&](auto e, auto h) -> cudaError_t {
+        using E = decltype(e);
+        constexpr int HH = decltype(h)::value;
+        constexpr int NT = tc::Split<HH>::NT;
+        cudaError_t err = resources(tc::k2_gqa_dkdv_tc<E, HH>, tc::gqa_dkdv_smem_bytes<HH>(), NT,
+                                    out);
+        if (err != cudaSuccess) return err;
+        return resources(tc::k2_gqa_dq_tc<E, HH>, tc::gqa_dq_smem_bytes<HH>(), NT, out + 5);
+    };
+    auto of = [&](auto e) -> cudaError_t {
+        using E = decltype(e);
+        if (!takes(H)) return cudaErrorInvalidValue;
+        auto slab = [&]() {
+            return slabs::with_cfg<E>(H, [&](auto cfg) {
+                using F = decltype(cfg);
+                using L = slabs::Lay<E, F::W>;
+                cudaError_t err = resources(slabs::k2_gqa_dkdv_slab<E, F::W, F::ZS>,
+                                            L::dkdv_bytes(), slabs::NT, out);
+                if (err != cudaSuccess) return err;
+                return resources(slabs::k2_gqa_dq_slab<E, F::W, F::ZS>, L::dq_bytes(), slabs::NT,
+                                 out + 5);
+            });
+        };
+        if constexpr (sizeof(E) == 4) return slab();
+        else if (H > 128) return slab();
+        else switch (H) {
+            case 16: return one(e, std::integral_constant<int, 16>{});
+            case 32: return one(e, std::integral_constant<int, 32>{});
+            case 64: return one(e, std::integral_constant<int, 64>{});
+            case 128: return one(e, std::integral_constant<int, 128>{});
+        }
+        return cudaErrorInvalidValue;
+    };
+    if (dtype == 0) return (int)of(0.f);
+    if (dtype == 1) return (int)of(__nv_bfloat16{});
+    if (dtype == 2) return (int)of(__half{});
     return (int)cudaErrorInvalidValue;
 }

@@ -29,6 +29,9 @@
 //   bf16 / f16 up to H 128: k1_tc (below);
 //   f32 at every H, bf16 / f16 above 128: k1_slab (the slab kernel, after
 //   namespace tc), whose f32 products are 3xTF32 on the tensor cores.
+// The grouped-query form (entry point gqa_attn_fwd; k1_gqa_tc, k1_gqa_slab)
+// is the same forward without the distance term, for G query heads over
+// one key / value head: the score is q . k * scale.
 //
 // bf16 and f16 (k1_tc, templated on the element type E), at H <= 128: the
 // q tile's 64 rows are four 16-row groups; at H <= 64 a group is one warp,
@@ -131,7 +134,7 @@ __device__ __forceinline__ bool interior(int q0, int k0, int S, int M, int mv, i
 // through sRow (their [16] f32 row slots; `mate` is the other warp's).
 // MASK: the per-pair mask (a tile pair that is not interior); q is the
 // query of row gq.  The slab kernel (k1_slab) runs it at SP 2.
-template <bool MASK, int H>
+template <bool MASK, int H, bool BD = true>
 __device__ __forceinline__ void tile_p(float (&s)[Split<H>::KW / 8][4], float (&m)[2],
                                        float (&l)[2], float (&alpha)[2], const float* sXw,
                                        float* sRow, const float* mate, int grp, int q, int kc,
@@ -145,7 +148,11 @@ __device__ __forceinline__ void tile_p(float (&s)[Split<H>::KW / 8][4], float (&
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int h = e >> 1, qr = gq + 8 * h, ki = 8 * j + 2 * t + (e & 1);
-            float x = (s[j][e] + sXw[qr * XS + 15 - qr + ki]) * scale;
+            float x;
+            if constexpr (BD)
+                x = (s[j][e] + sXw[qr * XS + 15 - qr + ki]) * scale;
+            else
+                x = s[j][e] * scale;     // the grouped-query form: no distance term
             if (MASK) {
                 const int k = kc + ki, d = M + q + 8 * h - k;
                 if (!(d >= 0 && k < S && k >= M - mv && (window <= 0 || d < window)))
@@ -185,7 +192,7 @@ __device__ __forceinline__ void tile_p(float (&s)[Split<H>::KW / 8][4], float (&
 }
 
 // tile_p, then o (the warp's ctx accumulators) rescaled by alpha
-template <bool MASK, int H>
+template <bool MASK, int H, bool BD = true>
 __device__ __forceinline__ void softmax_tile(float (&s)[Split<H>::KW / 8][4],
                                              float (&o)[Split<H>::HW / 8][4], float (&m)[2],
                                              float (&l)[2], const float* sXw, float* sRow,
@@ -193,7 +200,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[Split<H>::KW / 8][4],
                                              int t, int S, int M, int mv, float scale,
                                              int window) {
     float alpha[2];
-    tile_p<MASK, H>(s, m, l, alpha, sXw, sRow, mate, grp, q, kc, gq, t, S, M, mv, scale, window);
+    tile_p<MASK, H, BD>(s, m, l, alpha, sXw, sRow, mate, grp, q, kc, gq, t, S, M, mv, scale,
+                        window);
 #pragma unroll
     for (int n = 0; n < Split<H>::HW / 8; ++n)
 #pragma unroll
@@ -403,6 +411,182 @@ cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
     kern<<<grid, Split<H>::NT, smem, stream>>>(
         (const E*)rw, (const E*)rr, (const E*)k, (const E*)v, (const E*)g, (E*)out, lse,
         mv_ptr, mv_const, N, T_, S, M, scale, window);
+    return cudaGetLastError();
+}
+
+// The grouped-query form (k1_gqa_tc): k1_tc without the distance term, for
+// a model whose G query heads share one key / value head (GQA).  q [BN, T,
+// H] (row bn = b N + h), k / v [BN / G, T, H]: query row bn reads key row bn
+// / G.  No memory (S = T, M = 0); window > 0 keeps 0 <= q - k < window
+// (a sliding layer), 0 the causal mask alone (a full layer).  The score is
+// q . k * scale: no Qr, no table ring, no BD staging, so the block stages Q
+// once and K / V in two cp.async stages; the online softmax (tile_p<.., BD
+// false>), the interior tile pairs, the rounding of p and lse are k1_tc's.
+// At H = 128 the group's two warps share their P rows through a region of
+// their own.  Shared memory at H = 128: Q 17 KB, K / V x 2 stages 70 KB, P
+// 9 KB -- 95 KB.
+template <int H>
+constexpr size_t gqa_smem_bytes() {
+    // Q; 2 stages of K, V, all [.][H+8] b16; at SP 2 each group's P [16][PS]
+    // b16 and each warp's row max / sum [16] f32
+    using SPL = Split<H>;
+    return 2 * (size_t)(BQ + 2 * 2 * BK) * (H + 8) +
+           (SPL::SP > 1 ? 2 * (size_t)NG * 16 * SPL::PS + (size_t)SPL::NW * 16 * 4 : 0);
+}
+
+template <typename E, int H>
+__global__ void __launch_bounds__(Split<H>::NT, Split<H>::SP == 1 ? 2 : 1)
+k1_gqa_tc(const E* __restrict__ qq, const E* __restrict__ kk, const E* __restrict__ vv,
+          E* __restrict__ out, float* __restrict__ lse, int G, int T_, float scale, int window) {
+    using SPL = Split<H>;
+    constexpr int SP = SPL::SP, KW = SPL::KW, HW = SPL::HW, NT = SPL::NT, PS = SPL::PS;
+    constexpr int HS = H + 8;
+    constexpr int KH = H / 16;                      // k-blocks of the score products
+    constexpr int STAGE = 2 * BK * HS;              // K, V
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* sQ = reinterpret_cast<E*>(smem_raw);
+    E* sKV = sQ + BQ * HS;                          // stage b: K, V
+    E* sP = sKV + 2 * STAGE;                        // [NG][16][PS] (SP 2)
+    float* sRows = reinterpret_cast<float*>(sP + NG * 16 * PS);   // [NW][16] (SP 2)
+
+    const int bn = blockIdx.y;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP;               // 16-row group, warp in the group
+    const int gq = lane >> 2, t = lane & 3;
+    E* sPg = sP + p * 16 * PS;                      // the group's P rows (SP 2)
+    float* sRow = sRows + w * 16;
+    const float* mate = sRows + (w ^ (SP - 1)) * 16;
+
+    const E* k_b = kk + (size_t)(bn / G) * T_ * H;
+    const E* v_b = vv + (size_t)(bn / G) * T_ * H;
+
+    // keys any row of this tile can see
+    const int k_hi = min(q0 + BQ, T_);                  // exclusive
+    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+    auto load_k = [&](int kt) {                      // K, V of tile kt
+        E* st = sKV + ((kt - kt_begin) & 1) * STAGE;
+        stage_rows<H>(st, k_b, kt * BK, BK, T_, tid, NT);
+        stage_rows<H>(st + BK * HS, v_b, kt * BK, BK, T_, tid, NT);
+        cp_commit();
+    };
+
+    float o[HW / 8][4] = {};                        // ctx rows 16p + gq (+8), cols HW c + 8n + 2t
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    uint32_t aq[KH][4];                             // the group's Q A fragments
+    stage_rows<H>(sQ, qq + (size_t)bn * T_ * H, q0, BQ, T_, tid, NT);
+    load_k(kt_begin);
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int kb = 0; kb < KH; ++kb) load_a(aq[kb], sQ, HS, 16 * p, 16 * kb, lane);
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int it = kt - kt_begin, k0 = kt * BK;
+        cp_wait<0>();
+        __syncthreads();                 // tile kt landed; every warp is done with tile kt - 1
+        if (kt + 1 < kt_end) load_k(kt + 1);
+        const E* sK = sKV + (it & 1) * STAGE;
+        const E* sV = sK + BK * HS;
+
+        // S = Q . K^T over the warp's keys: key columns KW c + 8j .. +7
+        float s[KW / 8][4] = {};
+#pragma unroll
+        for (int kb = 0; kb < KH; ++kb)
+#pragma unroll
+            for (int np = 0; np < KW / 16; ++np) {
+                uint32_t b[4];
+                load_b(b, sK, HS, KW * c + 16 * np, 16 * kb, lane);
+                mma<E>(s[2 * np], aq[kb], b[0], b[1]);
+                mma<E>(s[2 * np + 1], aq[kb], b[2], b[3]);
+            }
+        const int q = q0 + 16 * p + gq;
+        if (interior(q0, k0, T_, 0, 0, window))
+            softmax_tile<false, H, false>(s, o, m_r, l_r, nullptr, sRow, mate, p, q, k0 + KW * c,
+                                          gq, t, T_, 0, 0, scale, window);
+        else
+            softmax_tile<true, H, false>(s, o, m_r, l_r, nullptr, sRow, mate, p, q, k0 + KW * c,
+                                         gq, t, T_, 0, 0, scale, window);
+
+        // o += P . V[:, HW c, + HW) over the tile's 64 keys
+        if constexpr (SP == 1) {         // P from the accumulators
+#pragma unroll
+            for (int kb = 0; kb < BK / 16; ++kb) {
+                uint32_t a[4];
+                c_to_a<E>(a, s[2 * kb], s[2 * kb + 1]);
+#pragma unroll
+                for (int np = 0; np < H / 16; ++np) {
+                    uint32_t b[4];
+                    load_bt(b, sV, HS, 16 * np, 16 * kb, lane);
+                    mma<E>(o[2 * np], a, b[0], b[1]);
+                    mma<E>(o[2 * np + 1], a, b[2], b[3]);
+                }
+            }
+        } else {                         // the group's P rows (the last tile's read: barrier above)
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    *reinterpret_cast<uint32_t*>(sPg + (gq + 8 * h) * PS + KW * c + 8 * j +
+                                                 2 * t) = pack<E>(s[j][2 * h], s[j][2 * h + 1]);
+            group_sync<SP>(p);
+#pragma unroll
+            for (int kb = 0; kb < BK / 16; ++kb) {
+                uint32_t a[4];
+                load_a(a, sPg, PS, 0, 16 * kb, lane);
+#pragma unroll
+                for (int np = 0; np < HW / 16; ++np) {
+                    uint32_t b[4];
+                    load_bt(b, sV, HS, HW * c + 16 * np, 16 * kb, lane);
+                    mma<E>(o[2 * np], a, b[0], b[1]);
+                    mma<E>(o[2 * np + 1], a, b[2], b[3]);
+                }
+            }
+        }
+    }
+
+    float l_row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float l = l_r[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        l_row[h] = l;
+    }
+    if constexpr (SP > 1) {              // the sum over both key halves
+        if (t == 0) {
+            sRow[gq] = l_row[0];
+            sRow[gq + 8] = l_row[1];
+        }
+        group_sync<SP>(p);
+        l_row[0] += mate[gq];
+        l_row[1] += mate[gq + 8];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 16 * p + gq + 8 * h;
+        if (q >= T_) continue;
+        const float lc = fmaxf(l_row[h], 1e-30f), inv = 1.f / lc;
+        E* o_r = out + ((size_t)bn * T_ + q) * H + HW * c;
+#pragma unroll
+        for (int n = 0; n < HW / 8; ++n)
+            *reinterpret_cast<uint32_t*>(o_r + 8 * n + 2 * t) =
+                pack<E>(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+        if (c == 0 && t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(lc);
+    }
+}
+
+template <typename E, int H>
+cudaError_t launch_gqa(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int BN, int G, int T_, float scale, int window, cudaStream_t stream) {
+    const size_t smem = gqa_smem_bytes<H>();
+    auto kern = k1_gqa_tc<E, H>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T_ + BQ - 1) / BQ, BN);
+    kern<<<grid, Split<H>::NT, smem, stream>>>((const E*)q, (const E*)k, (const E*)v, (E*)out,
+                                               lse, G, T_, scale, window);
     return cudaGetLastError();
 }
 
@@ -674,6 +858,171 @@ cudaError_t launch(const void* rw, const void* rr, const void* k, const void* v,
     return cudaGetLastError();
 }
 
+// The grouped-query form of k1_slab (k1_gqa_slab): every f32 call of the
+// grouped-query forward, and a 16-bit call above head dim 128.  k1_slab's
+// layout, items and products without the distance term: a score item
+// stages Q's and K's slabs (no Qr, no table window), the output items V's;
+// query row bn reads key / value row bn / G; no memory (S = T).  The P rows
+// of a group sit where k1_slab stages its BD.
+template <typename E, int W, int ZS>
+__global__ void __launch_bounds__(NT, 1)
+k1_gqa_slab(const E* __restrict__ qq, const E* __restrict__ kk, const E* __restrict__ vv,
+            E* __restrict__ out, float* __restrict__ lse, int G, int T_, float scale, int window,
+            int ns) {
+    using L = Lay<E, W>;
+    constexpr int RS = L::RS, PS = L::PS, TILE = L::TILE, OW = L::OW, K8 = KS<E>;
+    constexpr int UNR = ZS > 4 ? 1 : kF32<E> && W == 64 ? 4 : W / K8;   // k1_slab's
+    const int H = W * ns;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* ring = reinterpret_cast<E*>(smem_raw);    // stage b: tile i at ring + (NTILE b + i) TILE
+    float* sX = reinterpret_cast<float*>(smem_raw + L::RING);   // the groups' P rows
+    float* sRows = sX + NW * 16 * XS;                            // [NW][16]
+
+    const int bn = blockIdx.y, z0 = blockIdx.z * ZS, nz = min(ZS, ns - z0);
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest rows first
+    const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+    const int p = w / SP, c = w % SP, gq = lane >> 2, t = lane & 3;
+    const bool once = ns == 1;
+    E* sPg = reinterpret_cast<E*>(sX + p * SP * 16 * XS);     // the group's P [16][PS]
+    float* sRow = sRows + w * 16;
+    const float* mate = sRows + (w ^ 1) * 16;
+
+    const E* q_b = qq + (size_t)bn * T_ * H;
+    const E* k_b = kk + (size_t)(bn / G) * T_ * H;
+    const E* v_b = vv + (size_t)(bn / G) * T_ * H;
+
+    // keys any row of this tile can see
+    const int k_hi = min(q0 + BQ, T_);                  // exclusive
+    const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int kt_begin = k_lo / BK, kt_end = (k_hi + BK - 1) / BK;
+    // the items of a key tile: its ns score slabs, then the block's output slabs
+    const int per = ns + nz, n_items = (kt_end - kt_begin) * per;
+    auto issue = [&](int n) {                    // item n's tiles into stage n % 2
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m < ns) {
+            if (!once) stage<W>(st + L::QW * TILE, q_b, q0, BQ, T_, H, W * m, tid, NT);
+            stage<W>(st + L::KK * TILE, k_b, k0, BK, T_, H, W * m, tid, NT);
+        } else {
+            stage<W>(st + L::KK * TILE, v_b, k0, BK, T_, H, W * (z0 + m - ns), tid, NT);
+        }
+        mma_bf16::cp_commit();
+    };
+    if (once) stage<W>(ring + L::QW * TILE, q_b, q0, BQ, T_, H, 0, tid, NT);   // Q for good
+    issue(0);
+
+    // ctx rows 16p + gq (+8), columns W (z0 + zz) + OW c + 8n + 2t
+    float o[ZS][OW / 8][4] = {};
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    constexpr int PC = ZS <= 2 ? 2 : 1;
+    auto apply = [&](int zi, const E* tV) {     // k1_slab's: ctx[:, slab z0 + zi] += P . V_slab
+        if (OW * c >= W) return;
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz != zi) continue;
+#pragma unroll
+            for (int cp = 0; cp < OW / 16; cp += PC) {
+                float tv[2 * PC][4] = {};
+#pragma unroll (UNR)
+                for (int kb = 0; kb < BK / K8; ++kb) {
+                    FragA<E> a;
+                    load_a(a, sPg, PS, 0, K8 * kb, lane);
+#pragma unroll
+                    for (int j = 0; j < PC && cp + j < OW / 16; ++j) {
+                        FragB<E> b[2];
+                        load_bt(b, tV, RS, OW * c + 16 * (cp + j), K8 * kb, lane);
+                        mma(tv[2 * j], a, b[0]);
+                        mma(tv[2 * j + 1], a, b[1]);
+                    }
+                }
+                add_pass(o[zz], tv, cp);
+            }
+        }
+    };
+
+    float s[KW / 8][4];
+    for (int n = 0; n < n_items; ++n) {
+        const int m = n % per, k0 = (kt_begin + n / per) * BK;
+        mma_bf16::cp_wait<0>();
+        __syncthreads();                         // item n landed; item n - 1 is done
+        if (n + 1 < n_items) issue(n + 1);
+        const E* st = ring + (n & 1) * L::NTILE * TILE;
+        if (m >= ns) {
+            apply(m - ns, st + L::KK * TILE);
+            continue;
+        }
+        const E* tQ = once ? ring : st;
+        float sm[KW / 8][4] = {};                // S over the warp's keys, the slab's sum apart
+        slab_product<E, W, CH, false, UNR>(sm, tQ + L::QW * TILE, 16 * p, st + L::KK * TILE,
+                                           KW * c, RS, lane);
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = m ? s[j][e] + sm[j][e] : sm[j][e];
+        if (m < ns - 1) continue;
+        const int q = q0 + 16 * p + gq;
+        float alpha[2];
+        if (tc::interior(q0, k0, T_, 0, 0, window))
+            tc::tile_p<false, 128, false>(s, m_r, l_r, alpha, nullptr, sRow, mate, p, q,
+                                          k0 + KW * c, gq, t, T_, 0, 0, scale, window);
+        else
+            tc::tile_p<true, 128, false>(s, m_r, l_r, alpha, nullptr, sRow, mate, p, q,
+                                         k0 + KW * c, gq, t, T_, 0, 0, scale, window);
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz)
+#pragma unroll
+            for (int nn = 0; nn < OW / 8; ++nn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[zz][nn][e] *= alpha[e >> 1];
+        put_frags<E, false>(sPg, s, PS, 0, KW * c, lane);   // the mate read the last P (barrier)
+    }
+    mma_bf16::cp_wait<0>();                      // no copy left in flight
+
+    float l_row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float l = l_r[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        l_row[h] = l;
+    }
+    if (t == 0) {
+        sRow[gq] = l_row[0];
+        sRow[gq + 8] = l_row[1];
+    }
+    mma_bf16::group_sync<SP>(p);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int q = q0 + 16 * p + gq + 8 * h;
+        if (q >= T_) continue;
+        const float lc = fmaxf(l_row[h] + mate[gq + 8 * h], 1e-30f), inv = 1.f / lc;
+#pragma unroll
+        for (int zz = 0; zz < ZS; ++zz) {
+            if (zz >= nz || OW * c >= W) continue;
+            E* o_r = out + ((size_t)bn * T_ + q) * H + W * (z0 + zz) + OW * c;
+#pragma unroll
+            for (int nn = 0; nn < OW / 8; ++nn)
+                put2<E>(o_r + 8 * nn + 2 * t, o[zz][nn][2 * h] * inv, o[zz][nn][2 * h + 1] * inv);
+        }
+        if (z0 == 0 && c == 0 && t == 0) lse[(size_t)bn * T_ + q] = m_r[h] + logf(lc);
+    }
+}
+
+template <typename E, int W, int ZS>
+cudaError_t launch_gqa(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int BN, int G, int T_, float scale, int window, int ns,
+                       cudaStream_t stream) {
+    const size_t smem = Lay<E, W>::bytes();
+    auto kern = k1_gqa_slab<E, W, ZS>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((T_ + BQ - 1) / BQ, BN, (ns + ZS - 1) / ZS);
+    kern<<<grid, NT, smem, stream>>>((const E*)q, (const E*)k, (const E*)v, (E*)out, lse, G, T_,
+                                     scale, window, ns);
+    return cudaGetLastError();
+}
+
 }  // namespace slabs
 
 // the head dims a call takes: 16, 32, 64 and 128, and every multiple of 128
@@ -768,5 +1117,85 @@ extern "C" int flash_rel_attn_fwd_resources(int H, int dtype, int* out) {
     if (dtype == 0) return (int)resources_e<float>(H, out);
     if (dtype == 1) return (int)resources_e<__nv_bfloat16>(H, out);
     if (dtype == 2) return (int)resources_e<__half>(H, out);
+    return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------- the grouped-query form
+template <typename E>
+cudaError_t gqa_launch_h(int H, const void* q, const void* k, const void* v, void* out,
+                         float* lse, int BN, int G, int T_, float scale, int window,
+                         cudaStream_t st) {
+    if (!takes(H)) return cudaErrorInvalidValue;
+    if constexpr (sizeof(E) == 2) {                  // bf16, f16: k1_gqa_tc up to H 128
+        switch (H) {
+            case 16: return tc::launch_gqa<E, 16>(q, k, v, out, lse, BN, G, T_, scale, window, st);
+            case 32: return tc::launch_gqa<E, 32>(q, k, v, out, lse, BN, G, T_, scale, window, st);
+            case 64: return tc::launch_gqa<E, 64>(q, k, v, out, lse, BN, G, T_, scale, window, st);
+            case 128:
+                return tc::launch_gqa<E, 128>(q, k, v, out, lse, BN, G, T_, scale, window, st);
+        }
+    }
+    return slabs::with_cfg<E>(H, [&](auto cfg) {     // f32, and 16 bits above 128
+        using F = decltype(cfg);
+        return slabs::launch_gqa<E, F::W, F::ZS>(q, k, v, out, lse, BN, G, T_, scale, window,
+                                                 H / F::W, st);
+    });
+}
+
+// q [BN, T, H], k / v [BN / G, T, H] in one dtype (0 = f32, 1 = bf16, 2 =
+// f16; H 16, 32, 64 or a multiple of 128): query row bn reads key / value
+// row bn / G.  out [BN, T, H] in that dtype, lse [BN, T] f32.  Causal;
+// window > 0 keeps q - k < window.  bf16 and f16 run k1_gqa_tc up to H 128
+// and k1_gqa_slab above; f32 runs k1_gqa_slab (3xTF32) at every H.
+// Launches on `stream`; returns cudaGetLastError() of the launch
+// (cudaErrorInvalidValue for another dtype or H, or a BN that G does not
+// divide).
+extern "C" int gqa_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                            int BN, int G, int T, int H, int dtype, float scale, int window,
+                            void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (G < 1 || BN % G) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+        return (int)gqa_launch_h<float>(H, q, k, v, out, (float*)lse, BN, G, T, scale, window, st);
+    if (dtype == 1)
+        return (int)gqa_launch_h<__nv_bfloat16>(H, q, k, v, out, (float*)lse, BN, G, T, scale,
+                                                window, st);
+    if (dtype == 2)
+        return (int)gqa_launch_h<__half>(H, q, k, v, out, (float*)lse, BN, G, T, scale, window,
+                                         st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The resources of the kernel a grouped-query call of this dtype (0 = f32,
+// 1 = bf16, 2 = f16) and H runs, k1_gqa_tc or k1_gqa_slab, as
+// flash_rel_attn_fwd_resources reports K1's.
+extern "C" int gqa_attn_fwd_resources(int H, int dtype, int* out) {
+    auto of = [&](auto e) -> cudaError_t {
+        using E = decltype(e);
+        if (!takes(H)) return cudaErrorInvalidValue;
+        auto slab = [&]() {
+            return slabs::with_cfg<E>(H, [&](auto cfg) {
+                using F = decltype(cfg);
+                return resources(slabs::k1_gqa_slab<E, F::W, F::ZS>, slabs::Lay<E, F::W>::bytes(),
+                                 slabs::NT, out);
+            });
+        };
+        if constexpr (sizeof(E) == 4) return slab();
+        else if (H > 128) return slab();
+        else switch (H) {
+            case 16: return resources(tc::k1_gqa_tc<E, 16>, tc::gqa_smem_bytes<16>(),
+                                      tc::Split<16>::NT, out);
+            case 32: return resources(tc::k1_gqa_tc<E, 32>, tc::gqa_smem_bytes<32>(),
+                                      tc::Split<32>::NT, out);
+            case 64: return resources(tc::k1_gqa_tc<E, 64>, tc::gqa_smem_bytes<64>(),
+                                      tc::Split<64>::NT, out);
+            case 128: return resources(tc::k1_gqa_tc<E, 128>, tc::gqa_smem_bytes<128>(),
+                                       tc::Split<128>::NT, out);
+        }
+        return cudaErrorInvalidValue;
+    };
+    if (dtype == 0) return (int)of(0.f);
+    if (dtype == 1) return (int)of(__nv_bfloat16{});
+    if (dtype == 2) return (int)of(__half{});
     return (int)cudaErrorInvalidValue;
 }

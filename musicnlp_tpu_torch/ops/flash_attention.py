@@ -59,9 +59,11 @@ from musicnlp_tpu_torch.parallel.mesh import Mesh, copy_to_model, sum_over_model
 
 __all__ = ['flash_rel_attn_fwd', 'flash_rel_attn_fwd_plain', 'flash_rel_attn_bwd',
            'flash_rel_attn_bwd_plain', 'FlashRelAttn', 'fused_rel_attn', 'distance_table',
-           'kernel_head_dim', 'takes_head_dim', 'LAUNCHES', 'SMALL_HEAD_DIMS', 'LANE']
+           'kernel_head_dim', 'takes_head_dim', 'LAUNCHES', 'SMALL_HEAD_DIMS', 'LANE',
+           'gqa_attn_fwd', 'gqa_attn_fwd_plain', 'gqa_attn_bwd', 'gqa_attn_bwd_plain', 'GqaAttn']
 
-LAUNCHES = {'flash_rel_attn_fwd': 0, 'flash_rel_attn_bwd': 0}
+LAUNCHES = {'flash_rel_attn_fwd': 0, 'flash_rel_attn_bwd': 0, 'gqa_attn_fwd': 0,
+            'gqa_attn_bwd': 0}
 SMALL_HEAD_DIMS = (16, 32, 64, 128)      # the head dims up to 128 the kernels take
 LANE = 128                               # above 128, the kernels take multiples of it
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -71,6 +73,11 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DELTA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
+
+_GQA_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                                   ctypes.c_void_p]
+_GQA_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                                                   ctypes.c_void_p]
 
 MemValid = Union[int, torch.Tensor]
 
@@ -303,6 +310,152 @@ class FlashRelAttn(torch.autograd.Function):
             scale=ctx.scale, window=ctx.window)
         return (drw, drr, dk.to(k3.dtype), dv.to(v3.dtype), dg.to(g_tab.dtype),
                 None, None, None, None)
+
+
+# ------------------------------------------------- the grouped-query form
+# K1 / K2 without the distance term, for G query heads that share one key /
+# value head (grouped-query attention): q [BN, T, H] (row bn = b N + h), k /
+# v [BN / G, T, H], query row bn reading key row bn / G; causal, no memory;
+# `window` > 0 keeps 0 <= q - k < window (a sliding layer), 0 the causal mask
+# alone (a full layer).  On the card the kernels `k1_gqa_tc` (forward) and
+# `k2_gqa_dkdv_tc` / `k2_gqa_dq_tc` (backward) in the K1 / K2 sources for
+# bf16 and f16 up to head dim 128, their slab forms (`k1_gqa_slab`,
+# `k2_gqa_dkdv_slab` / `k2_gqa_dq_slab`) for f32 (3xTF32) and for multiples
+# of 128 above it, the head dims K1 / K2 take; each key head's dk / dv are
+# summed over its G query heads inside the dk / dv kernel.
+def _gqa_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, G: int):
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f'q [BN, T, H], k / v [BN / G, T, H], got q {tuple(q.shape)} '
+                         f'k {tuple(k.shape)} v {tuple(v.shape)}')
+    BN, T, H = q.shape
+    if G < 1 or BN % G or k.shape != (BN // G, T, H):
+        raise ValueError(f'k {tuple(k.shape)} does not fit q {tuple(q.shape)} at group {G}')
+
+
+def _gqa_scores_plain(q, k, G: int, scale: float, window: int):
+    """The masked, scaled f32 scores [BN, T, T] of the grouped-query form."""
+    T = q.shape[1]
+    s = (q.float() @ k.float().repeat_interleave(G, dim=0).transpose(1, 2)) * scale
+    return torch.where(_key_mask(T, T, 0, 0, window, q.device), s, torch.full_like(s, NEG_INF))
+
+
+def gqa_attn_fwd_plain(q, k, v, *, G: int, scale: float, window: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouped-query forward in plain PyTorch: (ctx [BN, T, H] in q's
+    dtype, lse [BN, T] f32); p rounded to v's dtype before the PV product,
+    as the kernel does."""
+    s = _gqa_scores_plain(q, k, G, scale, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    ctx = (p.to(v.dtype).float() @ v.float().repeat_interleave(G, dim=0)) / l[..., None]
+    return ctx.to(q.dtype), m[..., 0] + torch.log(l)
+
+
+def gqa_attn_bwd_plain(q, k, v, out, d_out, lse, *, G: int, scale: float, window: int = 0):
+    """The grouped-query backward in plain PyTorch -> (dq [BN, T, H] in q's
+    dtype, dk, dv [BN / G, T, H] f32, each the sum over the key head's G
+    query heads).  p and ds rounded to the input dtype before the products,
+    as the kernels do; sums are f32."""
+    BN, T, H = q.shape
+    dtype = q.dtype
+    s = _gqa_scores_plain(q, k, G, scale, window)
+    p = torch.exp(s - lse[..., None])
+    do = d_out.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (do @ v.float().repeat_interleave(G, dim=0).transpose(1, 2) - delta) * scale
+    dsg = ds.to(dtype).float()
+    dq = dsg @ k.float().repeat_interleave(G, dim=0)
+    dk = (dsg.transpose(1, 2) @ q.float()).reshape(BN // G, G, T, H).sum(1)
+    dv = (p.to(dtype).float().transpose(1, 2) @ do).reshape(BN // G, G, T, H).sum(1)
+    return dq.to(dtype), dk, dv
+
+
+def gqa_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, G: int, scale: float,
+                 window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouped-query forward -> (ctx [BN, T, H], lse [BN, T] f32): the
+    plain version for CPU tensors, `k1_gqa_tc` / `k1_gqa_slab` for CUDA
+    tensors (or it raises).  No gradient flows through this call: `GqaAttn` pairs it with
+    `gqa_attn_bwd`."""
+    _gqa_check(q, k, v, G)
+    if all(t.device.type == 'cpu' for t in (q, k, v)):
+        return gqa_attn_fwd_plain(q, k, v, G=G, scale=scale, window=window)
+    dev, code, _, _ = _launch_args('gqa_attn_fwd', (q, k, v), 0)
+    BN, T, H = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(BN, T, dtype=torch.float32, device=dev)
+    from musicnlp_tpu_torch.kernels.build import load
+    lib = load('flash_rel_attn_fwd', _ARGTYPES)
+    lib.gqa_attn_fwd.argtypes = _GQA_FWD_ARGTYPES
+    with torch.cuda.device(dev):
+        err = lib.gqa_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               lse.data_ptr(), BN, G, T, H, code, float(scale),
+                               int(window or 0), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'gqa_attn_fwd launch failed: CUDA error {err}')
+    LAUNCHES['gqa_attn_fwd'] += 1
+    return out, lse
+
+
+def gqa_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                 d_out: torch.Tensor, lse: torch.Tensor, *, G: int, scale: float,
+                 window: int = 0):
+    """The grouped-query backward -> (dq [BN, T, H] in q's dtype, dk, dv
+    [BN / G, T, H] f32): the plain version for CPU tensors, the dk / dv and dq
+    kernels (`k2_gqa_*_tc`, `k2_gqa_*_slab`) for CUDA tensors (or it raises).  out is the
+    forward's ctx, d_out its gradient, lse its f32 [BN, T]."""
+    _gqa_check(q, k, v, G)
+    if out.shape != q.shape or d_out.shape != q.shape or lse.shape != q.shape[:2]:
+        raise ValueError(f'out {tuple(out.shape)}, d_out {tuple(d_out.shape)} and lse '
+                         f'{tuple(lse.shape)} do not fit q {tuple(q.shape)}')
+    tensors = (q, k, v, out, d_out)
+    if all(t.device.type == 'cpu' for t in tensors + (lse,)):
+        return gqa_attn_bwd_plain(q, k, v, out, d_out, lse, G=G, scale=scale, window=window)
+    dev, code, _, _ = _launch_args('gqa_attn_bwd', tensors, 0)
+    if lse.device != dev or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError('gqa_attn_bwd takes lse as contiguous f32 on the inputs\' device')
+    BN, T, H = q.shape
+    delta = torch.empty(BN, T, dtype=torch.float32, device=dev)        # dO . O, f32
+    dq = torch.empty_like(q)
+    dk = torch.empty(BN // G, T, H, dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
+    from musicnlp_tpu_torch.kernels.build import load
+    lib = load('flash_rel_attn_bwd', _BWD_ARGTYPES)
+    lib.flash_rel_attn_bwd_delta.argtypes = _DELTA_ARGTYPES
+    lib.gqa_attn_bwd.argtypes = _GQA_BWD_ARGTYPES
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_rel_attn_bwd_delta(d_out.data_ptr(), out.data_ptr(), delta.data_ptr(),
+                                           BN * T, H, code, stream)
+        err = err or lib.gqa_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BN, G, T, H, code,
+            float(scale), int(window or 0), stream)
+    if err != 0:
+        raise RuntimeError(f'gqa_attn_bwd launch failed: CUDA error {err}')
+    LAUNCHES['gqa_attn_bwd'] += 1
+    return dq, dk, dv
+
+
+class GqaAttn(torch.autograd.Function):
+    """ctx [BN, T, H] = causal grouped-query attention (query row bn reads
+    key / value row bn / G), `gqa_attn_fwd` forward and `gqa_attn_bwd`
+    backward.  Gradients flow to q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, G: int, scale: float, window: int):
+        out, lse = gqa_attn_fwd(q, k, v, G=G, scale=scale, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.G, ctx.scale, ctx.window = G, scale, window
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        d_out = d_out.to(q.dtype).contiguous()
+        dq, dk, dv = gqa_attn_bwd(q, k, v, out, d_out, lse, G=ctx.G, scale=ctx.scale,
+                                  window=ctx.window)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def distance_table(Wr: torch.Tensor, T: int, S: int, M: int, clamp_len: int,

@@ -6,7 +6,10 @@ the JAX package's layouts (dense `w` [d_in, d_out], `b` [d_out]; layer norm
 layer norms.  `dense` takes its product in float32, adds the float32 bias
 and rounds once to the activations' dtype, as the JAX `dense` does; the
 bias, the FFN's relu and the rounding are one pass, `bias_act` (on the card
-the kernel `csrc/bias_act.cu`).  Given a `Mesh` whose `model` axis is
+the kernel `csrc/bias_act.cu`).  `rms_norm`, `rope` and the SwiGLU `mlp`
+are the sparse-expert family's (`models/afmoe.py`): RMSNorm in float32
+rounded once, rotary positions in float32 rounded once, and bias-free
+gated products at the activations' dtype.  Given a `Mesh` whose `model` axis is
 larger than 1 (`parallel/mesh.py`), `ffn` runs Megatron-style: its w1
 columns and w2 rows are this rank's block, the float32 partial w2 products
 are summed over `model` before the replicated bias, and the dropout of the
@@ -22,8 +25,9 @@ from torch.utils.checkpoint import checkpoint
 
 from musicnlp_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, copy_to_model, model_shard
 
-__all__ = ['Params', 'dense', 'f32_product', 'bias_act', 'bias_act_plain', 'LAUNCHES',
-           'layer_norm', 'ffn', 'sinusoid_pos_emb', 'dropout', 'remat']
+__all__ = ['Params', 'dense', 'f32_product', 'f32_matmul', 'bias_act', 'bias_act_plain',
+           'LAUNCHES', 'layer_norm', 'ffn', 'sinusoid_pos_emb', 'dropout', 'remat', 'rms_norm',
+           'rope_tables', 'rope', 'mlp']
 
 Params = Dict[str, Any]
 
@@ -44,6 +48,33 @@ def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+class _F32Matmul(torch.autograd.Function):
+    """`f32_product` with a gradient: the f32 product of a [n, d] and b [d,
+    m] in a's dtype.  The backward rounds the f32 gradient to a's dtype and
+    takes both products at that dtype, as `dense`'s backward does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        bc = b.to(a.dtype)
+        ctx.b_dtype = b.dtype
+        ctx.save_for_backward(a, bc)
+        return f32_product(a, bc)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, bc = ctx.saved_tensors
+        g = grad.to(a.dtype)
+        da = g @ bc.T if ctx.needs_input_grad[0] else None
+        db = (a.T @ g).to(ctx.b_dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [n, d] @ b [d, m] as `f32_product` (operands in a's dtype, f32
+    accumulation and result), differentiable."""
+    return _F32Matmul.apply(a, b)
 
 
 def bias_act_plain(y: torch.Tensor, b: Optional[torch.Tensor], act: Optional[str],
@@ -225,3 +256,58 @@ def sinusoid_pos_emb(pos_seq: torch.Tensor, d_model: int,
                                                device=dev) / d_model))
     sinusoid = pos_seq.float()[:, None] * inv_freq[None, :]
     return torch.cat([torch.sin(sinusoid), torch.cos(sinusoid)], dim=-1).to(dtype)
+
+
+class _RmsNorm(torch.autograd.Function):
+    """x / sqrt(mean(x^2) + eps) * w over the last dim, in f32, rounded once
+    to x's dtype.  It keeps x (in its dtype) and the f32 reciprocal rms per
+    row for the backward, which recomputes the rest in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        xf = x.float()
+        r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, w, r)
+        return (xf * r * w.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w, r = ctx.saved_tensors
+        xh = x.float() * r
+        g = grad.float()
+        gw = g * w.float()
+        dx = r * (gw - xh * (gw * xh).mean(dim=-1, keepdim=True))
+        dw = (g * xh).reshape(-1, x.shape[-1]).sum(0)
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last dim with scale w, in f32, cast back to x's dtype."""
+    return _RmsNorm.apply(x, w, eps)
+
+
+def rope_tables(T: int, H: int, theta: float, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [T, H] f32 of rotary positions 0..T-1: frequencies
+    theta^(-2i/H) for i < H / 2, each twice (the halves `rope` rotates)."""
+    inv = 1.0 / (theta ** (torch.arange(0, H, 2, dtype=torch.float32, device=device) / H))
+    ang = torch.arange(T, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotary positions on x [B, T, N, H] (halves rotated: x cos +
+    [-x2, x1] sin), in f32, rounded once to x's dtype."""
+    xf = x.float()
+    h = x.shape[-1] // 2
+    rot = torch.cat([-xf[..., h:], xf[..., :h]], dim=-1)
+    c, s_ = cos[:, None, :], sin[:, None, :]
+    return (xf * c + rot * s_).to(x.dtype)
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU without biases: down(silu(x gate) * (x up)), each product at
+    x's dtype; p holds 'gate' / 'up' [d, F] and 'down' [F, d]."""
+    dt = x.dtype
+    h = torch.nn.functional.silu(x @ p['gate'].to(dt)) * (x @ p['up'].to(dt))
+    return h @ p['down'].to(dt)

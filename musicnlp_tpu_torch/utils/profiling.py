@@ -13,7 +13,9 @@ step or a scored batch spends its time.  A span is off unless a
 and costs one flag read.  On, it is a `record_function` in the recording's
 trace (on the profiler's clock, beside the device's events) and a record in
 a bounded log (`span_log`) with its host time and, on CUDA, the stream's
-time between a start and an end event.
+time between a start and an end event.  A counter (`count`, at the names
+of `COUNTERS`) is a device tensor the program computes anyway, logged under
+the open span while a recording is active and read only by `span_log`.
 """
 from __future__ import annotations
 
@@ -31,13 +33,17 @@ import torch.autograd.profiler as _autograd_profiler
 
 from musicnlp_tpu_torch import resolve_device
 
-__all__ = ['device_trace', 'step_kernels', 'span', 'span_log', 'clear_span_log', 'span_kernels',
-           'SPANS', 'StepTimer', 'profile_fn']
+__all__ = ['device_trace', 'step_kernels', 'span', 'count', 'span_log', 'clear_span_log',
+           'span_kernels', 'SPANS', 'COUNTERS', 'StepTimer', 'profile_fn']
 
 # the program's spans: roots (a training step, a scored batch), the step's
-# phases and the model's sections
+# phases and the model's sections (an expert layer's block, and its routing
+# and dispatch inside it)
 SPANS = ('train.step', 'train.forward', 'train.backward', 'train.optimizer', 'score.batch',
-         'model.attn', 'model.ffn', 'model.head')
+         'model.attn', 'model.ffn', 'model.head', 'model.moe', 'model.route')
+# the program's counters: the rows each held expert computed in one expert
+# layer's forward
+COUNTERS = ('moe_rows',)
 LOG_SIZE = 4096                 # closed spans kept, newest last
 
 if hasattr(_autograd_profiler, '_is_profiler_enabled'):
@@ -101,15 +107,42 @@ def span(name: str):
     return _Span(name)
 
 
+class _Count:
+    """One logged counter: a device tensor, read when the log is."""
+    __slots__ = ('id', 'name', 'parent', 'root', 'thread', 'value')
+
+    def __init__(self, name: str, value: torch.Tensor):
+        stack = getattr(_open, 'stack', None) or []
+        self.id, self.name, self.value = next(_ids), name, value
+        self.parent = stack[-1].id if stack else None
+        self.root = stack[0].id if stack else self.id
+        self.thread = threading.get_ident()
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Logs `value` (a tensor the caller computed anyway, kept as it is:
+    no copy, no sync) as counter `name` (one of `COUNTERS`) under the
+    innermost open span, while a `torch.profiler` recording is active;
+    nothing otherwise."""
+    if _recording():
+        _log.append(_Count(name, value.detach()))
+
+
 def span_log() -> List[Dict]:
     """The closed spans in the order they closed (children before their
     parent), at most `LOG_SIZE`: {id, name, parent, root (the outermost
     open span's id on its thread, its own for a root), thread, host_ms,
     device_ms}.  device_ms is the stream's time from the span's first work
     to its last, idle inside it included (None without CUDA); it waits for
-    the span's end event, so read the log once the work has been launched."""
+    the span's end event, so read the log once the work has been launched.
+    A counter's record (`count`) has `value`, its tensor as a list, and no
+    device time."""
     out = []
     for s in list(_log):
+        if isinstance(s, _Count):
+            out.append(dict(id=s.id, name=s.name, parent=s.parent, root=s.root, thread=s.thread,
+                            host_ms=0.0, device_ms=None, value=s.value.tolist()))
+            continue
         if s.events is not None:
             start, end = s.events
             end.synchronize()

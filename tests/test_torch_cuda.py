@@ -5,8 +5,9 @@ the tiled CE's card path (bf16 tiles on the tensor cores) against the dense
 CE, the dense layers' epilogue (`bias_act`) against its plain version at the
 FFN's shapes, forward and backward, and twice per FFN in both models,
 C.1's three model configurations launching K1-K4, a `device_trace` that
-names K1 / K2, and `PitchEmbedding` on the card against the CPU (needs an
-NVIDIA GPU and nvcc).
+names K1 / K2, `PitchEmbedding` on the card against the CPU, and the
+grouped-query form of K1 / K2 against its plain version and in a Trinity
+block's step (needs an NVIDIA GPU and nvcc).
 
 Run on a GPU machine with `python -m pytest -m cuda tests/test_torch_cuda.py`;
 elsewhere these tests skip.  `chip_smoke.py` holds both kernels against the
@@ -281,10 +282,11 @@ def test_f32_k3_is_closer_to_f64_than_plain(dev, G, T, D, chunk, pads):
 
 
 @pytest.mark.parametrize('name,kernels', [
-    ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_slab', 'k2_dq_slab')),
+    ('flash_rel_attn_bwd', ('k2_dkdv_tc', 'k2_dq_tc', 'k2_dkdv_slab', 'k2_dq_slab',
+                            'k2_gqa_dkdv_tc', 'k2_gqa_dq_tc', 'k2_gqa_dkdv_slab', 'k2_gqa_dq_slab')),
     ('chunked_window_attn_bwd', ('k4_tc', 'k4_dq_tc', 'k4_dkdv_tc', 'k4_dq_slab',
                                  'k4_dkdv_slab')),
-    ('flash_rel_attn_fwd', ('k1_tc', 'k1_slab')),
+    ('flash_rel_attn_fwd', ('k1_tc', 'k1_slab', 'k1_gqa_tc', 'k1_gqa_slab')),
     ('chunked_window_attn_fwd', ('k3_tc', 'k3_union_tc', 'k3_slab')),
 ])
 def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
@@ -292,7 +294,8 @@ def test_bf16_backward_kernels_run_on_tensor_cores(dev, name, kernels):
     dim 128: K1 / K2's k1_tc and k2_*_tc, K3's k3_tc and its tiled walk
     k3_union_tc, K4's k4_tc and its tiled split k4_dq_tc / k4_dkdv_tc; and
     the slab kernels, which run every f32 call of K1-K4 and every call above
-    head dim 128) hold tensor-core instructions (HMMA for mma.sync, HGMMA for
+    head dim 128; and the grouped-query form of K1 / K2, split the same way)
+    hold tensor-core instructions (HMMA for mma.sync, HGMMA for
     wgmma) in `cuobjdump -sass` of the built library, in every
     instantiation, and are built for both bf16 and f16 (K1's and K2's at
     head dim 128), the slab kernels also for f32 (3xTF32).  No FMA kernel is
@@ -692,3 +695,60 @@ def test_bias_act_launches_twice_per_ffn(dev, family):
     with torch.no_grad():
         model.forward(params, ids)
     assert tl.LAUNCHES['bias_act'] == 24
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize('G,T,H,window', [(8, 333, 128, 100), (4, 256, 128, 0), (2, 200, 64, 64),
+                                          (4, 130, 16, 40), (2, 200, 256, 64)])
+def test_gqa_kernels_match_plain(dev, dtype, G, T, H, window):
+    """The grouped-query K1 / K2 (16 bits up to head dim 128 on the
+    tensor-core kernels, f32 and above 128 on the slab kernels) against the
+    plain grouped-query versions at K1 / K2's tolerances: 16 bits the
+    output's rounding and p / ds rounded before their products; f32 sums
+    in other orders (3xTF32)."""
+    from musicnlp_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device='cpu').manual_seed(G * T + H)
+    mk = lambda *sh: torch.randn(*sh, generator=g).to(dev, dtype)
+    q, k, v, d = mk(2 * G, T, H), mk(2, T, H), mk(2, T, H), mk(2 * G, T, H)
+    kw = dict(G=G, scale=H ** -0.5, window=window)
+    out, lse = fa.gqa_attn_fwd(q, k, v, **kw)
+    ro, rl = fa.gqa_attn_fwd_plain(q, k, v, **kw)
+    tol = TOL16.get(dtype, 1e-4)
+    assert float((out.float() - ro.float()).abs().max()) <= tol
+    assert float((lse - rl).abs().max()) <= 1e-3
+    for a, b in zip(fa.gqa_attn_bwd(q, k, v, out, d, lse, **kw),
+                    fa.gqa_attn_bwd_plain(q, k, v, out, d, lse, **kw)):
+        rel = float((a.float() - b).abs().max()) / float(b.abs().max())
+        assert rel <= (TOL16[dtype] if dtype in TOL16 else 1e-5)
+
+
+def test_trinity_block_step_launches_the_gqa_kernels(dev):
+    """A tiny Trinity block (2 sliding, 1 full layer, 8 of 16 experts held)
+    trains one step on the card: one grouped-query forward and backward per
+    layer, the held experts through the grouped products."""
+    from musicnlp_tpu_torch.models.afmoe import AfmoeConfig, AfmoeLM
+    from musicnlp_tpu_torch.ops import flash_attention as fa
+    cfg = AfmoeConfig(vocab_size=300, hidden_size=128, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=32, intermediate_size=256,
+                      moe_intermediate_size=64, num_hidden_layers=3, num_dense_layers=1,
+                      num_experts=16, n_experts_held=8, num_experts_per_tok=2,
+                      sliding_window=64, max_length=256,
+                      layer_types=('sliding_attention', 'sliding_attention', 'full_attention'))
+    model = AfmoeLM(cfg, device=dev)
+    params = model.init(0)
+    leaves = [t.requires_grad_(True) for t in _leaves(params)]
+    ids = torch.randint(4, 300, (2, 256), device=dev)
+    before = dict(fa.LAUNCHES)
+    loss, _ = model.loss(params, ids, ids)
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(torch.isfinite(x).all() for x in grads)
+    assert fa.LAUNCHES['gqa_attn_fwd'] - before['gqa_attn_fwd'] == 3
+    assert fa.LAUNCHES['gqa_attn_bwd'] - before['gqa_attn_bwd'] == 3
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
